@@ -1,0 +1,124 @@
+"""Dataset loading for the port's first slice (CIFAR images).
+
+The main-path subset of ``fedml_tpu/data/loader.py``: ``load`` ->
+``_load_image_like`` -> the real CIFAR python batches under
+``data_cache_dir`` when present, else the deterministic class-structured
+synthetic stand-in with the real shapes.  Arrays are numpy and bitwise equal
+to the reference's for the same config.  Every other dataset belongs to a
+later slice and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+from ..arguments import Config
+from . import partition as part
+from .dataset import FederatedDataset
+
+log = logging.getLogger("fedml_tpu_torch.data.loader")
+
+_DATASET_SPECS = {
+    # name: (feat shape, classes, default train size, default test size)
+    "cifar10": ((32, 32, 3), 10, 50000, 10000),
+    "cifar100": ((32, 32, 3), 100, 50000, 10000),
+}
+
+
+def load(cfg: Config) -> FederatedDataset:
+    name = cfg.dataset.lower()
+    if name not in _DATASET_SPECS:
+        raise NotImplementedError(
+            f"dataset {cfg.dataset!r} is not ported yet: the first port slice "
+            f"(FedAvg ResNet on CIFAR) loads only {sorted(_DATASET_SPECS)}")
+    return _load_image_like(cfg, name)
+
+
+def _load_image_like(cfg: Config, name: str) -> FederatedDataset:
+    feat, classes, n_train, n_test = _DATASET_SPECS[name]
+    cache = Path(os.path.expanduser(cfg.data_cache_dir))
+    arrays = _try_load_real(name, cache)
+    if arrays is None:
+        if not cfg.synthetic_fallback:
+            raise FileNotFoundError(f"{name} not found under {cache} and synthetic_fallback=False")
+        n_train = cfg.synthetic_train_size or n_train
+        n_test = cfg.synthetic_test_size or n_test
+        # the reference caps the stand-in at ~2e8 float32 elements
+        feat_elems = int(np.prod(feat))
+        cap = max(1, int(2e8) // max(feat_elems, 1))
+        if n_train > cap:
+            log.warning("%s synthetic fallback capped at %d samples (was %d)", name, cap, n_train)
+            n_train = cap
+        test_cap = max(cap // 5, 1)
+        if n_test > test_cap:
+            log.warning("%s synthetic test set capped at %d samples (was %d)", name, test_cap, n_test)
+            n_test = test_cap
+        arrays = _synthetic_classification(name, feat, classes, n_train, n_test, cfg.random_seed)
+    train_x, train_y, test_x, test_y = arrays
+    idx_map = part.partition(
+        cfg.partition_method, train_y, cfg.client_num_in_total, cfg.partition_alpha, cfg.random_seed
+    )
+    return FederatedDataset(
+        train_x=train_x, train_y=train_y, test_x=test_x, test_y=test_y,
+        client_idx=idx_map, class_num=classes, name=name,
+    )
+
+
+def _try_load_real(name: str, cache: Path):
+    try:
+        if name == "cifar10":
+            d = cache / "cifar-10-batches-py"
+            if d.is_dir():
+                return _load_cifar_batches(d, ["data_batch_%d" % i for i in range(1, 6)], ["test_batch"], "labels")
+        if name == "cifar100":
+            d = cache / "cifar-100-python"
+            if d.is_dir():
+                return _load_cifar_batches(d, ["train"], ["test"], "fine_labels")
+    except (OSError, pickle.UnpicklingError, KeyError, ValueError):
+        # a present-but-unreadable real dataset must be loud: silently
+        # flipping to the stand-in would train on fake data unnoticed
+        log.exception(
+            "real dataset %r found under %s but failed to load — falling "
+            "back to the synthetic stand-in", name, cache,
+        )
+        return None
+    return None
+
+
+def _load_cifar_batches(d: Path, train_files, test_files, label_key):
+    def load_batch(fname):
+        with open(d / fname, "rb") as f:
+            batch = pickle.load(f, encoding="bytes")
+        x = batch[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32) / 255.0
+        y = np.array(batch[label_key.encode()], dtype=np.int32)
+        return x, y
+
+    xs, ys = zip(*[load_batch(f) for f in train_files])
+    txs, tys = zip(*[load_batch(f) for f in test_files])
+    mean = np.array([0.4914, 0.4822, 0.4465], np.float32)
+    std = np.array([0.2470, 0.2435, 0.2616], np.float32)
+    train_x = (np.concatenate(xs) - mean) / std
+    test_x = (np.concatenate(txs) - mean) / std
+    return train_x, np.concatenate(ys), test_x, np.concatenate(tys)
+
+
+def _synthetic_classification(name, feat, classes, n_train, n_test, seed):
+    """Deterministic class-structured gaussians: per-class mean templates with
+    additive noise, learnable by the real models."""
+    rng = np.random.RandomState(zlib.crc32(name.encode()) % (2**31) ^ seed)
+    templates = rng.normal(0, 1.0, size=(classes,) + feat).astype(np.float32)
+
+    def gen(n):
+        y = rng.randint(0, classes, size=n).astype(np.int32)
+        x = templates[y] + rng.normal(0, 1.2, size=(n,) + feat).astype(np.float32)
+        return x.astype(np.float32), y
+
+    train_x, train_y = gen(n_train)
+    test_x, test_y = gen(n_test)
+    return train_x, train_y, test_x, test_y

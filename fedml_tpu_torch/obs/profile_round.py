@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Where one flagship FedAvg round of the PyTorch port spends its time.
+
+Run from the repository root on a machine with an NVIDIA card:
+
+    python3 -m fedml_tpu_torch.obs.profile_round [--fused 0|1]
+    python3 -m fedml_tpu_torch.obs.profile_round --ab 4
+
+Builds the flagship recipe (examples/sp_fedavg_cifar10_resnet20) through
+``fedml_tpu_torch.init`` + ``FedMLRunner``, runs one warm-up round, times one
+round without the profiler, then profiles one round with ``torch.profiler``
+(CPU + CUDA).  Prints the card, the round wall time, the summed device time
+of all kernels, the device busy and idle shares (busy = union of kernel
+intervals over the window), the kernel launches per local step, and the top
+operators by host (self CPU) time and by device time.
+
+``--ab PAIRS`` instead builds the recipe twice, with and without
+``extra.fused_blocks`` (same seed, so the same data, sampling and initial
+weights), warms both up, and times PAIRS rounds of each without the
+profiler, alternating the order (fused first in even pairs): the fused vs
+unfused A/B of round time on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+FLAGSHIP = "examples/sp_fedavg_cifar10_resnet20/fedml_config.yaml"
+TOP = 25  # rows of each operator table
+
+
+def _busy_us(events) -> float:
+    """Union of device kernel intervals (us)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fused", type=int, default=1)
+    ap.add_argument("--ab", type=int, default=0, help="pairs of fused/unfused rounds to time")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.ops import fused_block as fb
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    if not torch.cuda.is_available():
+        print("profile_round: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
+    if args.ab:
+        return _ab(args.ab)
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.extra["fused_blocks"] = bool(args.fused)
+    cfg.metrics_jsonl_path = ""
+    sim = FedMLRunner(cfg).runner
+    sim.run_round()  # warm-up: cuDNN autotuning, kernel build, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = sim.run_round()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_steps = plain["num_steps"] * cfg.client_num_per_round
+    print(f"fused={bool(args.fused)} unprofiled round: {plain_s:.3f} s, {plain_steps:.0f} local steps, "
+          f"{plain_s / plain_steps * 1e3:.2f} ms/step, "
+          f"{plain_steps * cfg.batch_size / plain_s:.0f} trained samples/s")
+    fb.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        profiled = sim.run_round()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    steps = profiled["num_steps"] * cfg.client_num_per_round
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    kernel_us = sum(e.time_range.end - e.time_range.start for e in events)
+    busy_us = _busy_us(events)
+    print(f"fused={bool(args.fused)} profiled round wall {wall_s:.3f} s, local steps {steps:.0f}, "
+          f"{wall_s / steps * 1e3:.2f} ms/step wall")
+    print(f"device: {len(events)} kernel/memcpy events, summed {kernel_us / 1e6:.3f} s, busy "
+          f"{busy_us / 1e6:.3f} s = {100 * busy_us / (wall_s * 1e6):.1f}% of wall, idle "
+          f"{100 * (1 - busy_us / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device events/step")
+    print(f"fused kernel launches (profiled round): {fb.launch_counts()}")
+    ka = prof.key_averages()
+    print("top operators by self CPU time:")
+    print(ka.table(sort_by="self_cpu_time_total", row_limit=TOP, max_name_column_width=60))
+    print("top operators by device time:")
+    print(ka.table(sort_by="self_device_time_total", row_limit=TOP, max_name_column_width=60))
+    return 0
+
+
+def _ab(pairs: int) -> int:
+    import statistics
+
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    sims = {}
+    for fused in (True, False):
+        cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+        cfg.extra["fused_blocks"] = fused
+        cfg.metrics_jsonl_path = ""
+        sims[fused] = FedMLRunner(cfg).runner
+        sims[fused].run_round()  # warm-up
+    torch.cuda.synchronize()
+    times = {True: [], False: []}
+    for i in range(pairs):
+        for fused in ((True, False) if i % 2 == 0 else (False, True)):
+            sim = sims[fused]
+            t0 = time.perf_counter()
+            m = sim.run_round()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = m["num_steps"] * sim.cfg.client_num_per_round
+            times[fused].append((dt, steps))
+            print(f"pair {i} fused={fused} round {sim.round_idx - 1}: {dt:.3f} s, {steps:.0f} steps, "
+                  f"{dt / steps * 1e3:.2f} ms/step, train_loss {m['train_loss']:.4f}")
+    for fused in (True, False):
+        per_step = [dt / st * 1e3 for dt, st in times[fused]]
+        print(f"fused={fused}: median {statistics.median(per_step):.2f} ms/step over {pairs} rounds "
+              f"(min {min(per_step):.2f}, max {max(per_step):.2f})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

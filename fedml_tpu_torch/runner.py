@@ -1,0 +1,51 @@
+"""FedMLRunner — platform dispatch (the port of ``fedml_tpu/runner.py``).
+
+The first port slice carries the simulation platform with the FedAvg
+family; every other platform and optimizer raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from . import constants as C
+from .arguments import Config
+from .core.device import resolve_device
+
+_FEDAVG_FAMILY = (C.FEDERATED_OPTIMIZER_FEDAVG, C.FEDERATED_OPTIMIZER_FEDAVG_SEQ)
+
+
+class FedMLRunner:
+    """Builds the simulator for ``cfg`` on ``device`` (the card unless the
+    caller names another; with no CUDA and no device this raises)."""
+
+    def __init__(self, cfg: Config, dataset=None, model=None, client_trainer=None,
+                 server_aggregator=None, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dataset = dataset
+        self.model = model
+        if cfg.training_type != C.TRAINING_PLATFORM_SIMULATION:
+            raise NotImplementedError(f"training_type {cfg.training_type!r} is not ported "
+                                      "yet (first port slice: simulation)")
+        if cfg.federated_optimizer not in _FEDAVG_FAMILY:
+            raise NotImplementedError(f"federated_optimizer {cfg.federated_optimizer!r} is "
+                                      f"not ported yet (first port slice: {_FEDAVG_FAMILY})")
+        if server_aggregator is not None:
+            raise NotImplementedError("custom server_aggregator is not ported yet")
+        self.runner = self._init_simulation_runner(client_trainer)
+
+    def _init_simulation_runner(self, client_trainer):
+        if self.dataset is None:
+            from .data import loader
+
+            self.dataset = loader.load(self.cfg)
+        if self.model is None:
+            from .models import model_hub
+
+            self.model = model_hub.create(self.cfg, self.dataset.class_num)
+        from .sim.engine import MeshSimulator
+
+        return MeshSimulator(self.cfg, self.dataset, self.model, algorithm=client_trainer,
+                             device=self.device)
+
+    def run(self):
+        return self.runner.run()

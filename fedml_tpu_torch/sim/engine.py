@@ -1,0 +1,212 @@
+"""MeshSimulator — the FedAvg-family simulation round on one device.
+
+The port of ``fedml_tpu/sim/engine.py``'s sequential path.  The JAX package
+runs a round as one vmapped, mesh-sharded program; its SP backend
+(``_run_round_sp``) runs the same client math one client after another, and
+``tests/test_m0_fedavg.py`` pins the two equal.  One card runs that
+sequential twin:
+
+    sampled  = sampler.sample(r)                       (host)
+    for each sampled client: algorithm.client_update   (local SGD on the card)
+    agg      = algorithm.aggregate(stack(contributions), counts)
+    global'  = algorithm.server_update(agg)
+
+Client data is stacked once (``data.dataset.stack_clients``) and kept on the
+device in the compute dtype.  The vmapped round and CUDA-graph chunks of
+rounds are later slices; checkpointing, the AOT program store, the profiler,
+OTLP export, trust hooks and population mode raise ``NotImplementedError``.
+
+Randomness goes through a sampler object (``sample(r)``, ``perms(r, client,
+epochs, cap)``): :class:`ClientSampler` derives both from the port's
+generators; a test can hand in one built from the JAX package's keys.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..algorithms import create as create_algorithm, hparams_from_config
+from ..arguments import Config
+from ..core import pytree as pt
+from ..core import rng
+from ..core.device import resolve_device
+from ..core.flags import cfg_extra
+from ..data.dataset import FederatedDataset, pad_eval_set, stack_clients
+from ..fl.local_sgd import epoch_permutations, make_eval_fn
+from ..obs.metrics import MetricsLogger
+
+# flags whose subsystems later slices port; setting one must not be a no-op
+_UNPORTED_FLAGS = ("aot_programs", "profile_rounds", "otlp_endpoint", "population_store",
+                   "cost_model_gauges")
+_UNPORTED_TRUST = ("enable_attack", "enable_defense", "enable_dp", "enable_secagg",
+                   "enable_fhe", "enable_contribution")
+
+
+def _refuse_unported(cfg: Config) -> None:
+    if cfg.checkpoint_dir or cfg.checkpoint_every_rounds or cfg.resume:
+        raise NotImplementedError("checkpointing is not ported yet (first port slice)")
+    for flag in _UNPORTED_FLAGS:
+        if cfg_extra(cfg, flag):
+            raise NotImplementedError(f"extra.{flag} is not ported yet (first port slice)")
+    for flag in _UNPORTED_TRUST:
+        if getattr(cfg, flag, False):
+            raise NotImplementedError(f"{flag} is not ported yet (first port slice)")
+
+
+def _mean(values: list) -> float:
+    """Mean over clients of one metric (device tensors sync once here)."""
+    if torch.is_tensor(values[0]):
+        return float(torch.stack(values).mean())
+    return float(np.mean(values))
+
+
+class ClientSampler:
+    """The default source of a round's randomness: sampled client ids from
+    the round key and each client's per-epoch permutations from its client
+    key, both through the port's generators (``core/rng.py``)."""
+
+    def __init__(self, seed: int, n_total: int, per_round: int):
+        self.root = rng.root_key(seed)
+        self.n_total = n_total
+        self.per_round = per_round
+
+    def sample(self, round_idx: int) -> np.ndarray:
+        return rng.sample_clients(self.root, round_idx, self.n_total, self.per_round)
+
+    def perms(self, round_idx: int, client: int, epochs: int, cap: int) -> torch.Tensor:
+        key = rng.client_key(rng.round_key(self.root, round_idx), client)
+        return epoch_permutations(key, epochs, cap)
+
+
+class MeshSimulator:
+    """FedAvg-family simulation on ``device`` (the card unless the caller
+    names another; see ``core/device.py``): :meth:`run` is the fit loop,
+    :meth:`run_round` one round, :meth:`evaluate` the global test eval."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        dataset: FederatedDataset,
+        model,
+        algorithm=None,
+        logger: Optional[MetricsLogger] = None,
+        device=None,
+        sampler=None,
+    ):
+        _refuse_unported(cfg)
+        self.cfg = cfg
+        self.dataset = dataset
+        self.model = model
+        self.device = resolve_device(device)
+        self.logger = logger or MetricsLogger(cfg.metrics_jsonl_path or None)
+
+        stacked = stack_clients(dataset, multiple_of=cfg.batch_size)
+        self.capacity = stacked.capacity
+        steps_per_epoch = max(1, math.ceil(self.capacity / cfg.batch_size))
+        self.hp = hparams_from_config(cfg, steps_per_epoch=steps_per_epoch)
+        self.algorithm = (algorithm or create_algorithm(cfg, self.hp)).build(model)
+        self._data = self._place_data(stacked)
+        self.counts = stacked.counts
+        n_total = dataset.n_clients
+        self.sampler = sampler or ClientSampler(
+            cfg.random_seed, n_total, min(cfg.client_num_per_round, n_total))
+
+        self.root_key = rng.root_key(cfg.random_seed)
+        self.global_vars = model.init(rng.generator(rng.init_key(self.root_key)), self.device)
+        self.server_state = self.algorithm.init_server_state(self.global_vars)
+        if self.algorithm.init_client_state(self.global_vars) is not None:
+            raise NotImplementedError("per-client algorithm state is not ported yet "
+                                      "(first port slice: the FedAvg family)")
+
+        eval_bs = min(256, max(32, cfg.test_batch_size))
+        tx, ty, n_test = pad_eval_set(dataset.test_x, dataset.test_y, eval_bs)
+        self._test = (torch.from_numpy(np.ascontiguousarray(tx)).to(self.device),
+                      torch.from_numpy(np.ascontiguousarray(ty)).to(self.device, torch.long),
+                      int(n_test))
+        self._eval_fn = make_eval_fn(model, self.hp, batch_size=eval_bs)
+        self.round_idx = 0
+
+    def _place_data(self, stacked):
+        x = torch.from_numpy(stacked.x)
+        if self.hp.compute_dtype == "bfloat16" and x.is_floating_point():
+            # device-resident shards in the compute dtype: half the memory and
+            # half the per-step gather traffic
+            x = x.to(torch.bfloat16)
+        return x.to(self.device), torch.from_numpy(stacked.y).to(self.device, torch.long)
+
+    def _server_path(self, contribs, weights, round_idx: int):
+        agg = self.algorithm.aggregate(contribs, weights)
+        return self.algorithm.server_update(self.global_vars, self.server_state, agg, round_idx)
+
+    def run_round(self) -> dict:
+        """One round: every sampled client trains in turn from the global
+        variables, then the weighted mean replaces them.  Returns the round's
+        host metrics (one device sync)."""
+        r = self.round_idx
+        sampled = np.asarray(self.sampler.sample(r))
+        rkey = rng.round_key(self.root_key, r)
+        contribs, metrics_list = [], []
+        for ci in (int(c) for c in sampled):
+            perms = self.sampler.perms(r, ci, self.hp.epochs, self.capacity)
+            out = self.algorithm.client_update(
+                self.global_vars, None, self.server_state, self._data[0][ci], self._data[1][ci],
+                int(self.counts[ci]), rng.client_key(rkey, ci), perms=perms)
+            contribs.append(out.contribution)
+            metrics_list.append(out.metrics)
+        weights = torch.as_tensor(self.counts[sampled], dtype=torch.float32, device=self.device)
+        self.global_vars, self.server_state = self._server_path(pt.tree_stack(contribs), weights, r)
+        self.round_idx += 1
+        return {k: _mean([m[k] for m in metrics_list]) for k in metrics_list[0]}
+
+    def run_rounds(self, n: int) -> list[dict]:
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            metrics = self.run_round()
+            metrics["round_time_s"] = time.perf_counter() - t0
+            out.append(metrics)
+        return out
+
+    def evaluate(self) -> dict:
+        res = self._eval_fn(self.global_vars, *self._test)
+        return {k: float(v) for k, v in res.items()}
+
+    def _next_boundary(self, r0: int) -> int:
+        """First round index > r0 at which the host evaluates or training
+        ends."""
+        cfg = self.cfg
+        ends = [cfg.comm_round]
+        if cfg.frequency_of_the_test:
+            f = cfg.frequency_of_the_test
+            ends.append(((r0 // f) + 1) * f)
+        return max(r0 + 1, min(e for e in ends if e > r0))
+
+    def run(self) -> list[dict]:
+        """The fit loop (reference ``FedAvgAPI.train``): rounds between host
+        boundaries, evaluation at the test cadence and at the last round."""
+        history = []
+        cfg = self.cfg
+        while self.round_idx < cfg.comm_round:
+            r0 = self.round_idx
+            end = self._next_boundary(r0)
+            t0 = time.perf_counter()
+            chunk = self.run_rounds(end - r0)
+            span = time.perf_counter() - t0
+            for i, metrics in enumerate(chunk):
+                metrics["chunk_time_s"] = span
+                metrics["chunk_rounds"] = len(chunk)
+                metrics["round"] = r0 + i
+            r_last = r0 + len(chunk) - 1
+            if cfg.frequency_of_the_test and (
+                (r_last + 1) % cfg.frequency_of_the_test == 0 or r_last == cfg.comm_round - 1
+            ):
+                chunk[-1].update(self.evaluate())
+            for metrics in chunk:
+                self.logger.log(metrics)
+                history.append(metrics)
+        return history

@@ -72,6 +72,10 @@ def pytest_configure(config):
         "tracesan: steady-state round e2e included in the runtime trace-"
         "sanitizer gate (test_tracesan re-runs `-m tracesan` under "
         "FEDML_TPU_TRACESAN=1)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the PyTorch port's kernels); skipped "
+        "where torch.cuda.is_available() is false")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,116 @@
+"""The port's kernels on the card (marker ``cuda``; skipped without one).
+
+This file imports only torch and the port, so it also runs on the machine
+with the card, where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: f32 forward and dy / dr bitwise against the plain versions, bf16
+to one bf16 ulp (the same f32 math and rounding), d_scale / d_shift to rtol
+1e-5 / atol 1e-4 (f32 sums of up to ~10k terms in another order); the fused
+ResNet step on the card against the CPU to rtol 1e-3 / atol 1e-4 (cuDNN and
+CPU convolutions, TF32 off).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips without one.  Decided at run time, so
+    every xdist worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is false")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _inputs(shape, dtype, device, seed=7):
+    rs = np.random.RandomState(seed)
+    c = shape[-1]
+    y, r, g = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device, dtype)
+               for _ in range(3))
+    s, b = (torch.from_numpy(rs.randn(c).astype(np.float32)).to(device) for _ in range(2))
+    return y, r, g, s, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 32, 16), (4, 7, 9, 24), (8, 8, 8, 64), (2, 3, 3, 300)])
+def test_kernels_match_plain_versions(shape, dtype, cuda_device):
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, g, s, b = _inputs(shape, dtype, cuda_device)
+    ulp = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    for residual in (None, r):
+        before = fb.launch_counts()
+        out = fb.fused_block_forward(y, s, b, residual)
+        torch.testing.assert_close(out, fb.fused_block_reference(y, s, b, residual),
+                                   rtol=ulp, atol=0)
+        got = fb.fused_block_backward(g, y, s, out, residual is not None)
+        want = fb.fused_block_bwd_reference(g, y, s, out, residual is not None)
+        torch.testing.assert_close(got[0], want[0], rtol=ulp, atol=0)
+        if residual is not None:
+            torch.testing.assert_close(got[3], want[3], rtol=ulp, atol=0)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-4)
+        after = fb.launch_counts()
+        fwd, bwd = (fb.FWD_RES, fb.BWD_RES) if residual is not None else (fb.FWD, fb.BWD)
+        assert after[fwd.name] == before[fwd.name] + 1
+        assert after[bwd.name] == before[bwd.name] + 1
+
+
+@pytest.mark.cuda
+def test_backward_reduction_is_deterministic(cuda_device):
+    """No atomics: the same inputs give bitwise the same d_scale / d_shift."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, g, s, b = _inputs((64, 16, 16, 32), torch.bfloat16, cuda_device)
+    out = fb.fused_block_forward(y, s, b, r)
+    first = fb.fused_block_backward(g, y, s, out, True)
+    for _ in range(3):
+        again = fb.fused_block_backward(g, y, s, out, True)
+        for a, e in zip(again, first):
+            assert torch.equal(a, e)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_non_contiguous_and_wrong_dtype(cuda_device):
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, g, s, b = _inputs((2, 4, 4, 16), torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        fb.fused_block_forward(y.permute(0, 3, 1, 2), s, b)
+    with pytest.raises(TypeError):
+        fb.fused_block_forward(y.half(), s, b)
+    with pytest.raises(ValueError):
+        fb.fused_block_forward(y, s.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_fused_resnet_step_card_matches_cpu(cuda_device):
+    """A fused resnet20 train step (f32) on the card equals the same step on
+    the CPU: logits, grads and new batch stats."""
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.models import resnet
+
+    model = resnet.resnet20(10, torch.float32, fused=True)
+    gen = torch.Generator().manual_seed(0)
+    variables = model.init(gen)
+    x = torch.randn((4, 32, 32, 3), generator=gen)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().to(dev, copy=True).requires_grad_(True)
+                  for t in pt.tree_leaves(variables["params"])]
+        params = pt.tree_unflatten_like(variables["params"], leaves)
+        stats = pt.tree_map(lambda t: t.to(dev), variables["batch_stats"])
+        logits, new_stats = model.apply({"params": params, "batch_stats": stats}, x.to(dev), True)
+        grads = torch.autograd.grad((logits - 1.0).square().mean(), leaves)
+        outs[str(dev)] = [t.detach().cpu() for t in [logits, *grads, *pt.tree_leaves(new_stats)]]
+    for a, b in zip(outs["cpu"], outs[str(cuda_device)]):
+        torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-4)
