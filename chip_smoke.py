@@ -5,28 +5,42 @@ Run from the repository root:  ``python3 chip_smoke.py``
 
 Phases (any failure exits non-zero; no phase is caught):
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
-   kernels from ``fedml_tpu_torch/csrc/`` with nvcc for sm_90a.
+   kernels from ``fedml_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc
+   per source, all started together).
 2. Hold each of the four fused BasicBlock kernels against its plain PyTorch
    version on the card at the three flagship shapes in f32 and bf16 (TF32
    off): forward f32 bitwise, dy / dr bitwise, d_scale / d_shift within
    ``1e-5 * sum|terms|`` per channel (f32 sums in another order), bf16
-   within one bf16 ulp.  Time each kernel and its plain version with CUDA
-   events over CUDA-graph replays (device time; inputs rotated through
-   more than the 50 MB L2) and as eager calls (host overhead included),
-   next to its bound (bytes at 3.35 TB/s vs flops at 67 TFLOP/s).  Then a fused
-   ResNet-20 step on the card against the same step on the CPU.
-3. The main path: the flagship recipe
+   within one bf16 ulp.  Hold the int8 quantize and dequantize kernels
+   against theirs at the FedSGD gradient's length (269,722 elements, 264
+   blocks) and at 2^24 elements: int8 values, scales and the dequantized
+   vector bitwise.  Time each kernel and its plain version with CUDA events
+   over CUDA-graph replays (device time; inputs rotated through more than
+   the 50 MB L2) and as eager calls (host overhead included), next to its
+   bound (bytes at 3.35 TB/s vs operations at 67 TFLOP/s).  Then a fused
+   ResNet-20 step and one FedSGD client gradient on the card against the
+   same on the CPU.
+3. The FedAvg path: the flagship recipe
    ``examples/sp_fedavg_cifar10_resnet20/fedml_config.yaml`` through
    ``fedml_tpu_torch.init`` and ``FedMLRunner(cfg).run()`` with only
    ``comm_round``, ``frequency_of_the_test`` and ``extra.fused_blocks``
    overridden: 128 clients, 64 a round, batch 128, bf16, full-width
-   ResNet-20 on the synthetic CIFAR-10 (50,000 / 10,000 images).  Kernel
-   launch counts are zeroed just before and read just after; every kernel
-   must have launched and every loss must be finite.
+   ResNet-20 on the synthetic CIFAR-10 (50,000 / 10,000 images).  Every
+   kernel's launch count is zeroed just before and read just after; each
+   fused kernel must have launched and every loss must be finite.
+4. The FedSGD path: ``examples/sp_fedsgd_eftopk_cifar10_resnet20`` the same
+   way with only ``comm_round``, ``frequency_of_the_test`` and
+   ``compression: qsgd_int8`` overridden: 16 clients, all 16 a round, one
+   full-shard gradient each, batch 128, bf16, full-width ResNet-20.  The
+   counts are zeroed before and read after: quantize and dequantize must
+   launch once per client per round (48 each over 3 rounds), and every
+   test metric and weight must be finite.  Then one round of the recipe's
+   own ``eftopk``, after which every client's residual must be non-zero.
 
-The line before the last is the ``{"kernels": [...]}`` JSON; the last line
-is ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after phase
-2 and prints neither.
+The line before the last is the ``{"kernels": [...]}`` JSON (each kernel's
+launches from its own path's run); the last line is ``{"ok": true,
+"device": {...}}``.  ``--kernels-only`` stops after phase 2 and prints
+neither.
 """
 
 from __future__ import annotations
@@ -39,7 +53,10 @@ import sys
 import time
 
 FLAGSHIP = "examples/sp_fedavg_cifar10_resnet20/fedml_config.yaml"
+FEDSGD = "examples/sp_fedsgd_eftopk_cifar10_resnet20/fedml_config.yaml"
 SHAPES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64)]
+GRAD_LENGTH = 269722  # ResNet-20's parameters: the FedSGD gradient
+QUANT_LENGTHS = [GRAD_LENGTH, 2**24]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6
@@ -205,6 +222,97 @@ def phase_kernels(fb):
     return results
 
 
+def _quant_bytes(n):
+    """Bytes each function must move: (quantize, dequantize)."""
+    b = -(-n // 1024)
+    return 4 * n + 4 * b * 1024 + b * 1024 + 4 * b, b * 1024 + 4 * b + 4 * n
+
+
+def phase_quantize(qz):
+    """The int8 quantize / dequantize kernels against their plain versions:
+    values, scales and the dequantized vector bitwise."""
+    import torch
+
+    dev = torch.device("cuda")
+    results = {k.name: {"max_abs_err": 0.0} for k in qz.KERNELS}
+    for n in QUANT_LENGTHS:
+        shape = qz.noise_shape(n)
+        q_bytes, dq_bytes = _quant_bytes(n)
+        n_sets = max(2, int(3 * L2_BYTES // q_bytes) + 1)
+        sets = []
+        for k in range(n_sets):
+            g = torch.Generator(device=dev)
+            g.manual_seed(100 + k)
+            x = torch.randn(n, generator=g, device=dev) * torch.exp(
+                3 * torch.randn(n, generator=g, device=dev))
+            sets.append((x, torch.rand(shape, generator=g, device=dev)))
+        got, want = qz.quantize_int8_stochastic(*sets[0]), qz.quantize_int8_reference(*sets[0])
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]):
+            bad = int((got[0] != want[0]).sum())
+            raise AssertionError(f"quantize kernel at n={n}: {bad} values / scales equal "
+                                 f"{torch.equal(got[1], want[1])}: not bitwise the plain version")
+        dq_sets = [qz.quantize_int8_stochastic(*a) for a in sets]
+        deq, deq_plain = qz.dequantize_int8(*dq_sets[0]), qz.dequantize_int8_reference(*dq_sets[0])
+        torch.cuda.synchronize()
+        if not torch.equal(deq, deq_plain) or deq.shape != (n,):
+            raise AssertionError(f"dequantize kernel at n={n}: not bitwise the plain version")
+        cases = [(qz.QUANTIZE, qz.quantize_int8_stochastic, qz.quantize_int8_reference, sets,
+                  q_bytes, 7 * shape[0] * 1024),
+                 (qz.DEQUANTIZE, qz.dequantize_int8, qz.dequantize_int8_reference, dq_sets,
+                  dq_bytes, n)]
+        for kern, fn, plain, arg_sets, nbytes, nops in cases:
+            ms, plain_ms = _device_ms(fn, arg_sets), _device_ms(plain, arg_sets)
+            eager_ms = _eager_ms(fn, arg_sets)
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            print(f"kernel {kern.name} n={n} ({shape[0]} blocks): ok (bitwise), device "
+                  f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
+                  f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us")
+            if n == GRAD_LENGTH:
+                results[kern.name].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    return results
+
+
+def phase_fedsgd_check():
+    """One FedSGD client gradient (ResNet-20, f32, a 16-sample shard in
+    batches of 8) on the card against the same on the CPU, then quantized
+    with the same draw on both: int8 levels at most one apart."""
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.local_sgd import make_full_grad_fn
+    from fedml_tpu_torch.fl.types import HParams
+    from fedml_tpu_torch.models import resnet
+    from fedml_tpu_torch.ops import quantize
+
+    model = resnet.resnet20(10, torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    variables = model.init(gen, "cpu")
+    x, y = torch.randn((16, 32, 32, 3), generator=gen), torch.randint(0, 10, (16,), generator=gen)
+    full_grad = make_full_grad_fn(model, HParams(batch_size=8))
+    flats, sent = {}, {}
+    for dev in ("cpu", "cuda"):
+        v = pt.tree_map(lambda t: t.to(dev), variables)
+        flats[dev], _ = weights.flatten_reference(full_grad(v, x.to(dev), y.to(dev)))
+    noise = torch.rand(quantize.noise_shape(flats["cpu"].numel()), generator=gen)
+    for dev in ("cpu", "cuda"):
+        sent[dev] = [t.cpu() for t in quantize.quantize_int8_stochastic(flats[dev], noise.to(dev))[:2]]
+    a, b = flats["cpu"], flats["cuda"].cpu()
+    if not torch.allclose(b, a, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"FedSGD gradient on the card disagrees with the CPU "
+                             f"(max abs diff {float((a - b).abs().max()):.3g})")
+    levels = (sent["cuda"][0].int() - sent["cpu"][0].int()).abs()
+    if int(levels.max()) > 1 or not torch.allclose(sent["cuda"][1], sent["cpu"][1], rtol=1e-3):
+        raise AssertionError("qsgd_int8 of the card's gradient: a level apart by more than one")
+    print(f"fedsgd check: resnet20 f32 gradient of 16 samples, card vs CPU within rtol 1e-3 / "
+          f"atol 1e-4 (max abs diff {float((a - b).abs().max()):.3g}); quantized with the same "
+          f"draw: {int((levels > 0).sum())} of {a.numel()} int8 levels one apart")
+
+
 def phase_model_check(fb):
     """One fused ResNet-20 train step (f32, batch 8) on the card against the
     same step on the CPU: logits, grads and new batch stats."""
@@ -243,19 +351,41 @@ class _RoundProbe:
     """Wraps the simulator's metrics logger: at each logged round it records
     the cumulative kernel launch counts and the peak device memory."""
 
-    def __init__(self, inner, fb):
-        self.inner, self.fb, self.rows = inner, fb, []
+    def __init__(self, inner, counts):
+        self.inner, self.counts, self.rows = inner, counts, []
 
     def log(self, metrics, step=None):
         import torch
 
         torch.cuda.synchronize()
-        self.rows.append((dict(metrics), self.fb.launch_counts(),
-                          torch.cuda.max_memory_allocated()))
+        self.rows.append((dict(metrics), self.counts(), torch.cuda.max_memory_allocated()))
         self.inner.log(metrics, step)
 
 
-def phase_main_path(fb):
+def _all_counts(mods):
+    return {k: v for m in mods for k, v in m.launch_counts().items()}
+
+
+def _reset_counts(mods):
+    for m in mods:
+        m.reset_launch_counts()
+
+
+def _check_finite(sim, history, keys):
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+
+    for metrics in history:
+        for key in keys:
+            if not math.isfinite(metrics[key]):
+                raise AssertionError(f"round {metrics['round']}: {key} = {metrics[key]}")
+    for leaf in pt.tree_leaves(sim.global_vars):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("non-finite global variables after training")
+
+
+def phase_main_path(mods):
     import torch
 
     import fedml_tpu_torch
@@ -271,13 +401,13 @@ def phase_main_path(fb):
     print(f"main path: set-up {time.perf_counter() - t0:.1f} s (data {sim.dataset.train_num}/"
           f"{sim.dataset.test_num}, {sim.dataset.n_clients} clients, capacity {sim.capacity}, "
           f"{cfg.client_num_per_round}/round, batch {cfg.batch_size}, {cfg.compute_dtype})")
-    probe = _RoundProbe(sim.logger, fb)
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
     sim.logger = probe
     torch.cuda.reset_peak_memory_stats()
-    fb.reset_launch_counts()
+    _reset_counts(mods)
     history = runner.run()
     torch.cuda.synchronize()
-    counts = fb.launch_counts()
+    counts = _all_counts(mods)
     prev = {k: 0 for k in counts}
     for metrics, cum, mem in probe.rows:
         samples = metrics["num_steps"] * cfg.client_num_per_round * cfg.batch_size
@@ -289,18 +419,73 @@ def phase_main_path(fb):
               f"max_memory_allocated {mem / 2**30:.2f} GiB, launches {delta}")
     if len(history) != ROUNDS:
         raise AssertionError(f"expected {ROUNDS} rounds, got {len(history)}")
-    bad = [k for k, v in counts.items() if v == 0]
+    bad = [k.name for k in mods[0].KERNELS if counts[k.name] == 0]
     if bad:
-        raise AssertionError(f"kernels never launched on the main path: {bad}")
-    for metrics in history:
-        for key in ("train_loss", "test_loss", "test_acc"):
-            if not math.isfinite(metrics[key]):
-                raise AssertionError(f"round {metrics['round']}: {key} = {metrics[key]}")
-    from fedml_tpu_torch.core import pytree as pt
+        raise AssertionError(f"kernels never launched on the FedAvg path: {bad}")
+    _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+    return counts
 
-    for leaf in pt.tree_leaves(sim.global_vars):
-        if not bool(torch.isfinite(leaf).all()):
-            raise AssertionError("non-finite global variables after training")
+
+def phase_fedsgd(mods, qz):
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    t0 = time.perf_counter()
+    cfg = fedml_tpu_torch.init(argv=["--cf", FEDSGD])
+    cfg.comm_round = ROUNDS
+    cfg.frequency_of_the_test = 1
+    cfg.compression = "qsgd_int8"
+    runner = FedMLRunner(cfg)
+    sim = runner.runner
+    clients = cfg.client_num_per_round
+    batches = clients * (sim.capacity // cfg.batch_size)
+    print(f"fedsgd path: set-up {time.perf_counter() - t0:.1f} s (data {sim.dataset.train_num}/"
+          f"{sim.dataset.test_num}, {sim.dataset.n_clients} clients, capacity {sim.capacity}, "
+          f"{clients}/round, batch {cfg.batch_size}, {cfg.compute_dtype}, compression "
+          f"{cfg.compression}, {batches} gradient batches a round)")
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(mods)
+    history = runner.run()
+    torch.cuda.synchronize()
+    counts = _all_counts(mods)
+    prev = {k: 0 for k in counts}
+    for metrics, cum, mem in probe.rows:
+        delta = {k: cum[k] - prev[k] for k in cum}
+        prev = cum
+        print(f"round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"{batches * cfg.batch_size / metrics['round_time_s']:.0f} gradient samples/s, "
+              f"test_loss {metrics['test_loss']:.4f}, test_acc {metrics['test_acc']:.4f}, "
+              f"max_memory_allocated {mem / 2**30:.2f} GiB, launches {delta}")
+        for k in qz.KERNELS:
+            if delta[k.name] != clients:
+                raise AssertionError(f"{k.name}: {delta[k.name]} launches in round "
+                                     f"{metrics['round']}, expected {clients}")
+    if len(history) != ROUNDS:
+        raise AssertionError(f"expected {ROUNDS} rounds, got {len(history)}")
+    if any(counts[k.name] != ROUNDS * clients for k in qz.KERNELS):
+        raise AssertionError(f"expected {ROUNDS * clients} launches of each quantize kernel, "
+                             f"got {qz.launch_counts()}")
+    _check_finite(sim, history, ("test_loss", "test_acc"))
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", FEDSGD])
+    cfg.comm_round = 1
+    cfg.frequency_of_the_test = 1
+    runner = FedMLRunner(cfg)
+    t0 = time.perf_counter()
+    history = runner.run()
+    torch.cuda.synchronize()
+    sim = runner.runner
+    _check_finite(sim, history, ("test_loss", "test_acc"))
+    rows = sim.client_states.abs().sum(1)
+    if not bool((rows > 0).all()) or not bool(torch.isfinite(sim.client_states).all()):
+        raise AssertionError("eftopk: a client's residual is zero or not finite after its round")
+    print(f"fedsgd eftopk (the recipe's own): 1 round in {time.perf_counter() - t0:.3f} s, "
+          f"test_loss {history[-1]['test_loss']:.4f}, test_acc {history[-1]['test_acc']:.4f}, "
+          f"residuals {tuple(sim.client_states.shape)} non-zero for all {rows.numel()} clients")
     return counts
 
 
@@ -318,6 +503,7 @@ def main(argv=None) -> int:
         return 2
     from fedml_tpu_torch.ops import build
     from fedml_tpu_torch.ops import fused_block as fb
+    from fedml_tpu_torch.ops import quantize as qz
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,19 +520,24 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    kernel_rows = phase_kernels(fb)
+    mods = (fb, qz)
+    kernel_rows = {**phase_kernels(fb), **phase_quantize(qz)}
     phase_model_check(fb)
+    phase_fedsgd_check()
     if args.kernels_only:
         return 0
-    counts = phase_main_path(fb)
+    fedavg_counts, fedsgd_counts = phase_main_path(mods), phase_fedsgd(mods, qz)
+    # each kernel's launches on its own path
+    counts = {**{k.name: fedavg_counts[k.name] for k in fb.KERNELS},
+              **{k.name: fedsgd_counts[k.name] for k in qz.KERNELS}}
 
     print(json.dumps({"kernels": [
-        {"name": k.name, "route": "cuda", "source": fb.SOURCE, "replaces": k.replaces,
+        {"name": k.name, "route": "cuda", "source": m.SOURCE, "replaces": k.replaces,
          "launches": counts[k.name], "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],
          "library_ms": None}
-        for k in fb.KERNELS]}))
+        for m in mods for k in m.KERNELS]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

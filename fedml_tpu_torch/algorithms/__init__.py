@@ -1,5 +1,5 @@
 """Algorithm registry (the port of ``fedml_tpu/algorithms/__init__.py``).
-The first port slice carries the FedAvg family."""
+Ported so far: the FedAvg family and FedSGD."""
 
 from __future__ import annotations
 
@@ -8,10 +8,12 @@ from ..core.flags import cfg_extra
 from ..fl.algorithm import FedAlgorithm
 from ..fl.types import HParams
 from .fedavg import FedAvg, FedAvgSeq
+from .fedsgd import FedSGD
 
 _REGISTRY = {
     C.FEDERATED_OPTIMIZER_FEDAVG: FedAvg,
     C.FEDERATED_OPTIMIZER_FEDAVG_SEQ: FedAvgSeq,
+    C.FEDERATED_OPTIMIZER_FEDSGD: FedSGD,
 }
 
 # algorithms of the JAX package that later slices port
@@ -19,7 +21,7 @@ _LATER = (
     C.FEDERATED_OPTIMIZER_FEDOPT, C.FEDERATED_OPTIMIZER_FEDOPT_SEQ,
     C.FEDERATED_OPTIMIZER_FEDPROX, C.FEDERATED_OPTIMIZER_FEDNOVA,
     C.FEDERATED_OPTIMIZER_FEDDYN, C.FEDERATED_OPTIMIZER_SCAFFOLD,
-    C.FEDERATED_OPTIMIZER_MIME, C.FEDERATED_OPTIMIZER_FEDSGD,
+    C.FEDERATED_OPTIMIZER_MIME,
 )
 
 
@@ -34,7 +36,7 @@ def create(cfg, hp: HParams = None) -> FedAlgorithm:
     name = cfg.federated_optimizer
     if name in _LATER:
         raise NotImplementedError(
-            f"federated_optimizer {name!r} is not ported yet (first port slice: {names()})")
+            f"federated_optimizer {name!r} is not ported yet (ported: {names()})")
     if name not in _REGISTRY:
         raise ValueError(f"unknown federated_optimizer {name!r}; known: {names()}")
     return _REGISTRY[name](hp, cfg)

@@ -134,6 +134,33 @@ def make_local_train_fn(model, hp: HParams):
     return local_train
 
 
+def make_full_grad_fn(model, hp: HParams):
+    """Build ``full_grad(variables, x, y) -> grads``: the gradient of the
+    mean loss over a client's whole cyclic-padded shard at fixed variables
+    (the FedSGD client step; reference L203).  The mean runs over the
+    ``cap // batch_size`` consecutive batches of the padded capacity, not
+    over the true count; each batch runs in train mode (batch statistics)
+    and its new running stats are thrown away.  ``x`` is used as given (no
+    cast: the simulator keeps it in the compute dtype)."""
+    base_loss = get_loss_fn(hp.loss)
+    bsz = hp.batch_size
+
+    def full_grad(variables: dict, x: torch.Tensor, y: torch.Tensor):
+        params, rest = split_variables(variables)
+        n_batches = x.shape[0] // bsz
+        leaves = [p.detach().requires_grad_(True) for p in pt.tree_leaves(params)]
+        p = pt.tree_unflatten_like(params, leaves)
+        acc = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
+        for i in range(n_batches):
+            logits, _ = model.apply({"params": p, **rest}, x[i * bsz:(i + 1) * bsz], train=True)
+            loss = base_loss(logits.to(torch.float32), y[i * bsz:(i + 1) * bsz])
+            acc = [a + g for a, g in zip(acc, torch.autograd.grad(loss, leaves))]
+        denom = acc[0].new_full((), float(max(n_batches, 1)))
+        return pt.tree_unflatten_like(params, [a / denom for a in acc])
+
+    return full_grad
+
+
 def make_eval_fn(model, hp: HParams, batch_size: int = 256):
     """Global test eval over a (padded) test set with a validity mask;
     returns ``{"test_loss", "test_acc"}`` as 0-d tensors."""

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where one flagship FedAvg round of the PyTorch port spends its time.
+"""Where one simulation round of the PyTorch port spends its time.
 
 Run from the repository root on a machine with an NVIDIA card:
 
     python3 -m fedml_tpu_torch.obs.profile_round [--fused 0|1]
+    python3 -m fedml_tpu_torch.obs.profile_round --cf RECIPE [--compression NAME]
     python3 -m fedml_tpu_torch.obs.profile_round --ab 4
 
-Builds the flagship recipe (examples/sp_fedavg_cifar10_resnet20) through
-``fedml_tpu_torch.init`` + ``FedMLRunner``, runs one warm-up round, times one
-round without the profiler, then profiles one round with ``torch.profiler``
-(CPU + CUDA).  Prints the card, the round wall time, the summed device time
-of all kernels, the device busy and idle shares (busy = union of kernel
-intervals over the window), the kernel launches per local step, and the top
-operators by host (self CPU) time and by device time.
+Builds a recipe (default: the flagship, examples/sp_fedavg_cifar10_resnet20)
+through ``fedml_tpu_torch.init`` + ``FedMLRunner``, runs one warm-up round,
+times one round without the profiler, then profiles one round with
+``torch.profiler`` (CPU + CUDA).  Prints the card, the round wall time, the
+summed device time of all kernels, the device busy and idle shares (busy =
+union of kernel intervals over the window), the kernel launches per batch
+(a FedAvg local step, or one batch of a FedSGD full-shard gradient), and the
+top operators by host (self CPU) time and by device time.  ``--fused`` and
+``--compression`` override the recipe's ``extra.fused_blocks`` and
+``compression``; without them the recipe runs unchanged.
 
 ``--ab PAIRS`` instead builds the recipe twice, with and without
 ``extra.fused_blocks`` (same seed, so the same data, sampling and initial
@@ -48,9 +52,20 @@ def _busy_us(events) -> float:
     return busy
 
 
+def _batches(sim, metrics) -> float:
+    """Forward+backward batches of a round: local steps for the FedAvg
+    family, ``capacity // batch`` per client for FedSGD's full gradient."""
+    clients = sim.cfg.client_num_per_round
+    if sim.algorithm.name == "FedSGD":
+        return clients * (sim.capacity // sim.cfg.batch_size)
+    return metrics["num_steps"] * clients
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--fused", type=int, default=1)
+    ap.add_argument("--cf", default=FLAGSHIP, help="recipe YAML")
+    ap.add_argument("--fused", type=int, default=None, help="override extra.fused_blocks")
+    ap.add_argument("--compression", default=None, help="override compression (FedSGD)")
     ap.add_argument("--ab", type=int, default=0, help="pairs of fused/unfused rounds to time")
     args = ap.parse_args(argv)
 
@@ -59,6 +74,7 @@ def main(argv=None) -> int:
 
     import fedml_tpu_torch
     from fedml_tpu_torch.ops import fused_block as fb
+    from fedml_tpu_torch.ops import quantize as qz
     from fedml_tpu_torch.runner import FedMLRunner
 
     if not torch.cuda.is_available():
@@ -69,36 +85,42 @@ def main(argv=None) -> int:
     print(f"card: {smi}")
     if args.ab:
         return _ab(args.ab)
-    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
-    cfg.extra["fused_blocks"] = bool(args.fused)
+    cfg = fedml_tpu_torch.init(argv=["--cf", args.cf])
+    if args.fused is not None:
+        cfg.extra["fused_blocks"] = bool(args.fused)
+    if args.compression is not None:
+        cfg.compression = args.compression
     cfg.metrics_jsonl_path = ""
     sim = FedMLRunner(cfg).runner
+    what = (f"{cfg.federated_optimizer} fused={bool(sim.hp.fused_blocks)} "
+            f"compression={getattr(sim.algorithm, 'compression', None)}")
     sim.run_round()  # warm-up: cuDNN autotuning, kernel build, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = sim.run_round()
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    plain_steps = plain["num_steps"] * cfg.client_num_per_round
-    print(f"fused={bool(args.fused)} unprofiled round: {plain_s:.3f} s, {plain_steps:.0f} local steps, "
-          f"{plain_s / plain_steps * 1e3:.2f} ms/step, "
-          f"{plain_steps * cfg.batch_size / plain_s:.0f} trained samples/s")
+    plain_steps = _batches(sim, plain)
+    print(f"{what} unprofiled round: {plain_s:.3f} s, {plain_steps:.0f} batches, "
+          f"{plain_s / plain_steps * 1e3:.2f} ms/batch, "
+          f"{plain_steps * cfg.batch_size / plain_s:.0f} samples/s")
     fb.reset_launch_counts()
+    qz.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         profiled = sim.run_round()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    steps = profiled["num_steps"] * cfg.client_num_per_round
+    steps = _batches(sim, profiled)
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
     kernel_us = sum(e.time_range.end - e.time_range.start for e in events)
     busy_us = _busy_us(events)
-    print(f"fused={bool(args.fused)} profiled round wall {wall_s:.3f} s, local steps {steps:.0f}, "
-          f"{wall_s / steps * 1e3:.2f} ms/step wall")
+    print(f"{what} profiled round wall {wall_s:.3f} s, batches {steps:.0f}, "
+          f"{wall_s / steps * 1e3:.2f} ms/batch wall")
     print(f"device: {len(events)} kernel/memcpy events, summed {kernel_us / 1e6:.3f} s, busy "
           f"{busy_us / 1e6:.3f} s = {100 * busy_us / (wall_s * 1e6):.1f}% of wall, idle "
-          f"{100 * (1 - busy_us / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device events/step")
-    print(f"fused kernel launches (profiled round): {fb.launch_counts()}")
+          f"{100 * (1 - busy_us / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device events/batch")
+    print(f"kernel launches (profiled round): {fb.launch_counts()} {qz.launch_counts()}")
     ka = prof.key_averages()
     print("top operators by self CPU time:")
     print(ka.table(sort_by="self_cpu_time_total", row_limit=TOP, max_name_column_width=60))

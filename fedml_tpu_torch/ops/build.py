@@ -19,13 +19,36 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"fused_block": _PKG / "csrc" / "fused_block.cu"}
+SOURCES = {"fused_block": _PKG / "csrc" / "fused_block.cu",
+           "quantize": _PKG / "csrc" / "quantize.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # name -> loaded CDLL (a process-wide cache, like an import)
 _LOADED: dict = {}
+
+
+class Kernel:
+    """One CUDA kernel of the port: its name, the TPU kernel it replaces
+    (``file:line``) and its launches on the card."""
+
+    def __init__(self, name: str, replaces: str):
+        self.name = name
+        self.replaces = replaces
+        self.launches = 0
+
+
+def current_stream(device, what: str) -> int:
+    """The current stream of the current device, which must hold the
+    operands: a kernel launches only into a stream of the current device."""
+    import torch
+
+    stream = torch.cuda.current_stream()
+    if stream.device != device:
+        raise ValueError(f"{what}: operands on {device}, current device is "
+                         f"{stream.device} (use torch.cuda.set_device)")
+    return stream.cuda_stream
 
 
 def nvcc_path() -> str:

@@ -33,20 +33,10 @@ _SIGNATURES = {
 # rows of the backward's per-output scratch: kMaxRowBlocks in the .cu source
 _MAX_ROW_BLOCKS = 1024
 
-
-class _Kernel:
-    """One CUDA kernel of this module: its name and its launches on the card."""
-
-    def __init__(self, name: str, replaces: str):
-        self.name = name
-        self.replaces = replaces
-        self.launches = 0
-
-
-FWD = _Kernel("fused_bn_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:91")
-FWD_RES = _Kernel("fused_bn_residual_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:85")
-BWD = _Kernel("fused_bn_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:142")
-BWD_RES = _Kernel("fused_bn_residual_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:126")
+FWD = build.Kernel("fused_bn_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:91")
+FWD_RES = build.Kernel("fused_bn_residual_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:85")
+BWD = build.Kernel("fused_bn_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:142")
+BWD_RES = build.Kernel("fused_bn_residual_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:126")
 KERNELS = (FWD, FWD_RES, BWD, BWD_RES)
 SOURCE = "fedml_tpu_torch/csrc/fused_block.cu"
 
@@ -114,16 +104,6 @@ def _check(y: torch.Tensor, vectors, others) -> None:
             raise ValueError(f"operands on {t.device} and {y.device}")
 
 
-def _stream(device: torch.device) -> int:
-    """The current stream of the current device, which must hold the
-    operands: a kernel launches only into a stream of the current device."""
-    stream = torch.cuda.current_stream()
-    if stream.device != device:
-        raise ValueError(f"fused block kernel: operands on {device}, current device is "
-                         f"{stream.device} (use torch.cuda.set_device)")
-    return stream.cuda_stream
-
-
 def _fwd_cuda(y, scale, shift, residual):
     _check(y, (scale, shift), (residual,))
     kernel = FWD_RES if residual is not None else FWD
@@ -131,7 +111,7 @@ def _fwd_cuda(y, scale, shift, residual):
     err = _lib().fused_fwd(
         _DTYPE_CODES[y.dtype], y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         residual.data_ptr() if residual is not None else None, out.data_ptr(),
-        y.numel(), y.shape[-1], _stream(y.device))
+        y.numel(), y.shape[-1], build.current_stream(y.device, "fused block kernel"))
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
     kernel.launches += 1
@@ -150,7 +130,8 @@ def _bwd_cuda(g, y, scale, out, with_residual: bool):
     err = _lib().fused_bwd(
         _DTYPE_CODES[y.dtype], g.data_ptr(), y.data_ptr(), scale.data_ptr(),
         out.data_ptr(), dy.data_ptr(), dr.data_ptr() if dr is not None else None,
-        partial.data_ptr(), d_scale.data_ptr(), d_shift.data_ptr(), n, c, _stream(y.device))
+        partial.data_ptr(), d_scale.data_ptr(), d_shift.data_ptr(), n, c,
+        build.current_stream(y.device, "fused block kernel"))
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
     kernel.launches += 1

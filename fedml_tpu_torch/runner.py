@@ -1,7 +1,7 @@
 """FedMLRunner — platform dispatch (the port of ``fedml_tpu/runner.py``).
 
-The first port slice carries the simulation platform with the FedAvg
-family; every other platform and optimizer raises ``NotImplementedError``.
+Ported so far: the simulation platform with the FedAvg family and FedSGD;
+every other platform and optimizer raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -10,7 +10,8 @@ from . import constants as C
 from .arguments import Config
 from .core.device import resolve_device
 
-_FEDAVG_FAMILY = (C.FEDERATED_OPTIMIZER_FEDAVG, C.FEDERATED_OPTIMIZER_FEDAVG_SEQ)
+_PORTED_OPTIMIZERS = (C.FEDERATED_OPTIMIZER_FEDAVG, C.FEDERATED_OPTIMIZER_FEDAVG_SEQ,
+                      C.FEDERATED_OPTIMIZER_FEDSGD)
 
 
 class FedMLRunner:
@@ -26,9 +27,9 @@ class FedMLRunner:
         if cfg.training_type != C.TRAINING_PLATFORM_SIMULATION:
             raise NotImplementedError(f"training_type {cfg.training_type!r} is not ported "
                                       "yet (first port slice: simulation)")
-        if cfg.federated_optimizer not in _FEDAVG_FAMILY:
+        if cfg.federated_optimizer not in _PORTED_OPTIMIZERS:
             raise NotImplementedError(f"federated_optimizer {cfg.federated_optimizer!r} is "
-                                      f"not ported yet (first port slice: {_FEDAVG_FAMILY})")
+                                      f"not ported yet (ported: {_PORTED_OPTIMIZERS})")
         if server_aggregator is not None:
             raise NotImplementedError("custom server_aggregator is not ported yet")
         self.runner = self._init_simulation_runner(client_trainer)

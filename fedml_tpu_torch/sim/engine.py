@@ -1,4 +1,4 @@
-"""MeshSimulator — the FedAvg-family simulation round on one device.
+"""MeshSimulator — the simulation round on one device.
 
 The port of ``fedml_tpu/sim/engine.py``'s sequential path.  The JAX package
 runs a round as one vmapped, mesh-sharded program; its SP backend
@@ -12,13 +12,18 @@ sequential twin:
     global'  = algorithm.server_update(agg)
 
 Client data is stacked once (``data.dataset.stack_clients``) and kept on the
-device in the compute dtype.  The vmapped round and CUDA-graph chunks of
-rounds are later slices; checkpointing, the AOT program store, the profiler,
-OTLP export, trust hooks and population mode raise ``NotImplementedError``.
+device in the compute dtype.  Per-client algorithm state (FedSGD's EF-TopK
+residuals) is one stacked tensor tree on the device, one row per client: a
+sampled client gets its row, and the new rows are written back in place
+after the server step (the reference's functional ``.at[c].set``).  The
+vmapped round and CUDA-graph chunks of rounds are later slices;
+checkpointing, the AOT program store, the profiler, OTLP export, trust hooks
+and population mode raise ``NotImplementedError``.
 
 Randomness goes through a sampler object (``sample(r)``, ``perms(r, client,
-epochs, cap)``): :class:`ClientSampler` derives both from the port's
-generators; a test can hand in one built from the JAX package's keys.
+epochs, cap)``, ``uniform(r, client, shape, device)``): :class:`ClientSampler`
+derives all three from the port's generators; a test can hand in one built
+from the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -67,8 +72,9 @@ def _mean(values: list) -> float:
 
 class ClientSampler:
     """The default source of a round's randomness: sampled client ids from
-    the round key and each client's per-epoch permutations from its client
-    key, both through the port's generators (``core/rng.py``)."""
+    the round key, each client's per-epoch permutations and compression
+    draw from its client key, all through the port's generators
+    (``core/rng.py``)."""
 
     def __init__(self, seed: int, n_total: int, per_round: int):
         self.root = rng.root_key(seed)
@@ -82,9 +88,15 @@ class ClientSampler:
         key = rng.client_key(rng.round_key(self.root, round_idx), client)
         return epoch_permutations(key, epochs, cap)
 
+    def uniform(self, round_idx: int, client: int, shape: tuple, device) -> torch.Tensor:
+        """The client's ``U[0, 1)`` compression draw of this round, drawn on
+        ``device`` (the reference folds ``(client key, 7)``; so does this)."""
+        key = rng.fold_in(rng.client_key(rng.round_key(self.root, round_idx), client), 7)
+        return torch.rand(shape, generator=rng.generator(key, device), device=device)
+
 
 class MeshSimulator:
-    """FedAvg-family simulation on ``device`` (the card unless the caller
+    """FedAvg-family and FedSGD simulation on ``device`` (the card unless the caller
     names another; see ``core/device.py``): :meth:`run` is the fit loop,
     :meth:`run_round` one round, :meth:`evaluate` the global test eval."""
 
@@ -119,9 +131,9 @@ class MeshSimulator:
         self.root_key = rng.root_key(cfg.random_seed)
         self.global_vars = model.init(rng.generator(rng.init_key(self.root_key)), self.device)
         self.server_state = self.algorithm.init_server_state(self.global_vars)
-        if self.algorithm.init_client_state(self.global_vars) is not None:
-            raise NotImplementedError("per-client algorithm state is not ported yet "
-                                      "(first port slice: the FedAvg family)")
+        template = self.algorithm.init_client_state(self.global_vars)
+        self.client_states = None if template is None else pt.tree_map(
+            lambda t: t.unsqueeze(0).repeat((n_total,) + (1,) * t.ndim), template)
 
         eval_bs = min(256, max(32, cfg.test_batch_size))
         tx, ty, n_test = pad_eval_set(dataset.test_x, dataset.test_y, eval_bs)
@@ -150,16 +162,24 @@ class MeshSimulator:
         r = self.round_idx
         sampled = np.asarray(self.sampler.sample(r))
         rkey = rng.round_key(self.root_key, r)
-        contribs, metrics_list = [], []
+        contribs, new_states, metrics_list = [], [], []
         for ci in (int(c) for c in sampled):
             perms = self.sampler.perms(r, ci, self.hp.epochs, self.capacity)
+            cs = (pt.tree_map(lambda s: s[ci], self.client_states)
+                  if self.client_states is not None else None)
             out = self.algorithm.client_update(
-                self.global_vars, None, self.server_state, self._data[0][ci], self._data[1][ci],
-                int(self.counts[ci]), rng.client_key(rkey, ci), perms=perms)
+                self.global_vars, cs, self.server_state, self._data[0][ci], self._data[1][ci],
+                int(self.counts[ci]), rng.client_key(rkey, ci), perms=perms,
+                draw=lambda shape, ci=ci: self.sampler.uniform(r, ci, shape, self.device))
             contribs.append(out.contribution)
+            new_states.append(out.client_state)
             metrics_list.append(out.metrics)
         weights = torch.as_tensor(self.counts[sampled], dtype=torch.float32, device=self.device)
         self.global_vars, self.server_state = self._server_path(pt.tree_stack(contribs), weights, r)
+        if self.client_states is not None and new_states[0] is not None:
+            with torch.no_grad():
+                for ci, ncs in zip(sampled, new_states):
+                    pt.tree_map(lambda full, upd: full[int(ci)].copy_(upd), self.client_states, ncs)
         self.round_idx += 1
         return {k: _mean([m[k] for m in metrics_list]) for k in metrics_list[0]}
 

@@ -11,12 +11,22 @@ with the same keys; only layouts differ:
 The two directions are exact inverses, so aggregated state can be compared
 leaf by leaf.  :func:`to_torch` / :func:`to_numpy` move a converted tree
 between numpy and tensors.
+
+:func:`flatten_reference` flattens the port's tree on its own device into
+the flat f32 vector the JAX package's ``tree_flatten_to_vector`` gives for
+the same weights in flax layout.  Block-wise operators on flat vectors
+(``qsgd_int8``'s 1024-element blocks) see the reference's elements in the
+reference's order only through it.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
+
+from .core.pytree import tree_unflatten_like
 
 
 def _convert(tree, leaf_fn):
@@ -49,6 +59,36 @@ def flax_to_torch(variables: dict) -> dict:
 def torch_to_flax(variables: dict) -> dict:
     """The port's layout (numpy leaves) -> flax variables (numpy leaves)."""
     return _convert(variables, _relayout(_TO_FLAX))
+
+
+def _named_leaves(tree, name=None):
+    """``(key, leaf)`` pairs in JAX leaf order (sorted keys at every level)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], k)
+    else:
+        yield name, tree
+
+
+def flatten_reference(tree) -> tuple[torch.Tensor, Callable[[torch.Tensor], dict]]:
+    """The port's tree (tensors) -> one f32 vector in the reference's flat
+    layout (flax kernels, JAX leaf order) on the tree's device, and the
+    inverse ``unravel(vec)`` back to the port's layouts and dtypes."""
+    named = list(_named_leaves(tree))
+    axes = [(_TO_FLAX.get(t.ndim) if name == "kernel" else None) for name, t in named]
+    flax_leaves = [t.permute(a) if a else t for (_, t), a in zip(named, axes)]
+
+    def unravel(vec: torch.Tensor) -> dict:
+        out, offset = [], 0
+        for leaf, a in zip(flax_leaves, axes):
+            part = vec[offset:offset + leaf.numel()].reshape(leaf.shape)
+            if a:
+                part = part.permute(_TO_TORCH[leaf.ndim])
+            out.append(part.to(leaf.dtype).contiguous())
+            offset += leaf.numel()
+        return tree_unflatten_like(tree, out)
+
+    return torch.cat([t.reshape(-1).to(torch.float32) for t in flax_leaves]), unravel
 
 
 def to_torch(tree, device="cpu"):

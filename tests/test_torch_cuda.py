@@ -9,7 +9,9 @@ Tolerances: f32 forward and dy / dr bitwise against the plain versions, bf16
 to one bf16 ulp (the same f32 math and rounding), d_scale / d_shift to rtol
 1e-5 / atol 1e-4 (f32 sums of up to ~10k terms in another order); the fused
 ResNet step on the card against the CPU to rtol 1e-3 / atol 1e-4 (cuDNN and
-CPU convolutions, TF32 off).
+CPU convolutions, TF32 off).  The int8 quantize / dequantize kernels:
+values, scales and the dequantized vector bitwise against the plain
+versions on the card and on the CPU (IEEE divides, order-free max).
 """
 
 import numpy as np
@@ -114,3 +116,71 @@ def test_fused_resnet_step_card_matches_cpu(cuda_device):
         outs[str(dev)] = [t.detach().cpu() for t in [logits, *grads, *pt.tree_leaves(new_stats)]]
     for a, b in zip(outs["cpu"], outs[str(cuda_device)]):
         torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 1024, 1025, 5000, 269722, 2**20 + 3])
+def test_quantize_kernels_match_plain_versions(n, cuda_device):
+    from fedml_tpu_torch.ops import quantize as qz
+
+    rs = np.random.RandomState(n % 1000)
+    x = (rs.randn(n) * np.exp(3 * rs.randn(n))).astype(np.float32)
+    u = rs.rand(*qz.noise_shape(n)).astype(np.float32)
+    xd, ud = torch.from_numpy(x).to(cuda_device), torch.from_numpy(u).to(cuda_device)
+    before = qz.launch_counts()
+    values, scales, length = qz.quantize_int8_stochastic(xd, ud)
+    want = qz.quantize_int8_reference(xd, ud)
+    cpu = qz.quantize_int8_reference(torch.from_numpy(x), torch.from_numpy(u))
+    assert length == n and values.dtype == torch.int8 and values.shape == want[0].shape
+    for got, ref in ((values, want[0]), (scales, want[1])):
+        assert torch.equal(got, ref)
+    assert torch.equal(values.cpu(), cpu[0]) and torch.equal(scales.cpu(), cpu[1])
+    out = qz.dequantize_int8(values, scales, length)
+    assert out.shape == (n,)
+    assert torch.equal(out, qz.dequantize_int8_reference(values, scales, length))
+    assert torch.equal(out.cpu(), qz.dequantize_int8_reference(cpu[0], cpu[1], n))
+    after = qz.launch_counts()
+    assert after[qz.QUANTIZE.name] == before[qz.QUANTIZE.name] + 1
+    assert after[qz.DEQUANTIZE.name] == before[qz.DEQUANTIZE.name] + 1
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_rejects_bad_operands(cuda_device):
+    from fedml_tpu_torch.ops import quantize as qz
+
+    x = torch.randn(3000, device=cuda_device)
+    u = torch.rand(qz.noise_shape(3000), device=cuda_device)
+    with pytest.raises(ValueError, match="noise must be"):
+        qz.quantize_int8_stochastic(x, u[:2])
+    with pytest.raises(ValueError, match="noise must be"):
+        qz.quantize_int8_stochastic(x, u.double())
+    with pytest.raises(ValueError):
+        qz.quantize_int8_stochastic(x, u.cpu())
+    with pytest.raises(ValueError, match="flat vector"):
+        qz.quantize_int8_stochastic(x[:0], u[:0])
+    values, scales, n = qz.quantize_int8_stochastic(x, u)
+    with pytest.raises(ValueError):
+        qz.dequantize_int8(values, scales[:2], n)
+    with pytest.raises(ValueError):
+        qz.dequantize_int8(values, scales, 5000)
+
+
+@pytest.mark.cuda
+def test_fedsgd_qsgd_int8_round_launches_the_kernels(cuda_device, tmp_path):
+    """A tiny FedSGD qsgd_int8 run on the card: one quantize and one
+    dequantize launch per client per round, finite metrics."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.ops import quantize as qz
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    cfg = fedml_tpu_torch.init(Config(
+        dataset="cifar10", model="resnet20", client_num_in_total=4, client_num_per_round=4,
+        comm_round=2, batch_size=8, synthetic_train_size=64, synthetic_test_size=40,
+        partition_method="homo", federated_optimizer="FedSGD", compression="qsgd_int8",
+        frequency_of_the_test=2, compute_dtype="bfloat16", data_cache_dir=str(tmp_path)))
+    runner = FedMLRunner(cfg, device=cuda_device)
+    qz.reset_launch_counts()
+    hist = runner.run()
+    assert qz.launch_counts() == {qz.QUANTIZE.name: 8, qz.DEQUANTIZE.name: 8}
+    assert np.isfinite(hist[-1]["test_loss"])
