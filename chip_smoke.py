@@ -14,10 +14,15 @@ Phases (any failure exits non-zero; no phase is caught):
    within one bf16 ulp.  Hold the int8 quantize and dequantize kernels
    against theirs at the FedSGD gradient's length (269,722 elements, 264
    blocks) and at 2^24 elements: int8 values, scales and the dequantized
-   vector bitwise.  Time each kernel and its plain version with CUDA events
-   over CUDA-graph replays (device time; inputs rotated through more than
-   the 50 MB L2) and as eager calls (host overhead included), next to its
-   bound (bytes at 3.35 TB/s vs operations at 67 TFLOP/s).  Then a fused
+   vector bitwise.  Hold the central-DP noise kernel against its plain
+   version at the SecAgg vector's length (271,098: ResNet-20's parameters
+   and BN statistics) and at 2^24, bitwise, at the slice's DP sigma, at
+   0.25 and at 0 (the identity).  Time each kernel and its plain version
+   with CUDA events over CUDA-graph replays (device time; inputs rotated
+   through more than the 50 MB L2) and as eager calls (host overhead
+   included), next to its bound (bytes at 3.35 TB/s vs operations at 67
+   TFLOP/s); for the noise kernel also the one PyTorch call that computes
+   the same function, ``torch.add(x, noise, alpha=sigma)``.  Then a fused
    ResNet-20 step and one FedSGD client gradient on the card against the
    same on the CPU.
 3. The FedAvg path: the flagship recipe
@@ -36,6 +41,19 @@ Phases (any failure exits non-zero; no phase is caught):
    launch once per client per round (48 each over 3 rounds), and every
    test metric and weight must be finite.  Then one round of the recipe's
    own ``eftopk``, after which every client's residual must be non-zero.
+5. The cross-silo path: the flagship recipe through ``fedml_tpu_torch.init``
+   and ``FedMLRunner(cfg).run()`` with ``training_type: cross_silo``,
+   ``role: server``, ``backend: INPROC``, 4 silos all in every round, 3
+   rounds, Shamir SecAgg with the streaming field fold
+   (``extra.secagg_method: shamir``, ``extra.secagg_stream: true``),
+   central DP (Gaussian, epsilon 50, delta 1e-5, sensitivity 0.01, clip 1.0)
+   and ``extra.fused_blocks``: the server and 4 clients are threads of this
+   process on the in-process fabric.  The counts are zeroed before and read
+   after: the noise kernel must launch once per round, each fused kernel
+   must launch, the fold must keep at most 2 updates, every test metric and
+   weight must be finite, and round 0's noised global must be bitwise the
+   plain version applied to its clipped global with the same draw (and
+   differ from it).
 
 The line before the last is the ``{"kernels": [...]}`` JSON (each kernel's
 launches from its own path's run); the last line is ``{"ok": true,
@@ -57,6 +75,12 @@ FEDSGD = "examples/sp_fedsgd_eftopk_cifar10_resnet20/fedml_config.yaml"
 SHAPES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64)]
 GRAD_LENGTH = 269722  # ResNet-20's parameters: the FedSGD gradient
 QUANT_LENGTHS = [GRAD_LENGTH, 2**24]
+SECAGG_LENGTH = 271098  # ResNet-20's parameters and BN statistics: the SecAgg vector
+NOISE_LENGTHS = [SECAGG_LENGTH, 2**24]
+# the cross-silo path's central DP (the reference's own CDP test values)
+DP = dict(enable_dp=True, dp_solution_type="cdp", mechanism_type="gaussian", epsilon=50.0,
+          delta=1e-5, sensitivity=0.01, clipping_norm=1.0)
+SILOS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6
@@ -275,6 +299,57 @@ def phase_quantize(qz):
     return results
 
 
+def phase_noise(nz):
+    """The central-DP noise kernel against its plain version: bitwise at the
+    DP sigma, at 0.25 and at 0 (the identity)."""
+    import torch
+
+    from fedml_tpu_torch.trust.dp.dp import gaussian_sigma
+
+    dev = torch.device("cuda")
+    sigma = gaussian_sigma(DP["epsilon"], DP["delta"], DP["sensitivity"])
+    results = {nz.NOISE.name: {"max_abs_err": 0.0}}
+    for n in NOISE_LENGTHS:
+        shape = nz.noise_shape(n)
+        nbytes = 12 * n  # read x, read the first n noise values, write out
+        sets = []
+        for k in range(max(2, int(3 * L2_BYTES // nbytes) + 1)):
+            g = torch.Generator(device=dev)
+            g.manual_seed(200 + k)
+            sets.append((torch.randn(n, generator=g, device=dev),
+                         torch.randn(shape, generator=g, device=dev), sigma))
+        x, noise, _ = sets[0]
+        for s in (sigma, 0.25, 0.0):
+            got, want = nz.apply_gaussian_noise(x, noise, s), nz.apply_gaussian_noise_reference(
+                x, noise, s)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or got.shape != (n,):
+                bad = int((got != want).sum())
+                raise AssertionError(f"noise kernel at n={n}, sigma={s}: {bad} elements not "
+                                     "bitwise the plain version")
+        if not torch.equal(nz.apply_gaussian_noise(x, noise, 0.0), x):
+            raise AssertionError(f"noise kernel at n={n}: sigma 0 is not the identity")
+
+        def library(x, noise, s, n=n):
+            return torch.add(x, noise.view(-1)[:n], alpha=s)
+
+        ms = _device_ms(nz.apply_gaussian_noise, sets)
+        plain_ms = _device_ms(nz.apply_gaussian_noise_reference, sets)
+        library_ms = _device_ms(library, sets)
+        eager_ms = _eager_ms(nz.apply_gaussian_noise, sets)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * n / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"kernel {nz.NOISE.name} n={n} ({shape[0]} blocks): ok (bitwise at sigma "
+              f"{sigma:.6g}, 0.25, 0), device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
+              f"torch.add {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
+              f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us")
+        if n == SECAGG_LENGTH:
+            results[nz.NOISE.name].update({
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": library_ms,
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    return results
+
+
 def phase_fedsgd_check():
     """One FedSGD client gradient (ResNet-20, f32, a 16-sample shard in
     batches of 8) on the card against the same on the CPU, then quantized
@@ -489,6 +564,110 @@ def phase_fedsgd(mods, qz):
     return counts
 
 
+class _SecAggProbe(_RoundProbe):
+    """The round probe of the cross-silo server: also the round's payload
+    counters and, at round 0, the clipped global before its noise and the
+    noised global (flat, on the card)."""
+
+    def __init__(self, inner, counts, aggregator):
+        super().__init__(inner, counts)
+        self.aggregator, self.payload, self.round0 = aggregator, [], None
+
+    def log(self, metrics, step=None):
+        from fedml_tpu_torch import weights
+        from fedml_tpu_torch.comm import codecs
+
+        self.payload.append(codecs.payload_counters().get("secagg_dense", {}).get("wire_bytes", 0))
+        if self.round0 is None:
+            self.round0 = (self.aggregator.dp_pre_noise.clone(),
+                           weights.flatten_reference(self.aggregator.global_vars)[0].clone())
+        super().log(metrics, step)
+
+
+def phase_cross_silo(mods, nz):
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.comm import codecs
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    t0 = time.perf_counter()
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.training_type, cfg.role, cfg.backend = "cross_silo", "server", "INPROC"
+    cfg.client_num_in_total = cfg.client_num_per_round = SILOS
+    cfg.comm_round = ROUNDS
+    cfg.frequency_of_the_test = 1
+    cfg.enable_secagg = True
+    for k, v in DP.items():
+        setattr(cfg, k, v)
+    cfg.extra.update(secagg_method="shamir", secagg_stream=True, fused_blocks=True)
+    runner = FedMLRunner(cfg)
+    group = runner.runner
+    t1 = time.perf_counter()
+    group.setup()
+    torch.cuda.synchronize()
+    server, clients = group.server, group.clients
+    agg = server.aggregator
+    steps = sum(c.trainer.trained_samples for c in clients) // cfg.batch_size
+    print(f"cross-silo path: set-up {time.perf_counter() - t0:.1f} s (data and model "
+          f"{t1 - t0:.1f} s, server + {len(clients)} silos to the card "
+          f"{time.perf_counter() - t1:.1f} s; data {runner.dataset.train_num}/"
+          f"{runner.dataset.test_num}, silo shards {[c.trainer.count for c in clients]}, "
+          f"{steps} local steps a round, batch {cfg.batch_size}, {cfg.compute_dtype}, "
+          f"SecAgg T={agg.t} over {agg.model_dim} elements ({agg.ring.bits}-bit ring, "
+          f"{agg.ring.frac_bits} fractional bits), DP sigma {agg._dp.sigma():.6g})")
+    probe = _SecAggProbe(server.logger, lambda: _all_counts(mods + (nz,)), agg)
+    server.logger = probe
+    torch.cuda.reset_peak_memory_stats()
+    before = codecs.payload_counters().get("secagg_dense", {}).get("wire_bytes", 0)
+    _reset_counts(mods + (nz,))
+    history = runner.run()
+    torch.cuda.synchronize()
+    counts = _all_counts(mods + (nz,))
+    prev, prev_bytes = {k: 0 for k in counts}, before
+    samples = sum(c.trainer.trained_samples for c in clients)
+    for (metrics, cum, mem), wire in zip(probe.rows, probe.payload):
+        delta = {k: cum[k] - prev[k] for k in cum}
+        prev = cum
+        print(f"round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"{samples / metrics['round_time_s']:.0f} trained samples/s, test_loss "
+              f"{metrics['test_loss']:.4f}, test_acc {metrics['test_acc']:.4f}, finalize "
+              f"(unmask + clip + noise) {1e3 * metrics['finalize_time_s']:.1f} ms, uploads "
+              f"{wire - prev_bytes} bytes (frames {metrics['upload_bytes']}), "
+              f"max_memory_allocated {mem / 2**30:.2f} GiB, launches {delta}")
+        prev_bytes = wire
+        if delta[nz.NOISE.name] != 1:
+            raise AssertionError(f"round {metrics['round']}: {delta[nz.NOISE.name]} noise "
+                                 "launches, expected 1")
+    print(f"payload counters: {codecs.payload_counters()}")
+    if len(history) != ROUNDS or counts[nz.NOISE.name] != ROUNDS:
+        raise AssertionError(f"expected {ROUNDS} rounds and noise launches, got "
+                             f"{len(history)} and {counts[nz.NOISE.name]}")
+    bad = [k.name for k in mods[0].KERNELS if counts[k.name] == 0]
+    if bad:
+        raise AssertionError(f"fused kernels never launched on the cross-silo path: {bad}")
+    if not agg.field_stream or agg.peak_buffered_updates > 2:
+        raise AssertionError(f"streaming fold: field_stream {agg.field_stream}, peak buffered "
+                             f"{agg.peak_buffered_updates}")
+    for metrics in history:
+        for key in ("test_loss", "test_acc"):
+            if not math.isfinite(metrics[key]):
+                raise AssertionError(f"round {metrics['round']}: {key} = {metrics[key]}")
+    if not all(bool(torch.isfinite(leaf).all()) for leaf in pt.tree_leaves(agg.global_vars)):
+        raise AssertionError("non-finite global variables after the cross-silo run")
+    pre, post = probe.round0
+    draw = agg.noise_sampler.gaussian(0, nz.noise_shape(pre.numel()), pre.device)
+    if not torch.equal(post, nz.apply_gaussian_noise_reference(pre, draw, agg._dp.sigma())):
+        raise AssertionError("round 0: the noised global is not the plain version's")
+    if torch.equal(post, pre):
+        raise AssertionError("round 0: the noise did not land (noised == clip-only global)")
+    print(f"cross-silo check: round 0's global bitwise the plain noise of its clipped global, "
+          f"max |noise| applied {float((post - pre).abs().max()):.3g}; peak buffered "
+          f"{agg.peak_buffered_updates}; every client trained {[c.rounds_trained for c in clients]}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -503,6 +682,7 @@ def main(argv=None) -> int:
         return 2
     from fedml_tpu_torch.ops import build
     from fedml_tpu_torch.ops import fused_block as fb
+    from fedml_tpu_torch.ops import noise as nz
     from fedml_tpu_torch.ops import quantize as qz
 
     torch.backends.cudnn.allow_tf32 = False
@@ -521,23 +701,25 @@ def main(argv=None) -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     mods = (fb, qz)
-    kernel_rows = {**phase_kernels(fb), **phase_quantize(qz)}
+    kernel_rows = {**phase_kernels(fb), **phase_quantize(qz), **phase_noise(nz)}
     phase_model_check(fb)
     phase_fedsgd_check()
     if args.kernels_only:
         return 0
     fedavg_counts, fedsgd_counts = phase_main_path(mods), phase_fedsgd(mods, qz)
+    silo_counts = phase_cross_silo(mods, nz)
     # each kernel's launches on its own path
     counts = {**{k.name: fedavg_counts[k.name] for k in fb.KERNELS},
-              **{k.name: fedsgd_counts[k.name] for k in qz.KERNELS}}
+              **{k.name: fedsgd_counts[k.name] for k in qz.KERNELS},
+              **{k.name: silo_counts[k.name] for k in nz.KERNELS}}
 
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": m.SOURCE, "replaces": k.replaces,
          "launches": counts[k.name], "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],
-         "library_ms": None}
-        for m in mods for k in m.KERNELS]}))
+         "library_ms": kernel_rows[k.name].get("library_ms")}
+        for m in (fb, qz, nz) for k in m.KERNELS]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -78,6 +78,17 @@ def sample_clients(key: Key, round_idx: int, client_num_in_total: int,
     return perm[:client_num_per_round].numpy().astype(np.int64)
 
 
+def sample_clients_np(seed_round: int, client_num_in_total: int,
+                      client_num_per_round: int) -> np.ndarray:
+    """The reference's numpy sampler, bit for bit (``fedml_tpu.core.rng.
+    sample_clients_np``): ``RandomState(round).choice(n, m, replace=False)``;
+    the cross-silo server selects a round's clients with it."""
+    if client_num_in_total == client_num_per_round:
+        return np.arange(client_num_in_total, dtype=np.int64)
+    rs = np.random.RandomState(seed_round)
+    return np.array(rs.choice(range(client_num_in_total), client_num_per_round, replace=False))
+
+
 def seed_everything(seed: int) -> None:
     """Seed host-side python/numpy RNGs (data partitioning uses its own
     ``RandomState``; device randomness flows through explicit generators)."""

@@ -1,0 +1,158 @@
+"""Cross-silo platform (the port of ``fedml_tpu/cross_silo/__init__.py``).
+
+``FedMLRunner`` with ``training_type: cross_silo``, ``role: server`` and an
+in-process backend (``INPROC``, or ``MESH`` / unset as the reference reads
+them) runs 1 server + ``client_num_in_total`` clients as threads of one
+process over the in-process fabric: the plain synchronous server, or Shamir
+SecAgg (``enable_secagg`` with ``extra.secagg_method: shamir``).
+
+Parity hooks, read when the group is built (:meth:`_CrossSiloRunner.setup`,
+which :meth:`run` calls): ``global_vars`` (the initial global model, the
+port's tree; default: the port's own init stream), ``perms`` (the clients'
+per-epoch permutations, ``perms(round, client, epochs, cap)``),
+``noise_sampler`` (the central-DP draws of Shamir SecAgg) and ``logger``
+(the server's metrics logger).
+
+Refused with ``NotImplementedError``: a client role, any other backend,
+multi-process silos, LightSecAgg, FHE and non-FedAvg optimizers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from .. import constants as C
+from ..core.flags import cfg_extra
+from ..data.dataset import pad_eval_set
+from .client import ClientMasterManager, FedMLTrainer
+from .server import FedMLAggregator, FedMLServerManager, eval_batch_size
+
+_IN_PROCESS_BACKENDS = (C.COMM_BACKEND_INPROC, "MESH", "")
+_CROSS_SILO_OPTIMIZERS = (C.FEDERATED_OPTIMIZER_FEDAVG, C.FEDERATED_OPTIMIZER_FEDAVG_SEQ)
+
+
+def build_aggregator(cfg, dataset, model, device, global_vars=None) -> FedMLAggregator:
+    test_arrays = pad_eval_set(dataset.test_x, dataset.test_y, eval_batch_size(cfg))
+    return FedMLAggregator(cfg, model, test_arrays, device, global_vars=global_vars)
+
+
+def build_server(cfg, dataset, model, device, backend: Optional[str] = None, global_vars=None,
+                 logger=None) -> FedMLServerManager:
+    aggregator = build_aggregator(cfg, dataset, model, device, global_vars=global_vars)
+    return FedMLServerManager(cfg, aggregator, backend=backend, logger=logger)
+
+
+def build_client(cfg, dataset, model, rank: int, device, backend: Optional[str] = None,
+                 perms=None) -> ClientMasterManager:
+    ix = dataset.client_idx[rank - 1]
+    trainer = FedMLTrainer(cfg, model, dataset.train_x[ix], dataset.train_y[ix], device,
+                           perms=perms)
+    return ClientMasterManager(cfg, trainer, rank=rank, backend=backend)
+
+
+def build_process_group(cfg, dataset, model, device, backend: str = C.COMM_BACKEND_INPROC,
+                        global_vars=None, perms=None, logger=None):
+    """``(server, clients)`` of the plain synchronous protocol, not started."""
+    from ..comm.inproc import InProcRouter
+
+    InProcRouter.reset(str(getattr(cfg, "run_id", "0")))
+    server = build_server(cfg, dataset, model, device, backend=backend, global_vars=global_vars,
+                          logger=logger)
+    clients = [build_client(cfg, dataset, model, r, device, backend=backend, perms=perms)
+               for r in range(1, cfg.client_num_in_total + 1)]
+    return server, clients
+
+
+def run_group(server: FedMLServerManager, clients: list, timeout: float = 600.0) -> list:
+    """Start the clients' receive loops, run the server until it finishes,
+    stop the clients; returns the server's history.  A client handler that
+    raises fails the run (the server's ``abort``)."""
+    for c in clients:
+        c.on_error = server.abort
+        c.run_in_thread()
+    try:
+        history = server.run_until_done(timeout=timeout)
+        for c in clients:
+            c.done.wait(5.0)
+    finally:
+        for c in clients:
+            c.finish()
+    return history
+
+
+def refuse_unported_cross_silo(cfg) -> None:
+    """Raise for a cross-silo configuration this slice does not serve."""
+    if cfg.role != "server":
+        raise NotImplementedError(f"cross-silo role {cfg.role!r} (a silo process of its own) is "
+                                  "not ported yet; run role 'server' with an in-process backend")
+    if cfg.backend not in _IN_PROCESS_BACKENDS:
+        raise NotImplementedError(f"cross-silo backend {cfg.backend!r} is not ported yet "
+                                  f"(ported: {C.COMM_BACKEND_INPROC!r})")
+    if cfg.federated_optimizer not in _CROSS_SILO_OPTIMIZERS:
+        raise NotImplementedError(f"cross-silo federated_optimizer {cfg.federated_optimizer!r} "
+                                  f"is not ported yet (ported: {_CROSS_SILO_OPTIMIZERS})")
+    if getattr(cfg, "enable_fhe", False):
+        raise NotImplementedError("enable_fhe (the FHE cross-silo protocol) is not ported yet")
+    from ..comm.comm_manager import refuse_unported_transport
+    from .client import refuse_unported_client
+    from .server import refuse_unported_server
+
+    secure = bool(getattr(cfg, "enable_secagg", False))
+    refuse_unported_transport(cfg, C.COMM_BACKEND_INPROC)
+    refuse_unported_server(cfg, secure=secure)
+    refuse_unported_client(cfg)
+    if secure:
+        method = str(cfg_extra(cfg, "secagg_method")).lower()
+        if method in ("lightsecagg", "lsa"):
+            raise NotImplementedError("LightSecAgg is not ported yet; use extra.secagg_method "
+                                      "'shamir'")
+        if method not in ("shamir", "secagg", "pairwise"):
+            raise ValueError(f"unknown secagg_method {method!r}; use 'lightsecagg' or 'shamir'")
+        from .secagg_shamir import shamir_secagg_params
+
+        shamir_secagg_params(cfg)
+        if cfg.client_num_per_round < cfg.client_num_in_total:
+            raise ValueError(
+                "Shamir SecAgg requires full participation per round (client_num_per_round="
+                f"{cfg.client_num_per_round} != N={cfg.client_num_in_total})")
+
+
+class _CrossSiloRunner:
+    def __init__(self, cfg, dataset, model, device, timeout: float = 600.0):
+        self.cfg, self.dataset, self.model, self.device = cfg, dataset, model, device
+        self.timeout = timeout
+        # parity hooks (module docstring); None = the port's own
+        self.global_vars = None
+        self.perms = None
+        self.noise_sampler = None
+        self.logger = None
+        self.server: Optional[FedMLServerManager] = None
+        self.clients: list = []
+
+    def setup(self) -> None:
+        """Build the server and the clients (their shards go to the device)."""
+        hooks = {k: v for k, v in (("global_vars", self.global_vars), ("perms", self.perms),
+                                   ("logger", self.logger)) if v is not None}
+        if getattr(self.cfg, "enable_secagg", False):
+            from .secagg_shamir import build_shamir_secagg_process_group
+
+            if self.noise_sampler is not None:
+                hooks["noise_sampler"] = self.noise_sampler
+            group = build_shamir_secagg_process_group
+        else:
+            if self.noise_sampler is not None:
+                raise ValueError("noise_sampler serves Shamir SecAgg's central DP only")
+            group = build_process_group
+        self.server, self.clients = group(self.cfg, self.dataset, self.model, self.device,
+                                          C.COMM_BACKEND_INPROC, **hooks)
+
+    def run(self) -> list:
+        if self.server is None:
+            self.setup()
+        return run_group(self.server, self.clients, self.timeout)
+
+
+def create_cross_silo_runner(cfg, dataset, model, device) -> _CrossSiloRunner:
+    """The runner of a configuration ``refuse_unported_cross_silo`` let
+    through (``FedMLRunner`` checks it before it loads the data)."""
+    return _CrossSiloRunner(cfg, dataset, model, device)

@@ -1,0 +1,355 @@
+"""Cross-silo FL server (the port of ``fedml_tpu/cross_silo/server.py``).
+
+The synchronous round loop of the reference::
+
+  start -> check client status -> all ONLINE -> send_init
+  -> on each client model: add, check_whether_all_receive -> aggregate
+  -> test -> client_selection -> sync model out -> ... -> finish
+
+with its bounded-wait straggler handling (``extra.straggler_timeout_s``)
+and status re-probe on the event-driven runtime (``cross_silo/runtime.py``).
+The global model lives on the device; models travel as numpy trees in flax
+layout (``weights.torch_to_flax`` before a send, ``flax_to_torch`` after a
+receive), so a frame carries the reference's bytes for the same weights.
+
+Kept as the reference keeps it: the buffer-all aggregate through the
+algorithm's ``aggregate`` / ``server_update`` (the FedAvg family).  Each
+history row also carries ``round_time_s`` (broadcast to evaluated),
+``aggregate_time_s`` and ``upload_bytes`` (wire bytes of the round's model
+uploads): the reference records these in its metrics registry and trace
+spans, which the port has not ported yet; for the same reason a broadcast
+carries no trace-propagation header.  A handler that raises fails the
+run at once (``run_until_done`` raises), where the reference logs it and
+waits for its timeout.
+
+Refused with ``NotImplementedError`` when flagged: the recovery journal,
+the hierarchy, the async server, the flight recorder, SLOs, the timeline,
+OTLP, remote observability, model publication, health-aware selection,
+upload dedup keys, the AOT store, the streaming f32 fold and the sharded
+fold, the metrics endpoint, and the trust pipeline (DP, attacks, defenses,
+contribution) on the plain server.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import weights
+from ..algorithms import create as create_algorithm, hparams_from_config
+from ..comm.base import BACKOFF_PURPOSE_STATUS_PROBE, backoff_delay
+from ..comm.comm_manager import FedMLCommManager
+from ..comm.message import Message
+from ..core import pytree as pt
+from ..core import rng
+from ..core.flags import cfg_extra
+from ..fl.local_sgd import make_eval_fn
+from ..obs.metrics import MetricsLogger
+from . import message_define as md
+
+log = logging.getLogger("fedml_tpu_torch.cross_silo.server")
+
+_UNPORTED_SERVER_FLAGS = (
+    "server_journal_dir", "hier_fanout", "hier_topology", "hier_hop_codec",
+    "async_aggregation", "flight_recorder", "slo_specs", "perf_timeline", "otlp_endpoint",
+    "enable_remote_obs", "model_publish_dir", "health_aware_selection", "aot_programs",
+    "streaming_aggregation", "server_shard_fold", "metrics_port")
+_UNPORTED_TRUST = ("enable_attack", "enable_defense", "enable_dp", "enable_contribution")
+
+
+def refuse_unported_server(cfg, secure: bool = False) -> None:
+    """Raise for a server feature this slice does not serve; ``secure``
+    servers (SecAgg) check their trust composition themselves."""
+    for flag in _UNPORTED_SERVER_FLAGS:
+        if cfg_extra(cfg, flag):
+            raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo server yet")
+    if not secure:
+        for flag in _UNPORTED_TRUST:
+            if getattr(cfg, flag, False):
+                raise NotImplementedError(f"{flag} (the trust pipeline) is not ported to the "
+                                          "cross-silo server yet")
+
+
+def provisional_steps_per_epoch(cfg) -> int:
+    """The reference's config-derived steps/epoch guess: the server's
+    algorithm never trains, so the FedAvg family only needs it positive."""
+    return max(1, math.ceil(
+        getattr(cfg, "synthetic_train_size", 1024) / max(cfg.client_num_in_total, 1)
+        / cfg.batch_size))
+
+
+def eval_batch_size(cfg) -> int:
+    return min(256, max(32, cfg.test_batch_size))
+
+
+class FedMLAggregator:
+    """Server-side state: the global model on ``device``, the round's model
+    buffer and the algorithm frame (reference ``FedMLAggregator``).
+
+    ``global_vars`` (the port's tree) is the initial global model; without
+    it the model is initialised from the port's own init stream (the
+    reference draws flax's init from ``root_key(seed)``: tests carry its
+    weights across)."""
+
+    def __init__(self, cfg, model, test_arrays, device, global_vars=None):
+        self.cfg = cfg
+        self.device = device
+        self.hp = hparams_from_config(cfg, steps_per_epoch=provisional_steps_per_epoch(cfg))
+        self.algorithm = create_algorithm(cfg, self.hp).build(model)
+        self.root_key = rng.root_key(cfg.random_seed)
+        if global_vars is None:
+            global_vars = model.init(rng.generator(rng.init_key(self.root_key)), device)
+        self.global_vars = pt.tree_map(lambda t: torch.as_tensor(t).to(device), global_vars)
+        self.server_state = self.algorithm.init_server_state(self.global_vars)
+        self.model_dict: dict[int, object] = {}
+        self.sample_num_dict: dict[int, float] = {}
+        self.flag_client_model_uploaded: dict[int, bool] = {}
+        #: high-water mark of client updates buffered at once
+        self.peak_buffered_updates = 0
+        tx, ty, n_valid = test_arrays
+        self._test = (torch.from_numpy(np.ascontiguousarray(tx)).to(device),
+                      torch.from_numpy(np.ascontiguousarray(ty)).to(device, torch.long),
+                      int(n_valid))
+        self._eval_fn = make_eval_fn(model, self.hp, batch_size=eval_batch_size(cfg))
+
+    def host_global_flax(self) -> dict:
+        """The global model as the wire carries it: numpy, flax layout (one
+        device-to-host copy)."""
+        return weights.torch_to_flax(weights.to_numpy(self.global_vars))
+
+    def add_local_trained_result(self, client_idx: int, params, sample_num: float) -> None:
+        """Buffer one client's model (a flax-layout numpy tree off the wire)."""
+        self.model_dict[client_idx] = params
+        self.sample_num_dict[client_idx] = sample_num
+        self.flag_client_model_uploaded[client_idx] = True
+        self.peak_buffered_updates = max(self.peak_buffered_updates, len(self.model_dict))
+
+    def received_count(self) -> int:
+        return len(self.flag_client_model_uploaded)
+
+    def check_whether_all_receive(self, expected: int) -> bool:
+        return self.received_count() >= expected
+
+    def aggregate(self, round_idx: int):
+        ids = sorted(self.model_dict)
+        trees = [weights.to_torch(weights.flax_to_torch(self.model_dict[i]), self.device)
+                 for i in ids]
+        w = torch.tensor([self.sample_num_dict[i] for i in ids], dtype=torch.float32,
+                         device=self.device)
+        agg = self.algorithm.aggregate(pt.tree_stack(trees), w)
+        self.global_vars, self.server_state = self.algorithm.server_update(
+            self.global_vars, self.server_state, agg, round_idx)
+        self._reset_round()
+        return self.global_vars
+
+    def _reset_round(self) -> None:
+        self.model_dict.clear()
+        self.sample_num_dict.clear()
+        self.flag_client_model_uploaded.clear()
+
+    def round_metrics(self) -> dict:
+        """Extra history fields of the round just aggregated."""
+        return {}
+
+    def test_on_server(self) -> dict:
+        return {k: float(v) for k, v in self._eval_fn(self.global_vars, *self._test).items()}
+
+    def client_selection(self, round_idx: int, client_ids: list[int], per_round: int) -> list[int]:
+        """Reference ``client_selection``: everyone when all fit, else the
+        reference's round-seeded numpy choice."""
+        if per_round >= len(client_ids):
+            return list(client_ids)
+        idx = rng.sample_clients_np(round_idx, len(client_ids), per_round)
+        return [client_ids[i] for i in idx]
+
+
+class FedMLServerManager(FedMLCommManager):
+    def __init__(self, cfg, aggregator: FedMLAggregator, backend: Optional[str] = None,
+                 logger: Optional[MetricsLogger] = None, secure: bool = False):
+        refuse_unported_server(cfg, secure=secure)
+        super().__init__(cfg, rank=0, size=cfg.client_num_in_total + 1, backend=backend)
+        from .runtime import ServerRuntime
+
+        self.aggregator = aggregator
+        self.round_idx = 0
+        self.comm_round = cfg.comm_round
+        self.client_ids = list(range(1, cfg.client_num_in_total + 1))
+        self.per_round = min(cfg.client_num_per_round, len(self.client_ids))
+        self.active_clients: set[int] = set()
+        self.selected: list[int] = []
+        self.done = threading.Event()
+        self.history: list[dict] = []
+        self.logger = logger or MetricsLogger(cfg.metrics_jsonl_path or None)
+        self.straggler_timeout = float(cfg_extra(cfg, "straggler_timeout_s") or 0)
+        self.quorum_frac = float(cfg_extra(cfg, "straggler_quorum_frac") or 0.5)
+        self._runtime = ServerRuntime()
+        self._agg_lock = threading.Lock()
+        self._init_sent = False
+        #: why the run cannot make progress; run_until_done raises with it
+        self.failed: Optional[str] = None
+        self._error: Optional[BaseException] = None
+        self._round_t0 = 0.0
+        self._round_payload_bytes = 0
+
+    # -- protocol ------------------------------------------------------------
+    def register_message_receive_handlers(self) -> None:
+        self.register_message_receive_handler(md.MSG_TYPE_C2S_CLIENT_STATUS,
+                                              self.handle_message_client_status)
+        self.register_message_receive_handler(md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER,
+                                              self.handle_message_receive_model)
+        self.register_message_receive_handler(md.MSG_TYPE_C2S_FINISHED,
+                                              self.handle_message_client_finished)
+
+    def receive_message(self, msg_type: int, msg: Message) -> None:
+        try:
+            super().receive_message(msg_type, msg)
+        except Exception as e:
+            self.abort(f"handler of message type {msg_type} raised {e!r}", e)
+            raise
+
+    def abort(self, reason: str, error: Optional[BaseException] = None) -> None:
+        """Fail the run now: record why, tell the clients to finish, wake
+        ``run_until_done`` (which raises).  Client managers call it when
+        their own handler raises."""
+        if self.done.is_set():
+            return
+        log.error("cross-silo run failed: %s", reason)
+        self.failed, self._error = reason, error
+        self.send_finish()
+
+    def start(self) -> None:
+        """Ask every client for status; a re-probe timer retries the ranks
+        still missing."""
+        for cid in self.client_ids:
+            self.send_message(Message(md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS, 0, cid))
+        self._arm_status_reprobe()
+
+    def _arm_status_reprobe(self, attempt: int = 0) -> None:
+        self._runtime.arm(
+            self, "status_probe",
+            backoff_delay(attempt, base=0.1, cap=1.0, purpose=BACKOFF_PURPOSE_STATUS_PROBE),
+            lambda: self._on_status_reprobe(attempt))
+
+    def _on_status_reprobe(self, attempt: int = 0) -> None:
+        with self._agg_lock:
+            if self._init_sent or self.done.is_set():
+                return
+            missing = [c for c in self.client_ids if c not in self.active_clients]
+        for cid in missing:
+            self.send_message(Message(md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS, 0, cid))
+        self._arm_status_reprobe(attempt + 1)
+
+    def handle_message_client_status(self, msg: Message) -> None:
+        with self._agg_lock:
+            if msg.get(md.MSG_ARG_KEY_CLIENT_STATUS) == md.CLIENT_STATUS_ONLINE:
+                self.active_clients.add(msg.get_sender_id())
+            ready = len(self.active_clients) == len(self.client_ids)
+        if ready:
+            self.send_init_msg()
+
+    def send_init_msg(self) -> None:
+        """Global model + per-client index to every selected client, once."""
+        with self._agg_lock:
+            if self._init_sent:
+                return
+            self._init_sent = True
+            self._broadcast_model(md.MSG_TYPE_S2C_INIT_CONFIG)
+
+    def handle_message_receive_model(self, msg: Message) -> None:
+        with self._agg_lock:
+            if msg.get(md.MSG_ARG_KEY_ROUND_INDEX) != self.round_idx:
+                return  # stale round (post-timeout arrival)
+            self._round_payload_bytes += int(msg.wire_nbytes)
+            self.aggregator.add_local_trained_result(
+                int(msg.get_sender_id()), msg.get(md.MSG_ARG_KEY_MODEL_PARAMS),
+                float(msg.get(md.MSG_ARG_KEY_NUM_SAMPLES)))
+            if self.aggregator.check_whether_all_receive(len(self.selected)):
+                self._finish_round()
+
+    def _arm_straggler_timer(self) -> None:
+        if self.straggler_timeout <= 0:
+            return
+        self._runtime.arm(self, "straggler", self.straggler_timeout, self._on_straggler_timeout)
+
+    def _on_straggler_timeout(self) -> None:
+        with self._agg_lock:
+            need = max(1, int(math.ceil(self.quorum_frac * len(self.selected))))
+            if self.aggregator.received_count() >= need:
+                log.warning("round %d: straggler timeout, aggregating %d/%d clients",
+                            self.round_idx, self.aggregator.received_count(), len(self.selected))
+                self._finish_round()
+            else:
+                self._arm_straggler_timer()  # keep waiting for quorum
+
+    def _finish_round(self) -> None:
+        """Aggregate, evaluate, then sync the next round or finish.  Caller
+        holds _agg_lock."""
+        self._runtime.cancel(self, "straggler")
+        t0 = time.perf_counter()
+        self.aggregator.aggregate(self.round_idx)
+        metrics = {"round": self.round_idx, **self.aggregator.round_metrics()}
+        if self.cfg.frequency_of_the_test and (
+            (self.round_idx + 1) % self.cfg.frequency_of_the_test == 0
+            or self.round_idx == self.comm_round - 1
+        ):
+            metrics.update(self.aggregator.test_on_server())
+        if self.aggregator.device.type == "cuda":
+            torch.cuda.synchronize(self.aggregator.device)
+        end = time.perf_counter()
+        metrics.update(round_time_s=end - self._round_t0, aggregate_time_s=end - t0,
+                       upload_bytes=self._round_payload_bytes)
+        self.logger.log(metrics)
+        self.history.append(metrics)
+        self.round_idx += 1
+        if self.round_idx >= self.comm_round:
+            self.send_finish()
+            return
+        self._broadcast_model(md.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT)
+
+    def _broadcast_model(self, msg_type: int) -> None:
+        """Select clients, send them the global model, arm the straggler
+        timer.  Caller holds _agg_lock."""
+        self.selected = self.aggregator.client_selection(
+            self.round_idx, self.client_ids, self.per_round)
+        self._round_t0 = time.perf_counter()
+        self._round_payload_bytes = 0
+        params = self.aggregator.host_global_flax()
+        for cid in self.selected:
+            msg = Message(msg_type, 0, cid)
+            msg.add_params(md.MSG_ARG_KEY_MODEL_PARAMS, params)
+            msg.add_params(md.MSG_ARG_KEY_CLIENT_INDEX, cid - 1)
+            msg.add_params(md.MSG_ARG_KEY_ROUND_INDEX, self.round_idx)
+            self.send_message(msg)
+        self._arm_straggler_timer()
+
+    def send_finish(self) -> None:
+        for cid in self.client_ids:
+            self.send_message(Message(md.MSG_TYPE_S2C_FINISH, 0, cid))
+        self.done.set()
+        self.finish()
+
+    def handle_message_client_finished(self, msg: Message) -> None:
+        pass  # bookkeeping only
+
+    def finish(self) -> None:
+        self._runtime.cancel(self)
+        super().finish()
+        self._runtime.close()
+
+    def run_until_done(self, timeout: float = 600.0) -> list[dict]:
+        thread = self.run_in_thread()
+        self.start()
+        if not self.done.wait(timeout):
+            self.finish()
+            raise TimeoutError(f"cross-silo run did not finish in {timeout}s "
+                               f"(round {self.round_idx})")
+        thread.join(timeout=5.0)
+        if self.failed:
+            raise RuntimeError(f"cross-silo run failed: {self.failed}") from self._error
+        return self.history

@@ -23,6 +23,13 @@ top operators by host (self CPU) time and by device time.  ``--fused`` and
 weights), warms both up, and times PAIRS rounds of each without the
 profiler, alternating the order (fused first in even pairs): the fused vs
 unfused A/B of round time on one card.
+
+``--silos`` instead builds the cross-silo path of ``chip_smoke.py`` phase 5
+(the flagship recipe as 4 fused silos) and times the silos' local SGD of one
+round, without the wire and SecAgg: the 4 trainers one after another on one
+thread, then on 4 threads at once as the cross-silo run drives them (with
+Python's default GIL switch interval of 5 ms, then 0.5 ms), then the
+threaded round once more under the profiler (device busy and idle shares).
 """
 
 from __future__ import annotations
@@ -67,6 +74,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fused", type=int, default=None, help="override extra.fused_blocks")
     ap.add_argument("--compression", default=None, help="override compression (FedSGD)")
     ap.add_argument("--ab", type=int, default=0, help="pairs of fused/unfused rounds to time")
+    ap.add_argument("--silos", action="store_true",
+                    help="time the cross-silo silos' local SGD, one thread vs four")
     args = ap.parse_args(argv)
 
     import torch
@@ -85,6 +94,8 @@ def main(argv=None) -> int:
     print(f"card: {smi}")
     if args.ab:
         return _ab(args.ab)
+    if args.silos:
+        return _silos()
     cfg = fedml_tpu_torch.init(argv=["--cf", args.cf])
     if args.fused is not None:
         cfg.extra["fused_blocks"] = bool(args.fused)
@@ -161,6 +172,72 @@ def _ab(pairs: int) -> int:
         per_step = [dt / st * 1e3 for dt, st in times[fused]]
         print(f"fused={fused}: median {statistics.median(per_step):.2f} ms/step over {pairs} rounds "
               f"(min {min(per_step):.2f}, max {max(per_step):.2f})")
+    return 0
+
+
+def _silos() -> int:
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.training_type, cfg.role, cfg.backend = "cross_silo", "server", "INPROC"
+    cfg.client_num_in_total = cfg.client_num_per_round = 4
+    cfg.extra["fused_blocks"] = True
+    cfg.metrics_jsonl_path = ""
+    group = FedMLRunner(cfg).runner
+    group.setup()
+    trainers = [c.trainer for c in group.clients]
+    global_vars, seed = group.server.aggregator.global_vars, rng.root_key(cfg.random_seed)
+    steps = sum(t.trained_samples for t in trainers) // cfg.batch_size
+
+    def in_turn(r):
+        for i, t in enumerate(trainers):
+            t.train(global_vars, r, seed, i)
+
+    def threaded(r):
+        threads = [threading.Thread(target=t.train, args=(global_vars, r, seed, i))
+                   for i, t in enumerate(trainers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    def timed(fn, r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(r)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    default = sys.getswitchinterval()
+    print(f"silos: shards {[t.count for t in trainers]}, {steps} local steps a round, batch "
+          f"{cfg.batch_size}, {cfg.compute_dtype}, fused; warm-up {timed(in_turn, 0):.3f} s")
+    for r, (name, fn, interval) in enumerate((
+            ("one thread, silos in turn", in_turn, default),
+            ("four threads at once", threaded, default),
+            ("four threads at once, switch interval 0.5 ms", threaded, 5e-4),
+            ("one thread, silos in turn", in_turn, default)), start=1):
+        sys.setswitchinterval(interval)
+        dt = timed(fn, r)
+        print(f"{name}: {dt:.3f} s, {dt / steps * 1e3:.2f} ms/step")
+    sys.setswitchinterval(default)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_s = timed(threaded, 5)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = _busy_us(events)
+    print(f"four threads at once, profiled: wall {wall_s:.3f} s, device busy "
+          f"{busy_us / 1e6:.3f} s = {100 * busy_us / (wall_s * 1e6):.1f}% of wall, idle "
+          f"{100 * (1 - busy_us / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device "
+          "events/step")
+    print("top operators by self CPU time:")
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=TOP,
+                                    max_name_column_width=60))
     return 0
 
 

@@ -47,7 +47,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 def _lib():
@@ -114,7 +114,7 @@ def _fwd_cuda(y, scale, shift, residual):
         y.numel(), y.shape[-1], build.current_stream(y.device, "fused block kernel"))
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
-    kernel.launches += 1
+    kernel.count_launch()
     return out
 
 
@@ -134,7 +134,7 @@ def _bwd_cuda(g, y, scale, out, with_residual: bool):
         build.current_stream(y.device, "fused block kernel"))
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
-    kernel.launches += 1
+    kernel.count_launch()
     return dy, d_scale, d_shift, dr
 
 

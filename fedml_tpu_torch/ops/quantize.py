@@ -48,7 +48,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 def noise_shape(length: int) -> tuple:
@@ -102,7 +102,7 @@ def _quantize_cuda(vec: torch.Tensor, noise: torch.Tensor):
                                build.current_stream(x.device, "quantize kernel"))
     if err != 0:
         raise RuntimeError(f"{QUANTIZE.name}: CUDA launch failed with error {err}")
-    QUANTIZE.launches += 1
+    QUANTIZE.count_launch()
     return values, scales, n
 
 
@@ -121,7 +121,7 @@ def _dequantize_cuda(values: torch.Tensor, scales: torch.Tensor, length: int) ->
                                  build.current_stream(values.device, "dequantize kernel"))
     if err != 0:
         raise RuntimeError(f"{DEQUANTIZE.name}: CUDA launch failed with error {err}")
-    DEQUANTIZE.launches += 1
+    DEQUANTIZE.count_launch()
     return out
 
 

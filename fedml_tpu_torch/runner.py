@@ -1,7 +1,9 @@
 """FedMLRunner — platform dispatch (the port of ``fedml_tpu/runner.py``).
 
-Ported so far: the simulation platform with the FedAvg family and FedSGD;
-every other platform and optimizer raises ``NotImplementedError``.
+Ported so far: the simulation platform with the FedAvg family and FedSGD,
+and the cross-silo platform (``cross_silo/``: the plain synchronous server
+and Shamir SecAgg, in one process); every other platform and optimizer
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -10,13 +12,15 @@ from . import constants as C
 from .arguments import Config
 from .core.device import resolve_device
 
+_PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO)
 _PORTED_OPTIMIZERS = (C.FEDERATED_OPTIMIZER_FEDAVG, C.FEDERATED_OPTIMIZER_FEDAVG_SEQ,
                       C.FEDERATED_OPTIMIZER_FEDSGD)
 
 
 class FedMLRunner:
-    """Builds the simulator for ``cfg`` on ``device`` (the card unless the
-    caller names another; with no CUDA and no device this raises)."""
+    """Builds the simulator or the cross-silo runner for ``cfg`` on
+    ``device`` (the card unless the caller names another; with no CUDA and
+    no device this raises)."""
 
     def __init__(self, cfg: Config, dataset=None, model=None, client_trainer=None,
                  server_aggregator=None, device=None):
@@ -24,17 +28,26 @@ class FedMLRunner:
         self.device = resolve_device(device)
         self.dataset = dataset
         self.model = model
-        if cfg.training_type != C.TRAINING_PLATFORM_SIMULATION:
+        if cfg.training_type not in _PORTED_PLATFORMS:
             raise NotImplementedError(f"training_type {cfg.training_type!r} is not ported "
-                                      "yet (first port slice: simulation)")
+                                      f"yet (ported: {_PORTED_PLATFORMS})")
         if cfg.federated_optimizer not in _PORTED_OPTIMIZERS:
             raise NotImplementedError(f"federated_optimizer {cfg.federated_optimizer!r} is "
                                       f"not ported yet (ported: {_PORTED_OPTIMIZERS})")
         if server_aggregator is not None:
             raise NotImplementedError("custom server_aggregator is not ported yet")
-        self.runner = self._init_simulation_runner(client_trainer)
+        if cfg.training_type == C.TRAINING_PLATFORM_CROSS_SILO:
+            if client_trainer is not None:
+                raise NotImplementedError("custom client_trainer is not ported to cross-silo yet")
+            from .cross_silo import create_cross_silo_runner, refuse_unported_cross_silo
 
-    def _init_simulation_runner(self, client_trainer):
+            refuse_unported_cross_silo(cfg)  # before the data is loaded
+            self._load_dataset_and_model()
+            self.runner = create_cross_silo_runner(cfg, self.dataset, self.model, self.device)
+        else:
+            self.runner = self._init_simulation_runner(client_trainer)
+
+    def _load_dataset_and_model(self) -> None:
         if self.dataset is None:
             from .data import loader
 
@@ -43,6 +56,9 @@ class FedMLRunner:
             from .models import model_hub
 
             self.model = model_hub.create(self.cfg, self.dataset.class_num)
+
+    def _init_simulation_runner(self, client_trainer):
+        self._load_dataset_and_model()
         from .sim.engine import MeshSimulator
 
         return MeshSimulator(self.cfg, self.dataset, self.model, algorithm=client_trainer,

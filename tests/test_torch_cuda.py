@@ -11,7 +11,12 @@ to one bf16 ulp (the same f32 math and rounding), d_scale / d_shift to rtol
 ResNet step on the card against the CPU to rtol 1e-3 / atol 1e-4 (cuDNN and
 CPU convolutions, TF32 off).  The int8 quantize / dequantize kernels:
 values, scales and the dequantized vector bitwise against the plain
-versions on the card and on the CPU (IEEE divides, order-free max).
+versions on the card and on the CPU (IEEE divides, order-free max).  The
+central-DP noise kernel: bitwise against its plain version on the card and
+on the CPU (the multiply, then the add, each rounded).  A Shamir SecAgg
+finalize on the card against the CPU: bitwise without DP; with central DP
+the clip's norm sums in another order, so one ulp plus 1e-5 of the clipped
+delta's largest element (two ulps after the noise).
 """
 
 import numpy as np
@@ -184,3 +189,122 @@ def test_fedsgd_qsgd_int8_round_launches_the_kernels(cuda_device, tmp_path):
     hist = runner.run()
     assert qz.launch_counts() == {qz.QUANTIZE.name: 8, qz.DEQUANTIZE.name: 8}
     assert np.isfinite(hist[-1]["test_loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 4097, 271098, 2**20 + 3])
+def test_noise_kernel_matches_plain_version(n, cuda_device):
+    """Bitwise at the slice's DP sigma and at 0.25; sigma 0 is the identity;
+    one launch per call."""
+    from fedml_tpu_torch.ops import noise as nz
+    from fedml_tpu_torch.trust.dp.dp import gaussian_sigma
+
+    rs = np.random.RandomState(n % 997)
+    x = torch.from_numpy(rs.randn(n).astype(np.float32)).to(cuda_device)
+    noise = torch.from_numpy(rs.randn(*nz.noise_shape(n)).astype(np.float32)).to(cuda_device)
+    for sigma in (gaussian_sigma(50.0, 1e-5, 0.01), 0.25):
+        before = nz.launch_counts()[nz.NOISE.name]
+        out = nz.apply_gaussian_noise(x, noise, sigma)
+        assert nz.launch_counts()[nz.NOISE.name] == before + 1
+        assert out.shape == (n,) and out.device == x.device
+        assert torch.equal(out, nz.apply_gaussian_noise_reference(x, noise, sigma))
+        assert torch.equal(out.cpu(), nz.apply_gaussian_noise_reference(x.cpu(), noise.cpu(),
+                                                                        sigma))
+    assert torch.equal(nz.apply_gaussian_noise(x, noise, 0.0), x)
+
+
+@pytest.mark.cuda
+def test_noise_kernel_rejects_bad_operands(cuda_device):
+    from fedml_tpu_torch.ops import noise as nz
+
+    x = torch.randn(3000, device=cuda_device)
+    noise = torch.randn(nz.noise_shape(3000), device=cuda_device)
+    with pytest.raises(ValueError, match="noise must be"):
+        nz.apply_gaussian_noise(x, noise[:2], 0.1)
+    with pytest.raises(ValueError, match="noise must be"):
+        nz.apply_gaussian_noise(x, noise.double(), 0.1)
+    with pytest.raises(ValueError, match="noise on"):
+        nz.apply_gaussian_noise(x, noise.cpu(), 0.1)
+    with pytest.raises(ValueError, match="flat vector"):
+        nz.apply_gaussian_noise(x[:0], noise[:0], 0.1)
+
+
+class _FixedNoise:
+    """The same N(0, 1) draw for every device (made with numpy)."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def gaussian(self, round_idx, shape, device):
+        self.calls += 1
+        rs = np.random.RandomState(1000 + round_idx)
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device)
+
+
+def _secagg_finalize(device, dp: bool):
+    """One streamed Shamir SecAgg round of 4 silos (client 4 drops out
+    before its upload) finalized by ``SAAggregator`` on ``device``; returns
+    ``(new global flat, clipped global flat or None)`` on the CPU."""
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.cross_silo import secagg_shamir as sa
+    from fedml_tpu_torch.models import resnet
+    from fedml_tpu_torch.trust.secagg.shamir import shamir_share
+
+    p = 2**31 - 1
+    kw = dict(enable_dp=True, dp_solution_type="cdp", epsilon=50.0, delta=1e-5,
+              sensitivity=0.01, clipping_norm=1.0) if dp else {}
+    cfg = Config(dataset="cifar10", model="resnet20", client_num_in_total=4,
+                 client_num_per_round=4, training_type="cross_silo", enable_secagg=True,
+                 extra={"secagg_method": "shamir", "secagg_stream": True,
+                        "secagg_privacy_t": 2}, **kw)
+    model = resnet.resnet20(10)
+    init = model.init(torch.Generator().manual_seed(0), "cpu")
+    test = (np.zeros((32, 32, 32, 3), np.float32), np.zeros(32, np.int64), 32)
+    agg = sa.SAAggregator(cfg, model, test, device, global_vars=init, noise_sampler=_FixedNoise())
+    base = weights.flatten_reference(init)[0].numpy()
+    rs = np.random.RandomState(3)
+    s_sk = {u: int(rs.randint(2, p - 1)) for u in (1, 2, 3, 4)}
+    agg.s_pk_table = {u: pow(sa.DH_G, k, p) for u, k in s_sk.items()}
+    b = {u: int(rs.randint(0, 2**31)) for u in (1, 2, 3, 4)}
+    b_sh = {u: shamir_share(b[u], 4, 3, rs) for u in b}
+    sk_sh = {u: shamir_share(s_sk[u], 4, 3, rs) for u in b}
+    survivors = (1, 2, 3)
+    for u in survivors:
+        flat = (base + rs.normal(0, 0.01, base.size)).astype(np.float32)
+        peers = {v: sa.derive_round_seed(sa.dh_agree(s_sk[u], agg.s_pk_table[v]), 0)
+                 for v in b if v != u}
+        packed, meta = sa.mask_upload(flat, u, peers, sa.derive_round_seed(b[u], 0), 16, agg.ring)
+        agg.add_masked_upload(u, packed, 1.0, meta)
+    for v in survivors:
+        agg.add_reveal(v, {str(u): b_sh[u][v - 1][1] for u in survivors},
+                       {"4": sk_sh[4][v - 1][1]})
+    agg.aggregate(0)
+    assert agg.noise_sampler.calls == int(dp) and 4 in agg.compromised
+    pre = agg.dp_pre_noise.cpu().numpy() if dp else None
+    return weights.flatten_reference(agg.global_vars)[0].cpu().numpy(), pre, base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", [False, True])
+def test_secagg_finalize_card_matches_cpu(dp, cuda_device):
+    """The same uploads and reveals finalized on the card and on the CPU:
+    without DP bitwise (the field math is the host's, the mean is copied to
+    the device once); with central DP the clip's norm sums in another order
+    on the card: within one ulp plus 1e-5 of the clipped delta's largest
+    element, then the noise kernel adds one more rounding of the same
+    operands (two ulps)."""
+    from fedml_tpu_torch.ops import noise as nz
+
+    before = nz.launch_counts()[nz.NOISE.name]
+    got, pre_card, base = _secagg_finalize(cuda_device, dp)
+    assert nz.launch_counts()[nz.NOISE.name] == before + int(dp)
+    want, pre_cpu, _ = _secagg_finalize("cpu", dp)
+    if not dp:
+        assert np.array_equal(got, want)
+        return
+    scale = np.abs(pre_cpu - base).max()
+    assert np.linalg.norm((pre_cpu - base).astype(np.float64)) == pytest.approx(1.0, rel=1e-4)
+    assert (np.abs(pre_card - pre_cpu) <= np.spacing(np.abs(pre_cpu)) + 1e-5 * scale).all()
+    assert (np.abs(got - want) <= 2 * np.spacing(np.abs(want)) + 1e-5 * scale).all()
+    assert not np.array_equal(got, pre_card)
