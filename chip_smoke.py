@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; no phase is caught):
    version on the card at the three flagship shapes in f32 and bf16 (TF32
    off): forward f32 bitwise, dy / dr bitwise, d_scale / d_shift within
    ``1e-5 * sum|terms|`` per channel (f32 sums in another order), bf16
-   within one bf16 ulp.  Hold the int8 quantize and dequantize kernels
+   within one bf16 ulp; each backward line names the variant that ran
+   (16-byte "vector" loads or "scalar"), and each fused kernel gets a line
+   of its device time and bound over a local step, weighted by its
+   launches at the three shapes.  Hold the int8 quantize and dequantize kernels
    against theirs at the FedSGD gradient's length (269,722 elements, 264
    blocks) and at 2^24 elements: int8 values, scales and the dequantized
    vector bitwise.  Hold the central-DP noise kernel against its plain
@@ -73,6 +76,11 @@ import time
 FLAGSHIP = "examples/sp_fedavg_cifar10_resnet20/fedml_config.yaml"
 FEDSGD = "examples/sp_fedsgd_eftopk_cifar10_resnet20/fedml_config.yaml"
 SHAPES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64)]
+# launches of each fused kernel per local step at each of SHAPES (ResNet-20:
+# the stem and each block's first BN + ReLU without a residual, each block's
+# second with one; the backward mirrors the forward)
+STEP_LAUNCHES = {"fused_bn_relu_fwd": (4, 3, 3), "fused_bn_residual_relu_fwd": (3, 3, 3),
+                 "fused_bn_relu_bwd": (4, 3, 3), "fused_bn_residual_relu_bwd": (3, 3, 3)}
 GRAD_LENGTH = 269722  # ResNet-20's parameters: the FedSGD gradient
 QUANT_LENGTHS = [GRAD_LENGTH, 2**24]
 SECAGG_LENGTH = 271098  # ResNet-20's parameters and BN statistics: the SecAgg vector
@@ -212,6 +220,7 @@ def phase_kernels(fb):
     dev = torch.device("cuda")
     cases = _kernel_cases(fb)
     results = {name: {"max_abs_err": 0.0} for name in cases}
+    rows = {}  # (name, dtype) -> [(ms, bound_ms)] in the order of SHAPES
     for shape in SHAPES:
         c = shape[-1]
         n = math.prod(shape)
@@ -223,8 +232,10 @@ def phase_kernels(fb):
                      _gen((c,), torch.float32, dev, 10 * k + 5)) for k in range(n_sets)]
             for name, (kern, plain, build_args, nbytes, nflops) in cases.items():
                 arg_sets = [build_args(*b) for b in base]
+                variants = fb.variant_counts()
                 got, want = kern(*arg_sets[0]), plain(*arg_sets[0])
                 torch.cuda.synchronize()
+                variant = [k for k, v in fb.variant_counts().items() if v > variants[k]]
                 err = _compare(name, got, want, arg_sets[0], dtype)
                 results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
                 ms, plain_ms = _device_ms(kern, arg_sets), _device_ms(plain, arg_sets)
@@ -239,10 +250,18 @@ def phase_kernels(fb):
                 print(f"kernel {name} {row['dtype']} {tuple(shape)}: ok, device {ms * 1e3:.2f} us "
                       f"(plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
                       f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us, "
-                      f"max_abs_err {err:.3g}")
+                      f"max_abs_err {err:.3g}" + (f", {variant[0]} variant" if variant else ""))
+                rows.setdefault((name, row["dtype"]), []).append((ms, bound_ms))
                 if shape == SHAPES[0] and dtype == torch.bfloat16:
                     results[name].update({k: row[k] for k in
                                           ("ms", "plain_ms", "bound_ms", "bound_by")})
+    for (name, dtype), times in rows.items():
+        weights = STEP_LAUNCHES[name]
+        ms = sum(w * t for w, (t, _) in zip(weights, times))
+        bound_ms = sum(w * b for w, (_, b) in zip(weights, times))
+        print(f"kernel {name} {dtype} over a local step ({sum(weights)} launches, "
+              f"{'/'.join(map(str, weights))} at the three shapes): device {ms * 1e3:.2f} us, "
+              f"bound {bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}% of bound")
     return results
 
 

@@ -13,8 +13,9 @@ times one round without the profiler, then profiles one round with
 ``torch.profiler`` (CPU + CUDA).  Prints the card, the round wall time, the
 summed device time of all kernels, the device busy and idle shares (busy =
 union of kernel intervals over the window), the kernel launches per batch
-(a FedAvg local step, or one batch of a FedSGD full-shard gradient), and the
-top operators by host (self CPU) time and by device time.  ``--fused`` and
+(a FedAvg local step, or one batch of a FedSGD full-shard gradient) as the
+port counts them and as ``cudaLaunchKernel`` calls, and the top operators by
+host (self CPU) time and by device time.  ``--fused`` and
 ``--compression`` override the recipe's ``extra.fused_blocks`` and
 ``compression``; without them the recipe runs unchanged.
 
@@ -133,6 +134,9 @@ def main(argv=None) -> int:
           f"{100 * (1 - busy_us / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device events/batch")
     print(f"kernel launches (profiled round): {fb.launch_counts()} {qz.launch_counts()}")
     ka = prof.key_averages()
+    for name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+        calls = sum(e.count for e in ka if e.key == name)
+        print(f"{name}: {calls} calls, {calls / steps:.1f} a batch")
     print("top operators by self CPU time:")
     print(ka.table(sort_by="self_cpu_time_total", row_limit=TOP, max_name_column_width=60))
     print("top operators by device time:")

@@ -4,9 +4,11 @@ The port of ``fedml_tpu/ops/pallas/fused_block.py``.  Four hand-written CUDA
 kernels (``csrc/fused_block.cu``; its header note names the TPU kernels they
 replace, their bound and their design) apply the BN affine folded by
 ``models/resnet._bn_scale_shift``, the shortcut add and the ReLU in one pass
-over an NHWC activation, and compute the backward in one pass plus a small
-fixed-order reduction.  ``torch.autograd.Function`` wrappers save
-``(y, scale, out)``: the ReLU mask is recovered as ``out > 0``.
+over an NHWC activation, and compute the backward in one launch: 16-byte
+vector loads where the shape and pointers allow (:func:`bwd_geometry`
+chooses), and a fixed-order cross-block fold of ``d_scale`` / ``d_shift``.
+``torch.autograd.Function`` wrappers save ``(y, scale, out)``: the ReLU mask
+is recovered as ``out > 0``.
 
 Beside the kernels, their plain PyTorch versions:
 :func:`fused_block_reference` (mirrors the JAX reference at L289) and
@@ -18,7 +20,9 @@ counts its launches on the card (:func:`launch_counts`).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import threading
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,10 +32,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_fwd": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _P]),
-    "fused_bwd": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "fused_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
+    "fused_bwd_blocks_per_sm": (_I, [_I, _I, _I, ctypes.POINTER(_I)]),
 }
-# rows of the backward's per-output scratch: kMaxRowBlocks in the .cu source
-_MAX_ROW_BLOCKS = 1024
+# the backward's block size and ticket slots: kThreads and kTicketSlots in
+# the .cu source
+THREADS = 256
+TICKET_SLOTS = 4096
+# most partials (row_blocks * 2 * C floats) the last block folds: 32 KB,
+# at most kFoldBatch 16-byte loads a thread, issued together
+FOLD_FLOATS = 8192
 
 FWD = build.Kernel("fused_bn_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:91")
 FWD_RES = build.Kernel("fused_bn_residual_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:85")
@@ -41,13 +51,27 @@ KERNELS = (FWD, FWD_RES, BWD, BWD_RES)
 SOURCE = "fedml_tpu_torch/csrc/fused_block.cu"
 
 
+# backward launches by variant: "vector" (16-byte loads) or "scalar"
+_VARIANTS = {"vector": 0, "scalar": 0}
+_VARIANTS_LOCK = threading.Lock()
+
+
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def variant_counts() -> dict:
+    """Backward launches on the card by variant, since the last reset."""
+    with _VARIANTS_LOCK:
+        return dict(_VARIANTS)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.reset()
+    with _VARIANTS_LOCK:
+        for key in _VARIANTS:
+            _VARIANTS[key] = 0
 
 
 def _lib():
@@ -118,24 +142,160 @@ def _fwd_cuda(y, scale, shift, residual):
     return out
 
 
+class BwdGeometry(NamedTuple):
+    """How the backward kernel covers a ``(rows, c)`` activation: ``vec``
+    channels a thread (16-byte loads when > 1), ``cg`` channel groups of
+    ``vec`` and ``rb`` rows side by side in a block of ``cg * rb`` threads,
+    a grid of ``row_blocks`` x ``channel_blocks`` blocks, block ``(bx, by)``
+    taking rows ``[bx * rows_per_block, ...)`` and channel groups ``[by *
+    cg, ...)``."""
+
+    rows: int
+    c: int
+    vec: int
+    cg: int
+    rb: int
+    row_blocks: int
+    channel_blocks: int
+    rows_per_block: int
+
+    @property
+    def scratch_floats(self) -> int:
+        """Scratch of a launch: a row of ``2 * c`` partials per row block."""
+        return self.row_blocks * 2 * self.c
+
+
+def vector_width(c: int, itemsize: int, aligned: bool) -> int:
+    """Channels a thread of the backward takes: those in 16 bytes (8 bf16,
+    4 f32) when ``c`` is a multiple of that and every operand is 16-byte
+    aligned (the vector variant), else 1 (the scalar variant)."""
+    vec = 16 // itemsize
+    return vec if c % vec == 0 and aligned else 1
+
+
+def aligned16(ptrs) -> bool:
+    """Whether every pointer is 16-byte aligned (the vector variant's
+    loads); outputs come from the allocator, which aligns them."""
+    return not any(p % 16 for p in ptrs)
+
+
+def bwd_geometry(rows: int, c: int, itemsize: int, aligned: bool, sm_count: int,
+                 blocks_per_sm: int) -> BwdGeometry:
+    """The backward's geometry on a card of ``sm_count`` SMs that hold
+    ``blocks_per_sm`` blocks each: one resident wave of row blocks, capped
+    by the rows (a row a thread at least) and by the partials the last
+    block folds (:data:`FOLD_FLOATS`)."""
+    vec = vector_width(c, itemsize, aligned)
+    groups = c // vec
+    cg = min(groups, THREADS)
+    rb = THREADS // cg
+    channel_blocks = -(-groups // cg)
+    wave = max(1, sm_count * blocks_per_sm // channel_blocks)
+    row_blocks = max(1, min(-(-rows // rb), wave, FOLD_FLOATS // (2 * c)))
+    rows_per_block = -(-rows // row_blocks)
+    row_blocks = -(-rows // rows_per_block)  # no block without rows
+    return BwdGeometry(rows, c, vec, cg, rb, row_blocks, channel_blocks, rows_per_block)
+
+
+@functools.lru_cache(maxsize=64)
+def _blocks_per_sm(device_index: int, dtype_code: int, vec: int, residual: bool) -> int:
+    """Resident backward blocks per SM (the occupancy API), once per device
+    and kernel instance.  The current device is ``device_index``."""
+    blocks = _I(0)
+    err = _lib().fused_bwd_blocks_per_sm(dtype_code, vec, int(residual), ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"fused block backward: occupancy query failed with error {err}")
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_geometry(device_index: int, dtype: torch.dtype, rows: int, c: int, aligned: bool,
+                     residual: bool):
+    """``(geometry, the int array the C entry takes)``, once per shape."""
+    code = _DTYPE_CODES[dtype]
+    occupancy = _blocks_per_sm(device_index, code, vector_width(c, dtype.itemsize, aligned),
+                               residual)
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    geo = bwd_geometry(rows, c, dtype.itemsize, aligned, sms, occupancy)
+    return geo, (_I * 9)(code, *geo)
+
+
+# Workspace of the backward, per (device index, stream): a ticket slot and
+# scratch rows.  Kernels on one stream run in order, so a stream's slot and
+# scratch are never used by two launches at once (the cross-silo clients'
+# threads share the default stream; tests run threads on streams of their
+# own).  Built under a lock, like build.load_library.
+_SLOTS: dict = {}  # (device index, stream) -> ticket slot
+_NEXT_SLOT: dict = {}  # device index -> first unused slot
+_SCRATCH: dict = {}  # (device index, stream) -> float32 scratch
+_WORKSPACE_LOCK = threading.Lock()
+
+
+def _ticket_slot(device_index: int, stream: Optional[int]) -> int:
+    """The ticket slot of ``stream`` on the device, assigned at its first
+    launch; with ``stream`` None (a call captured into a CUDA graph, which
+    may replay on any stream) a slot of its own, never handed out again."""
+    key = (device_index, stream)
+    slot = _SLOTS.get(key) if stream is not None else None
+    if slot is None:
+        with _WORKSPACE_LOCK:
+            slot = _SLOTS.get(key) if stream is not None else None
+            if slot is None:
+                slot = _NEXT_SLOT.get(device_index, 0)
+                if slot >= TICKET_SLOTS:
+                    raise RuntimeError(
+                        f"fused block backward: all {TICKET_SLOTS} ticket slots of device "
+                        f"{device_index} are taken (one per stream and per call captured "
+                        "into a CUDA graph)")
+                _NEXT_SLOT[device_index] = slot + 1
+                if stream is not None:
+                    _SLOTS[key] = slot
+    return slot
+
+
+def _workspace(device: torch.device, stream: int, floats: int):
+    """``(ticket slot, scratch)`` for a launch on ``stream``.  A call
+    captured into a CUDA graph gets a slot of its own and scratch from the
+    graph's pool, so graphs replayed on any stream never share them; an
+    eager call gets its stream's slot and scratch, grown when a launch needs
+    more (the old buffer is freed in stream order)."""
+    if torch.cuda.is_current_stream_capturing():
+        return (_ticket_slot(device.index, None),
+                torch.empty(floats, dtype=torch.float32, device=device))
+    slot = _ticket_slot(device.index, stream)
+    key = (device.index, stream)
+    scratch = _SCRATCH.get(key)
+    if scratch is None or scratch.numel() < floats:
+        with _WORKSPACE_LOCK:
+            scratch = _SCRATCH.get(key)
+            if scratch is None or scratch.numel() < floats:
+                scratch = torch.empty(floats, dtype=torch.float32, device=device)
+                _SCRATCH[key] = scratch
+    return slot, scratch
+
+
 def _bwd_cuda(g, y, scale, out, with_residual: bool):
     _check(y, (scale,), (g, out))
     kernel = BWD_RES if with_residual else BWD
-    n, c = y.numel(), y.shape[-1]
-    partial = torch.empty((2, _MAX_ROW_BLOCKS, c), dtype=torch.float32, device=y.device)
-    d_scale = torch.empty(c, dtype=torch.float32, device=y.device)
-    d_shift = torch.empty(c, dtype=torch.float32, device=y.device)
+    c = y.shape[-1]
+    stream = build.current_stream(y.device, "fused block kernel")
+    ptrs = (g.data_ptr(), y.data_ptr(), scale.data_ptr(), out.data_ptr())
+    aligned = aligned16(ptrs)
+    geo, geo_args = _launch_geometry(y.device.index, y.dtype, y.numel() // c, c, aligned,
+                                     with_residual)
     dy = torch.empty_like(y)
     dr = torch.empty_like(y) if with_residual else None
-    err = _lib().fused_bwd(
-        _DTYPE_CODES[y.dtype], g.data_ptr(), y.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), dy.data_ptr(), dr.data_ptr() if dr is not None else None,
-        partial.data_ptr(), d_scale.data_ptr(), d_shift.data_ptr(), n, c,
-        build.current_stream(y.device, "fused block kernel"))
+    dss = torch.empty((2, c), dtype=torch.float32, device=y.device)
+    slot, scratch = _workspace(y.device, stream, geo.scratch_floats)
+    err = _lib().fused_bwd(geo_args, *ptrs, dy.data_ptr(),
+                           dr.data_ptr() if dr is not None else None, dss.data_ptr(),
+                           scratch.data_ptr(), slot, stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
     kernel.count_launch()
-    return dy, d_scale, d_shift, dr
+    with _VARIANTS_LOCK:
+        _VARIANTS["vector" if geo.vec > 1 else "scalar"] += 1
+    return dy, dss[0], dss[1], dr
 
 
 def fused_block_forward(y, scale, shift, residual=None):
@@ -152,7 +312,8 @@ def fused_block_backward(g, y, scale, out, with_residual: bool):
     """One backward pass: ``(dy, d_scale, d_shift, dr)``, dispatched like
     :func:`fused_block_forward`."""
     if y.is_cuda:
-        return _bwd_cuda(g.contiguous(), y, scale, out, with_residual)
+        return _bwd_cuda(g if g.is_contiguous() else g.contiguous(), y, scale, out,
+                         with_residual)
     if y.device.type == "cpu":
         return fused_block_bwd_reference(g, y, scale, out, with_residual)
     raise RuntimeError(f"fused block has no kernel for device {y.device}")

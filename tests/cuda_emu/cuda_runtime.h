@@ -1,0 +1,88 @@
+// Host emulation of the CUDA features that fedml_tpu_torch/csrc/fused_block.cu
+// uses, for tests/test_torch_fused_block_emu.py (g++ -std=c++20, no card).
+// A block runs as blockDim.x std::threads; __syncthreads is a std::barrier,
+// __shfl_xor_sync exchanges through a per-block array between two barriers,
+// __shared__ variables are statics (blocks run one after another, in an
+// order the test chooses), and loads and fences are plain.
+#pragma once
+#include <barrier>
+#include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
+#define __shared__ static
+
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct float4 { float x, y, z, w; };
+
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim, blockDim;
+inline std::barrier<>* emu_barrier = nullptr;
+inline float emu_lanes[1024];
+inline std::mutex emu_atomic;
+
+inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+inline void __threadfence() {}
+inline float __shfl_xor_sync(unsigned, float v, unsigned off) {
+  emu_lanes[threadIdx.x] = v;
+  __syncthreads();
+  const float r = emu_lanes[threadIdx.x ^ off];
+  __syncthreads();
+  return r;
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  std::lock_guard<std::mutex> lock(emu_atomic);
+  const unsigned old = *p;
+  *p = old + v;
+  return old;
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, const void*, int, size_t) {
+  *b = 1;
+  return cudaSuccess;
+}
+
+// Runs body() as every thread of every block of grid x block, the blocks one
+// after another in `order` (linear ids y * grid.x + x).
+template <class F>
+void emu_launch(dim3 grid, dim3 block, const std::vector<unsigned>& order, F body) {
+  gridDim = grid;
+  blockDim = block;
+  for (unsigned id : order) {
+    std::barrier<> bar(block.x);
+    emu_barrier = &bar;
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t)
+      threads.emplace_back([&, t] {
+        threadIdx = dim3(t);
+        blockIdx = dim3(id % grid.x, id / grid.x);
+        body();
+      });
+    for (auto& th : threads) th.join();
+  }
+}

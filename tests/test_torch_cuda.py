@@ -7,7 +7,10 @@ with the card, where JAX is not installed:
 
 Tolerances: f32 forward and dy / dr bitwise against the plain versions, bf16
 to one bf16 ulp (the same f32 math and rounding), d_scale / d_shift to rtol
-1e-5 / atol 1e-4 (f32 sums of up to ~10k terms in another order); the fused
+1e-5 / atol 1e-4 (f32 sums of up to ~10k terms in another order), and at the
+flagship's stage shapes (up to 131k terms a channel) within 1e-5 * sum|terms|
+per channel, as ``chip_smoke.py`` holds them; the backward bitwise equal to
+itself over calls, under CUDA-graph replay and from two streams; the fused
 ResNet step on the card against the CPU to rtol 1e-3 / atol 1e-4 (cuDNN and
 CPU convolutions, TF32 off).  The int8 quantize / dequantize kernels:
 values, scales and the dequantized vector bitwise against the plain
@@ -84,6 +87,173 @@ def test_backward_reduction_is_deterministic(cuda_device):
         again = fb.fused_block_backward(g, y, s, out, True)
         for a, e in zip(again, first):
             assert torch.equal(a, e)
+
+
+STAGES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64)]
+
+
+def _assert_bwd_matches(got, want, g, y, out, residual):
+    """dy / dr bitwise in f32, one bf16 ulp in bf16; d_scale / d_shift
+    within 1e-5 * sum|terms| per channel."""
+    ulp = 0.0 if y.dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got[0], want[0], rtol=ulp, atol=0)
+    if residual:
+        torch.testing.assert_close(got[3], want[3], rtol=ulp, atol=0)
+    gm = g.float() * (out > 0).float()
+    c = y.shape[-1]
+    for i, terms in ((1, (gm * y.float()).abs()), (2, gm.abs())):
+        bound = 1e-5 * terms.reshape(-1, c).sum(0) + 1e-30
+        assert bool(((got[i] - want[i]).abs() <= bound).all()), i
+
+
+def _bwd_case(shape, dtype, device, residual, seed=11):
+    """``(g, y, scale, out)`` of one backward call."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, g, s, b = _inputs(shape, dtype, device, seed)
+    return g, y, s, fb.fused_block_reference(y, s, b, r if residual else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STAGES)
+def test_backward_matches_plain_at_stage_shapes(shape, dtype, residual, cuda_device):
+    """The one-launch backward at the flagship's three stage shapes, on the
+    vector variant (C = 16, 32, 64 are multiples of 4 and 8)."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    g, y, s, out = _bwd_case(shape, dtype, cuda_device, residual)
+    before, variants = fb.launch_counts(), fb.variant_counts()
+    got = fb.fused_block_backward(g, y, s, out, residual)
+    want = fb.fused_block_bwd_reference(g, y, s, out, residual)
+    _assert_bwd_matches(got, want, g, y, out, residual)
+    kernel = fb.BWD_RES if residual else fb.BWD
+    assert fb.launch_counts()[kernel.name] == before[kernel.name] + 1
+    assert fb.variant_counts()["vector"] == variants["vector"] + 1
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts one element past a 16-byte line."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,variant", [
+    ("c12_bf16", "scalar"), ("c6_f32", "scalar"), ("c300_bf16", "scalar"),
+    ("c300_f32", "vector"), ("misaligned_y_bf16", "scalar"), ("misaligned_g_f32", "scalar")])
+def test_backward_variant_choice(case, variant, cuda_device):
+    """C % VEC != 0 (VEC = 8 bf16, 4 f32) or an operand at an odd storage
+    offset take the scalar variant of the same kernel; C = 300 in bf16 also
+    puts channel tiles on blockIdx.y, and in f32 (a multiple of 4) takes the
+    vector variant with 75 channel groups a row.  Each matches the plain
+    version, and the wrapper reports the variant it chose."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    shape, dtype = {"c12_bf16": ((4, 7, 9, 12), torch.bfloat16),
+                    "c6_f32": ((4, 7, 9, 6), torch.float32),
+                    "c300_bf16": ((2, 3, 3, 300), torch.bfloat16),
+                    "c300_f32": ((2, 3, 3, 300), torch.float32),
+                    "misaligned_y_bf16": ((8, 8, 8, 16), torch.bfloat16),
+                    "misaligned_g_f32": ((8, 8, 8, 16), torch.float32)}[case]
+    g, y, s, out = _bwd_case(shape, dtype, cuda_device, True)
+    if case.startswith("misaligned_y"):
+        y = _misaligned(y)
+    if case.startswith("misaligned_g"):
+        g = _misaligned(g)
+    before = fb.variant_counts()
+    got = fb.fused_block_backward(g, y, s, out, True)
+    want = dict(before)
+    want[variant] += 1
+    assert fb.variant_counts() == want
+    _assert_bwd_matches(got, fb.fused_block_bwd_reference(g, y, s, out, True), g, y, out, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+def test_backward_bitwise_over_ten_calls(residual, cuda_device):
+    """At (128, 32, 32, 16) bf16 the grid is ~a thousand blocks that finish
+    in a different order each call; the fold order is fixed by the geometry,
+    so every output is bitwise the same."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    g, y, s, out = _bwd_case(STAGES[0], torch.bfloat16, cuda_device, residual)
+    first = fb.fused_block_backward(g, y, s, out, residual)
+    for _ in range(9):
+        again = fb.fused_block_backward(g, y, s, out, residual)
+        for a, e in zip(again, first):
+            assert (a is None and e is None) or torch.equal(a, e)
+
+
+@pytest.mark.cuda
+def test_backward_cuda_graph_replay_matches_eager(cuda_device):
+    """A backward captured in a CUDA graph and replayed 3 times equals the
+    eager call bitwise: its tickets were zero at capture and are reset by
+    each launch.  The outputs are poisoned before each replay, so a replay
+    that never reached its last block would show."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    g, y, s, out = _bwd_case(STAGES[1], torch.bfloat16, cuda_device, True)
+    want = fb.fused_block_backward(g, y, s, out, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fb.fused_block_backward(g, y, s, out, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fb.fused_block_backward(g, y, s, out, True)
+    for _ in range(3):
+        for t in got:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, e in zip(got, want):
+            assert torch.equal(a, e)
+
+
+@pytest.mark.cuda
+def test_backward_two_streams_at_once_match_serial(cuda_device):
+    """Two threads, each on its own stream (its own ticket slot and
+    scratch), run backward calls at once: every result is bitwise the same
+    call made serially."""
+    import threading
+
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    cases = [_bwd_case(STAGES[0], torch.bfloat16, cuda_device, True, seed=21),
+             _bwd_case(STAGES[2], torch.float32, cuda_device, False, seed=22)]
+    serial = [fb.fused_block_backward(*args, residual)
+              for args, residual in zip(cases, (True, False))]
+    torch.cuda.synchronize()
+    results, errors = [[], []], []
+
+    def work(i, residual):
+        try:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.default_stream())
+            with torch.cuda.stream(stream):
+                for _ in range(20):
+                    results[i].append(fb.fused_block_backward(*cases[i], residual))
+            stream.synchronize()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i, r)) for i, r in enumerate((True, False))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i in range(2):
+        assert len(results[i]) == 20
+        for res in results[i]:
+            for a, e in zip(res, serial[i]):
+                assert (a is None and e is None) or torch.equal(a, e)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ Tolerances:
   ``tests/test_pallas.py``.
 """
 
+import math
 from functools import partial
 
 import jax
@@ -187,3 +188,167 @@ def test_kernel_operand_checks():
         fb._check(y, (s.to(torch.bfloat16), b), ())
     with pytest.raises(ValueError, match="match"):
         fb._check(y, (s, b), (r.to(torch.bfloat16),))
+
+
+# -- the backward kernel's geometry (ops/fused_block.bwd_geometry) ------------
+# The CUDA kernel's thread -> data map, written out: block (bx, by), thread
+# t = j * cg + lc takes channels [(by * cg + lc) * vec, ... + vec) and rows
+# bx * rows_per_block + j, + rb, ... up to the block's end.
+
+FLAGSHIP_STAGES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64)]
+GEOMETRY_CASES = [(math.prod(s[:-1]), s[-1]) for s in FLAGSHIP_STAGES] + [
+    (rows, c) for c in (1, 3, 12, 16, 24, 64, 300) for rows in (70, 1000)]
+
+
+def _coverage(geo):
+    """How many times the kernel's threads visit each (row, channel)."""
+    counts = np.zeros(geo.rows * geo.c, np.int64)
+    for by in range(geo.channel_blocks):
+        chans = np.array([ch for lc in range(geo.cg)
+                          for ch in range((by * geo.cg + lc) * geo.vec,
+                                          (by * geo.cg + lc + 1) * geo.vec) if ch < geo.c])
+        for bx in range(geo.row_blocks):
+            r0 = bx * geo.rows_per_block
+            r1 = min(geo.rows, r0 + geo.rows_per_block)
+            rows = np.concatenate([np.arange(r0 + j, r1, geo.rb) for j in range(geo.rb)])
+            counts += np.bincount((rows[:, None] * geo.c + chans[None, :]).ravel(),
+                                  minlength=counts.size)
+    return counts
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,c", GEOMETRY_CASES)
+def test_bwd_geometry_covers_every_element_once(rows, c, itemsize):
+    """Every row and channel exactly once, on 1-4 simulated SMs, aligned or
+    not; the launch fits the kernel's limits, every block has rows, and the
+    last block folds at most FOLD_FLOATS partials."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    for sm_count in (1, 2, 3, 4):
+        for blocks_per_sm in (1, 8):
+            for aligned in (True, False):
+                geo = fb.bwd_geometry(rows, c, itemsize, aligned, sm_count, blocks_per_sm)
+                assert (geo.rows, geo.c) == (rows, c)
+                assert np.array_equal(_coverage(geo), np.ones(rows * c, np.int64)), geo
+                assert geo.cg * geo.rb <= fb.THREADS and geo.channel_blocks <= 65535
+                assert 32 % geo.cg or geo.cg * geo.rb % 32 == 0  # whole warps for the shuffles
+                assert geo.row_blocks <= max(1, sm_count * blocks_per_sm // geo.channel_blocks)
+                assert (geo.row_blocks - 1) * geo.rows_per_block < rows
+                assert geo.scratch_floats == geo.row_blocks * 2 * c
+                assert geo.row_blocks == 1 or geo.scratch_floats <= fb.FOLD_FLOATS
+
+
+def test_bwd_geometry_fills_the_card_once():
+    """On an H100 (132 SMs) the grid is at most one resident wave, with no
+    thread left without a row, and at most FOLD_FLOATS partials to fold."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    geo = fb.bwd_geometry(128 * 16 * 16, 32, 2, True, 100, 1)  # stage 2, bf16
+    assert (geo.vec, geo.cg, geo.rb) == (8, 4, 64)
+    assert geo.row_blocks == 100 and geo.rows_per_block == 328  # the wave
+    wide = fb.bwd_geometry(128 * 8 * 8, 64, 2, True, 132, 2)  # stage 3, bf16
+    assert wide.row_blocks == 64 and wide.scratch_floats == fb.FOLD_FLOATS
+    thin = fb.bwd_geometry(2048, 16, 4, True, 132, 8)  # a row a thread
+    assert thin.row_blocks == 32 and thin.rows_per_block == 64 == thin.rb
+    small = fb.bwd_geometry(100, 16, 2, True, 132, 8)  # capped by the rows
+    assert small.row_blocks == 1 and small.rows_per_block == 100
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+def test_vector_variant_exactly_when_divisible_and_aligned(itemsize):
+    """16-byte loads (VEC = 16 / itemsize channels a thread) exactly when C
+    is a multiple of VEC and every pointer is 16-byte aligned; the scalar
+    variant otherwise."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    vec = 16 // itemsize
+    for c in list(range(1, 70)) + [128, 300, 301]:
+        for aligned in (True, False):
+            want = vec if c % vec == 0 and aligned else 1
+            assert fb.vector_width(c, itemsize, aligned) == want
+            assert fb.bwd_geometry(64, c, itemsize, aligned, 2, 4).vec == want
+    dtype = {4: torch.float32, 2: torch.bfloat16}[itemsize]
+    base = torch.zeros(4096, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    for k in range(3 * vec):
+        view = base[k:k + 64].view(4, 16)
+        assert view.is_contiguous()
+        assert fb.aligned16([base.data_ptr(), view.data_ptr()]) == (k * itemsize % 16 == 0)
+
+
+def test_cpu_backward_counts_no_variant():
+    """The CPU path launches nothing: the backward's variant counts stay 0."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    fb.reset_launch_counts()
+    y, r, g, s, b = _t(*_inputs((2, 4, 4, 16), seed=7))
+    out = fb.fused_block_forward(y, s, b, r)
+    fb.fused_block_backward(g, y, s, out, True)
+    assert fb.variant_counts() == {"vector": 0, "scalar": 0}
+
+
+def test_ticket_slots_under_threads(monkeypatch):
+    """Ticket slots handed out from many threads at once: a stream keeps
+    one slot, every stream and every captured call gets a slot no other
+    holds, and running out raises."""
+    import sys
+    import threading
+
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    monkeypatch.setattr(fb, "_SLOTS", {})
+    monkeypatch.setattr(fb, "_NEXT_SLOT", {})
+    got, errors = {}, []
+
+    def work(w):
+        try:
+            mine = []
+            for k in range(50):
+                mine.append((("stream", w % 4), fb._ticket_slot(0, 1000 + w % 4)))
+                mine.append((("captured", w, k), fb._ticket_slot(0, None)))
+            got[w] = mine
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(w,)) for w in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    slots = {}
+    for mine in got.values():
+        for key, slot in mine:
+            slots.setdefault(key, set()).add(slot)
+    assert all(len(v) == 1 for v in slots.values())  # a stream keeps its slot
+    owners = [next(iter(v)) for v in slots.values()]
+    assert len(owners) == 4 + 16 * 50 == len(set(owners))  # no slot shared
+    assert fb._ticket_slot(1, 7) == 0  # per device
+    monkeypatch.setitem(fb._NEXT_SLOT, 1, fb.TICKET_SLOTS)
+    with pytest.raises(RuntimeError, match="ticket slots"):
+        fb._ticket_slot(1, None)
+
+
+def test_ablation_copies_patch_the_kernel_source():
+    """obs/ablate_bwd.py cuts the kernel at marked places of its source;
+    each cut-down copy differs from the source where it should."""
+    from fedml_tpu_torch.obs import ablate_bwd
+    from fedml_tpu_torch.ops import build
+
+    src = build.SOURCES["fused_block"].read_text()
+    copies = ablate_bwd.variants(src)
+    assert copies["full"] == src
+    for name in ("no_fold", "no_reduction"):
+        assert copies[name].count(ablate_bwd.EXIT.strip()) == 1
+        assert copies[name].index(ablate_bwd.EXIT.strip()) < copies[name].index(
+            ablate_bwd.FOLD_START.strip())
+    assert copies["no_reduction"].index(ablate_bwd.EXIT.strip()) < copies["no_reduction"].index(
+        ablate_bwd.REDUCTION_START.strip())
+    assert "constexpr int kUnroll = 4;" in copies["unroll4"]
+    with pytest.raises(RuntimeError, match="has no"):
+        ablate_bwd.variants(src.replace(ablate_bwd.FOLD_START, ""))
