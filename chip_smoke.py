@@ -9,20 +9,25 @@ Phases (any failure exits non-zero; no phase is caught):
    per source, all started together).
 2. Hold each of the four fused BasicBlock kernels against its plain PyTorch
    version on the card at the three flagship shapes in f32 and bf16 (TF32
-   off): forward f32 bitwise, dy / dr bitwise, d_scale / d_shift within
-   ``1e-5 * sum|terms|`` per channel (f32 sums in another order), bf16
-   within one bf16 ulp; each backward line names the variant that ran
-   (16-byte "vector" loads or "scalar"), and each fused kernel gets a line
-   of its device time and bound over a local step, weighted by its
-   launches at the three shapes.  Hold the int8 quantize and dequantize kernels
+   off): the forward bitwise in both dtypes, dy / dr bitwise in f32 and
+   within one bf16 ulp in bf16, d_scale / d_shift within
+   ``1e-5 * sum|terms|`` per channel (f32 sums in another order); each line
+   names the variant that ran (16-byte "vector" loads or "scalar", the
+   forward's prefixed "fwd_"), each forward line also gives the device time
+   of the PyTorch elementwise op that moves the same bytes (``torch.relu(y)``
+   beside the forward without the residual, ``torch.add(y, r)`` beside the
+   one with it: the card's streaming yardstick, ``stream_ms``), and each
+   fused kernel gets a line of its device time and bound over a local step,
+   weighted by its launches at the three shapes.  The forward's scalar
+   variant (odd C, a misaligned operand) is held bitwise too.  Hold the int8 quantize and dequantize kernels
    against theirs at the FedSGD gradient's length (269,722 elements, 264
    blocks) and at 2^24 elements: int8 values, scales and the dequantized
    vector bitwise.  Hold the central-DP noise kernel against its plain
    version at the SecAgg vector's length (271,098: ResNet-20's parameters
    and BN statistics) and at 2^24, bitwise, at the slice's DP sigma, at
    0.25 and at 0 (the identity).  Time each kernel and its plain version
-   with CUDA events over CUDA-graph replays (device time; inputs rotated
-   through more than the 50 MB L2) and as eager calls (host overhead
+   with CUDA events over CUDA-graph replays (device time; each kernel's
+   inputs rotated through more than twice the 50 MB L2) and as eager calls (host overhead
    included), next to its bound (bytes at 3.35 TB/s vs operations at 67
    TFLOP/s); for the noise kernel also the one PyTorch call that computes
    the same function, ``torch.add(x, noise, alpha=sigma)``.  Then a fused
@@ -152,7 +157,8 @@ def _device_ms(fn, arg_sets, replays=25):
 
 
 def _kernel_cases(fb):
-    """name -> (kernel call, plain call, operand maker, bytes(n, C, item), flops(n))."""
+    """name -> (kernel call, plain call, operand maker, bytes(n, C, item), flops(n),
+    the same-bytes PyTorch stream or None)."""
     def fwd_args(y, r, g, s, b):
         return y, s, b
 
@@ -167,19 +173,24 @@ def _kernel_cases(fb):
         out = fb.fused_block_reference(y, s, b, r)
         return g, y, s, out
 
+    import torch
+
     return {
         fb.FWD.name: (lambda y, s, b: fb.fused_block_forward(y, s, b),
                       lambda y, s, b: fb.fused_block_reference(y, s, b),
-                      fwd_args, lambda n, c, it: 2 * n * it + 2 * c * 4, lambda n: 3 * n),
+                      fwd_args, lambda n, c, it: 2 * n * it + 2 * c * 4, lambda n: 3 * n,
+                      lambda y, s, b: torch.relu(y)),
         fb.FWD_RES.name: (lambda y, s, b, r: fb.fused_block_forward(y, s, b, r),
                           lambda y, s, b, r: fb.fused_block_reference(y, s, b, r),
-                          fwd_res_args, lambda n, c, it: 3 * n * it + 2 * c * 4, lambda n: 4 * n),
+                          fwd_res_args, lambda n, c, it: 3 * n * it + 2 * c * 4, lambda n: 4 * n,
+                          lambda y, s, b, r: torch.add(y, r)),
         fb.BWD.name: (lambda g, y, s, o: fb.fused_block_backward(g, y, s, o, False),
                       lambda g, y, s, o: fb.fused_block_bwd_reference(g, y, s, o, False),
-                      bwd_args, lambda n, c, it: 4 * n * it + 3 * c * 4, lambda n: 6 * n),
+                      bwd_args, lambda n, c, it: 4 * n * it + 3 * c * 4, lambda n: 6 * n, None),
         fb.BWD_RES.name: (lambda g, y, s, o: fb.fused_block_backward(g, y, s, o, True),
                           lambda g, y, s, o: fb.fused_block_bwd_reference(g, y, s, o, True),
-                          bwd_res_args, lambda n, c, it: 5 * n * it + 3 * c * 4, lambda n: 6 * n),
+                          bwd_res_args, lambda n, c, it: 5 * n * it + 3 * c * 4, lambda n: 6 * n,
+                          None),
     }
 
 
@@ -204,9 +215,10 @@ def _compare(name, got, want, operands, dtype):
             bound = 1e-5 * terms.reshape(-1, terms.shape[-1]).sum(0) + 1e-30
             if not bool(((a32 - b32).abs() <= bound).all()):
                 raise AssertionError(f"{name} output {i} {dtype}: reduction beyond 1e-5*sum|terms|")
-        elif dtype == torch.float32:
+        elif dtype == torch.float32 or name.endswith("_fwd"):
             if not torch.equal(a, b):
-                raise AssertionError(f"{name} output {i} f32: not bitwise equal to the plain version")
+                raise AssertionError(f"{name} output {i} {dtype}: not bitwise equal to the "
+                                     "plain version")
         else:
             tol = 2.0 ** -8 * b32.abs()  # one bf16 ulp
             if not bool(((a32 - b32).abs() <= tol).all()):
@@ -220,17 +232,19 @@ def phase_kernels(fb):
     dev = torch.device("cuda")
     cases = _kernel_cases(fb)
     results = {name: {"max_abs_err": 0.0} for name in cases}
-    rows = {}  # (name, dtype) -> [(ms, bound_ms)] in the order of SHAPES
+    rows = {}  # (name, dtype) -> [(ms, bound_ms, stream_ms)] in the order of SHAPES
     for shape in SHAPES:
         c = shape[-1]
         n = math.prod(shape)
         for dtype in (torch.float32, torch.bfloat16):
             item = torch.tensor([], dtype=dtype).element_size()
-            n_sets = max(2, int(3 * L2_BYTES // (5 * n * item)) + 1)
+            # each kernel reads at least y (n * item bytes) a call, so every
+            # kernel's operands rotate through more than twice the L2
+            n_sets = max(2, int(2 * L2_BYTES // (n * item)) + 1)
             base = [(_gen(shape, dtype, dev, 10 * k + 1), _gen(shape, dtype, dev, 10 * k + 2),
                      _gen(shape, dtype, dev, 10 * k + 3), _gen((c,), torch.float32, dev, 10 * k + 4),
                      _gen((c,), torch.float32, dev, 10 * k + 5)) for k in range(n_sets)]
-            for name, (kern, plain, build_args, nbytes, nflops) in cases.items():
+            for name, (kern, plain, build_args, nbytes, nflops, stream) in cases.items():
                 arg_sets = [build_args(*b) for b in base]
                 variants = fb.variant_counts()
                 got, want = kern(*arg_sets[0]), plain(*arg_sets[0])
@@ -240,29 +254,77 @@ def phase_kernels(fb):
                 results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
                 ms, plain_ms = _device_ms(kern, arg_sets), _device_ms(plain, arg_sets)
                 eager_ms = _eager_ms(kern, arg_sets)
+                stream_ms = _device_ms(stream, arg_sets) if stream is not None else None
                 bytes_ms = nbytes(n, c, item) / HBM_BYTES_PER_S * 1e3
                 ops_ms = nflops(n) / F32_FLOPS_PER_S * 1e3
                 bound_ms = max(bytes_ms, ops_ms)
                 row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
                        "ms": ms, "plain_ms": plain_ms, "eager_ms": eager_ms, "bound_ms": bound_ms,
                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                       "max_abs_err": err}
+                       "max_abs_err": err, "stream_ms": stream_ms}
+                yardstick = "" if stream is None else (
+                    f", same-bytes stream {stream_ms * 1e3:.2f} us ({ms / stream_ms:.2f}x)")
                 print(f"kernel {name} {row['dtype']} {tuple(shape)}: ok, device {ms * 1e3:.2f} us "
                       f"(plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
-                      f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us, "
-                      f"max_abs_err {err:.3g}" + (f", {variant[0]} variant" if variant else ""))
-                rows.setdefault((name, row["dtype"]), []).append((ms, bound_ms))
+                      f"{100 * bound_ms / ms:.1f}% of bound{yardstick}), eager call "
+                      f"{eager_ms * 1e3:.2f} us, max_abs_err {err:.3g}"
+                      + (f", {variant[0]} variant" if variant else ""))
+                rows.setdefault((name, row["dtype"]), []).append((ms, bound_ms, stream_ms))
                 if shape == SHAPES[0] and dtype == torch.bfloat16:
                     results[name].update({k: row[k] for k in
                                           ("ms", "plain_ms", "bound_ms", "bound_by")})
+                    if stream is not None:
+                        results[name]["stream_ms"] = stream_ms
     for (name, dtype), times in rows.items():
         weights = STEP_LAUNCHES[name]
-        ms = sum(w * t for w, (t, _) in zip(weights, times))
-        bound_ms = sum(w * b for w, (_, b) in zip(weights, times))
+        ms = sum(w * t for w, (t, _, _) in zip(weights, times))
+        bound_ms = sum(w * b for w, (_, b, _) in zip(weights, times))
+        yardstick = "" if times[0][2] is None else (
+            f", same-bytes stream {sum(w * x for w, (_, _, x) in zip(weights, times)) * 1e3:.2f} us")
         print(f"kernel {name} {dtype} over a local step ({sum(weights)} launches, "
               f"{'/'.join(map(str, weights))} at the three shapes): device {ms * 1e3:.2f} us, "
-              f"bound {bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}% of bound")
+              f"bound {bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}% of bound{yardstick}")
+    phase_fwd_scalar(fb)
     return results
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts one element past a 16-byte line."""
+    base = t.new_empty(t.numel() + 1)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def phase_fwd_scalar(fb):
+    """The forward's scalar variant (C not a multiple of the 16-byte width,
+    or an operand off a 16-byte line) against the plain version, bitwise,
+    in f32 and bf16, with and without the residual; the variant that ran is
+    checked."""
+    import torch
+
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, shape in (("C=3", (128, 16, 16, 3)), ("C=300", (8, 8, 8, 300)),
+                            ("misaligned y", SHAPES[1])):
+            c = shape[-1]
+            y, r = _gen(shape, dtype, dev, 41), _gen(shape, dtype, dev, 42)
+            s, b = _gen((c,), torch.float32, dev, 43), _gen((c,), torch.float32, dev, 44)
+            if what.startswith("misaligned"):
+                y = _misaligned(y)
+            want = "fwd_vector" if c % (16 // y.element_size()) == 0 and not what.startswith(
+                "misaligned") else "fwd_scalar"
+            for res in (None, r):
+                before = fb.variant_counts()[want]
+                got = fb.fused_block_forward(y, s, b, res)
+                torch.cuda.synchronize()
+                if fb.variant_counts()[want] != before + 1:
+                    raise AssertionError(f"forward {what} {dtype}: {want} did not run")
+                if not torch.equal(got, fb.fused_block_reference(y, s, b, res)):
+                    raise AssertionError(f"forward {what} {dtype} residual={res is not None}: "
+                                         "not bitwise equal to the plain version")
+            print(f"kernel forward {what} {str(dtype).replace('torch.', '')} {shape}: ok "
+                  f"(bitwise, with and without the residual), {want} variant")
 
 
 def _quant_bytes(n):
@@ -737,7 +799,9 @@ def main(argv=None) -> int:
          "launches": counts[k.name], "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],
-         "library_ms": kernel_rows[k.name].get("library_ms")}
+         "library_ms": kernel_rows[k.name].get("library_ms"),
+         **({"stream_ms": kernel_rows[k.name]["stream_ms"]}
+            if "stream_ms" in kernel_rows[k.name] else {})}
         for m in (fb, qz, nz) for k in m.KERNELS]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

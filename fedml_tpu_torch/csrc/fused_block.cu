@@ -16,11 +16,35 @@
 // backward's bound falls to 1.3-3.1 us, where one launch and one DRAM round
 // trip are a large share of the time.
 //
-// Forward: one grid-stride pass over the flat tensor; the channel of flat
-// element i is i % C for any C (NHWC), and scale/shift are read as f32
-// through the read-only cache.  The f32 math is __fadd_rn(__fmul_rn(y, s), b)
-// (+ r), so nvcc cannot contract it into an FMA: the result equals the plain
-// PyTorch version (y * s + b, two roundings) bitwise.
+// Forward: a pure stream (read y [and r], write out: 2-3 bytes moved per
+// byte of y), so its bound is bytes at 3.35 TB/s: 2.5 / 1.3 / 0.6 us without
+// and 3.8 / 1.9 / 0.9 us with the residual at the three stage shapes in
+// bf16.  At stages 2-3 a launch's fixed cost is of the same size: on an
+// H100 even PyTorch's elementwise kernel moving the same bytes takes ~1.5 us
+// above the bound in a CUDA graph (PERF.md), so that stream, not the bound,
+// is the yardstick there.  What the design does about it:
+// - Vector width and channel groups, as in the backward below: VEC = 16 /
+//   sizeof(T) channels a thread when C % VEC == 0 and every operand is
+//   16-byte aligned (one 16-byte load of y [and r] and one store a row),
+//   else VEC = 1; a thread keeps its channel group for its whole life and
+//   loads its scale and shift once, into registers (no per-element i % C,
+//   no per-element load of the vectors).
+// - Geometry: one resident wave of row blocks (SMs x resident blocks of the
+//   instance, capped by the rows; channel tiles wider than a block on
+//   blockIdx.y), computed by ops/fused_block.fwd_geometry; blocks of (cg,
+//   rb) threads, so a thread finds its channel group and first row with no
+//   integer division.  A thread takes kFwdUnroll = 1 row at a time: the
+//   wave gives a thread one or two rows at the flagship shapes, and deeper
+//   unrolls (loads of 2 or 4 rows issued before the first use) cost
+//   registers, hence resident blocks, and measured slower
+//   (obs/ablate_fwd.py).
+// - y and r are read once here (y again only in the backward), with the
+//   evict-first policy (__ldcs), so the L2 keeps what the stream writes; out
+//   is stored with the default policy: the next conv reads it at once.
+// - The f32 math is __fadd_rn(__fmul_rn(y, s), b) (+ r), so nvcc cannot
+//   contract it into an FMA, then relu, then one rounding to T: the result
+//   equals the plain PyTorch version (y * s + b, two roundings) bitwise in
+//   f32, and in bf16 (the same f32 value rounded once).
 //
 // Backward: one launch.  gm = g * [out > 0] (the ReLU mask is read from the
 // saved output), dy = gm * scale[c], dr = gm, d_scale[c] = sum gm * y and
@@ -59,8 +83,9 @@
 //   last.
 // - Workspace.  The tickets live in a device array of this module (zero at
 //   load; each last block resets the ticket it drew), in a slot the wrapper
-//   assigns per stream, or per call captured into a CUDA graph: no memset,
-//   in a graph or out of one.  The scratch rows need no zeroing (each is
+//   assigns per stream, or per capture into a CUDA graph and its stream
+//   (the captured calls of one stream run in the graph's fixed order, so
+//   they share it): no memset, in a graph or out of one.  The scratch rows need no zeroing (each is
 //   written before it is read) and come from PyTorch's allocator.
 // - dy / dr keep the explicit __fmul_rn: bitwise the plain version in f32,
 //   and the same f32 value rounded once to bf16.
@@ -78,13 +103,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxFwdBlocks = 132 * 16;
+constexpr int kFwdUnroll = 1;
 constexpr int kUnroll = 2;
 constexpr int kFoldBatch = 8;
 // The backward's tickets, one a slot: zero when the module loads on a
 // device, and reset to zero by the block that draws the last ticket, so zero
 // between launches with no memset.  The wrapper gives each stream its own
-// slot, and each call captured into a CUDA graph a slot of its own.
+// slot, and each stream of each capture into a CUDA graph one of its own.
 constexpr int kTicketSlots = 4096;
 __device__ unsigned g_tickets[kTicketSlots];
 
@@ -103,20 +128,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // relu that propagates NaN like jnp.maximum / torch.relu
 __device__ __forceinline__ float relu_f32(float z) { return (z > 0.f || z != z) ? z : 0.f; }
 
-template <typename T, bool kResidual>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ y, const float* __restrict__ scale,
-           const float* __restrict__ shift, const T* __restrict__ res,
-           T* __restrict__ out, unsigned n, unsigned C) {
-  const unsigned stride = gridDim.x * blockDim.x;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const unsigned c = i % C;
-    float z = __fadd_rn(__fmul_rn(to_f32(y[i]), __ldg(scale + c)), __ldg(shift + c));
-    if (kResidual) z = __fadd_rn(z, to_f32(res[i]));
-    out[i] = from_f32<T>(relu_f32(z));
-  }
-}
-
 // VEC consecutive values, moved as one 16-, 8-, 4- or 2-byte access.
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
@@ -129,10 +140,13 @@ template <> struct RawWord<8> { using type = uint2; };
 template <> struct RawWord<4> { using type = unsigned int; };
 template <> struct RawWord<2> { using type = unsigned short; };
 
-template <typename T, int VEC>
+// kEvictFirst: an operand read once (__ldcs, evict first), else the
+// read-only path (__ldg).
+template <typename T, int VEC, bool kEvictFirst = false>
 __device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
   using W = typename RawWord<sizeof(Pack<T, VEC>)>::type;
-  const W w = __ldg(reinterpret_cast<const W*>(p));
+  const W* q = reinterpret_cast<const W*>(p);
+  const W w = kEvictFirst ? __ldcs(q) : __ldg(q);
   Pack<T, VEC> r;
   memcpy(&r, &w, sizeof(r));
   return r;
@@ -144,6 +158,73 @@ __device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& r) {
   W w;
   memcpy(&w, &r, sizeof(w));
   *reinterpret_cast<W*>(p) = w;
+}
+
+// The VEC per-channel floats of a thread's channel group (16-byte loads
+// when VEC is a multiple of 4: p is then 16-byte aligned).
+template <int VEC>
+__device__ __forceinline__ void load_channels(const float* p, float (&r)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < VEC; v += 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p + v));
+      r[v] = q.x; r[v + 1] = q.y; r[v + 2] = q.z; r[v + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) r[v] = __ldg(p + v);
+  }
+}
+
+// A launch's cover of a (rows, C) activation (ops/fused_block.Geometry):
+// block (bx, by) takes rows [bx * rows_per_block, ...) and channel groups
+// [by * cg, by * cg + cg) of VEC channels each, with cg * rb threads; thread
+// (lc, j) keeps group by * cg + lc and walks rows j, j + rb, ... of the
+// block's range.  The forward's blocks are (cg, rb): lc = threadIdx.x, j =
+// threadIdx.y; the backward's are flat: lc = t % cg, j = t / cg.
+struct RowArgs {
+  unsigned rows, C, cg, rows_per_block;
+  unsigned slot;  // the backward's ticket slot (unused by the forward)
+};
+
+template <typename T, int VEC, bool kResidual>
+__global__ void __launch_bounds__(kThreads)
+fwd_kernel(const T* __restrict__ y, const float* __restrict__ scale,
+           const float* __restrict__ shift, const T* __restrict__ res,
+           T* __restrict__ out, RowArgs a) {
+  const unsigned C = a.C, rb = blockDim.y;
+  const unsigned c0 = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
+  if (c0 >= C) return;
+  float s[VEC], b[VEC];
+  load_channels<VEC>(scale + c0, s);
+  load_channels<VEC>(shift + c0, b);
+  const unsigned r_begin = blockIdx.x * a.rows_per_block;
+  const unsigned r_end = min(a.rows, r_begin + a.rows_per_block);
+  for (unsigned r = r_begin + threadIdx.y; r < r_end; r += kFwdUnroll * rb) {
+    Pack<T, VEC> py[kFwdUnroll], pr[kFwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      const unsigned rr = r + u * rb;
+      if (rr < r_end) {
+        py[u] = load_pack<T, VEC, true>(y + rr * C + c0);
+        if (kResidual) pr[u] = load_pack<T, VEC, true>(res + rr * C + c0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      const unsigned rr = r + u * rb;
+      if (rr < r_end) {
+        Pack<T, VEC> po;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          float z = __fadd_rn(__fmul_rn(to_f32(py[u].v[v]), s[v]), b[v]);
+          if (kResidual) z = __fadd_rn(z, to_f32(pr[u].v[v]));
+          po.v[v] = from_f32<T>(relu_f32(z));
+        }
+        store_pack<T, VEC>(out + rr * C + c0, po);
+      }
+    }
+  }
 }
 
 // W consecutive floats of a scratch row, moved as one access.
@@ -231,20 +312,13 @@ __device__ __forceinline__ unsigned draw_ticket(unsigned* ticket) {
   return old;
 }
 
-struct BwdArgs {
-  unsigned rows, C, cg, rows_per_block, slot;
-};
-
-// Block (bx, by): rows [bx * rows_per_block, ...) and channel groups
-// [by * cg, by * cg + cg) of VEC channels each; blockDim.x == cg * rb, thread
-// t keeps group by * cg + t % cg and walks rows t / cg, t / cg + rb, ...
-// work: gridDim.x rows of 2 * C partials (d_scale then d_shift).  dss:
-// d_scale then d_shift.
+// Rows and channel groups as in fwd_kernel (RowArgs).  work: gridDim.x rows
+// of 2 * C partials (d_scale then d_shift).  dss: d_scale then d_shift.
 template <typename T, int VEC, bool kResidual>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const T* __restrict__ g, const T* __restrict__ y, const float* __restrict__ scale,
            const T* __restrict__ out, T* __restrict__ dy, T* __restrict__ dr,
-           float* __restrict__ dss, float* __restrict__ work, BwdArgs a) {
+           float* __restrict__ dss, float* __restrict__ work, RowArgs a) {
   __shared__ __align__(16) float s_red[2 * kThreads * VEC];  // the block's sums
   __shared__ __align__(16) float s_fold[4 * kThreads];       // fold_rows' lanes
   __shared__ bool s_last;
@@ -260,16 +334,7 @@ bwd_kernel(const T* __restrict__ g, const T* __restrict__ y, const float* __rest
 
   if (c0 < C) {
     float s[VEC];
-    if constexpr (VEC % 4 == 0) {
-#pragma unroll
-      for (int v = 0; v < VEC; v += 4) {
-        const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + c0 + v));
-        s[v] = s4.x; s[v + 1] = s4.y; s[v + 2] = s4.z; s[v + 3] = s4.w;
-      }
-    } else {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) s[v] = __ldg(scale + c0 + v);
-    }
+    load_channels<VEC>(scale + c0, s);
     const unsigned r_begin = blockIdx.x * a.rows_per_block;
     const unsigned r_end = min(a.rows, r_begin + a.rows_per_block);
     for (unsigned r = r_begin + j; r < r_end; r += kUnroll * rb) {
@@ -339,65 +404,78 @@ bwd_kernel(const T* __restrict__ g, const T* __restrict__ y, const float* __rest
   if (t == 0) *ticket = 0;
 }
 
-template <typename T>
-void launch_fwd(const void* y, const void* scale, const void* shift, const void* res,
-                void* out, int n, int C, cudaStream_t stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxFwdBlocks) blocks = kMaxFwdBlocks;
-  if (res != nullptr) {
-    fwd_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
-        (const T*)y, (const float*)scale, (const float*)shift, (const T*)res, (T*)out,
-        (unsigned)n, (unsigned)C);
-  } else {
-    fwd_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
-        (const T*)y, (const float*)scale, (const float*)shift, nullptr, (T*)out,
-        (unsigned)n, (unsigned)C);
-  }
-}
-
 template <typename T, int VEC, bool kResidual>
-const void* bwd_symbol() {
-  return reinterpret_cast<const void*>(&bwd_kernel<T, VEC, kResidual>);
+const void* symbol(bool backward) {
+  return backward ? reinterpret_cast<const void*>(&bwd_kernel<T, VEC, kResidual>)
+                  : reinterpret_cast<const void*>(&fwd_kernel<T, VEC, kResidual>);
 }
 
-// The kernel instance for (dtype, vec, residual), or null.
-const void* bwd_instance(int dtype, int vec, bool residual) {
+// The kernel instance for (direction, dtype, vec, residual), or null.
+const void* instance(bool backward, int dtype, int vec, bool residual) {
   if (dtype == 0 && vec == 4)
-    return residual ? bwd_symbol<float, 4, true>() : bwd_symbol<float, 4, false>();
+    return residual ? symbol<float, 4, true>(backward) : symbol<float, 4, false>(backward);
   if (dtype == 0 && vec == 1)
-    return residual ? bwd_symbol<float, 1, true>() : bwd_symbol<float, 1, false>();
+    return residual ? symbol<float, 1, true>(backward) : symbol<float, 1, false>(backward);
   if (dtype == 1 && vec == 8)
-    return residual ? bwd_symbol<__nv_bfloat16, 8, true>() : bwd_symbol<__nv_bfloat16, 8, false>();
+    return residual ? symbol<__nv_bfloat16, 8, true>(backward)
+                    : symbol<__nv_bfloat16, 8, false>(backward);
   if (dtype == 1 && vec == 1)
-    return residual ? bwd_symbol<__nv_bfloat16, 1, true>() : bwd_symbol<__nv_bfloat16, 1, false>();
+    return residual ? symbol<__nv_bfloat16, 1, true>(backward)
+                    : symbol<__nv_bfloat16, 1, false>(backward);
   return nullptr;
+}
+
+// The geometry array both directions take: {dtype, rows, C, vec, cg, rb,
+// row_blocks, channel_blocks, rows_per_block} (dtype, then
+// ops/fused_block.Geometry).
+struct Geo {
+  int dtype, rows, C, vec, cg, rb, row_blocks, channel_blocks, rows_per_block;
+};
+
+// Whether geo covers its (rows, C) in a launch the kernels take.
+bool geo_ok(const Geo& g) {
+  return g.rows > 0 && g.C > 0 && g.vec > 0 && g.C % g.vec == 0 && g.cg > 0 && g.rb > 0 &&
+         g.cg * g.rb <= kThreads && g.row_blocks > 0 && g.channel_blocks > 0 &&
+         g.channel_blocks <= 65535 && (long long)g.channel_blocks * g.cg * g.vec >= g.C &&
+         (long long)g.row_blocks * g.rows_per_block >= g.rows;
+}
+
+cudaError_t launch(const void* fn, const Geo& g, dim3 block, void** args, void* stream) {
+  const cudaError_t err = cudaLaunchKernel(fn, dim3(g.row_blocks, g.channel_blocks), block, args,
+                                           0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  res may be null (no residual).
-int fused_fwd(int dtype, const void* y, const void* scale, const void* shift,
-              const void* res, void* out, int n, int C, void* stream) {
-  if (n <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) launch_fwd<float>(y, scale, shift, res, out, n, C, s);
-  else if (dtype == 1) launch_fwd<__nv_bfloat16>(y, scale, shift, res, out, n, C, s);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-
-// Resident blocks of kThreads threads per SM for the backward instance
-// (dtype, vec, residual != 0), written to *blocks.
-int fused_bwd_blocks_per_sm(int dtype, int vec, int residual, int* blocks) {
-  const void* fn = bwd_instance(dtype, vec, residual != 0);
+// Resident blocks of kThreads threads per SM for the instance (backward != 0
+// for the backward, else the forward; dtype 0 = float32, 1 = bfloat16; vec;
+// residual != 0), written to *blocks.
+int fused_blocks_per_sm(int backward, int dtype, int vec, int residual, int* blocks) {
+  const void* fn = instance(backward != 0, dtype, vec, residual != 0);
   if (fn == nullptr || blocks == nullptr) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, 0);
 }
 
-// geo: {dtype, rows, C, vec, cg, rb, row_blocks, channel_blocks,
-// rows_per_block} (dtype, then ops/fused_block.BwdGeometry).  dr may be null
+// geo: the geometry array (ops/fused_block.fwd_geometry).  res may be null
+// (no residual).  With vec > 1 every pointer must be 16-byte aligned.
+int fused_fwd(const int* geo, const void* y, const void* scale, const void* shift,
+              const void* res, void* out, void* stream) {
+  Geo g;
+  memcpy(&g, geo, sizeof(g));
+  const void* fn = instance(false, g.dtype, g.vec, res != nullptr);
+  if (fn == nullptr || !geo_ok(g) ||
+      (g.vec > 1 && ((size_t)y | (size_t)scale | (size_t)shift | (size_t)res | (size_t)out) % 16))
+    return (int)cudaErrorInvalidValue;
+  RowArgs a{(unsigned)g.rows, (unsigned)g.C, (unsigned)g.cg, (unsigned)g.rows_per_block, 0u};
+  void* args[] = {(void*)&y, (void*)&scale, (void*)&shift, (void*)&res, (void*)&out, (void*)&a};
+  return (int)launch(fn, g, dim3(g.cg, g.rb), args, stream);
+}
+
+// geo: the geometry array (ops/fused_block.bwd_geometry).  dr may be null
 // (no residual).  dss: 2 * C floats (d_scale, d_shift), 16-byte aligned.
 // work: row_blocks * 2 * C floats of scratch, 16-byte aligned (no zeroing:
 // every row is written before it is read).  slot: the ticket slot, <
@@ -405,23 +483,27 @@ int fused_bwd_blocks_per_sm(int dtype, int vec, int residual, int* blocks) {
 int fused_bwd(const int* geo, const void* g, const void* y, const void* scale,
               const void* out, void* dy, void* dr, void* dss, void* work, int slot,
               void* stream) {
-  const int dtype = geo[0], rows = geo[1], C = geo[2], vec = geo[3], cg = geo[4], rb = geo[5];
-  const int row_blocks = geo[6], channel_blocks = geo[7], rows_per_block = geo[8];
-  const void* fn = bwd_instance(dtype, vec, dr != nullptr);
-  if (fn == nullptr || rows <= 0 || C <= 0 || C % vec != 0 || cg <= 0 || rb <= 0 ||
-      cg * rb > kThreads || (32 % cg == 0 && cg * rb % 32 != 0) || row_blocks <= 0 ||
-      channel_blocks <= 0 || channel_blocks > 65535 ||
-      (long long)channel_blocks * cg * vec < C || (long long)row_blocks * rows_per_block < rows ||
-      slot < 0 || slot >= kTicketSlots || ((size_t)dss | (size_t)work) % 16 != 0)
+  Geo o;
+  memcpy(&o, geo, sizeof(o));
+  const void* fn = instance(true, o.dtype, o.vec, dr != nullptr);
+  if (fn == nullptr || !geo_ok(o) || (32 % o.cg == 0 && o.cg * o.rb % 32 != 0) || slot < 0 ||
+      slot >= kTicketSlots || ((size_t)dss | (size_t)work) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  BwdArgs a{(unsigned)rows, (unsigned)C, (unsigned)cg, (unsigned)rows_per_block,
+  RowArgs a{(unsigned)o.rows, (unsigned)o.C, (unsigned)o.cg, (unsigned)o.rows_per_block,
             (unsigned)slot};
   void* args[] = {(void*)&g, (void*)&y, (void*)&scale, (void*)&out, (void*)&dy,
                   (void*)&dr, (void*)&dss, (void*)&work, (void*)&a};
-  const cudaError_t err = cudaLaunchKernel(fn, dim3(row_blocks, channel_blocks), dim3(cg * rb),
-                                           args, 0, (cudaStream_t)stream);
+  return (int)launch(fn, o, dim3(o.cg * o.rb), args, stream);
+}
+
+// The id of the capture that `stream` is capturing into a CUDA graph,
+// written to *id (the backward's ticket slot of a captured call is keyed by
+// it); cudaErrorInvalidValue if the stream is not capturing.
+int fused_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status;
+  const cudaError_t err = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, id);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return status == cudaStreamCaptureStatusActive ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -112,8 +112,8 @@ def _case(libs, shape, dtype, residual, sms):
     c, n = shape[-1], math.prod(shape)
     code, item = fb._DTYPE_CODES[dtype], dtype.itemsize
     blocks = ctypes.c_int(0)
-    if libs["full"].fused_bwd_blocks_per_sm(code, fb.vector_width(c, item, True), int(residual),
-                                            ctypes.byref(blocks)) != 0:
+    if libs["full"].fused_blocks_per_sm(1, code, fb.vector_width(c, item, True), int(residual),
+                                        ctypes.byref(blocks)) != 0:
         raise RuntimeError("ablate_bwd: occupancy query failed")
     geo = fb.bwd_geometry(n // c, c, item, True, sms, blocks.value)
     geo_args = (ctypes.c_int * 9)(code, *geo)

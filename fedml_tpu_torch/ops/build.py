@@ -21,6 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"fused_block": _PKG / "csrc" / "fused_block.cu",
@@ -39,22 +40,31 @@ _BUILD_LOCK = threading.RLock()
 
 class Kernel:
     """One CUDA kernel of the port: its name, the TPU kernel it replaces
-    (``file:line``) and its launches on the card (counted under a lock:
-    ``launches += 1`` from several threads loses counts)."""
+    (``file:line``) and its launches on the card, in all and by variant
+    (counted under a lock: ``launches += 1`` from several threads loses
+    counts)."""
 
     def __init__(self, name: str, replaces: str):
         self.name = name
         self.replaces = replaces
         self.launches = 0
+        self._variants: dict = {}
         self._lock = threading.Lock()
 
-    def count_launch(self) -> None:
+    def count_launch(self, variant: Optional[str] = None) -> None:
         with self._lock:
             self.launches += 1
+            if variant is not None:
+                self._variants[variant] = self._variants.get(variant, 0) + 1
+
+    def variant_counts(self) -> dict:
+        with self._lock:
+            return dict(self._variants)
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
+            self._variants = {}
 
 
 def current_stream(device, what: str) -> int:

@@ -4,9 +4,11 @@ The port of ``fedml_tpu/ops/pallas/fused_block.py``.  Four hand-written CUDA
 kernels (``csrc/fused_block.cu``; its header note names the TPU kernels they
 replace, their bound and their design) apply the BN affine folded by
 ``models/resnet._bn_scale_shift``, the shortcut add and the ReLU in one pass
-over an NHWC activation, and compute the backward in one launch: 16-byte
-vector loads where the shape and pointers allow (:func:`bwd_geometry`
-chooses), and a fixed-order cross-block fold of ``d_scale`` / ``d_shift``.
+over an NHWC activation, and compute the backward in one launch: in both
+directions 16-byte vector loads where the shape and pointers allow, a
+channel group a thread and one resident wave of blocks
+(:func:`fwd_geometry` / :func:`bwd_geometry` choose), and in the backward
+a fixed-order cross-block fold of ``d_scale`` / ``d_shift``.
 ``torch.autograd.Function`` wrappers save ``(y, scale, out)``: the ReLU mask
 is recovered as ``out > 0``.
 
@@ -31,12 +33,13 @@ from . import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "fused_fwd": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "fused_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P]),
     "fused_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
-    "fused_bwd_blocks_per_sm": (_I, [_I, _I, _I, ctypes.POINTER(_I)]),
+    "fused_blocks_per_sm": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
+    "fused_capture_id": (_I, [_P, ctypes.POINTER(ctypes.c_ulonglong)]),
 }
-# the backward's block size and ticket slots: kThreads and kTicketSlots in
-# the .cu source
+# the kernels' block size and the backward's ticket slots: kThreads and
+# kTicketSlots in the .cu source
 THREADS = 256
 TICKET_SLOTS = 4096
 # most partials (row_blocks * 2 * C floats) the last block folds: 32 KB,
@@ -51,9 +54,9 @@ KERNELS = (FWD, FWD_RES, BWD, BWD_RES)
 SOURCE = "fedml_tpu_torch/csrc/fused_block.cu"
 
 
-# backward launches by variant: "vector" (16-byte loads) or "scalar"
-_VARIANTS = {"vector": 0, "scalar": 0}
-_VARIANTS_LOCK = threading.Lock()
+# the variants a launch counts under: the backward's "vector" (16-byte
+# loads) or "scalar", the forward's "fwd_vector" or "fwd_scalar"
+VARIANTS = ("vector", "scalar", "fwd_vector", "fwd_scalar")
 
 
 def launch_counts() -> dict:
@@ -61,17 +64,19 @@ def launch_counts() -> dict:
 
 
 def variant_counts() -> dict:
-    """Backward launches on the card by variant, since the last reset."""
-    with _VARIANTS_LOCK:
-        return dict(_VARIANTS)
+    """Launches on the card by variant, since the last reset: the
+    backward's under ``"vector"`` / ``"scalar"``, the forward's under
+    ``"fwd_vector"`` / ``"fwd_scalar"``."""
+    counts = dict.fromkeys(VARIANTS, 0)
+    for k in KERNELS:
+        for variant, n in k.variant_counts().items():
+            counts[variant] += n
+    return counts
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.reset()
-    with _VARIANTS_LOCK:
-        for key in _VARIANTS:
-            _VARIANTS[key] = 0
 
 
 def _lib():
@@ -131,24 +136,28 @@ def _check(y: torch.Tensor, vectors, others) -> None:
 def _fwd_cuda(y, scale, shift, residual):
     _check(y, (scale, shift), (residual,))
     kernel = FWD_RES if residual is not None else FWD
+    device, c = y.device, y.shape[-1]
+    stream = build.current_stream(device, "fused block kernel")
     out = torch.empty_like(y)
-    err = _lib().fused_fwd(
-        _DTYPE_CODES[y.dtype], y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        residual.data_ptr() if residual is not None else None, out.data_ptr(),
-        y.numel(), y.shape[-1], build.current_stream(y.device, "fused block kernel"))
+    # a null residual pointer (0) is aligned
+    ptrs = (y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            residual.data_ptr() if residual is not None else 0, out.data_ptr())
+    geo, geo_args = _launch_geometry(False, device.index, y.dtype, y.numel() // c, c,
+                                     aligned16(ptrs), residual is not None)
+    err = _lib().fused_fwd(geo_args, *ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
-    kernel.count_launch()
+    kernel.count_launch("fwd_vector" if geo.vec > 1 else "fwd_scalar")
     return out
 
 
-class BwdGeometry(NamedTuple):
-    """How the backward kernel covers a ``(rows, c)`` activation: ``vec``
-    channels a thread (16-byte loads when > 1), ``cg`` channel groups of
-    ``vec`` and ``rb`` rows side by side in a block of ``cg * rb`` threads,
-    a grid of ``row_blocks`` x ``channel_blocks`` blocks, block ``(bx, by)``
-    taking rows ``[bx * rows_per_block, ...)`` and channel groups ``[by *
-    cg, ...)``."""
+class Geometry(NamedTuple):
+    """How a kernel covers a ``(rows, c)`` activation: ``vec`` channels a
+    thread (16-byte loads when > 1), ``cg`` channel groups of ``vec`` and
+    ``rb`` rows side by side in a block of ``cg * rb`` threads, a grid of
+    ``row_blocks`` x ``channel_blocks`` blocks, block ``(bx, by)`` taking
+    rows ``[bx * rows_per_block, ...)`` and channel groups ``[by * cg,
+    ...)``."""
 
     rows: int
     c: int
@@ -166,7 +175,7 @@ class BwdGeometry(NamedTuple):
 
 
 def vector_width(c: int, itemsize: int, aligned: bool) -> int:
-    """Channels a thread of the backward takes: those in 16 bytes (8 bf16,
+    """Channels a thread of either kernel takes: those in 16 bytes (8 bf16,
     4 f32) when ``c`` is a multiple of that and every operand is 16-byte
     aligned (the vector variant), else 1 (the scalar variant)."""
     vec = 16 // itemsize
@@ -175,92 +184,126 @@ def vector_width(c: int, itemsize: int, aligned: bool) -> int:
 
 def aligned16(ptrs) -> bool:
     """Whether every pointer is 16-byte aligned (the vector variant's
-    loads); outputs come from the allocator, which aligns them."""
-    return not any(p % 16 for p in ptrs)
+    loads)."""
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    return bits % 16 == 0
 
 
-def bwd_geometry(rows: int, c: int, itemsize: int, aligned: bool, sm_count: int,
-                 blocks_per_sm: int) -> BwdGeometry:
-    """The backward's geometry on a card of ``sm_count`` SMs that hold
-    ``blocks_per_sm`` blocks each: one resident wave of row blocks, capped
-    by the rows (a row a thread at least) and by the partials the last
-    block folds (:data:`FOLD_FLOATS`)."""
+def _geometry(rows: int, c: int, itemsize: int, aligned: bool, sm_count: int,
+              blocks_per_sm: int, max_partials: Optional[int]) -> Geometry:
+    """One resident wave of row blocks on a card of ``sm_count`` SMs that
+    hold ``blocks_per_sm`` blocks each, capped by the rows (a row a thread
+    at least) and, when ``max_partials`` is given, by ``row_blocks * 2 * c
+    <= max_partials``."""
     vec = vector_width(c, itemsize, aligned)
     groups = c // vec
     cg = min(groups, THREADS)
     rb = THREADS // cg
     channel_blocks = -(-groups // cg)
     wave = max(1, sm_count * blocks_per_sm // channel_blocks)
-    row_blocks = max(1, min(-(-rows // rb), wave, FOLD_FLOATS // (2 * c)))
-    rows_per_block = -(-rows // row_blocks)
+    row_blocks = min(-(-rows // rb), wave)
+    if max_partials is not None:
+        row_blocks = min(row_blocks, max_partials // (2 * c))
+    rows_per_block = -(-rows // max(1, row_blocks))
     row_blocks = -(-rows // rows_per_block)  # no block without rows
-    return BwdGeometry(rows, c, vec, cg, rb, row_blocks, channel_blocks, rows_per_block)
+    return Geometry(rows, c, vec, cg, rb, row_blocks, channel_blocks, rows_per_block)
+
+
+def fwd_geometry(rows: int, c: int, itemsize: int, aligned: bool, sm_count: int,
+                 blocks_per_sm: int) -> Geometry:
+    """The forward's geometry: one resident wave of row blocks, capped by
+    the rows."""
+    return _geometry(rows, c, itemsize, aligned, sm_count, blocks_per_sm, None)
+
+
+def bwd_geometry(rows: int, c: int, itemsize: int, aligned: bool, sm_count: int,
+                 blocks_per_sm: int) -> Geometry:
+    """The backward's geometry: the forward's, also capped by the partials
+    the last block folds (:data:`FOLD_FLOATS`)."""
+    return _geometry(rows, c, itemsize, aligned, sm_count, blocks_per_sm, FOLD_FLOATS)
 
 
 @functools.lru_cache(maxsize=64)
-def _blocks_per_sm(device_index: int, dtype_code: int, vec: int, residual: bool) -> int:
-    """Resident backward blocks per SM (the occupancy API), once per device
-    and kernel instance.  The current device is ``device_index``."""
+def _blocks_per_sm(device_index: int, backward: bool, dtype_code: int, vec: int,
+                   residual: bool) -> int:
+    """Resident blocks per SM of one kernel instance (the occupancy API),
+    once per device and instance.  The current device is ``device_index``."""
     blocks = _I(0)
-    err = _lib().fused_bwd_blocks_per_sm(dtype_code, vec, int(residual), ctypes.byref(blocks))
+    err = _lib().fused_blocks_per_sm(int(backward), dtype_code, vec, int(residual),
+                                     ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
-        raise RuntimeError(f"fused block backward: occupancy query failed with error {err}")
+        raise RuntimeError(f"fused block kernel: occupancy query failed with error {err}")
     return blocks.value
 
 
-@functools.lru_cache(maxsize=256)
-def _launch_geometry(device_index: int, dtype: torch.dtype, rows: int, c: int, aligned: bool,
-                     residual: bool):
-    """``(geometry, the int array the C entry takes)``, once per shape."""
+@functools.lru_cache(maxsize=512)
+def _launch_geometry(backward: bool, device_index: int, dtype: torch.dtype, rows: int, c: int,
+                     aligned: bool, residual: bool):
+    """``(geometry, the int array the C entry takes)``, once per direction
+    and shape."""
     code = _DTYPE_CODES[dtype]
-    occupancy = _blocks_per_sm(device_index, code, vector_width(c, dtype.itemsize, aligned),
-                               residual)
+    occupancy = _blocks_per_sm(device_index, backward, code,
+                               vector_width(c, dtype.itemsize, aligned), residual)
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    geo = bwd_geometry(rows, c, dtype.itemsize, aligned, sms, occupancy)
+    geo = (bwd_geometry if backward else fwd_geometry)(rows, c, dtype.itemsize, aligned, sms,
+                                                       occupancy)
     return geo, (_I * 9)(code, *geo)
 
 
-# Workspace of the backward, per (device index, stream): a ticket slot and
-# scratch rows.  Kernels on one stream run in order, so a stream's slot and
-# scratch are never used by two launches at once (the cross-silo clients'
-# threads share the default stream; tests run threads on streams of their
-# own).  Built under a lock, like build.load_library.
-_SLOTS: dict = {}  # (device index, stream) -> ticket slot
+# Workspace of the backward: a ticket slot per (device index, owner) and
+# scratch rows per (device index, stream).  The owner of an eager call is
+# its stream; that of a call captured into a CUDA graph is ("capture", the
+# capture's id, the capturing stream).  Kernels on one stream run in order,
+# and so do the calls one stream captured, in the graph, so an owner's slot
+# is never used by two launches at once (the cross-silo clients' threads
+# share the default stream; tests run threads on streams of their own), while
+# two graphs, or a graph and eager calls, running at once never share one.
+# Built under a lock, like build.load_library.
+_SLOTS: dict = {}  # (device index, owner) -> ticket slot
 _NEXT_SLOT: dict = {}  # device index -> first unused slot
 _SCRATCH: dict = {}  # (device index, stream) -> float32 scratch
 _WORKSPACE_LOCK = threading.Lock()
 
 
-def _ticket_slot(device_index: int, stream: Optional[int]) -> int:
-    """The ticket slot of ``stream`` on the device, assigned at its first
-    launch; with ``stream`` None (a call captured into a CUDA graph, which
-    may replay on any stream) a slot of its own, never handed out again."""
-    key = (device_index, stream)
-    slot = _SLOTS.get(key) if stream is not None else None
+def _ticket_slot(device_index: int, owner) -> int:
+    """The ticket slot of ``owner`` (a stream, or a capture's key) on the
+    device, assigned at its first launch."""
+    key = (device_index, owner)
+    slot = _SLOTS.get(key)
     if slot is None:
         with _WORKSPACE_LOCK:
-            slot = _SLOTS.get(key) if stream is not None else None
+            slot = _SLOTS.get(key)
             if slot is None:
                 slot = _NEXT_SLOT.get(device_index, 0)
                 if slot >= TICKET_SLOTS:
                     raise RuntimeError(
                         f"fused block backward: all {TICKET_SLOTS} ticket slots of device "
-                        f"{device_index} are taken (one per stream and per call captured "
-                        "into a CUDA graph)")
+                        f"{device_index} are taken (one per stream and per stream of each "
+                        "capture into a CUDA graph)")
                 _NEXT_SLOT[device_index] = slot + 1
-                if stream is not None:
-                    _SLOTS[key] = slot
+                _SLOTS[key] = slot
     return slot
+
+
+def _capture_id(stream: int) -> int:
+    """The id of the capture ``stream`` is recording into a CUDA graph."""
+    capture = ctypes.c_ulonglong(0)
+    err = _lib().fused_capture_id(stream, ctypes.byref(capture))
+    if err != 0:
+        raise RuntimeError(f"fused block backward: capture query failed with error {err}")
+    return capture.value
 
 
 def _workspace(device: torch.device, stream: int, floats: int):
     """``(ticket slot, scratch)`` for a launch on ``stream``.  A call
-    captured into a CUDA graph gets a slot of its own and scratch from the
-    graph's pool, so graphs replayed on any stream never share them; an
-    eager call gets its stream's slot and scratch, grown when a launch needs
-    more (the old buffer is freed in stream order)."""
+    captured into a CUDA graph gets the slot of its capture and stream, and
+    scratch from the graph's pool; an eager call gets its stream's slot and
+    scratch, grown when a launch needs more (the old buffer is freed in
+    stream order)."""
     if torch.cuda.is_current_stream_capturing():
-        return (_ticket_slot(device.index, None),
+        return (_ticket_slot(device.index, ("capture", _capture_id(stream), stream)),
                 torch.empty(floats, dtype=torch.float32, device=device))
     slot = _ticket_slot(device.index, stream)
     key = (device.index, stream)
@@ -280,9 +323,8 @@ def _bwd_cuda(g, y, scale, out, with_residual: bool):
     c = y.shape[-1]
     stream = build.current_stream(y.device, "fused block kernel")
     ptrs = (g.data_ptr(), y.data_ptr(), scale.data_ptr(), out.data_ptr())
-    aligned = aligned16(ptrs)
-    geo, geo_args = _launch_geometry(y.device.index, y.dtype, y.numel() // c, c, aligned,
-                                     with_residual)
+    geo, geo_args = _launch_geometry(True, y.device.index, y.dtype, y.numel() // c, c,
+                                     aligned16(ptrs), with_residual)
     dy = torch.empty_like(y)
     dr = torch.empty_like(y) if with_residual else None
     dss = torch.empty((2, c), dtype=torch.float32, device=y.device)
@@ -292,9 +334,7 @@ def _bwd_cuda(g, y, scale, out, with_residual: bool):
                            scratch.data_ptr(), slot, stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
-    kernel.count_launch()
-    with _VARIANTS_LOCK:
-        _VARIANTS["vector" if geo.vec > 1 else "scalar"] += 1
+    kernel.count_launch("vector" if geo.vec > 1 else "scalar")
     return dy, dss[0], dss[1], dr
 
 

@@ -51,6 +51,7 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
 template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline T __ldcs(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
@@ -66,20 +67,28 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, const v
   *b = 1;
   return cudaSuccess;
 }
+enum cudaStreamCaptureStatus { cudaStreamCaptureStatusNone = 0, cudaStreamCaptureStatusActive = 1 };
+inline cudaError_t cudaStreamGetCaptureInfo(cudaStream_t, cudaStreamCaptureStatus* s,
+                                            unsigned long long*) {
+  *s = cudaStreamCaptureStatusNone;
+  return cudaSuccess;
+}
 
-// Runs body() as every thread of every block of grid x block, the blocks one
-// after another in `order` (linear ids y * grid.x + x).
+// Runs body() as every thread of every block of grid x block (block.x *
+// block.y threads), the blocks one after another in `order` (linear ids y *
+// grid.x + x).
 template <class F>
 void emu_launch(dim3 grid, dim3 block, const std::vector<unsigned>& order, F body) {
   gridDim = grid;
   blockDim = block;
+  const unsigned nthreads = block.x * block.y;
   for (unsigned id : order) {
-    std::barrier<> bar(block.x);
+    std::barrier<> bar(nthreads);
     emu_barrier = &bar;
     std::vector<std::thread> threads;
-    for (unsigned t = 0; t < block.x; ++t)
+    for (unsigned t = 0; t < nthreads; ++t)
       threads.emplace_back([&, t] {
-        threadIdx = dim3(t);
+        threadIdx = dim3(t % block.x, t / block.x);
         blockIdx = dim3(id % grid.x, id / grid.x);
         body();
       });

@@ -11,7 +11,7 @@ namespace {
 template <typename T, int VEC, bool R>
 void run(const int* geo, const void* g, const void* y, const void* scale, const void* out,
          void* dy, void* dr, void* dss, void* work, unsigned seed) {
-  BwdArgs a{(unsigned)geo[1], (unsigned)geo[2], (unsigned)geo[4], (unsigned)geo[8], 7u};
+  RowArgs a{(unsigned)geo[1], (unsigned)geo[2], (unsigned)geo[4], (unsigned)geo[8], 7u};
   const dim3 grid(geo[6], geo[7]), block(geo[4] * geo[5]);
   std::vector<unsigned> order(grid.x * grid.y);
   for (unsigned i = 0; i < order.size(); ++i) order[i] = i;

@@ -6,7 +6,8 @@ with the card, where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: f32 forward and dy / dr bitwise against the plain versions, bf16
-to one bf16 ulp (the same f32 math and rounding), d_scale / d_shift to rtol
+to one bf16 ulp (the same f32 math and rounding), and the forward's variants
+bitwise in bf16 too (one rounding of the same f32 value), d_scale / d_shift to rtol
 1e-5 / atol 1e-4 (f32 sums of up to ~10k terms in another order), and at the
 flagship's stage shapes (up to 131k terms a channel) within 1e-5 * sum|terms|
 per channel, as ``chip_smoke.py`` holds them; the backward bitwise equal to
@@ -253,6 +254,124 @@ def test_backward_two_streams_at_once_match_serial(cuda_device):
         assert len(results[i]) == 20
         for res in results[i]:
             for a, e in zip(res, serial[i]):
+                assert (a is None and e is None) or torch.equal(a, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STAGES)
+def test_forward_vector_variant_at_stage_shapes(shape, dtype, residual, cuda_device):
+    """The forward at the flagship's three stage shapes takes the vector
+    variant (16-byte loads; C = 16, 32, 64) and equals the plain version
+    bitwise in f32 and bf16."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, _, s, b = _inputs(shape, dtype, cuda_device, seed=31)
+    res = r if residual else None
+    before, variants = fb.launch_counts(), fb.variant_counts()
+    out = fb.fused_block_forward(y, s, b, res)
+    assert torch.equal(out, fb.fused_block_reference(y, s, b, res))
+    kernel = fb.FWD_RES if residual else fb.FWD
+    assert fb.launch_counts()[kernel.name] == before[kernel.name] + 1
+    want = dict(variants)
+    want["fwd_vector"] += 1
+    assert fb.variant_counts() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,variant", [
+    ("c12", {torch.float32: "fwd_vector", torch.bfloat16: "fwd_scalar"}),
+    ("c3", "fwd_scalar"), ("c300", {torch.float32: "fwd_vector", torch.bfloat16: "fwd_scalar"}),
+    ("misaligned_y", "fwd_scalar"), ("misaligned_r", "fwd_scalar"),
+    ("misaligned_scale", "fwd_scalar")])
+def test_forward_variant_choice(case, variant, dtype, cuda_device):
+    """C % VEC != 0 (VEC = 8 bf16, 4 f32) or an operand at an odd offset
+    takes the forward's scalar variant; C = 300 also puts channel tiles on
+    blockIdx.y.  Each equals the plain version bitwise, with and without
+    the residual, and the wrapper reports the variant it chose."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    shape = {"c12": (4, 7, 9, 12), "c3": (4, 7, 9, 3), "c300": (2, 3, 3, 300)}.get(
+        case, (8, 8, 8, 16))
+    y, r, _, s, b = _inputs(shape, dtype, cuda_device, seed=32)
+    if case == "misaligned_y":
+        y = _misaligned(y)
+    if case == "misaligned_r":
+        r = _misaligned(r)
+    if case == "misaligned_scale":
+        s = _misaligned(s)
+    name = variant if isinstance(variant, str) else variant[dtype]
+    for res in ((None, r) if case != "misaligned_r" else (r,)):
+        before = fb.variant_counts()
+        out = fb.fused_block_forward(y, s, b, res)
+        want = dict(before)
+        want[name] += 1
+        assert fb.variant_counts() == want
+        assert torch.equal(out, fb.fused_block_reference(y, s, b, res))
+
+
+@pytest.mark.cuda
+def test_forward_cuda_graph_replay_matches_eager(cuda_device):
+    """Forward calls of both kernels and dtypes captured in one CUDA graph
+    and replayed 3 times equal the eager calls bitwise (outputs poisoned
+    before each replay)."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    cases = [_inputs(STAGES[k], dtype, cuda_device, seed=33 + k)
+             for k, dtype in enumerate((torch.bfloat16, torch.float32, torch.bfloat16))]
+    calls = [(y, s, b, res) for y, r, _, s, b in cases for res in (None, r)]
+    want = [fb.fused_block_forward(*c) for c in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            fb.fused_block_forward(*c)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [fb.fused_block_forward(*c) for c in calls]
+    for _ in range(3):
+        for t in got:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, e in zip(got, want):
+            assert torch.equal(a, e)
+
+
+@pytest.mark.cuda
+def test_backward_graph_of_many_calls_takes_one_slot(cuda_device):
+    """One CUDA graph holding more than TICKET_SLOTS backward calls (both
+    kernels, alternating) captures with one ticket slot, not one a call, and
+    each replay equals the eager calls bitwise."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    cases = [(_bwd_case((2, 4, 4, 16), torch.bfloat16, cuda_device, residual, seed=40 + residual),
+              residual) for residual in (False, True)]
+    want = [fb.fused_block_backward(*args, residual) for args, residual in cases]
+    calls = fb.TICKET_SLOTS + 4
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args, residual in cases:
+            fb.fused_block_backward(*args, residual)
+    torch.cuda.current_stream().wait_stream(side)
+    slots = fb._NEXT_SLOT.get(0, 0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [fb.fused_block_backward(*cases[k % 2][0], cases[k % 2][1]) for k in range(calls)]
+    assert fb._NEXT_SLOT.get(0, 0) - slots == 1
+    for _ in range(2):
+        for out in got:
+            for t in out:
+                if t is not None:
+                    t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for k, out in enumerate(got):
+            for a, e in zip(out, want[k % 2]):
                 assert (a is None and e is None) or torch.equal(a, e)
 
 

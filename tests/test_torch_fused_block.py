@@ -190,8 +190,8 @@ def test_kernel_operand_checks():
         fb._check(y, (s, b), (r.to(torch.bfloat16),))
 
 
-# -- the backward kernel's geometry (ops/fused_block.bwd_geometry) ------------
-# The CUDA kernel's thread -> data map, written out: block (bx, by), thread
+# -- the kernels' geometry (ops/fused_block.fwd_geometry / bwd_geometry) -----
+# The CUDA kernels' thread -> data map, written out: block (bx, by), thread
 # t = j * cg + lc takes channels [(by * cg + lc) * vec, ... + vec) and rows
 # bx * rows_per_block + j, + rb, ... up to the block's end.
 
@@ -238,6 +238,48 @@ def test_bwd_geometry_covers_every_element_once(rows, c, itemsize):
                 assert geo.row_blocks == 1 or geo.scratch_floats <= fb.FOLD_FLOATS
 
 
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,c", GEOMETRY_CASES)
+def test_fwd_geometry_covers_every_element_once(rows, c, itemsize):
+    """The forward's geometry: every row and channel exactly once, on 1-4
+    simulated SMs, aligned or not; at most one resident wave, every block
+    has rows, and no cap by partials (the forward folds nothing)."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    for sm_count in (1, 2, 3, 4):
+        for blocks_per_sm in (1, 8):
+            for aligned in (True, False):
+                geo = fb.fwd_geometry(rows, c, itemsize, aligned, sm_count, blocks_per_sm)
+                assert (geo.rows, geo.c) == (rows, c)
+                assert geo.vec == fb.vector_width(c, itemsize, aligned)
+                assert np.array_equal(_coverage(geo), np.ones(rows * c, np.int64)), geo
+                assert geo.cg * geo.rb <= fb.THREADS and geo.channel_blocks <= 65535
+                wave = max(1, sm_count * blocks_per_sm // geo.channel_blocks)
+                assert geo.row_blocks <= wave
+                assert (geo.row_blocks - 1) * geo.rows_per_block < rows
+                # no more blocks than rows for each block's threads, nor
+                # than the wave
+                assert geo.rows_per_block == -(-rows // min(wave, -(-rows // geo.rb)))
+
+
+def test_fwd_geometry_fills_the_card_once():
+    """On an H100 (132 SMs, 8 resident blocks of 256 threads) the forward's
+    grid at the flagship's stage shapes is one resident wave capped by the
+    rows, with no block without rows and no cap by partials."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    s1 = fb.fwd_geometry(128 * 32 * 32, 16, 2, True, 132, 8)  # stage 1, bf16
+    assert (s1.vec, s1.cg, s1.rb, s1.channel_blocks) == (8, 2, 128, 1)
+    assert s1.row_blocks == 1024 and s1.rows_per_block == 128  # a row a thread, < 1,056
+    s3 = fb.fwd_geometry(128 * 8 * 8, 64, 2, True, 132, 8)  # stage 3, bf16: capped by rows
+    assert (s3.vec, s3.cg, s3.rb) == (8, 8, 32)
+    assert s3.row_blocks == 256 and s3.rows_per_block == 32
+    s2 = fb.fwd_geometry(128 * 16 * 16, 32, 4, True, 132, 8)  # stage 2, f32
+    assert (s2.vec, s2.cg, s2.rb, s2.row_blocks) == (4, 8, 32, 1024)
+    wide = fb.bwd_geometry(128 * 8 * 8, 64, 2, True, 132, 8)  # the backward's fold cap
+    assert wide.row_blocks == 64 and fb.fwd_geometry(128 * 8 * 8, 64, 2, True, 132, 2) != wide
+
+
 def test_bwd_geometry_fills_the_card_once():
     """On an H100 (132 SMs) the grid is at most one resident wave, with no
     thread left without a row, and at most FOLD_FLOATS partials to fold."""
@@ -277,20 +319,21 @@ def test_vector_variant_exactly_when_divisible_and_aligned(itemsize):
 
 
 def test_cpu_backward_counts_no_variant():
-    """The CPU path launches nothing: the backward's variant counts stay 0."""
+    """The CPU path launches nothing: every variant count, the backward's
+    and the forward's, stays 0."""
     from fedml_tpu_torch.ops import fused_block as fb
 
     fb.reset_launch_counts()
     y, r, g, s, b = _t(*_inputs((2, 4, 4, 16), seed=7))
     out = fb.fused_block_forward(y, s, b, r)
     fb.fused_block_backward(g, y, s, out, True)
-    assert fb.variant_counts() == {"vector": 0, "scalar": 0}
+    assert fb.variant_counts() == {"vector": 0, "scalar": 0, "fwd_vector": 0, "fwd_scalar": 0}
 
 
 def test_ticket_slots_under_threads(monkeypatch):
     """Ticket slots handed out from many threads at once: a stream keeps
-    one slot, every stream and every captured call gets a slot no other
-    holds, and running out raises."""
+    one slot, every stream and every capture gets a slot no other holds,
+    and running out raises."""
     import sys
     import threading
 
@@ -305,7 +348,8 @@ def test_ticket_slots_under_threads(monkeypatch):
             mine = []
             for k in range(50):
                 mine.append((("stream", w % 4), fb._ticket_slot(0, 1000 + w % 4)))
-                mine.append((("captured", w, k), fb._ticket_slot(0, None)))
+                owner = ("capture", w * 50 + k, 1000 + w % 4)
+                mine.append((("captured", w, k), fb._ticket_slot(0, owner)))
             got[w] = mine
         except Exception as e:  # surfaced below
             errors.append(e)
@@ -331,7 +375,32 @@ def test_ticket_slots_under_threads(monkeypatch):
     assert fb._ticket_slot(1, 7) == 0  # per device
     monkeypatch.setitem(fb._NEXT_SLOT, 1, fb.TICKET_SLOTS)
     with pytest.raises(RuntimeError, match="ticket slots"):
-        fb._ticket_slot(1, None)
+        fb._ticket_slot(1, ("capture", 1, 7))
+
+
+def test_captured_calls_take_one_slot_per_capture(monkeypatch):
+    """Backward calls captured into a CUDA graph (capture faked): 5,000
+    calls of one capture on one stream take one slot, more than
+    TICKET_SLOTS; a second capture takes a second, a second stream of the
+    same capture a third, and the eager stream keeps its own."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    monkeypatch.setattr(fb, "_SLOTS", {})
+    monkeypatch.setattr(fb, "_NEXT_SLOT", {})
+    capture = {"id": 11}
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    monkeypatch.setattr(fb, "_capture_id", lambda stream: capture["id"])
+    cpu = torch.device("cpu")
+    slots = {fb._workspace(cpu, 500, 64)[0] for _ in range(5000)}
+    assert len(slots) == 1 and 5000 > fb.TICKET_SLOTS
+    capture["id"] = 12
+    second = {fb._workspace(cpu, 500, 64)[0] for _ in range(100)}
+    other_stream = fb._workspace(cpu, 501, 64)[0]
+    assert len(second) == 1 and second.isdisjoint(slots) and other_stream not in slots | second
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    eager, scratch = fb._workspace(cpu, 500, 64)
+    assert eager not in slots | second | {other_stream} and scratch.numel() == 64
+    assert fb._NEXT_SLOT[None] == 4
 
 
 def test_ablation_copies_patch_the_kernel_source():
@@ -352,3 +421,32 @@ def test_ablation_copies_patch_the_kernel_source():
     assert "constexpr int kUnroll = 4;" in copies["unroll4"]
     with pytest.raises(RuntimeError, match="has no"):
         ablate_bwd.variants(src.replace(ablate_bwd.FOLD_START, ""))
+
+
+def test_forward_ablation_copies_patch_the_kernel_source():
+    """obs/ablate_fwd.py changes one thing of the forward kernel in each
+    copy: the unroll depth, the load policy, the row order or the loads of
+    the per-channel vectors (inside the forward kernel only)."""
+    from fedml_tpu_torch.obs import ablate_fwd
+    from fedml_tpu_torch.ops import build
+
+    src = build.SOURCES["fused_block"].read_text()
+    copies = ablate_fwd.variants(src)
+    assert copies["full"] == src
+    depth = ablate_fwd.UNROLL.search(src).group(1)
+    for d in {"1", "2", "4"} - {depth}:
+        assert f"constexpr int kFwdUnroll = {d};" in copies[f"unroll{d}"]
+    assert f"unroll{depth}" not in copies
+    tail = src.split(ablate_fwd.KERNEL_END)[1]
+    for name in ("ldg", "flat", "vectors_late", "const_vectors"):
+        head, rest = copies[name].split(ablate_fwd.KERNEL_END)
+        assert rest == tail and head != src.split(ablate_fwd.KERNEL_END)[0], name
+    assert ablate_fwd.EVICT_FIRST not in copies["ldg"].split(ablate_fwd.KERNEL_END)[0]
+    assert ablate_fwd.LDG not in copies["plain_loads"]
+    assert ablate_fwd.FLAT_ROWS in copies["flat"] and "r + u * step" in copies["flat"]
+    assert "load_channels" not in copies["const_vectors"].split(ablate_fwd.KERNEL_START)[1].split(
+        ablate_fwd.KERNEL_END)[0]
+    with pytest.raises(RuntimeError, match="has no"):
+        ablate_fwd.variants(src.replace("constexpr int kFwdUnroll", "constexpr int kUnrollFwd"))
+    with pytest.raises(RuntimeError, match="has no"):
+        ablate_fwd.variants(src.replace(ablate_fwd.EVICT_FIRST, "load_pack<T, VEC>"))
