@@ -19,10 +19,14 @@ Phases (any failure exits non-zero; no phase is caught):
    one with it: the card's streaming yardstick, ``stream_ms``), and each
    fused kernel gets a line of its device time and bound over a local step,
    weighted by its launches at the three shapes.  The forward's scalar
-   variant (odd C, a misaligned operand) is held bitwise too.  Hold the int8 quantize and dequantize kernels
-   against theirs at the FedSGD gradient's length (269,722 elements, 264
-   blocks) and at 2^24 elements: int8 values, scales and the dequantized
-   vector bitwise.  Hold the central-DP noise kernel against its plain
+   variant (odd C, a misaligned operand) is held bitwise too.  Hold the int8
+   quantize and dequantize kernels against theirs at the FedSGD gradient's
+   length (269,722 elements, 264 blocks) and at 2^24 elements: int8 values,
+   scales and the dequantized vector bitwise; each line names the variant
+   that ran and gives the same-bytes stream (``torch.lt(x, u)``,
+   ``values.to(float32)``); then at 1,025 (vector) and at 269,722 with x
+   one element off a 16-byte line (the scalar variant, checked), bitwise.
+   Hold the central-DP noise kernel against its plain
    version at the SecAgg vector's length (271,098: ResNet-20's parameters
    and BN statistics) and at 2^24, bitwise, at the slice's DP sigma, at
    0.25 and at 0 (the identity).  Time each kernel and its plain version
@@ -30,7 +34,8 @@ Phases (any failure exits non-zero; no phase is caught):
    inputs rotated through more than twice the 50 MB L2) and as eager calls (host overhead
    included), next to its bound (bytes at 3.35 TB/s vs operations at 67
    TFLOP/s); for the noise kernel also the one PyTorch call that computes
-   the same function, ``torch.add(x, noise, alpha=sigma)``.  Then a fused
+   the same function, ``torch.add(x, noise, alpha=sigma)``, also in 7
+   alternating runs each (median, min and max).  Then a fused
    ResNet-20 step and one FedSGD client gradient on the card against the
    same on the CPU.
 3. The FedAvg path: the flagship recipe
@@ -74,6 +79,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -98,6 +104,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6
 ROUNDS = 3
+NOISE_RUNS = 7  # alternating timings of the noise kernel and torch.add
 
 
 def _gen(shape, dtype, device, seed):
@@ -333,9 +340,45 @@ def _quant_bytes(n):
     return 4 * n + 4 * b * 1024 + b * 1024 + 4 * b, b * 1024 + 4 * b + 4 * n
 
 
+def _variant_ran(qz, before):
+    """kernel name -> the variant its launches since ``before`` ran."""
+    ran = {}
+    for name, counts in qz.variant_counts().items():
+        moved = [v for v, c in counts.items() if c > before[name][v]]
+        ran[name] = moved[0] if len(moved) == 1 else "none" if not moved else "both"
+    return ran
+
+
+def _check_quant(qz, x, u, what, variant):
+    """Quantize and dequantize x on the card, bitwise against the plain
+    versions, and check that ``variant`` ran (the values handed to the
+    dequantize one byte off a 16-byte line for the scalar variant)."""
+    import torch
+
+    n = x.numel()
+    before = qz.variant_counts()
+    got, want = qz.quantize_int8_stochastic(x, u), qz.quantize_int8_reference(x, u)
+    values = _misaligned(got[0]) if variant == "scalar" else got[0]
+    deq = qz.dequantize_int8(values, got[1], n)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]):
+        bad = int((got[0] != want[0]).sum())
+        raise AssertionError(f"quantize kernel at {what}: {bad} values differ, scales equal "
+                             f"{torch.equal(got[1], want[1])}: not bitwise the plain version")
+    if not torch.equal(deq, qz.dequantize_int8_reference(values, got[1], n)) or deq.shape != (n,):
+        raise AssertionError(f"dequantize kernel at {what}: not bitwise the plain version")
+    ran = _variant_ran(qz, before)
+    if set(ran.values()) != {variant}:
+        raise AssertionError(f"quantize kernels at {what}: ran {ran}, expected {variant}")
+    return ran
+
+
 def phase_quantize(qz):
     """The int8 quantize / dequantize kernels against their plain versions:
-    values, scales and the dequantized vector bitwise."""
+    values, scales and the dequantized vector bitwise; each line names the
+    variant that ran and the same-bytes stream (``torch.lt(x, u)``: reads
+    x and u, writes a byte each; ``values.to(float32)``: reads a byte,
+    writes four)."""
     import torch
 
     dev = torch.device("cuda")
@@ -351,32 +394,44 @@ def phase_quantize(qz):
             x = torch.randn(n, generator=g, device=dev) * torch.exp(
                 3 * torch.randn(n, generator=g, device=dev))
             sets.append((x, torch.rand(shape, generator=g, device=dev)))
-        got, want = qz.quantize_int8_stochastic(*sets[0]), qz.quantize_int8_reference(*sets[0])
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]):
-            bad = int((got[0] != want[0]).sum())
-            raise AssertionError(f"quantize kernel at n={n}: {bad} values / scales equal "
-                                 f"{torch.equal(got[1], want[1])}: not bitwise the plain version")
+        ran = _check_quant(qz, *sets[0], f"n={n}", "vector")
         dq_sets = [qz.quantize_int8_stochastic(*a) for a in sets]
-        deq, deq_plain = qz.dequantize_int8(*dq_sets[0]), qz.dequantize_int8_reference(*dq_sets[0])
-        torch.cuda.synchronize()
-        if not torch.equal(deq, deq_plain) or deq.shape != (n,):
-            raise AssertionError(f"dequantize kernel at n={n}: not bitwise the plain version")
+
+        def q_stream(x, u, n=n):
+            return torch.lt(x, u.view(-1)[:n])
+
+        def dq_stream(values, scales, n):
+            return values.view(-1)[:n].to(torch.float32)
+
         cases = [(qz.QUANTIZE, qz.quantize_int8_stochastic, qz.quantize_int8_reference, sets,
-                  q_bytes, 7 * shape[0] * 1024),
+                  q_bytes, 7 * shape[0] * 1024, q_stream),
                  (qz.DEQUANTIZE, qz.dequantize_int8, qz.dequantize_int8_reference, dq_sets,
-                  dq_bytes, n)]
-        for kern, fn, plain, arg_sets, nbytes, nops in cases:
+                  dq_bytes, n, dq_stream)]
+        for kern, fn, plain, arg_sets, nbytes, nops, stream in cases:
             ms, plain_ms = _device_ms(fn, arg_sets), _device_ms(plain, arg_sets)
+            stream_ms = _device_ms(stream, arg_sets)
             eager_ms = _eager_ms(fn, arg_sets)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             print(f"kernel {kern.name} n={n} ({shape[0]} blocks): ok (bitwise), device "
                   f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
-                  f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us")
+                  f"{100 * bound_ms / ms:.1f}% of bound, same-bytes stream {stream_ms * 1e3:.2f} us "
+                  f"({ms / stream_ms:.2f}x)), eager call {eager_ms * 1e3:.2f} us, "
+                  f"{ran[kern.name]} variant")
             if n == GRAD_LENGTH:
                 results[kern.name].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                           "stream_ms": stream_ms,
                                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    for n, misaligned in ((1025, False), (GRAD_LENGTH, True)):
+        g = torch.Generator(device=dev)
+        g.manual_seed(150 + n)
+        x = torch.randn(n, generator=g, device=dev) * torch.exp(
+            3 * torch.randn(n, generator=g, device=dev))
+        u = torch.rand(qz.noise_shape(n), generator=g, device=dev)
+        what = f"n={n}" + (" with x off a 16-byte line" if misaligned else "")
+        ran = _check_quant(qz, _misaligned(x) if misaligned else x, u, what,
+                           "scalar" if misaligned else "vector")
+        print(f"kernel quantize / dequantize {what}: ok (bitwise), {ran[qz.QUANTIZE.name]} variant")
     return results
 
 
@@ -424,6 +479,15 @@ def phase_noise(nz):
               f"{sigma:.6g}, 0.25, 0), device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
               f"torch.add {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
               f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us")
+        # the kernel against torch.add in alternating runs: a median and its
+        # spread, where one run of each cannot tell a gap from the noise
+        runs = {"kernel": [], "torch.add": []}
+        for _ in range(NOISE_RUNS):
+            runs["kernel"].append(_device_ms(nz.apply_gaussian_noise, sets))
+            runs["torch.add"].append(_device_ms(library, sets))
+        print(f"kernel {nz.NOISE.name} n={n} against torch.add, {NOISE_RUNS} alternating runs: "
+              + ", ".join(f"{k} median {statistics.median(v) * 1e3:.3f} us (min {min(v) * 1e3:.3f}, "
+                          f"max {max(v) * 1e3:.3f})" for k, v in runs.items()))
         if n == SECAGG_LENGTH:
             results[nz.NOISE.name].update({
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": library_ms,

@@ -53,10 +53,13 @@ def variants(src: str) -> dict:
             "unroll4": src.replace(UNROLL, UNROLL.replace("2", "4"))}
 
 
-def _build(sources: dict) -> dict:
+def _build(sources: dict, signatures=None, subdir: str = "ablate") -> dict:
+    """Build each source (one nvcc each, all started together) under
+    ``_build/<subdir>``; ``signatures``: copy name -> its C functions'
+    signatures (default: the fused block library's)."""
     from fedml_tpu_torch.ops import build, fused_block as fb
 
-    out = build.BUILD_DIR / "ablate"
+    out = build.BUILD_DIR / subdir
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
@@ -70,7 +73,7 @@ def _build(sources: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"ablate_bwd: nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        for fn, (restype, argtypes) in fb._SIGNATURES.items():
+        for fn, (restype, argtypes) in (signatures or {}).get(name, fb._SIGNATURES).items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         libs[name] = lib

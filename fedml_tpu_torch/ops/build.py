@@ -67,16 +67,28 @@ class Kernel:
             self._variants = {}
 
 
+def aligned16(ptrs) -> bool:
+    """Whether every pointer is 16-byte aligned (a vector variant's
+    loads)."""
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    return bits % 16 == 0
+
+
 def current_stream(device, what: str) -> int:
     """The current stream of the current device, which must hold the
-    operands: a kernel launches only into a stream of the current device."""
+    operands: a kernel launches only into a stream of the current device.
+    The raw handle (PyTorch's own compiled kernels take it so): building a
+    ``torch.cuda.Stream`` object to read it is a large share of a small
+    kernel's host time."""
     import torch
 
-    stream = torch.cuda.current_stream()
-    if stream.device != device:
-        raise ValueError(f"{what}: operands on {device}, current device is "
-                         f"{stream.device} (use torch.cuda.set_device)")
-    return stream.cuda_stream
+    current = torch.cuda.current_device()
+    if device.index != current:
+        raise ValueError(f"{what}: operands on {device}, current device is cuda:{current} "
+                         "(use torch.cuda.set_device)")
+    return torch._C._cuda_getCurrentRawStream(current)
 
 
 def nvcc_path() -> str:

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import build
+from .build import aligned16
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -180,15 +181,6 @@ def vector_width(c: int, itemsize: int, aligned: bool) -> int:
     aligned (the vector variant), else 1 (the scalar variant)."""
     vec = 16 // itemsize
     return vec if c % vec == 0 and aligned else 1
-
-
-def aligned16(ptrs) -> bool:
-    """Whether every pointer is 16-byte aligned (the vector variant's
-    loads)."""
-    bits = 0
-    for p in ptrs:
-        bits |= p
-    return bits % 16 == 0
 
 
 def _geometry(rows: int, c: int, itemsize: int, aligned: bool, sm_count: int,

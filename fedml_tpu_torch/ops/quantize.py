@@ -8,11 +8,16 @@ each block gets ``scale = max|x| / 127 + 1e-12`` and int8 values
 from a key).  ``E[dequantize(quantize(x))] = x``.
 
 Two hand-written CUDA kernels (``csrc/quantize.cu``; its header note names
-the TPU kernels they replace, their bound and their design) and beside them
-their plain PyTorch versions: :func:`quantize_int8_reference` (mirrors the
-reference's L123) and :func:`dequantize_int8_reference`.  A wrapper takes the
-plain version only for tensors on the CPU; for a CUDA tensor it launches the
-kernel or raises.  Each kernel counts its launches (:func:`launch_counts`).
+the TPU kernels they replace, their bound and their design: a thread block
+per quantization block with every load issued before the max, a warp per
+128 dequantized values, 16-byte accesses) and beside them their plain
+PyTorch versions: :func:`quantize_int8_reference` (mirrors the reference's
+L123) and :func:`dequantize_int8_reference`.  A wrapper takes the plain
+version only for tensors on the CPU; for a CUDA tensor it launches the
+kernel or raises.  It picks the kernel's vector variant when the operands
+are 16-byte aligned, else its scalar one; the C entry sizes the launch
+from the length.  Each kernel counts its launches (:func:`launch_counts`),
+by variant too (:func:`variant_counts`).
 
 Divides are IEEE-rounded on both routes.  The plain version divides by a
 device tensor, never by a Python number: on CUDA, PyTorch turns a division
@@ -27,23 +32,31 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .build import aligned16
 
 BLOCK = 1024
 _SUB, _LANE = 8, 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "quantize_int8": (_I, [_P, _P, _P, _P, _I, _I, _P]),
-    "dequantize_int8": (_I, [_P, _P, _P, _I, _P]),
+    "dequantize_int8": (_I, [_P, _P, _P, _I, _I, _P]),
 }
 
 QUANTIZE = build.Kernel("quantize_int8", "fedml_tpu/ops/pallas/quantize.py:37")
 DEQUANTIZE = build.Kernel("dequantize_int8", "fedml_tpu/ops/pallas/quantize.py:50")
 KERNELS = (QUANTIZE, DEQUANTIZE)
 SOURCE = "fedml_tpu_torch/csrc/quantize.cu"
+VARIANTS = ("vector", "scalar")
 
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def variant_counts() -> dict:
+    """Launches on the card by kernel and variant since the last reset:
+    ``{kernel name: {"vector": n, "scalar": m}}``."""
+    return {k.name: {v: k.variant_counts().get(v, 0) for v in VARIANTS} for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -97,12 +110,13 @@ def _quantize_cuda(vec: torch.Tensor, noise: torch.Tensor):
                          f"{tuple(noise.shape)}")
     values = torch.empty(shape, dtype=torch.int8, device=x.device)
     scales = torch.empty(shape[0], dtype=torch.float32, device=x.device)
-    err = _lib().quantize_int8(x.data_ptr(), noise.data_ptr(), values.data_ptr(),
-                               scales.data_ptr(), n, shape[0],
+    ptrs = (x.data_ptr(), noise.data_ptr(), values.data_ptr())
+    aligned = aligned16(ptrs)
+    err = _lib().quantize_int8(*ptrs, scales.data_ptr(), n, aligned,
                                build.current_stream(x.device, "quantize kernel"))
     if err != 0:
         raise RuntimeError(f"{QUANTIZE.name}: CUDA launch failed with error {err}")
-    QUANTIZE.count_launch()
+    QUANTIZE.count_launch("vector" if aligned else "scalar")
     return values, scales, n
 
 
@@ -117,11 +131,13 @@ def _dequantize_cuda(values: torch.Tensor, scales: torch.Tensor, length: int) ->
         raise ValueError(f"scales must be contiguous float32 ({blocks},), got {scales.dtype} "
                          f"{tuple(scales.shape)}")
     out = torch.empty(length, dtype=torch.float32, device=values.device)
-    err = _lib().dequantize_int8(values.data_ptr(), scales.data_ptr(), out.data_ptr(), length,
+    v_ptr, o_ptr = values.data_ptr(), out.data_ptr()
+    aligned = aligned16((v_ptr, o_ptr))
+    err = _lib().dequantize_int8(v_ptr, scales.data_ptr(), o_ptr, length, aligned,
                                  build.current_stream(values.device, "dequantize kernel"))
     if err != 0:
         raise RuntimeError(f"{DEQUANTIZE.name}: CUDA launch failed with error {err}")
-    DEQUANTIZE.count_launch()
+    DEQUANTIZE.count_launch("vector" if aligned else "scalar")
     return out
 
 

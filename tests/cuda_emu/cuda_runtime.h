@@ -1,10 +1,14 @@
 // Host emulation of the CUDA features that fedml_tpu_torch/csrc/fused_block.cu
-// uses, for tests/test_torch_fused_block_emu.py (g++ -std=c++20, no card).
+// and csrc/quantize.cu use, for tests/test_torch_fused_block_emu.py and
+// tests/test_torch_quantize_emu.py (g++ -std=c++20, no card).
 // A block runs as blockDim.x std::threads; __syncthreads is a std::barrier,
 // __shfl_xor_sync exchanges through a per-block array between two barriers,
 // __shared__ variables are statics (blocks run one after another, in an
 // order the test chooses), and loads and fences are plain.
 #pragma once
+#include <math.h>
+#include <stdint.h>
+
 #include <barrier>
 #include <cstdint>
 #include <cstring>
@@ -27,6 +31,7 @@ struct dim3 {
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
@@ -52,8 +57,10 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 template <class T> inline T __ldg(const T* p) { return *p; }
 template <class T> inline T __ldcg(const T* p) { return *p; }
 template <class T> inline T __ldcs(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
 
 typedef int cudaError_t;

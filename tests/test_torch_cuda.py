@@ -15,7 +15,8 @@ itself over calls, under CUDA-graph replay and from two streams; the fused
 ResNet step on the card against the CPU to rtol 1e-3 / atol 1e-4 (cuDNN and
 CPU convolutions, TF32 off).  The int8 quantize / dequantize kernels:
 values, scales and the dequantized vector bitwise against the plain
-versions on the card and on the CPU (IEEE divides, order-free max).  The
+versions on the card and on the CPU (IEEE divides, order-free max), in
+both variants (16-byte and scalar accesses), a NaN scale as a NaN.  The
 central-DP noise kernel: bitwise against its plain version on the card and
 on the CPU (the multiply, then the add, each rounded).  A Shamir SecAgg
 finalize on the card against the CPU: bitwise without DP; with central DP
@@ -436,6 +437,172 @@ def test_quantize_kernels_match_plain_versions(n, cuda_device):
     after = qz.launch_counts()
     assert after[qz.QUANTIZE.name] == before[qz.QUANTIZE.name] + 1
     assert after[qz.DEQUANTIZE.name] == before[qz.DEQUANTIZE.name] + 1
+
+
+# ragged lengths of 1 to 9 blocks (the last the flagship gradient's tail),
+# the gradient itself and 2^24 with the same tail
+QUANT_RAGGED = [1, 3, 1023, 1024, 1025, 4098, 8 * 1024 + 410, 269722, 2**24 + 410]
+
+
+def _assert_bitwise(got, want):
+    """Equal bit for bit, a NaN as a NaN."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if not got.is_floating_point():
+        assert torch.equal(got, want)
+        return
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def _quantize_both_variants(qz, x, u, misaligned):
+    """Quantize and dequantize x through the wrappers, the operands one
+    element off a 16-byte line when ``misaligned``; checks each launch ran
+    the variant the alignment asks for and returns (values, scales, out)."""
+    n = x.numel()
+    if misaligned:
+        x, u = _misaligned(x), _misaligned(u)
+    variant = "scalar" if misaligned else "vector"
+    before = qz.variant_counts()
+    values, scales, length = qz.quantize_int8_stochastic(x, u)
+    want = qz.quantize_int8_reference(x, u)
+    assert length == n
+    _assert_bitwise(values, want[0])
+    _assert_bitwise(scales, want[1])
+    if misaligned:
+        values = _misaligned(values)
+    out = qz.dequantize_int8(values, scales, n)
+    _assert_bitwise(out, qz.dequantize_int8_reference(values, scales, n))
+    expected = {k: dict(v) for k, v in before.items()}
+    expected[qz.QUANTIZE.name][variant] += 1
+    expected[qz.DEQUANTIZE.name][variant] += 1
+    assert qz.variant_counts() == expected
+    return values, scales, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("n", QUANT_RAGGED)
+def test_quantize_variants_match_plain_versions(n, misaligned, cuda_device):
+    """Both variants of both kernels (the scalar one on operands one element
+    off a 16-byte line) bitwise the plain versions on the card, at ragged
+    lengths up to 2^24 + 410; each launch counted under its variant."""
+    from fedml_tpu_torch.ops import quantize as qz
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n % 1000 + misaligned)
+    x = torch.randn(n, generator=g, device=cuda_device) * torch.exp(
+        3 * torch.randn(n, generator=g, device=cuda_device))
+    u = torch.rand(qz.noise_shape(n), generator=g, device=cuda_device)
+    _quantize_both_variants(qz, x, u, misaligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_quantize_special_blocks_match_plain_versions(misaligned, cuda_device):
+    """A block with a NaN (NaN scale, levels as PyTorch casts a NaN), one
+    with +-inf (inf scale), an all-zero block and a block of -0.0 (scale
+    1e-12, levels 0), then a ragged tail: both variants bitwise the plain
+    versions."""
+    from fedml_tpu_torch.ops import quantize as qz
+
+    n = 4 * 1024 + 410
+    rs = np.random.RandomState(5)
+    x = (rs.randn(n) * 10).astype(np.float32)
+    x[300] = np.nan
+    x[1024 + 5], x[1024 + 900] = np.inf, -np.inf
+    x[2048:3072] = 0.0
+    x[3072:4096] = -0.0
+    u = rs.rand(*qz.noise_shape(n)).astype(np.float32)
+    _, scales, _ = _quantize_both_variants(qz, torch.from_numpy(x).to(cuda_device),
+                                           torch.from_numpy(u).to(cuda_device), misaligned)
+    assert scales[0].isnan() and scales[1].isinf()
+    assert float(scales[2]) == float(scales[3]) == float(np.float32(1e-12))
+
+
+@pytest.mark.cuda
+def test_quantize_cuda_tensors_never_reach_the_plain_versions(cuda_device, monkeypatch):
+    """With the plain versions made to raise, the wrappers and the round
+    trip still run on CUDA tensors, through the kernels (launches counted)."""
+    from fedml_tpu_torch.ops import quantize as qz
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    x = torch.randn(5000, device=cuda_device)
+    u = torch.rand(qz.noise_shape(5000), device=cuda_device)
+    want = qz.qsgd_int8(x, u)
+    monkeypatch.setattr(qz, "quantize_int8_reference", refuse)
+    monkeypatch.setattr(qz, "dequantize_int8_reference", refuse)
+    before = qz.launch_counts()
+    got = qz.qsgd_int8(x, u)
+    values, scales, n = qz.quantize_int8_stochastic(_misaligned(x), _misaligned(u))
+    qz.dequantize_int8(_misaligned(values), scales, n)
+    assert torch.equal(got, want)
+    after = qz.launch_counts()
+    assert all(after[k] == before[k] + 2 for k in after)
+
+
+@pytest.mark.cuda
+def test_quantize_vector_entry_refuses_misaligned_operands(cuda_device):
+    """The C entries refuse the vector variant on operands off a 16-byte
+    line, and an empty length (they do not launch)."""
+    from fedml_tpu_torch.ops import quantize as qz
+
+    x = torch.randn(2049, device=cuda_device)
+    u = torch.rand(qz.noise_shape(2048), device=cuda_device)
+    values = torch.empty(qz.noise_shape(2048), dtype=torch.int8, device=cuda_device)
+    scales = torch.empty(2, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = qz._lib()
+    assert lib.quantize_int8(x[1:].data_ptr(), u.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                             2048, 1, stream) != 0
+    assert lib.quantize_int8(x.data_ptr(), u.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                             0, 0, stream) != 0
+    assert lib.dequantize_int8(values[0, 0, 1:].data_ptr(), scales.data_ptr(), x.data_ptr(), 100,
+                               1, stream) != 0
+    assert lib.dequantize_int8(values.data_ptr(), scales.data_ptr(), x.data_ptr(), 0, 0,
+                               stream) != 0
+
+
+@pytest.mark.cuda
+def test_quantize_cuda_graph_replay_matches_eager(cuda_device):
+    """Quantize and dequantize calls of both variants captured in one CUDA
+    graph and replayed 3 times equal the eager calls bitwise (outputs
+    poisoned before each replay)."""
+    from fedml_tpu_torch.ops import quantize as qz
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    cases = []
+    for n, misaligned in ((269722, False), (269722, True), (1025, False)):
+        x = torch.randn(n, generator=g, device=cuda_device)
+        u = torch.rand(qz.noise_shape(n), generator=g, device=cuda_device)
+        cases.append((_misaligned(x), _misaligned(u)) if misaligned else (x, u))
+
+    def calls():
+        outs = []
+        for x, u in cases:
+            values, scales, n = qz.quantize_int8_stochastic(x, u)
+            outs += [values, scales, qz.dequantize_int8(values, scales, n)]
+        return outs
+
+    want = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = calls()
+    for _ in range(3):
+        for t in got:
+            t.fill_(-3)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, e in zip(got, want):
+            assert torch.equal(a, e)
 
 
 @pytest.mark.cuda

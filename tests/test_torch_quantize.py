@@ -153,6 +153,89 @@ def test_wrappers_refuse_other_devices():
     assert q.noise_shape(1) == (1, 8, 128) and q.noise_shape(269722) == (264, 8, 128)
 
 
+# -- the kernels' variant (pure Python) ---------------------------------------
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4, 8])
+def test_variant_follows_the_operands_alignment(offset):
+    """The vector variant only when every operand is 16-byte aligned: f32
+    x and u and int8 values at ``offset`` elements into an aligned buffer."""
+    from fedml_tpu_torch.ops import build
+
+    f32, i8 = torch.empty(64), torch.empty(64, dtype=torch.int8)
+    assert f32.data_ptr() % 16 == 0 and i8.data_ptr() % 16 == 0
+    x, values = f32[offset:], i8[offset:]
+    assert build.aligned16((x.data_ptr(), f32.data_ptr(), i8.data_ptr())) == (offset % 4 == 0)
+    assert build.aligned16((values.data_ptr(), f32.data_ptr())) == (offset % 16 == 0)
+
+
+def test_kernel_constants_match_the_source():
+    """The wrapper's quantization block is the .cu source's."""
+    import re
+
+    from fedml_tpu_torch.ops import build
+    from fedml_tpu_torch.ops import quantize as q
+
+    src = build.SOURCES["quantize"].read_text()
+    assert re.search(r"constexpr int kBlock = (\d+);", src).group(1) == str(q.BLOCK)
+
+
+def test_cpu_path_counts_no_launch_or_variant():
+    from fedml_tpu_torch.ops import quantize as q
+
+    q.reset_launch_counts()
+    x = torch.from_numpy(_vec(3000, 2))
+    values, scales, n = q.quantize_int8_stochastic(x, torch.rand(q.noise_shape(3000)))
+    q.dequantize_int8(values, scales, n)
+    assert q.launch_counts() == {q.QUANTIZE.name: 0, q.DEQUANTIZE.name: 0}
+    assert q.variant_counts() == {k.name: {"vector": 0, "scalar": 0} for k in q.KERNELS}
+
+
+def test_quantize_ablation_copies_patch_the_kernel_source():
+    """obs/ablate_quant.py changes one thing in each copy: u after the max,
+    the threads of a quantization block, 4-byte loads, a kernel's load or
+    store policy, the words a dequantize lane, the threads of a dequantize
+    block or consecutive values a dequantize thread; and keeps the replaced
+    kernels."""
+    from fedml_tpu_torch.obs import ablate_quant as a
+    from fedml_tpu_torch.ops import build
+
+    src = build.SOURCES["quantize"].read_text()
+    copies = a.variants(src)
+    assert copies["final"] == src
+    assert set(copies) == {"final", "was", "u_late", "loads4", "ldg", "dq_ldcs", "plain_stores",
+                           "contig16", "t32", "t64", "t128", "dq2", "dq4", "dq_t64", "dq_t128"}
+    late = copies["u_late"]
+    assert late.index(a.SCALE) < late.index(a.U_LOADS) and late.count(a.U_LOADS) == 1
+    for t in (32, 64, 128):
+        assert f"constexpr int kThreads = {t};" in copies[f"t{t}"]
+        assert t == 32 or f"constexpr int kDqThreads = {t};" in copies[f"dq_t{t}"]
+    assert a.VEC_LOAD not in copies["loads4"]
+    assert a.LD not in copies["ldg"] and a.LD_DQ in copies["ldg"]
+    assert a.LD_DQ not in copies["dq_ldcs"] and a.LD in copies["dq_ldcs"]
+    assert a.STREAM_STORE not in copies["plain_stores"] and a.STORE in copies["plain_stores"]
+    for w in (2, 4):
+        assert f"constexpr int kDqWords = {w};" in copies[f"dq{w}"]
+    assert a.CONTIG16_KERNEL in copies["contig16"] and "kDqWords = 4;" in copies["contig16"]
+    assert "__syncthreads" in copies["was"] and "quantize_int8" in copies["was"]
+    for name, text in copies.items():
+        assert name in ("final", "was") or text != src, name
+    with pytest.raises(RuntimeError, match="has no"):
+        a.variants(src.replace(a.DQ_END, "bool aligned(", 1))
+
+
+def test_quantize_ablation_times_each_copy_where_it_changes_a_kernel():
+    """Every copy is timed as the quantize, the dequantize or both: where it
+    changes something (the unchanged kernel of a copy is not timed again)."""
+    from fedml_tpu_torch.obs import ablate_quant as a
+    from fedml_tpu_torch.ops import build
+
+    copies = a.variants(build.SOURCES["quantize"].read_text())
+    quant, dequant = a._calls({name: None for name in copies})
+    assert set(quant) == {"final", "was", "u_late", "loads4", "ldg", "t32", "t64", "t128"}
+    assert set(dequant) == {"final", "was", "dq_ldcs", "plain_stores", "contig16", "dq2", "dq4",
+                            "dq_t64", "dq_t128"}
+
+
 # -- compression branches ----------------------------------------------------
 
 def _compress_both(name, x, key, residual=None, ratio=0.01, level=8):
