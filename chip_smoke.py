@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; no phase is caught):
    Hold the central-DP noise kernel against its plain
    version at the SecAgg vector's length (271,098: ResNet-20's parameters
    and BN statistics) and at 2^24, bitwise, at the slice's DP sigma, at
-   0.25 and at 0 (the identity).  Time each kernel and its plain version
+   0.25 and at 0 (the identity); each line names the variant that ran;
+   then at 271,098 with x one element off a 16-byte line (the scalar
+   variant, checked).  Time each kernel and its plain version
    with CUDA events over CUDA-graph replays (device time; each kernel's
    inputs rotated through more than twice the 50 MB L2) and as eager calls (host overhead
    included), next to its bound (bytes at 3.35 TB/s vs operations at 67
@@ -62,11 +64,14 @@ Phases (any failure exits non-zero; no phase is caught):
    central DP (Gaussian, epsilon 50, delta 1e-5, sensitivity 0.01, clip 1.0)
    and ``extra.fused_blocks``: the server and 4 clients are threads of this
    process on the in-process fabric.  The counts are zeroed before and read
-   after: the noise kernel must launch once per round, each fused kernel
-   must launch, the fold must keep at most 2 updates, every test metric and
-   weight must be finite, and round 0's noised global must be bitwise the
-   plain version applied to its clipped global with the same draw (and
-   differ from it).
+   after: the noise kernel must launch once per round, in its vector
+   variant, each fused kernel must launch, the fold must keep at most 2
+   updates, every test metric and weight must be finite, and round 0's
+   noised global must be bitwise the plain version applied to its clipped
+   global with the same draw (and differ from it).  After each round (outside
+   its timed finalize) it prints the round delta's L2 norm before the clip,
+   the BN running statistics' share of its squared norm, and its norm after
+   the clip.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (each kernel's
 launches from its own path's run); the last line is ``{"ok": true,
@@ -340,10 +345,11 @@ def _quant_bytes(n):
     return 4 * n + 4 * b * 1024 + b * 1024 + 4 * b, b * 1024 + 4 * b + 4 * n
 
 
-def _variant_ran(qz, before):
-    """kernel name -> the variant its launches since ``before`` ran."""
+def _variant_ran(mod, before):
+    """kernel name -> the variant its launches since ``before`` ran (``mod``:
+    a kernel module with ``variant_counts()``)."""
     ran = {}
-    for name, counts in qz.variant_counts().items():
+    for name, counts in mod.variant_counts().items():
         moved = [v for v, c in counts.items() if c > before[name][v]]
         ran[name] = moved[0] if len(moved) == 1 else "none" if not moved else "both"
     return ran
@@ -435,9 +441,32 @@ def phase_quantize(qz):
     return results
 
 
+def _check_noise(nz, x, noise, sigmas, what, variant):
+    """The noise kernel on x at each sigma, bitwise against the plain
+    version, and a check that ``variant`` ran; returns the variant."""
+    import torch
+
+    n = x.numel()
+    before = nz.variant_counts()
+    for s in sigmas:
+        got, want = nz.apply_gaussian_noise(x, noise, s), nz.apply_gaussian_noise_reference(
+            x, noise, s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or got.shape != (n,):
+            bad = int((got != want).sum())
+            raise AssertionError(f"noise kernel at {what}, sigma={s}: {bad} elements not "
+                                 "bitwise the plain version")
+    ran = _variant_ran(nz, before)[nz.NOISE.name]
+    if ran != variant:
+        raise AssertionError(f"noise kernel at {what}: ran {ran}, expected {variant}")
+    return ran
+
+
 def phase_noise(nz):
     """The central-DP noise kernel against its plain version: bitwise at the
-    DP sigma, at 0.25 and at 0 (the identity)."""
+    DP sigma, at 0.25 and at 0 (the identity); each line names the variant
+    that ran.  Then at the SecAgg vector's length with x off a 16-byte line
+    (the scalar variant, checked)."""
     import torch
 
     from fedml_tpu_torch.trust.dp.dp import gaussian_sigma
@@ -455,14 +484,7 @@ def phase_noise(nz):
             sets.append((torch.randn(n, generator=g, device=dev),
                          torch.randn(shape, generator=g, device=dev), sigma))
         x, noise, _ = sets[0]
-        for s in (sigma, 0.25, 0.0):
-            got, want = nz.apply_gaussian_noise(x, noise, s), nz.apply_gaussian_noise_reference(
-                x, noise, s)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want) or got.shape != (n,):
-                bad = int((got != want).sum())
-                raise AssertionError(f"noise kernel at n={n}, sigma={s}: {bad} elements not "
-                                     "bitwise the plain version")
+        ran = _check_noise(nz, x, noise, (sigma, 0.25, 0.0), f"n={n}", "vector")
         if not torch.equal(nz.apply_gaussian_noise(x, noise, 0.0), x):
             raise AssertionError(f"noise kernel at n={n}: sigma 0 is not the identity")
 
@@ -478,7 +500,8 @@ def phase_noise(nz):
         print(f"kernel {nz.NOISE.name} n={n} ({shape[0]} blocks): ok (bitwise at sigma "
               f"{sigma:.6g}, 0.25, 0), device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
               f"torch.add {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
-              f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us")
+              f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us, "
+              f"{ran} variant")
         # the kernel against torch.add in alternating runs: a median and its
         # spread, where one run of each cannot tell a gap from the noise
         runs = {"kernel": [], "torch.add": []}
@@ -492,6 +515,14 @@ def phase_noise(nz):
             results[nz.NOISE.name].update({
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": library_ms,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    g = torch.Generator(device=dev)
+    g.manual_seed(250)
+    x = torch.randn(SECAGG_LENGTH, generator=g, device=dev)
+    noise = torch.randn(nz.noise_shape(SECAGG_LENGTH), generator=g, device=dev)
+    ran = _check_noise(nz, _misaligned(x), noise, (sigma, 0.25), "the SecAgg vector off a "
+                       "16-byte line", "scalar")
+    print(f"kernel {nz.NOISE.name} n={SECAGG_LENGTH} with x off a 16-byte line: ok (bitwise at "
+          f"sigma {sigma:.6g}, 0.25), {ran} variant")
     return results
 
 
@@ -711,21 +742,42 @@ def phase_fedsgd(mods, qz):
 
 class _SecAggProbe(_RoundProbe):
     """The round probe of the cross-silo server: also the round's payload
-    counters and, at round 0, the clipped global before its noise and the
+    counters, the noise kernel's launches by variant, the round delta
+    before its clip (its L2 norm and the BN running statistics' share of
+    its squared norm) and after it (its norm), read after the timed
+    finalize, and at round 0 the clipped global before its noise and the
     noised global (flat, on the card)."""
 
-    def __init__(self, inner, counts, aggregator):
+    def __init__(self, inner, counts, aggregator, nz):
+        import torch
+
+        from fedml_tpu_torch import weights
+
         super().__init__(inner, counts)
-        self.aggregator, self.payload, self.round0 = aggregator, [], None
+        self.aggregator, self.nz, self.payload, self.round0 = aggregator, nz, [], None
+        self.variants, self.deltas = [], []
+        self.prev = weights.flatten_reference(aggregator.global_vars)[0].clone()
+        # sorted keys put the BN statistics first in the reference's flat layout
+        stats = weights.flatten_reference({"batch_stats": aggregator.global_vars["batch_stats"]})[0]
+        if not torch.equal(self.prev[:stats.numel()], stats):
+            raise AssertionError("the BN statistics are not the head of the flat global")
+        self.n_stats = stats.numel()
 
     def log(self, metrics, step=None):
         from fedml_tpu_torch import weights
         from fedml_tpu_torch.comm import codecs
 
+        agg = self.aggregator
         self.payload.append(codecs.payload_counters().get("secagg_dense", {}).get("wire_bytes", 0))
+        self.variants.append(self.nz.variant_counts()[self.nz.NOISE.name])
+        delta = agg.dp_delta.double()
+        sq = float(delta.square().sum())
+        self.deltas.append((sq ** 0.5, float(delta[:self.n_stats].square().sum()) / sq,
+                            float((agg.dp_pre_noise - self.prev).double().norm())))
+        flat = weights.flatten_reference(agg.global_vars)[0]
         if self.round0 is None:
-            self.round0 = (self.aggregator.dp_pre_noise.clone(),
-                           weights.flatten_reference(self.aggregator.global_vars)[0].clone())
+            self.round0 = (agg.dp_pre_noise.clone(), flat.clone())
+        self.prev = flat.clone()
         super().log(metrics, step)
 
 
@@ -762,7 +814,7 @@ def phase_cross_silo(mods, nz):
           f"{steps} local steps a round, batch {cfg.batch_size}, {cfg.compute_dtype}, "
           f"SecAgg T={agg.t} over {agg.model_dim} elements ({agg.ring.bits}-bit ring, "
           f"{agg.ring.frac_bits} fractional bits), DP sigma {agg._dp.sigma():.6g})")
-    probe = _SecAggProbe(server.logger, lambda: _all_counts(mods + (nz,)), agg)
+    probe = _SecAggProbe(server.logger, lambda: _all_counts(mods + (nz,)), agg, nz)
     server.logger = probe
     torch.cuda.reset_peak_memory_stats()
     before = codecs.payload_counters().get("secagg_dense", {}).get("wire_bytes", 0)
@@ -772,7 +824,9 @@ def phase_cross_silo(mods, nz):
     counts = _all_counts(mods + (nz,))
     prev, prev_bytes = {k: 0 for k in counts}, before
     samples = sum(c.trainer.trained_samples for c in clients)
-    for (metrics, cum, mem), wire in zip(probe.rows, probe.payload):
+    prev_vector = 0
+    for (metrics, cum, mem), wire, variants, (norm, bn_share, clipped) in zip(
+            probe.rows, probe.payload, probe.variants, probe.deltas):
         delta = {k: cum[k] - prev[k] for k in cum}
         prev = cum
         print(f"round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
@@ -781,10 +835,15 @@ def phase_cross_silo(mods, nz):
               f"(unmask + clip + noise) {1e3 * metrics['finalize_time_s']:.1f} ms, uploads "
               f"{wire - prev_bytes} bytes (frames {metrics['upload_bytes']}), "
               f"max_memory_allocated {mem / 2**30:.2f} GiB, launches {delta}")
+        print(f"round {metrics['round']} delta: L2 norm before the clip {norm:.6g}, BN "
+              f"statistics' share of its squared norm {bn_share:.6g} ({probe.n_stats} of "
+              f"{agg.model_dim} elements), after the clip {clipped:.6g} (clip "
+              f"{DP['clipping_norm']})")
         prev_bytes = wire
-        if delta[nz.NOISE.name] != 1:
+        if delta[nz.NOISE.name] != 1 or variants["vector"] != prev_vector + 1:
             raise AssertionError(f"round {metrics['round']}: {delta[nz.NOISE.name]} noise "
-                                 "launches, expected 1")
+                                 f"launches ({variants}), expected 1 of the vector variant")
+        prev_vector = variants["vector"]
     print(f"payload counters: {codecs.payload_counters()}")
     if len(history) != ROUNDS or counts[nz.NOISE.name] != ROUNDS:
         raise AssertionError(f"expected {ROUNDS} rounds and noise launches, got "

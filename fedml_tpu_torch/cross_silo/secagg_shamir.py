@@ -191,8 +191,11 @@ class SAAggregator(FedMLAggregator):
         #: host seconds of the last finalize (unmask + dequantize + the
         #: clip and noise enqueued on the device)
         self.last_finalize_s = 0.0
-        #: the last CDP finalize's clipped flat model before its noise (the
-        #: reference's ``old + clip(delta)``), kept for inspection
+        #: the last CDP finalize's round delta before its clip (the
+        #: aggregate minus the old global, flat) and its clipped flat model
+        #: before its noise (the reference's ``old + clip(delta)``), kept
+        #: for inspection
+        self.dp_delta: Optional[torch.Tensor] = None
         self.dp_pre_noise: Optional[torch.Tensor] = None
 
     def add_local_trained_result(self, client_idx: int, masked_vec, sample_num: float) -> None:
@@ -290,7 +293,8 @@ class SAAggregator(FedMLAggregator):
         add the calibrated noise (Gaussian through the CUDA kernel)."""
         if self._dp is None or not self._dp.is_cdp_enabled():
             return avg
-        flat = old_flat + self._dp.global_clip(avg - old_flat)
+        self.dp_delta = avg - old_flat
+        flat = old_flat + self._dp.global_clip(self.dp_delta)
         self.dp_pre_noise = flat
         if self._dp.mechanism == "gaussian":
             noise = self.noise_sampler.gaussian(round_idx, noise_ops.noise_shape(flat.numel()),

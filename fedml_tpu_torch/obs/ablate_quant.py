@@ -361,16 +361,17 @@ def _eager_ms(fn, arg_sets, iters=100, repeats=10, warmup=20):
     return min(runs)
 
 
-def _tree_quantize(root: Path):
-    """The ``fedml_tpu_torch/ops/quantize.py`` of the tree at ``root``, as a
+def _tree_ops(root: Path, module: str):
+    """The ``fedml_tpu_torch/ops/<module>.py`` of the tree at ``root``, as a
     module of a package of another name (its ``__init__`` not run), so that
     it loads beside this tree's; it builds its kernels under that tree."""
     pkg = root / "fedml_tpu_torch"
     for name, path in (("against_tree", pkg), ("against_tree.ops", pkg / "ops")):
-        mod = types.ModuleType(name)
-        mod.__path__ = [str(path)]
-        sys.modules[name] = mod
-    return importlib.import_module("against_tree.ops.quantize")
+        if name not in sys.modules:
+            mod = types.ModuleType(name)
+            mod.__path__ = [str(path)]
+            sys.modules[name] = mod
+    return importlib.import_module(f"against_tree.ops.{module}")
 
 
 def _eager_against(root: Path):
@@ -380,7 +381,7 @@ def _eager_against(root: Path):
 
     from fedml_tpu_torch.ops import quantize as qz
 
-    other = _tree_quantize(root)
+    other = _tree_ops(root, "quantize")
     n, dev = LENGTHS[0], torch.device("cuda")
     sets = []
     for k in range(8):

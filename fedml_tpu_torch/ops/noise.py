@@ -8,11 +8,15 @@ of shape :func:`noise_shape` (the reference pads the vector to ``(blocks, 8,
 elements meet the vector.
 
 A hand-written CUDA kernel (``csrc/noise.cu``; its header note names the TPU
-kernel it replaces, its bound and its design) and beside it the plain
-PyTorch version :func:`apply_gaussian_noise_reference` (mirrors the
-reference's L81).  :func:`apply_gaussian_noise` takes the plain version only
-for a vector on the CPU; for a CUDA vector it launches the kernel or raises.
-The kernel counts its launches (:func:`launch_counts`).
+kernel it replaces, its bound and its design: 16-byte accesses contiguous
+across the warp, every load of a thread issued before the arithmetic) and
+beside it the plain PyTorch version :func:`apply_gaussian_noise_reference`
+(mirrors the reference's L81).  :func:`apply_gaussian_noise` takes the plain
+version only for a vector on the CPU; for a CUDA vector it launches the
+kernel or raises.  It picks the kernel's vector variant when x, the draw and
+the output are 16-byte aligned, else its scalar one; the C entry sizes the
+launch from the length.  The kernel counts its launches
+(:func:`launch_counts`), by variant too (:func:`variant_counts`).
 
 Both round the multiply, then the add.  The plain version multiplies by
 ``sigma`` as a device tensor, never a Python number: on CUDA, PyTorch can
@@ -26,21 +30,27 @@ import ctypes
 import torch
 
 from . import build
+from .build import aligned16
 
 BLOCK = 1024
 _SUB, _LANE = 8, 128
-_SIGNATURES = {
-    "gaussian_noise": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
-}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"gaussian_noise": (_I, [_P, _P, ctypes.c_float, _P, _I, _I, _P])}
 
 NOISE = build.Kernel("gaussian_noise", "fedml_tpu/ops/pallas/noise.py:33")
 KERNELS = (NOISE,)
 SOURCE = "fedml_tpu_torch/csrc/noise.cu"
+VARIANTS = ("vector", "scalar")
 
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def variant_counts() -> dict:
+    """Launches on the card by kernel and variant since the last reset:
+    ``{kernel name: {"vector": n, "scalar": m}}``."""
+    return {k.name: {v: k.variant_counts().get(v, 0) for v in VARIANTS} for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -75,12 +85,14 @@ def apply_gaussian_noise_reference(vec: torch.Tensor, noise: torch.Tensor,
 def _noise_cuda(vec: torch.Tensor, noise: torch.Tensor, sigma: float) -> torch.Tensor:
     x = vec.to(torch.float32).contiguous()
     out = torch.empty_like(x)
+    ptrs = (x.data_ptr(), noise.data_ptr(), out.data_ptr())
+    aligned = aligned16(ptrs)
     lib = build.load_library("noise", _SIGNATURES)
-    err = lib.gaussian_noise(x.data_ptr(), noise.data_ptr(), sigma, out.data_ptr(), x.numel(),
+    err = lib.gaussian_noise(ptrs[0], ptrs[1], sigma, ptrs[2], x.numel(), aligned,
                              build.current_stream(x.device, "noise kernel"))
     if err != 0:
         raise RuntimeError(f"{NOISE.name}: CUDA launch failed with error {err}")
-    NOISE.count_launch()
+    NOISE.count_launch("vector" if aligned else "scalar")
     return out
 
 

@@ -1,6 +1,7 @@
-// Host emulation of the CUDA features that fedml_tpu_torch/csrc/fused_block.cu
-// and csrc/quantize.cu use, for tests/test_torch_fused_block_emu.py and
-// tests/test_torch_quantize_emu.py (g++ -std=c++20, no card).
+// Host emulation of the CUDA features that fedml_tpu_torch/csrc/fused_block.cu,
+// csrc/quantize.cu and csrc/noise.cu use, for tests/test_torch_fused_block_emu.py,
+// tests/test_torch_quantize_emu.py and tests/test_torch_noise_emu.py (g++
+// -std=c++20, no card).
 // A block runs as blockDim.x std::threads; __syncthreads is a std::barrier,
 // __shfl_xor_sync exchanges through a per-block array between two barriers,
 // __shared__ variables are statics (blocks run one after another, in an
@@ -9,10 +10,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <barrier>
 #include <cstdint>
 #include <cstring>
 #include <mutex>
+#include <random>
 #include <thread>
 #include <vector>
 
@@ -74,11 +77,30 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, const v
   *b = 1;
   return cudaSuccess;
 }
+// a card of 2 SMs, so that a grid of one resident wave walks several tiles
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
 enum cudaStreamCaptureStatus { cudaStreamCaptureStatusNone = 0, cudaStreamCaptureStatusActive = 1 };
 inline cudaError_t cudaStreamGetCaptureInfo(cudaStream_t, cudaStreamCaptureStatus* s,
                                             unsigned long long*) {
   *s = cudaStreamCaptureStatusNone;
   return cudaSuccess;
+}
+
+// thread blocks 0..n-1 in an order shuffled by `seed`
+inline std::vector<unsigned> emu_shuffled(unsigned n, unsigned seed) {
+  std::vector<unsigned> order(n);
+  for (unsigned i = 0; i < n; ++i) order[i] = i;
+  std::mt19937 rng(seed);
+  std::shuffle(order.begin(), order.end(), rng);
+  return order;
 }
 
 // Runs body() as every thread of every block of grid x block (block.x *

@@ -1,23 +1,7 @@
 // The int8 quantize and dequantize kernels of fedml_tpu_torch/csrc/quantize.cu
 // run on the host (tests/test_torch_quantize_emu.py builds this with the
 // kernels' source, launches stripped, as quantize_emu.cpp).
-#include <algorithm>
-#include <random>
-
 #include "quantize_emu.cpp"
-
-namespace {
-
-// thread blocks 0..n-1 in an order shuffled by `seed`
-std::vector<unsigned> shuffled(unsigned n, unsigned seed) {
-  std::vector<unsigned> order(n);
-  for (unsigned i = 0; i < n; ++i) order[i] = i;
-  std::mt19937 rng(seed);
-  std::shuffle(order.begin(), order.end(), rng);
-  return order;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -25,7 +9,7 @@ extern "C" {
 int emu_quantize(const void* x, const void* u, void* values, void* scales, int length, int vec,
                  unsigned seed) {
   const unsigned grid = quantize_grid((unsigned)length);
-  emu_launch(dim3(grid), dim3(kThreads), shuffled(grid, seed), [&] {
+  emu_launch(dim3(grid), dim3(kThreads), emu_shuffled(grid, seed), [&] {
     if (vec)
       quantize_kernel<true>((const float*)x, (const float*)u, (signed char*)values,
                             (float*)scales, (unsigned)length);
@@ -40,7 +24,7 @@ int emu_quantize(const void* x, const void* u, void* values, void* scales, int l
 int emu_dequantize(const void* values, const void* scales, void* out, int length, int vec,
                    unsigned seed) {
   const unsigned grid = dequantize_grid((unsigned)length);
-  emu_launch(dim3(grid), dim3(kDqThreads), shuffled(grid, seed), [&] {
+  emu_launch(dim3(grid), dim3(kDqThreads), emu_shuffled(grid, seed), [&] {
     if (vec)
       dequantize_kernel<true>((const signed char*)values, (const float*)scales, (float*)out,
                               (unsigned)length);

@@ -2,29 +2,14 @@
 // (fedml_tpu_torch/obs/ablate_quant.py keeps them as WAS_SOURCE) run on the
 // host, with the entry points of emu_quantize.cpp: a 256-thread block per
 // quantization block, a thread per dequantized element.
-#include <algorithm>
-#include <random>
-
 #include "quantize_emu.cpp"
-
-namespace {
-
-std::vector<unsigned> shuffled(unsigned n, unsigned seed) {
-  std::vector<unsigned> order(n);
-  for (unsigned i = 0; i < n; ++i) order[i] = i;
-  std::mt19937 rng(seed);
-  std::shuffle(order.begin(), order.end(), rng);
-  return order;
-}
-
-}  // namespace
 
 extern "C" {
 
 int emu_quantize(const void* x, const void* u, void* values, void* scales, int length, int,
                  unsigned seed) {
   const unsigned blocks = (length + kBlock - 1) / kBlock;
-  emu_launch(dim3(blocks), dim3(kThreads), shuffled(blocks, seed), [&] {
+  emu_launch(dim3(blocks), dim3(kThreads), emu_shuffled(blocks, seed), [&] {
     quantize_kernel((const float*)x, (const float*)u, (signed char*)values, (float*)scales,
                     (unsigned)length);
   });
@@ -34,7 +19,7 @@ int emu_quantize(const void* x, const void* u, void* values, void* scales, int l
 int emu_dequantize(const void* values, const void* scales, void* out, int length, int,
                    unsigned seed) {
   const unsigned grid = (length + kThreads - 1) / kThreads;
-  emu_launch(dim3(grid), dim3(kThreads), shuffled(grid, seed), [&] {
+  emu_launch(dim3(grid), dim3(kThreads), emu_shuffled(grid, seed), [&] {
     dequantize_kernel((const signed char*)values, (const float*)scales, (float*)out,
                       (unsigned)length);
   });

@@ -18,7 +18,7 @@ values, scales and the dequantized vector bitwise against the plain
 versions on the card and on the CPU (IEEE divides, order-free max), in
 both variants (16-byte and scalar accesses), a NaN scale as a NaN.  The
 central-DP noise kernel: bitwise against its plain version on the card and
-on the CPU (the multiply, then the add, each rounded).  A Shamir SecAgg
+on the CPU (the multiply, then the add, each rounded), in both variants.  A Shamir SecAgg
 finalize on the card against the CPU: bitwise without DP; with central DP
 the clip's norm sums in another order, so one ulp plus 1e-5 of the clipped
 delta's largest element (two ulps after the noise).
@@ -683,6 +683,143 @@ def test_noise_kernel_rejects_bad_operands(cuda_device):
         nz.apply_gaussian_noise(x, noise.cpu(), 0.1)
     with pytest.raises(ValueError, match="flat vector"):
         nz.apply_gaussian_noise(x[:0], noise[:0], 0.1)
+
+
+# 1 to 5 float4 groups, ragged draw blocks, the SecAgg vector (n % 4 = 2)
+# and 2^24 with the same remainder
+NOISE_RAGGED = [1, 3, 4, 5, 1023, 1024, 1025, 4098, 271098, 2**24 + 6]
+
+
+def _noise_variant(nz, x, noise, sigma, variant):
+    """The wrapper's output, bitwise the plain version, and one launch of
+    ``variant``."""
+    before = nz.variant_counts()
+    out = nz.apply_gaussian_noise(x, noise, sigma)
+    _assert_bitwise(out, nz.apply_gaussian_noise_reference(x, noise, sigma))
+    expected = {k: dict(v) for k, v in before.items()}
+    expected[nz.NOISE.name][variant] += 1
+    assert nz.variant_counts() == expected
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("n", NOISE_RAGGED)
+def test_noise_variants_match_plain_version(n, misaligned, cuda_device):
+    """Both variants (the scalar one on x one element off a 16-byte line)
+    bitwise the plain version on the card, at the DP sigma and at 0.25, at
+    ragged lengths up to 2^24 + 6; each launch counted under its variant."""
+    from fedml_tpu_torch.ops import noise as nz
+    from fedml_tpu_torch.trust.dp.dp import gaussian_sigma
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n % 1000 + misaligned)
+    x = torch.randn(n, generator=g, device=cuda_device) * torch.exp(
+        3 * torch.randn(n, generator=g, device=cuda_device))
+    noise = torch.randn(nz.noise_shape(n), generator=g, device=cuda_device)
+    if misaligned:
+        x = _misaligned(x)
+    for sigma in (gaussian_sigma(50.0, 1e-5, 0.01), 0.25):
+        _noise_variant(nz, x, noise, sigma, "scalar" if misaligned else "vector")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_noise_special_values_match_plain_version(misaligned, cuda_device):
+    """NaN, +-inf and -0.0 in x, in whole groups and in the group that
+    straddles the end, at the DP sigma and at 0: both variants bitwise."""
+    from fedml_tpu_torch.ops import noise as nz
+
+    n = 2 * 1024 + 762
+    rs = np.random.RandomState(5)
+    x = rs.randn(n).astype(np.float32)
+    x[[0, 300, n - 1]] = np.nan
+    x[[5, 1024 + 900]] = np.inf
+    x[[6, n - 2]] = -np.inf
+    x[2048:2100] = -0.0
+    x[[7, n - 3]] = -0.0
+    x = torch.from_numpy(x).to(cuda_device)
+    noise = torch.from_numpy(rs.randn(*nz.noise_shape(n)).astype(np.float32)).to(cuda_device)
+    if misaligned:
+        x = _misaligned(x)
+    for sigma in (0.000968961, 0.0):
+        _noise_variant(nz, x, noise, sigma, "scalar" if misaligned else "vector")
+
+
+@pytest.mark.cuda
+def test_noise_vector_entry_refuses_misaligned_operands(cuda_device):
+    """The C entry refuses the vector variant on an operand off a 16-byte
+    line, and an empty length (it does not launch)."""
+    from fedml_tpu_torch.ops import build
+    from fedml_tpu_torch.ops import noise as nz
+
+    x = torch.randn(2049, device=cuda_device)
+    noise = torch.randn(nz.noise_shape(2049), device=cuda_device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = build.load_library("noise", nz._SIGNATURES)
+    for ptrs in ((x[1:].data_ptr(), noise.data_ptr(), out.data_ptr()),
+                 (x.data_ptr(), noise.view(-1)[1:].data_ptr(), out.data_ptr()),
+                 (x.data_ptr(), noise.data_ptr(), out[1:].data_ptr())):
+        assert lib.gaussian_noise(ptrs[0], ptrs[1], 0.1, ptrs[2], 2048, 1, stream) != 0
+    assert lib.gaussian_noise(x.data_ptr(), noise.data_ptr(), 0.1, out.data_ptr(), 0, 0,
+                              stream) != 0
+
+
+@pytest.mark.cuda
+def test_noise_cuda_graph_replay_matches_eager(cuda_device):
+    """Noise calls of both variants captured in one CUDA graph and replayed
+    3 times equal the eager calls bitwise (outputs poisoned before each
+    replay)."""
+    from fedml_tpu_torch.ops import noise as nz
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(4)
+    cases = []
+    for n, misaligned in ((271098, False), (271098, True), (1025, False)):
+        x = torch.randn(n, generator=g, device=cuda_device)
+        noise = torch.randn(nz.noise_shape(n), generator=g, device=cuda_device)
+        cases.append((_misaligned(x) if misaligned else x, noise))
+
+    def calls():
+        return [nz.apply_gaussian_noise(x, noise, 0.25) for x, noise in cases]
+
+    want = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = calls()
+    for _ in range(3):
+        for t in got:
+            t.fill_(-3)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, e in zip(got, want):
+            assert torch.equal(a, e)
+
+
+@pytest.mark.cuda
+def test_noise_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
+    """With the plain version made to raise, the wrapper still runs on CUDA
+    vectors of both variants, through the kernel (launches counted)."""
+    from fedml_tpu_torch.ops import noise as nz
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    x = torch.randn(5000, device=cuda_device)
+    noise = torch.randn(nz.noise_shape(5000), device=cuda_device)
+    want = nz.apply_gaussian_noise_reference(x, noise, 0.25)
+    monkeypatch.setattr(nz, "apply_gaussian_noise_reference", refuse)
+    nz.reset_launch_counts()
+    assert torch.equal(nz.apply_gaussian_noise(x, noise, 0.25), want)
+    nz.apply_gaussian_noise(_misaligned(x), noise, 0.25)
+    assert nz.variant_counts() == {nz.NOISE.name: {"vector": 1, "scalar": 1}}
+    assert nz.launch_counts() == {nz.NOISE.name: 2}
 
 
 class _FixedNoise:

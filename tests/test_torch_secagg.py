@@ -272,14 +272,35 @@ class JaxPerms:
             jax.random.fold_in(jax.random.fold_in(key, e), 1), cap)) for e in range(epochs)]))
 
 
-def test_secagg_cdp_run_matches_the_reference(tmp_path):
+def _record_clip_inputs(monkeypatch, dp_cls, to_numpy):
+    """Wraps ``dp_cls.global_clip``: the list it returns gets each round's
+    delta before the clip, as f64 numpy."""
+    seen = []
+    clip = dp_cls.global_clip
+
+    def recording(self, delta_flat):
+        seen.append(to_numpy(delta_flat).astype(np.float64))
+        return clip(self, delta_flat)
+
+    monkeypatch.setattr(dp_cls, "global_clip", recording)
+    return seen
+
+
+def test_secagg_cdp_run_matches_the_reference(tmp_path, monkeypatch):
     """(c) Two rounds of the whole slice: the reference's
     ``run_shamir_secagg_process_group`` and the port's ``FedMLRunner(cfg,
     device="cpu")`` on a tiny fused ResNet (one block per stage), 4 silos,
     streaming SecAgg with central DP; the initial global, the clients'
-    permutations and the noise draws carried across."""
+    permutations and the noise draws carried across.  Per round, the test
+    accuracy is the reference's, and the round delta before the clip has
+    the reference's L2 norm (within 1e-2) and the same share of its squared
+    norm in the BN running statistics (the head of the flat layout; within
+    1e-3): how far central DP's clip to norm 1.0 moves the weights is the
+    reference's behaviour, not the port's."""
     import fedml_tpu
+    import fedml_tpu.trust.dp.dp as ref_dp
     import fedml_tpu_torch
+    import fedml_tpu_torch.trust.dp.dp as port_dp
     from fedml_tpu.cross_silo.secagg_shamir import run_shamir_secagg_process_group
     from fedml_tpu.data import loader as ref_loader
     from fedml_tpu.models import resnet as flax_resnet
@@ -288,6 +309,9 @@ def test_secagg_cdp_run_matches_the_reference(tmp_path):
     from fedml_tpu_torch.ops import noise as nz
     from fedml_tpu_torch.runner import FedMLRunner
 
+    ref_deltas = _record_clip_inputs(monkeypatch, ref_dp.FedMLDifferentialPrivacy, np.asarray)
+    deltas = _record_clip_inputs(monkeypatch, port_dp.FedMLDifferentialPrivacy,
+                                 lambda t: t.numpy())
     ref_cfg, cfg = _cfgs(tmp_path, "sa_c", extra={"fused_blocks": True}, **DP_KW)
     fedml_tpu.init(ref_cfg)
     ref_model = flax_resnet.CifarResNet(num_blocks=1, fused=True)
@@ -314,6 +338,14 @@ def test_secagg_cdp_run_matches_the_reference(tmp_path):
         assert np.isfinite(h["test_loss"]) and 0.0 <= h["test_acc"] <= 1.0
         assert h["upload_bytes"] > 4 * 4 * server.aggregator.model_dim  # four u32 uploads
     np.testing.assert_allclose(hist[-1]["test_loss"], ref_hist[-1]["test_loss"], rtol=1e-2)
+    assert [h["test_acc"] for h in hist] == [h["test_acc"] for h in ref_hist]
+    n_stats = weights.flatten_reference(
+        {"batch_stats": server.aggregator.global_vars["batch_stats"]})[0].numel()
+    assert len(deltas) == len(ref_deltas) == 2
+    for got, want in zip(deltas, ref_deltas):
+        np.testing.assert_allclose(np.linalg.norm(got), np.linalg.norm(want), rtol=1e-2)
+        share = [float(np.square(d[:n_stats]).sum() / np.square(d).sum()) for d in (got, want)]
+        assert abs(share[0] - share[1]) <= 1e-3, share
 
     got = jax.tree_util.tree_leaves(_port_as_flax(server.aggregator.global_vars))
     want = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray,
