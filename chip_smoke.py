@@ -37,25 +37,45 @@ Phases (any failure exits non-zero; no phase is caught):
    included), next to its bound (bytes at 3.35 TB/s vs operations at 67
    TFLOP/s); for the noise kernel also the one PyTorch call that computes
    the same function, ``torch.add(x, noise, alpha=sigma)``, also in 7
-   alternating runs each (median, min and max).  Then a fused
-   ResNet-20 step and one FedSGD client gradient on the card against the
-   same on the CPU.
+   alternating runs each (median, min and max).  The lane-batched
+   variants (``*_lanes``: one launch for all lanes of the MESH round): the
+   four fused kernels at L = 64 and the three stage shapes, f32 and bf16,
+   every lane bitwise the single-lane kernel on its slice and each held
+   against the plain version with the tolerances above; the quantize and
+   dequantize at 16 x 269,722, bitwise per lane and against the plain
+   versions; each with device time (CUDA-graph replays), eager time and
+   bound.  Then a fused ResNet-20 step and one FedSGD client gradient on
+   the card against the same on the CPU.
 3. The FedAvg path: the flagship recipe
    ``examples/sp_fedavg_cifar10_resnet20/fedml_config.yaml`` through
    ``fedml_tpu_torch.init`` and ``FedMLRunner(cfg).run()`` with only
    ``comm_round``, ``frequency_of_the_test`` and ``extra.fused_blocks``
    overridden: 128 clients, 64 a round, batch 128, bf16, full-width
-   ResNet-20 on the synthetic CIFAR-10 (50,000 / 10,000 images).  Every
-   kernel's launch count is zeroed just before and read just after; each
-   fused kernel must have launched and every loss must be finite.
+   ResNet-20 on the synthetic CIFAR-10 (50,000 / 10,000 images), on its
+   default MESH backend: the 64 sampled clients are the lanes of one
+   batched round.  Every kernel's launch count is zeroed just before and
+   read just after; each fused kernel must launch in its lanes variant,
+   each fused site once a batched step (never once a client; the
+   single-lane backward never), the lane-steps computed must equal the
+   lanes' own step budgets, and every loss must be finite.  Each round
+   prints its time, trained samples/s, lane-steps, launches and
+   ``max_memory_allocated``.  Then fused against unfused MESH rounds, the
+   same rounds alternating after a warm-up round each; then one f32 round
+   (TF32 off) of the same recipe with 8 of its 128 clients on ``sp`` and on
+   MESH from the same initial weights, the globals held to the reference's
+   own MESH-vs-SP tolerance (rtol 2e-4, atol 2e-5) and the largest
+   difference printed.
 4. The FedSGD path: ``examples/sp_fedsgd_eftopk_cifar10_resnet20`` the same
    way with only ``comm_round``, ``frequency_of_the_test`` and
    ``compression: qsgd_int8`` overridden: 16 clients, all 16 a round, one
-   full-shard gradient each, batch 128, bf16, full-width ResNet-20.  The
-   counts are zeroed before and read after: quantize and dequantize must
-   launch once per client per round (48 each over 3 rounds), and every
-   test metric and weight must be finite.  Then one round of the recipe's
-   own ``eftopk``, after which every client's residual must be non-zero.
+   full-shard gradient each, batch 128, bf16, full-width ResNet-20, on
+   MESH: the 16 lanes' gradients in lane-batched steps.  The counts are
+   zeroed before and read after: the lane-batched quantize and dequantize
+   must launch once a round for all 16 lanes (the single-lane ones never),
+   and every test metric and weight must be finite.  Then one round on
+   ``sp`` (the single-lane quantize and dequantize once a client: 16 each),
+   then one MESH round of the recipe's own ``eftopk``, after which every
+   client's residual must be non-zero.
 5. The cross-silo path: the flagship recipe through ``fedml_tpu_torch.init``
    and ``FedMLRunner(cfg).run()`` with ``training_type: cross_silo``,
    ``role: server``, ``backend: INPROC``, 4 silos all in every round, 3
@@ -74,7 +94,10 @@ Phases (any failure exits non-zero; no phase is caught):
    the clip.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (each kernel's
-launches from its own path's run); the last line is ``{"ok": true,
+launches from its own path's run: the lane-batched kernels from the MESH
+rounds of phases 3-4, the single-lane fused kernels from phase 5, the
+single-lane quantize kernels from phase 4's sp round); the last line is
+``{"ok": true,
 "device": {...}}``.  ``--kernels-only`` stops after phase 2 and prints
 neither.
 """
@@ -110,6 +133,18 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6
 ROUNDS = 3
 NOISE_RUNS = 7  # alternating timings of the noise kernel and torch.add
+LANES = 64  # the flagship's clients a round: the lanes of its MESH round
+FEDSGD_LANES = 16  # the FedSGD recipe's clients a round
+# ResNet-20's fused sites a local step: the stem and each block's first
+# epilogue without a residual, each block's second with one (either direction)
+SITES = {name: sum(w) for name, w in STEP_LAUNCHES.items()}
+AB_PAIRS = 3  # alternating fused / unfused MESH rounds
+SP_CHECK_CLIENTS = 8  # the f32 MESH-vs-sp round's clients
+MESH_SP_RTOL, MESH_SP_ATOL = 2e-4, 2e-5  # the reference's own (tests/test_m0_fedavg.py)
+# a whole f32 round of ResNet-20 moves by as much as MESH and sp differ when
+# its initial weights move by one ulp (PERF.md §6): the round is held to
+# that spread, with room for the draw of the perturbation
+ROUND_SPREADS = 2
 
 
 def _gen(shape, dtype, device, seed):
@@ -224,7 +259,9 @@ def _compare(name, got, want, operands, dtype):
             g, y, s, out = operands
             gm = g.float() * (out > 0).float()
             terms = (gm * y.float()).abs() if i == 1 else gm.abs()
-            bound = 1e-5 * terms.reshape(-1, terms.shape[-1]).sum(0) + 1e-30
+            # per channel, and per lane for (L, C) sums
+            lead = tuple(a32.shape[:-1])
+            bound = 1e-5 * terms.reshape(lead + (-1, terms.shape[-1])).sum(-2) + 1e-30
             if not bool(((a32 - b32).abs() <= bound).all()):
                 raise AssertionError(f"{name} output {i} {dtype}: reduction beyond 1e-5*sum|terms|")
         elif dtype == torch.float32 or name.endswith("_fwd"):
@@ -339,6 +376,89 @@ def phase_fwd_scalar(fb):
                   f"(bitwise, with and without the residual), {want} variant")
 
 
+def _equal_outputs(a, b) -> bool:
+    """Whether two kernel results (a tensor, or a tuple with Nones) are
+    bitwise equal."""
+    import torch
+
+    if not isinstance(a, tuple):
+        a, b = (a,), (b,)
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_lane_kernels(fb):
+    """Rows 1-4 lane-batched (``*_lanes``: one launch for L lane-major
+    activations with per-lane scale and shift) at the MESH round's L = 64
+    and the three stage shapes, f32 and bf16: every lane bitwise the
+    single-lane kernel on its slice (all outputs, d_scale and d_shift too:
+    each lane keeps the single-lane fold order), each held against the plain
+    version with phase 2's tolerances (sums per lane and channel), device
+    time from CUDA-graph replays and eager time, next to the bound."""
+    import torch
+
+    dev = torch.device("cuda")
+    cases = _kernel_cases(fb)
+    lane_kernel = {k.name: lk for k, lk in zip(fb.KERNELS, fb.LANE_KERNELS)}
+    results = {k.name: {"max_abs_err": 0.0} for k in fb.LANE_KERNELS}
+    rows = {}
+    for shape in SHAPES:
+        lshape, c = (LANES,) + shape, shape[-1]
+        n = math.prod(lshape)
+        for dtype in (torch.float32, torch.bfloat16):
+            item = torch.tensor([], dtype=dtype).element_size()
+            n_sets = max(2, int(2 * L2_BYTES // (n * item)) + 1)
+            base = [(_gen(lshape, dtype, dev, 10 * k + 1), _gen(lshape, dtype, dev, 10 * k + 2),
+                     _gen(lshape, dtype, dev, 10 * k + 3),
+                     _gen((LANES, c), torch.float32, dev, 10 * k + 4),
+                     _gen((LANES, c), torch.float32, dev, 10 * k + 5)) for k in range(n_sets)]
+            for name, (kern, plain, build_args, nbytes, nflops, stream) in cases.items():
+                lk = lane_kernel[name]
+                arg_sets = [build_args(*b) for b in base]
+                before = fb.launch_counts()[lk.name]
+                got, want = kern(*arg_sets[0]), plain(*arg_sets[0])
+                torch.cuda.synchronize()
+                if fb.launch_counts()[lk.name] != before + 1:
+                    raise AssertionError(f"{lk.name}: a lane-major call did not launch it once")
+                err = _compare(name, got, want, arg_sets[0], dtype)
+                results[lk.name]["max_abs_err"] = max(results[lk.name]["max_abs_err"], err)
+                for lane in range(LANES):
+                    one = kern(*(a[lane] for a in arg_sets[0]))
+                    mine = tuple(None if t is None else t[lane] for t in got) if isinstance(
+                        got, tuple) else got[lane]
+                    if not _equal_outputs(mine, one):
+                        raise AssertionError(f"{lk.name} {dtype} {lshape}: lane {lane} is not "
+                                             "bitwise the single-lane kernel on its slice")
+                ms, plain_ms = _device_ms(kern, arg_sets), _device_ms(plain, arg_sets)
+                eager_ms = _eager_ms(kern, arg_sets, iters=20, repeats=5, warmup=5)
+                stream_ms = _device_ms(stream, arg_sets) if stream is not None else None
+                bytes_ms = nbytes(n, LANES * c, item) / HBM_BYTES_PER_S * 1e3
+                ops_ms = nflops(n) / F32_FLOPS_PER_S * 1e3
+                bound_ms = max(bytes_ms, ops_ms)
+                dt = str(dtype).replace("torch.", "")
+                yardstick = "" if stream is None else (
+                    f", same-bytes stream {stream_ms * 1e3:.2f} us ({ms / stream_ms:.2f}x)")
+                print(f"kernel {lk.name} {dt} {lshape}: ok (every lane bitwise the single-lane "
+                      f"kernel), device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
+                      f"{bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}% of bound{yardstick}), "
+                      f"eager call {eager_ms * 1e3:.2f} us, max_abs_err {err:.3g}")
+                rows.setdefault((lk.name, name, dt), []).append((ms, bound_ms))
+                if shape == SHAPES[0] and dtype == torch.bfloat16:
+                    results[lk.name].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                             "bound_by": "bytes" if bytes_ms >= ops_ms
+                                             else "operations"})
+                    if stream is not None:
+                        results[lk.name]["stream_ms"] = stream_ms
+            del base, arg_sets, got, want
+    for (lname, name, dt), times in rows.items():
+        weights = STEP_LAUNCHES[name]
+        ms = sum(w * t for w, (t, _) in zip(weights, times))
+        bound_ms = sum(w * b for w, (_, b) in zip(weights, times))
+        print(f"kernel {lname} {dt} over a batched step of {LANES} lanes ({sum(weights)} launches): "
+              f"device {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
+              f"{100 * bound_ms / ms:.1f}% of bound")
+    return results
+
+
 def _quant_bytes(n):
     """Bytes each function must move: (quantize, dequantize)."""
     b = -(-n // 1024)
@@ -373,7 +493,8 @@ def _check_quant(qz, x, u, what, variant):
                              f"{torch.equal(got[1], want[1])}: not bitwise the plain version")
     if not torch.equal(deq, qz.dequantize_int8_reference(values, got[1], n)) or deq.shape != (n,):
         raise AssertionError(f"dequantize kernel at {what}: not bitwise the plain version")
-    ran = _variant_ran(qz, before)
+    singles = {k.name for k in qz.KERNELS}
+    ran = {k: v for k, v in _variant_ran(qz, before).items() if k in singles}
     if set(ran.values()) != {variant}:
         raise AssertionError(f"quantize kernels at {what}: ran {ran}, expected {variant}")
     return ran
@@ -438,6 +559,78 @@ def phase_quantize(qz):
         ran = _check_quant(qz, _misaligned(x) if misaligned else x, u, what,
                            "scalar" if misaligned else "vector")
         print(f"kernel quantize / dequantize {what}: ok (bitwise), {ran[qz.QUANTIZE.name]} variant")
+    return results
+
+
+def phase_lane_quantize(qz):
+    """Rows 5-6 lane-batched (``*_lanes``: the L lanes padded to whole
+    blocks and laid end to end, one launch each) at the FedSGD round's 16
+    lanes of 269,722: every lane's values, scales and dequantized vector
+    bitwise the single-lane kernels' on that lane and the plain versions';
+    device time of each kernel from CUDA-graph replays on the laid-out
+    operands (and of the wrapper, the pad's copy included), eager time and
+    bound."""
+    import torch
+
+    dev = torch.device("cuda")
+    n, lanes = GRAD_LENGTH, FEDSGD_LANES
+    shape = (lanes,) + qz.noise_shape(n)
+    q_bytes, dq_bytes = (lanes * b for b in _quant_bytes(n))
+    sets = []
+    for k in range(max(2, int(2 * L2_BYTES // min(q_bytes, dq_bytes)) + 1)):
+        g = torch.Generator(device=dev)
+        g.manual_seed(300 + k)
+        x = torch.randn((lanes, n), generator=g, device=dev) * torch.exp(
+            3 * torch.randn((lanes, n), generator=g, device=dev))
+        sets.append((x, torch.rand(shape, generator=g, device=dev)))
+    x, u = sets[0]
+    before = qz.launch_counts()
+    values, scales, length = qz.quantize_int8_lanes(x, u)
+    deq = qz.dequantize_int8_lanes(values, scales, length)
+    torch.cuda.synchronize()
+    after = qz.launch_counts()
+    for k in qz.LANE_KERNELS:
+        if after[k.name] != before[k.name] + 1:
+            raise AssertionError(f"{k.name}: {lanes} lanes did not take one launch")
+    want = qz.quantize_int8_lanes_reference(x, u)
+    if not (torch.equal(values, want[0]) and torch.equal(scales, want[1]) and torch.equal(
+            deq, qz.dequantize_int8_lanes_reference(values, scales, length))):
+        raise AssertionError("lane-batched quantize kernels: not bitwise the plain versions")
+    for lane in range(lanes):
+        v1, s1, _ = qz.quantize_int8_stochastic(x[lane], u[lane])
+        if not (torch.equal(v1, values[lane]) and torch.equal(s1, scales[lane])
+                and torch.equal(qz.dequantize_int8(v1, s1, n), deq[lane])):
+            raise AssertionError(f"lane-batched quantize kernels: lane {lane} is not bitwise "
+                                 "the single-lane kernels on its vector")
+    laid_out = [qz.lanes_end_to_end(*a)[:2] for a in sets]
+    dq_laid_out = [qz.quantize_int8_reference(*a) for a in laid_out]
+    wrapped = {qz.QUANTIZE_LANES.name: (qz.quantize_int8_lanes, sets),
+               qz.DEQUANTIZE_LANES.name: (qz.dequantize_int8_lanes,
+                                          [qz.quantize_int8_lanes(*a) for a in sets])}
+    results = {}
+    for kern, fn, plain, arg_sets, nbytes, nops, stream in (
+            (qz.QUANTIZE_LANES, lambda x, u: qz._quantize_cuda(x, u, qz.QUANTIZE_LANES),
+             qz.quantize_int8_reference, laid_out, q_bytes, 7 * shape[1] * 1024 * lanes,
+             lambda x, u: torch.lt(x, u.view(-1))),
+            (qz.DEQUANTIZE_LANES,
+             lambda v, s, m: qz._dequantize_cuda(v, s, m, qz.DEQUANTIZE_LANES),
+             qz.dequantize_int8_reference, dq_laid_out, dq_bytes, n * lanes,
+             lambda v, s, m: v.view(-1).to(torch.float32))):
+        ms, plain_ms = _device_ms(fn, arg_sets), _device_ms(plain, arg_sets)
+        stream_ms = _device_ms(stream, arg_sets)
+        wrapper_fn, wrapper_sets = wrapped[kern.name]
+        wrapper_ms = _device_ms(wrapper_fn, wrapper_sets)
+        eager_ms = _eager_ms(wrapper_fn, wrapper_sets)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"kernel {kern.name} {lanes} x {n}: ok (bitwise, every lane the single-lane "
+              f"kernels'), device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
+              f"{bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}% of bound, same-bytes stream "
+              f"{stream_ms * 1e3:.2f} us ({ms / stream_ms:.2f}x); the wrapper with its layout "
+              f"{wrapper_ms * 1e3:.2f} us), eager call {eager_ms * 1e3:.2f} us")
+        results[kern.name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "stream_ms": stream_ms,
+                              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     return results
 
 
@@ -636,22 +829,47 @@ def _check_finite(sim, history, keys):
             raise AssertionError("non-finite global variables after training")
 
 
-def phase_main_path(mods):
-    import torch
+def _own_steps(sim, round_idx):
+    """The sampled lanes' own step budgets in a round (``step_mode`` match:
+    ``epochs * ceil(count / batch)``, at most the local steps), from the
+    host's sampling and counts."""
+    import numpy as np
 
+    counts = sim.counts[np.asarray(sim.sampler.sample(round_idx))]
+    own = sim.hp.epochs * -(-counts // sim.cfg.batch_size)
+    return np.minimum(own, sim.hp.local_steps)
+
+
+def _flagship(dataset=None, **overrides):
+    """The flagship recipe through ``fedml_tpu_torch.init`` and
+    ``FedMLRunner`` with ``overrides`` (attributes, ``fused_blocks`` to
+    ``extra``); ``dataset`` reuses an earlier run's data."""
     import fedml_tpu_torch
     from fedml_tpu_torch.runner import FedMLRunner
 
-    t0 = time.perf_counter()
     cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
-    cfg.comm_round = ROUNDS
-    cfg.frequency_of_the_test = 1
-    cfg.extra["fused_blocks"] = True
-    runner = FedMLRunner(cfg)
-    sim = runner.runner
+    cfg.extra["fused_blocks"] = overrides.pop("fused_blocks", True)
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return FedMLRunner(cfg, dataset=dataset)
+
+
+def phase_main_path(mods):
+    """The flagship on MESH, fused: every fused kernel in its lanes variant,
+    each fused site once a batched step (the steps the longest lane budget
+    takes), never once a client; the single-lane backward never."""
+    import torch
+
+    fb = mods[0]
+    t0 = time.perf_counter()
+    runner = _flagship(comm_round=ROUNDS, frequency_of_the_test=1)
+    sim, cfg = runner.runner, runner.cfg
     print(f"main path: set-up {time.perf_counter() - t0:.1f} s (data {sim.dataset.train_num}/"
           f"{sim.dataset.test_num}, {sim.dataset.n_clients} clients, capacity {sim.capacity}, "
-          f"{cfg.client_num_per_round}/round, batch {cfg.batch_size}, {cfg.compute_dtype})")
+          f"{cfg.client_num_per_round}/round, batch {cfg.batch_size}, {cfg.compute_dtype}, "
+          f"backend {sim.backend}, fused)")
+    if sim.backend != "MESH":
+        raise AssertionError(f"the flagship recipe ran on {sim.backend}, not MESH")
     probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
     sim.logger = probe
     torch.cuda.reset_peak_memory_stats()
@@ -661,41 +879,183 @@ def phase_main_path(mods):
     counts = _all_counts(mods)
     prev = {k: 0 for k in counts}
     for metrics, cum, mem in probe.rows:
-        samples = metrics["num_steps"] * cfg.client_num_per_round * cfg.batch_size
+        r = metrics["round"]
+        own = _own_steps(sim, r)
+        steps = int(own.max())
+        computed = metrics["num_steps"] * cfg.client_num_per_round
         delta = {k: cum[k] - prev[k] for k in cum}
         prev = cum
-        print(f"round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
-              f"{samples / metrics['round_time_s']:.0f} trained samples/s, train_loss "
-              f"{metrics['train_loss']:.4f}, test_acc {metrics.get('test_acc', float('nan')):.4f}, "
-              f"max_memory_allocated {mem / 2**30:.2f} GiB, launches {delta}")
+        print(f"round {r}: {metrics['round_time_s']:.3f} s, "
+              f"{int(own.sum()) * cfg.batch_size / metrics['round_time_s']:.0f} trained samples/s, "
+              f"{steps} batched steps of up to {len(own)} lanes, lane-steps computed "
+              f"{computed:.0f} against the lanes' own steps {int(own.sum())} (every lane every "
+              f"step: {len(own) * sim.hp.local_steps}), train_loss {metrics['train_loss']:.4f}, "
+              f"test_acc {metrics.get('test_acc', float('nan')):.4f}, max_memory_allocated "
+              f"{mem / 2**30:.2f} GiB, launches {delta}")
+        if round(computed) != int(own.sum()):
+            raise AssertionError(f"round {r}: {computed} lane-steps, the budgets sum to "
+                                 f"{int(own.sum())}")
+        for k, lk in zip(fb.KERNELS, fb.LANE_KERNELS):
+            if delta[lk.name] != SITES[k.name] * steps:
+                raise AssertionError(f"round {r}: {lk.name} launched {delta[lk.name]} times, "
+                                     f"expected {SITES[k.name]} sites x {steps} batched steps")
+        for k in (fb.BWD, fb.BWD_RES):
+            if delta[k.name]:
+                raise AssertionError(f"round {r}: {k.name} launched {delta[k.name]} times: "
+                                     "a client trained alone")
     if len(history) != ROUNDS:
         raise AssertionError(f"expected {ROUNDS} rounds, got {len(history)}")
-    bad = [k.name for k in mods[0].KERNELS if counts[k.name] == 0]
-    if bad:
-        raise AssertionError(f"kernels never launched on the FedAvg path: {bad}")
     _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
-    return counts
+    return counts, runner.dataset
 
 
-def phase_fedsgd(mods, qz):
+def phase_fused_ab(dataset):
+    """Fused against unfused MESH rounds of the flagship, the host bound
+    gone: after a warm-up round each, AB_PAIRS pairs of the same rounds
+    (same data, sampling and initial weights), the order alternating."""
+    import statistics
+
     import torch
 
+    sims = {fused: _flagship(dataset, fused_blocks=fused, metrics_jsonl_path="").runner
+            for fused in (True, False)}
+    for sim in sims.values():
+        sim.run_round()
+    torch.cuda.synchronize()
+    times = {True: [], False: []}
+    for i in range(AB_PAIRS):
+        for fused in ((True, False) if i % 2 == 0 else (False, True)):
+            sim = sims[fused]
+            steps = int(_own_steps(sim, sim.round_idx).max())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = sim.run_round()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            times[fused].append(dt / steps)
+            print(f"fused A/B pair {i} fused={fused} round {sim.round_idx - 1}: {dt:.3f} s, "
+                  f"{steps} batched steps, {dt / steps * 1e3:.2f} ms a batched step, train_loss "
+                  f"{metrics['train_loss']:.4f}, max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for fused, per_step in times.items():
+        print(f"fused A/B fused={fused}: median {statistics.median(per_step) * 1e3:.2f} ms a "
+              f"batched step over {AB_PAIRS} rounds (min {min(per_step) * 1e3:.2f}, max "
+              f"{max(per_step) * 1e3:.2f})")
+
+
+def _largest_difference(a, b):
+    """(largest |a - b| over the leaves, the largest excess over the MESH-vs-sp
+    tolerance)."""
+    from fedml_tpu_torch.core import pytree as pt
+
+    worst, excess = 0.0, -math.inf
+    for x, y in zip(pt.tree_leaves(a), pt.tree_leaves(b)):
+        diff = (x - y).abs()
+        worst = max(worst, float(diff.max()))
+        excess = max(excess, float((diff - MESH_SP_ATOL - MESH_SP_RTOL * y.abs()).max()))
+    return worst, excess
+
+
+def phase_mesh_vs_sp(dataset):
+    """MESH against sp in f32 (TF32 off) at full width and data, with
+    SP_CHECK_CLIENTS of the flagship's clients sampled.  First one local step
+    of each sampled client: the lanes' one batched step against each client's
+    single-lane step from the same weights and batch, held to the
+    reference's own MESH-vs-SP tolerance.  Then one whole round on each
+    backend from the same initial weights, and beside it the sp round from
+    initial weights one f32 ulp apart (each weight scaled by 1 +- 2^-23): the
+    round's f32 trajectory moves by as much as MESH and sp differ, so the
+    round is held to that spread, and the largest difference printed."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.local_sgd import make_batched_local_train_fn, make_local_train_fn
+
+    sims = {}
+    for name, backend in (("sp", "sp"), ("MESH", "MESH"), ("sp, weights an ulp apart", "sp")):
+        sim = _flagship(dataset, backend_sim=backend, compute_dtype="float32",
+                        client_num_per_round=SP_CHECK_CLIENTS, metrics_jsonl_path="").runner
+        if name.startswith("sp, "):
+            gen = torch.Generator(device=sim.device)
+            gen.manual_seed(7)
+            sim.global_vars = pt.tree_map(lambda t: t * (1 + 2.0 ** -23 * (2 * torch.randint(
+                0, 2, t.shape, generator=gen, device=t.device) - 1)), sim.global_vars)
+        sims[name] = sim
+
+    sim = sims["MESH"]
+    sampled = sim.sampler.sample(0)
+    clients = torch.as_tensor(sampled, device=sim.device)
+    perms = torch.stack([sim.sampler.perms(0, int(c), sim.hp.epochs, sim.capacity)
+                         for c in sampled]).to(sim.device)
+    one_step = dataclasses.replace(sim.hp, steps_per_epoch=1)
+    lanes = pt.tree_map(lambda t: t.unsqueeze(0).expand((len(sampled),) + t.shape),
+                        sim.global_vars)
+    batched, _ = make_batched_local_train_fn(sim.model, one_step)(
+        lanes, *sim._data, clients, sim.counts[sampled], perms)
+    single = make_local_train_fn(sim.model, one_step)
+    step_worst, step_excess = 0.0, -math.inf
+    for lane, c in enumerate(sampled):
+        alone, _ = single(sim.global_vars, sim._data[0][c], sim._data[1][c], int(sim.counts[c]),
+                          None, perms=perms[lane])
+        worst, excess = _largest_difference(pt.tree_map(lambda t: t[lane], batched), alone)
+        step_worst, step_excess = max(step_worst, worst), max(step_excess, excess)
+    print(f"mesh vs sp: one local step of {len(sampled)} lanes batched against each alone: "
+          f"largest difference {step_worst:.3g} (rtol {MESH_SP_RTOL}, atol {MESH_SP_ATOL}: "
+          f"{'within' if step_excess <= 0 else 'BEYOND'})")
+    if step_excess > 0:
+        raise AssertionError(f"a batched local step differs from the lanes' own steps by "
+                             f"{step_worst:.3g}, beyond rtol {MESH_SP_RTOL} / atol {MESH_SP_ATOL}")
+
+    for name, sim in sims.items():
+        t0 = time.perf_counter()
+        metrics = sim.run_round()
+        torch.cuda.synchronize()
+        print(f"mesh vs sp: {name}: f32 round of {SP_CHECK_CLIENTS} clients "
+              f"{time.perf_counter() - t0:.3f} s, train_loss {metrics['train_loss']:.6f}")
+    worst, excess = _largest_difference(sims["MESH"].global_vars, sims["sp"].global_vars)
+    spread, _ = _largest_difference(sims["sp, weights an ulp apart"].global_vars,
+                                    sims["sp"].global_vars)
+    print(f"mesh vs sp: one round: largest difference of the globals {worst:.3g} (rtol "
+          f"{MESH_SP_RTOL}, atol {MESH_SP_ATOL}: {'within' if excess <= 0 else 'beyond'}); sp "
+          f"against itself from weights an ulp apart: {spread:.3g}")
+    if excess > 0 and worst > ROUND_SPREADS * spread:
+        raise AssertionError(f"MESH and sp globals differ by {worst:.3g} after a round, beyond "
+                             f"rtol {MESH_SP_RTOL} / atol {MESH_SP_ATOL} and beyond "
+                             f"{ROUND_SPREADS} x sp's own one-ulp spread {spread:.3g}")
+
+
+def _fedsgd(dataset=None, **overrides):
     import fedml_tpu_torch
     from fedml_tpu_torch.runner import FedMLRunner
 
-    t0 = time.perf_counter()
     cfg = fedml_tpu_torch.init(argv=["--cf", FEDSGD])
-    cfg.comm_round = ROUNDS
-    cfg.frequency_of_the_test = 1
-    cfg.compression = "qsgd_int8"
-    runner = FedMLRunner(cfg)
-    sim = runner.runner
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return FedMLRunner(cfg, dataset=dataset)
+
+
+def phase_fedsgd(mods, qz):
+    """FedSGD on MESH with ``qsgd_int8``: the 16 lanes' gradients in
+    lane-batched steps, quantize and dequantize once a round for all of
+    them; then one sp round (the single-lane kernels, once a client), then
+    one MESH round of the recipe's own ``eftopk``.  Returns the counts of
+    the MESH rounds and of the sp round."""
+    import torch
+
+    t0 = time.perf_counter()
+    runner = _fedsgd(comm_round=ROUNDS, frequency_of_the_test=1, compression="qsgd_int8")
+    sim, cfg = runner.runner, runner.cfg
     clients = cfg.client_num_per_round
     batches = clients * (sim.capacity // cfg.batch_size)
     print(f"fedsgd path: set-up {time.perf_counter() - t0:.1f} s (data {sim.dataset.train_num}/"
           f"{sim.dataset.test_num}, {sim.dataset.n_clients} clients, capacity {sim.capacity}, "
           f"{clients}/round, batch {cfg.batch_size}, {cfg.compute_dtype}, compression "
-          f"{cfg.compression}, {batches} gradient batches a round)")
+          f"{cfg.compression}, backend {sim.backend}, {sim.capacity // cfg.batch_size} batched "
+          f"steps of {clients} lanes a round)")
+    if sim.backend != "MESH":
+        raise AssertionError(f"the FedSGD recipe ran on {sim.backend}, not MESH")
     probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
     sim.logger = probe
     torch.cuda.reset_peak_memory_stats()
@@ -711,21 +1071,34 @@ def phase_fedsgd(mods, qz):
               f"{batches * cfg.batch_size / metrics['round_time_s']:.0f} gradient samples/s, "
               f"test_loss {metrics['test_loss']:.4f}, test_acc {metrics['test_acc']:.4f}, "
               f"max_memory_allocated {mem / 2**30:.2f} GiB, launches {delta}")
-        for k in qz.KERNELS:
-            if delta[k.name] != clients:
+        for k in qz.LANE_KERNELS:
+            if delta[k.name] != 1:
                 raise AssertionError(f"{k.name}: {delta[k.name]} launches in round "
-                                     f"{metrics['round']}, expected {clients}")
+                                     f"{metrics['round']}, expected 1 for all {clients} lanes")
+        for k in qz.KERNELS:
+            if delta[k.name]:
+                raise AssertionError(f"{k.name}: a client quantized alone in round "
+                                     f"{metrics['round']}")
     if len(history) != ROUNDS:
         raise AssertionError(f"expected {ROUNDS} rounds, got {len(history)}")
-    if any(counts[k.name] != ROUNDS * clients for k in qz.KERNELS):
-        raise AssertionError(f"expected {ROUNDS * clients} launches of each quantize kernel, "
-                             f"got {qz.launch_counts()}")
     _check_finite(sim, history, ("test_loss", "test_acc"))
 
-    cfg = fedml_tpu_torch.init(argv=["--cf", FEDSGD])
-    cfg.comm_round = 1
-    cfg.frequency_of_the_test = 1
-    runner = FedMLRunner(cfg)
+    sp = _fedsgd(runner.dataset, comm_round=1, frequency_of_the_test=1, compression="qsgd_int8",
+                 backend_sim="sp")
+    _reset_counts(mods)
+    t0 = time.perf_counter()
+    history = sp.run()
+    torch.cuda.synchronize()
+    sp_counts = _all_counts(mods)
+    print(f"fedsgd sp (the sequential twin): 1 round in {time.perf_counter() - t0:.3f} s, "
+          f"test_loss {history[-1]['test_loss']:.4f}, launches {sp_counts}")
+    for k in qz.KERNELS:
+        if sp_counts[k.name] != clients:
+            raise AssertionError(f"{k.name}: {sp_counts[k.name]} launches in the sp round, "
+                                 f"expected {clients}")
+    _check_finite(sp.runner, history, ("test_loss", "test_acc"))
+
+    runner = _fedsgd(runner.dataset, comm_round=1, frequency_of_the_test=1)
     t0 = time.perf_counter()
     history = runner.run()
     torch.cuda.synchronize()
@@ -734,10 +1107,11 @@ def phase_fedsgd(mods, qz):
     rows = sim.client_states.abs().sum(1)
     if not bool((rows > 0).all()) or not bool(torch.isfinite(sim.client_states).all()):
         raise AssertionError("eftopk: a client's residual is zero or not finite after its round")
-    print(f"fedsgd eftopk (the recipe's own): 1 round in {time.perf_counter() - t0:.3f} s, "
-          f"test_loss {history[-1]['test_loss']:.4f}, test_acc {history[-1]['test_acc']:.4f}, "
-          f"residuals {tuple(sim.client_states.shape)} non-zero for all {rows.numel()} clients")
-    return counts
+    print(f"fedsgd eftopk (the recipe's own, {sim.backend}): 1 round in "
+          f"{time.perf_counter() - t0:.3f} s, test_loss {history[-1]['test_loss']:.4f}, "
+          f"test_acc {history[-1]['test_acc']:.4f}, residuals {tuple(sim.client_states.shape)} "
+          f"non-zero for all {rows.numel()} clients")
+    return counts, sp_counts
 
 
 class _SecAggProbe(_RoundProbe):
@@ -905,16 +1279,25 @@ def main(argv=None) -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     mods = (fb, qz)
-    kernel_rows = {**phase_kernels(fb), **phase_quantize(qz), **phase_noise(nz)}
+    kernel_rows = {**phase_kernels(fb), **phase_lane_kernels(fb), **phase_quantize(qz),
+                   **phase_lane_quantize(qz), **phase_noise(nz)}
     phase_model_check(fb)
     phase_fedsgd_check()
     if args.kernels_only:
         return 0
-    fedavg_counts, fedsgd_counts = phase_main_path(mods), phase_fedsgd(mods, qz)
+    fedavg_counts, dataset = phase_main_path(mods)
+    phase_fused_ab(dataset)
+    phase_mesh_vs_sp(dataset)
+    del dataset
+    fedsgd_counts, fedsgd_sp_counts = phase_fedsgd(mods, qz)
     silo_counts = phase_cross_silo(mods, nz)
-    # each kernel's launches on its own path
-    counts = {**{k.name: fedavg_counts[k.name] for k in fb.KERNELS},
-              **{k.name: fedsgd_counts[k.name] for k in qz.KERNELS},
+    # each kernel's launches on its own path: the lane-batched kernels on
+    # the MESH rounds, the single-lane fused kernels on the cross-silo
+    # silos, the single-lane quantize kernels on the FedSGD sp round
+    counts = {**{k.name: fedavg_counts[k.name] for k in fb.LANE_KERNELS},
+              **{k.name: silo_counts[k.name] for k in fb.KERNELS},
+              **{k.name: fedsgd_counts[k.name] for k in qz.LANE_KERNELS},
+              **{k.name: fedsgd_sp_counts[k.name] for k in qz.KERNELS},
               **{k.name: silo_counts[k.name] for k in nz.KERNELS}}
 
     print(json.dumps({"kernels": [
@@ -925,7 +1308,7 @@ def main(argv=None) -> int:
          "library_ms": kernel_rows[k.name].get("library_ms"),
          **({"stream_ms": kernel_rows[k.name]["stream_ms"]}
             if "stream_ms" in kernel_rows[k.name] else {})}
-        for m in (fb, qz, nz) for k in m.KERNELS]}))
+        for m in (fb, qz, nz) for k in m.KERNELS + getattr(m, "LANE_KERNELS", ())]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

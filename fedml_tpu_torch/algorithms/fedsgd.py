@@ -9,6 +9,10 @@ the reference's vector.  EF-TopK residuals, in the same layout, are the
 per-client state.  The server takes one step of the server optimizer
 (``sgd(server_lr)``) on the sample-weighted mean gradient.
 
+:meth:`FedSGD.client_update_lanes` computes the round's clients together, a
+client a lane (``fl/local_sgd.make_batched_full_grad_fn``), and compresses
+their flat gradients as the rows of one ``(L, n)`` tensor.
+
 As in the reference: ``learning_rate`` plays no part (the step size is
 ``server_lr``, 1.0 by default), ``train_loss`` is reported as 0 and the
 batch statistics are never updated.
@@ -19,8 +23,10 @@ from __future__ import annotations
 import torch
 
 from .. import weights
+from ..core.pytree import tree_unflatten_like
 from ..fl.algorithm import FedAlgorithm, make_server_optimizer
-from ..fl.local_sgd import make_full_grad_fn, split_variables
+from ..fl.local_sgd import (make_batched_full_grad_fn, make_full_grad_fn, split_variables,
+                            to_device)
 from ..fl.types import ClientOutput
 from ..ops import compression as comp
 
@@ -37,6 +43,7 @@ class FedSGD(FedAlgorithm):
 
     def build(self, model):
         self._full_grad = make_full_grad_fn(model, self.hp)
+        self._batched_full_grad = make_batched_full_grad_fn(model, self.hp)
         return self
 
     def init_server_state(self, variables):
@@ -63,7 +70,50 @@ class FedSGD(FedAlgorithm):
         metrics = {"train_loss": 0.0, "num_steps": 1.0, "num_samples": float(count)}
         return ClientOutput(contribution=grad, client_state=new_state, metrics=metrics)
 
+    def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
+                            counts, perms=None, draw=None):
+        grad = self._batched_full_grad(global_variables, x, y, clients)
+        new_states = client_states
+        if self.compression != "no":
+            flat, unravel = flatten_reference_lanes(grad)
+            shape = comp.draw_shape(self.compression, flat.shape[1])
+            noise = draw(shape).to(flat.device) if shape is not None else None
+            flat, new_states = comp.compress(
+                self.compression, flat, noise=noise, residual=client_states, ratio=self.ratio,
+                quantize_level=self.qlevel)
+            grad = unravel(flat)
+        lanes = clients.shape[0]
+        zeros = torch.zeros(lanes, dtype=torch.float32, device=clients.device)
+        metrics = {"train_loss": zeros, "num_steps": zeros + 1.0,
+                   "num_samples": to_device(counts, zeros.device, torch.float32)}
+        return ClientOutput(contribution=grad, client_state=new_states, metrics=metrics)
+
     def server_update(self, global_variables, server_state, agg, round_idx):
         g_params, g_rest = split_variables(global_variables)
         new_params, new_state = self._server_opt.update(agg, server_state, g_params)
         return {"params": new_params, **g_rest}, new_state
+
+
+def flatten_reference_lanes(tree):
+    """:func:`weights.flatten_reference` of each lane of a lane-stacked tree:
+    ``(L, n)`` rows in the reference's flat layout, and the inverse
+    ``unravel(rows)`` back to the lane-stacked tree."""
+    named = list(weights._named_leaves(tree))
+    axes = [(weights._TO_FLAX.get(t.ndim - 1) if name == "kernel" else None)
+            for name, t in named]
+    flax_leaves = [t.permute((0,) + tuple(a + 1 for a in a_)) if a_ else t
+                   for (_, t), a_ in zip(named, axes)]
+    lanes = flax_leaves[0].shape[0]
+
+    def unravel(rows: torch.Tensor) -> dict:
+        out, offset = [], 0
+        for leaf, a in zip(flax_leaves, axes):
+            size = leaf[0].numel()
+            part = rows[:, offset:offset + size].reshape(leaf.shape)
+            if a:
+                part = part.permute((0,) + tuple(i + 1 for i in weights._TO_TORCH[leaf.ndim - 1]))
+            out.append(part.to(leaf.dtype).contiguous())
+            offset += size
+        return tree_unflatten_like(tree, out)
+
+    return torch.cat([t.reshape(lanes, -1).to(torch.float32) for t in flax_leaves], 1), unravel

@@ -56,6 +56,32 @@ def tree_stack(trees: Sequence[Tree]) -> Tree:
     return tree_map(lambda *xs: torch.stack(xs, 0), *trees)
 
 
+def tree_take(tree: Tree, lanes: torch.Tensor) -> Tree:
+    """Rows ``lanes`` of every leaf's leading axis, as new tensors (the
+    reference's ``jnp.take(leaf, lanes, axis=0)``)."""
+    return tree_map(lambda t: t.index_select(0, lanes), tree)
+
+
+@torch.no_grad()
+def tree_scatter_(tree: Tree, lanes: torch.Tensor, updates: Tree) -> None:
+    """``leaf.at[lanes].set(update)`` for every leaf, in place: rows
+    ``lanes`` (distinct) of each leaf's leading axis take ``updates``'
+    rows."""
+    tree_map(lambda full, upd: full.index_copy_(0, lanes, upd.to(full.dtype)), tree, updates)
+
+
+def tree_head(tree: Tree, n: int) -> Tree:
+    """The first ``n`` rows of every leaf's leading axis (views)."""
+    return tree_map(lambda t: t[:n], tree)
+
+
+@torch.no_grad()
+def tree_set_head_(tree: Tree, n: int, updates: Tree) -> None:
+    """The first ``n`` rows of every leaf's leading axis take ``updates``,
+    in place."""
+    tree_map(lambda full, upd: full[:n].copy_(upd), tree, updates)
+
+
 def tree_flatten_to_vector(tree: Tree) -> tuple[torch.Tensor, Callable[[torch.Tensor], Tree]]:
     """Flatten a tree into one f32 vector (JAX leaf order) + an unravel
     closure restoring shapes and dtypes."""

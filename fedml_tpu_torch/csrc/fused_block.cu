@@ -90,6 +90,23 @@
 // - dy / dr keep the explicit __fmul_rn: bitwise the plain version in f32,
 //   and the same f32 value rounded once to bf16.
 //
+// Lanes.  The simulator's MESH round runs every sampled client of a round
+// as one lane of a batched step, so each fused site sees L lane-major
+// activations (L, N, H, W, C), contiguous, and per-lane (L, C) scale and
+// shift (each client's own BN statistics).  fused_fwd_lanes and
+// fused_bwd_lanes launch the same kernels once for all lanes with the lane
+// on blockIdx.z: a block offsets every operand by its lane (rows * C
+// elements, C per-channel floats, 2 * C outputs and row_blocks * 2 * C
+// scratch floats) and keeps the single-lane geometry within it, and the
+// backward's last-block fold runs per lane on a ticket of its own (slot +
+// lane).  So a lane's outputs are bitwise those of the single-lane launch on
+// its slice, d_scale and d_shift included (the same fold in the same order),
+// and with L = 1 the launch is the single-lane one.  This is the
+// TPU kernels' batching rule under jax.vmap (a leading grid axis, per-lane
+// scale and shift).  The grid is L waves of row blocks, not one: a simple
+// form first (bound at L = 64, stage 1, bf16: the forward moves 2 x 268 MB,
+// ~160 us at 3.35 TB/s).
+//
 // Interface: plain C, loaded with ctypes.  Every entry point takes device
 // pointers and the CUDA stream as void*, launches on that stream without
 // synchronising, and returns cudaGetLastError() (or cudaErrorInvalidValue
@@ -109,8 +126,9 @@ constexpr int kFoldBatch = 8;
 // The backward's tickets, one a slot: zero when the module loads on a
 // device, and reset to zero by the block that draws the last ticket, so zero
 // between launches with no memset.  The wrapper gives each stream its own
-// slot, and each stream of each capture into a CUDA graph one of its own.
-constexpr int kTicketSlots = 4096;
+// slots, and each stream of each capture into a CUDA graph slots of its own:
+// one a lane, consecutive.
+constexpr int kTicketSlots = 65536;
 __device__ unsigned g_tickets[kTicketSlots];
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -195,6 +213,13 @@ fwd_kernel(const T* __restrict__ y, const float* __restrict__ scale,
   const unsigned C = a.C, rb = blockDim.y;
   const unsigned c0 = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
   if (c0 >= C) return;
+  // this block's lane: its activation and its per-channel vectors
+  const size_t lane_elems = (size_t)blockIdx.z * a.rows * C;
+  y += lane_elems;
+  out += lane_elems;
+  if (kResidual) res += lane_elems;
+  scale += (size_t)blockIdx.z * C;
+  shift += (size_t)blockIdx.z * C;
   float s[VEC], b[VEC];
   load_channels<VEC>(scale + c0, s);
   load_channels<VEC>(shift + c0, b);
@@ -312,8 +337,9 @@ __device__ __forceinline__ unsigned draw_ticket(unsigned* ticket) {
   return old;
 }
 
-// Rows and channel groups as in fwd_kernel (RowArgs).  work: gridDim.x rows
-// of 2 * C partials (d_scale then d_shift).  dss: d_scale then d_shift.
+// Rows and channel groups as in fwd_kernel (RowArgs), lanes on blockIdx.z.
+// work: gridDim.x rows of 2 * C partials (d_scale then d_shift) a lane.  dss:
+// d_scale then d_shift, a lane after the other.
 template <typename T, int VEC, bool kResidual>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const T* __restrict__ g, const T* __restrict__ y, const float* __restrict__ scale,
@@ -328,6 +354,16 @@ bwd_kernel(const T* __restrict__ g, const T* __restrict__ y, const float* __rest
   const unsigned grp = blockIdx.y * cg + lc;
   const unsigned c0 = grp * VEC;
   const unsigned tile = cg * VEC;  // channels of a block
+  // this block's lane: its activations, scale, outputs, scratch and ticket
+  const size_t lane_elems = (size_t)blockIdx.z * a.rows * C;
+  g += lane_elems;
+  y += lane_elems;
+  out += lane_elems;
+  dy += lane_elems;
+  if (kResidual) dr += lane_elems;
+  scale += (size_t)blockIdx.z * C;
+  dss += (size_t)blockIdx.z * 2 * C;
+  work += (size_t)blockIdx.z * gridDim.x * 2 * C;
   float acc_s[VEC], acc_b[VEC];
 #pragma unroll
   for (int v = 0; v < VEC; ++v) acc_s[v] = acc_b[v] = 0.f;
@@ -393,8 +429,9 @@ bwd_kernel(const T* __restrict__ g, const T* __restrict__ y, const float* __rest
   }
 
   // Cross-block fold: the block that draws the last ticket folds every
-  // block's row, in block order, and resets the ticket.
-  unsigned* ticket = g_tickets + a.slot;
+  // block's row, in block order, and resets the ticket (each lane on its
+  // own ticket, over its own rows).
+  unsigned* ticket = g_tickets + a.slot + blockIdx.z;
   __syncthreads();
   if (t == 0) s_last = draw_ticket(ticket) == gridDim.x * gridDim.y - 1;
   __syncthreads();
@@ -440,9 +477,10 @@ bool geo_ok(const Geo& g) {
          (long long)g.row_blocks * g.rows_per_block >= g.rows;
 }
 
-cudaError_t launch(const void* fn, const Geo& g, dim3 block, void** args, void* stream) {
-  const cudaError_t err = cudaLaunchKernel(fn, dim3(g.row_blocks, g.channel_blocks), block, args,
-                                           0, (cudaStream_t)stream);
+cudaError_t launch(const void* fn, const Geo& g, int lanes, dim3 block, void** args,
+                   void* stream) {
+  const cudaError_t err = cudaLaunchKernel(fn, dim3(g.row_blocks, g.channel_blocks, lanes), block,
+                                           args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -460,40 +498,57 @@ int fused_blocks_per_sm(int backward, int dtype, int vec, int residual, int* blo
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, 0);
 }
 
-// geo: the geometry array (ops/fused_block.fwd_geometry).  res may be null
-// (no residual).  With vec > 1 every pointer must be 16-byte aligned.
-int fused_fwd(const int* geo, const void* y, const void* scale, const void* shift,
-              const void* res, void* out, void* stream) {
+// geo: the geometry array (ops/fused_block.fwd_geometry) of one lane.  lanes
+// (1..65535): lane-major operands of `lanes` (rows, C) activations and (C,)
+// vectors each.  res may be null (no residual).  With vec > 1 every pointer
+// must be 16-byte aligned.
+int fused_fwd_lanes(const int* geo, int lanes, const void* y, const void* scale,
+                    const void* shift, const void* res, void* out, void* stream) {
   Geo g;
   memcpy(&g, geo, sizeof(g));
   const void* fn = instance(false, g.dtype, g.vec, res != nullptr);
-  if (fn == nullptr || !geo_ok(g) ||
+  if (fn == nullptr || !geo_ok(g) || lanes < 1 || lanes > 65535 ||
       (g.vec > 1 && ((size_t)y | (size_t)scale | (size_t)shift | (size_t)res | (size_t)out) % 16))
     return (int)cudaErrorInvalidValue;
   RowArgs a{(unsigned)g.rows, (unsigned)g.C, (unsigned)g.cg, (unsigned)g.rows_per_block, 0u};
   void* args[] = {(void*)&y, (void*)&scale, (void*)&shift, (void*)&res, (void*)&out, (void*)&a};
-  return (int)launch(fn, g, dim3(g.cg, g.rb), args, stream);
+  return (int)launch(fn, g, lanes, dim3(g.cg, g.rb), args, stream);
 }
 
-// geo: the geometry array (ops/fused_block.bwd_geometry).  dr may be null
-// (no residual).  dss: 2 * C floats (d_scale, d_shift), 16-byte aligned.
-// work: row_blocks * 2 * C floats of scratch, 16-byte aligned (no zeroing:
-// every row is written before it is read).  slot: the ticket slot, <
-// kTicketSlots.
-int fused_bwd(const int* geo, const void* g, const void* y, const void* scale,
-              const void* out, void* dy, void* dr, void* dss, void* work, int slot,
-              void* stream) {
+// One lane (fused_fwd_lanes with lanes = 1).
+int fused_fwd(const int* geo, const void* y, const void* scale, const void* shift,
+              const void* res, void* out, void* stream) {
+  return fused_fwd_lanes(geo, 1, y, scale, shift, res, out, stream);
+}
+
+// geo: the geometry array (ops/fused_block.bwd_geometry) of one lane.  lanes
+// (1..65535): lane-major operands as in fused_fwd_lanes.  dr may be null (no
+// residual).  dss: lanes * 2 * C floats (each lane's d_scale, d_shift),
+// 16-byte aligned.  work: lanes * row_blocks * 2 * C floats of scratch,
+// 16-byte aligned (no zeroing: every row is written before it is read).
+// slot: the first of the `lanes` ticket slots, slot + lanes <= kTicketSlots.
+int fused_bwd_lanes(const int* geo, int lanes, const void* g, const void* y, const void* scale,
+                    const void* out, void* dy, void* dr, void* dss, void* work, int slot,
+                    void* stream) {
   Geo o;
   memcpy(&o, geo, sizeof(o));
   const void* fn = instance(true, o.dtype, o.vec, dr != nullptr);
-  if (fn == nullptr || !geo_ok(o) || (32 % o.cg == 0 && o.cg * o.rb % 32 != 0) || slot < 0 ||
-      slot >= kTicketSlots || ((size_t)dss | (size_t)work) % 16 != 0)
+  if (fn == nullptr || !geo_ok(o) || (32 % o.cg == 0 && o.cg * o.rb % 32 != 0) || lanes < 1 ||
+      lanes > 65535 || slot < 0 || slot > kTicketSlots - lanes ||
+      ((size_t)dss | (size_t)work) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   RowArgs a{(unsigned)o.rows, (unsigned)o.C, (unsigned)o.cg, (unsigned)o.rows_per_block,
             (unsigned)slot};
   void* args[] = {(void*)&g, (void*)&y, (void*)&scale, (void*)&out, (void*)&dy,
                   (void*)&dr, (void*)&dss, (void*)&work, (void*)&a};
-  return (int)launch(fn, o, dim3(o.cg * o.rb), args, stream);
+  return (int)launch(fn, o, lanes, dim3(o.cg * o.rb), args, stream);
+}
+
+// One lane (fused_bwd_lanes with lanes = 1).
+int fused_bwd(const int* geo, const void* g, const void* y, const void* scale,
+              const void* out, void* dy, void* dr, void* dss, void* work, int slot,
+              void* stream) {
+  return fused_bwd_lanes(geo, 1, g, y, scale, out, dy, dr, dss, work, slot, stream);
 }
 
 // The id of the capture that `stream` is capturing into a CUDA graph,

@@ -10,7 +10,7 @@ from typing import Any, Optional
 import torch
 
 from ..core import pytree as pt
-from .local_sgd import SGD, make_local_train_fn
+from .local_sgd import SGD, make_batched_local_train_fn, make_local_train_fn
 from .types import ClientOutput, HParams
 
 
@@ -21,10 +21,13 @@ class FedAlgorithm:
         self.hp = hp
         self.cfg = cfg
         self._local_train = None
+        self._batched_train = None
 
     def build(self, model) -> "FedAlgorithm":
-        """Close over the model to build the local train fn."""
+        """Close over the model to build the local train fns (one client,
+        and the lanes of a batched round)."""
         self._local_train = make_local_train_fn(model, self.hp)
+        self._batched_train = make_batched_local_train_fn(model, self.hp)
         return self
 
     def init_server_state(self, variables: dict) -> Any:
@@ -40,6 +43,21 @@ class FedAlgorithm:
         for algorithms that compress (both from the simulator's sampler)."""
         new_vars, metrics = self._local_train(global_variables, x, y, count, key, perms=perms)
         return ClientOutput(contribution=new_vars, client_state=client_state, metrics=metrics)
+
+    def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
+                            counts, perms=None, draw=None) -> ClientOutput:
+        """The round of ``L`` clients at once, a client a lane (the
+        reference's ``client_update`` under ``jax.vmap``): ``x`` / ``y`` are
+        every client's stacked shards on the device, ``clients`` the lanes'
+        rows of them (``(L,)`` ints), ``counts`` the lanes' sample counts
+        (host), ``client_states`` the lanes' stacked state, ``perms`` their
+        ``(L, epochs, cap)`` permutation tables and ``draw(shape)`` their
+        ``(L,) + shape`` uniform draws.  Returns lane-stacked contributions
+        and client state and ``(L,)`` metric tensors."""
+        lanes = clients.shape[0]
+        start = pt.tree_map(lambda t: t.unsqueeze(0).expand((lanes,) + t.shape), global_variables)
+        new_vars, metrics = self._batched_train(start, x, y, clients, counts, perms)
+        return ClientOutput(contribution=new_vars, client_state=client_states, metrics=metrics)
 
     def aggregate(self, stacked_contributions, weights: torch.Tensor):
         return pt.tree_weighted_mean(stacked_contributions, weights)

@@ -29,6 +29,16 @@ Semantics kept from flax:
 ``fused=True`` (recipe flag ``extra.fused_blocks``) routes the stem
 epilogue and both epilogues of every block through ``ops/fused_block.py``;
 the variable tree is identical to the unfused model's.
+
+Lanes (the simulator's batched round; the reference's ``jax.vmap`` of
+``apply`` written out): given lane-major ``(L, N, H, W, C)`` input and
+variables whose every leaf has a leading lane axis ``L``, ``apply`` runs
+``L`` independent models in one call per layer.  A conv is one grouped conv
+(``groups=L``) over the lanes laid side by side in the channels, its output
+back to lane-major; BN statistics are per lane, over ``(N, H, W)``; the
+fused epilogues take per-lane ``(L, C)`` scale and shift; the Dense layer
+is a batched matmul.  Each lane computes what ``apply`` computes for it
+alone, up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -67,12 +77,49 @@ def conv2d_nhwc(x: torch.Tensor, kernel: torch.Tensor, stride: int, dtype: torch
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv2d_lanes(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """:func:`conv2d_nhwc` of each lane: lane-major ``x`` ``(L, N, H, W,
+    Cin)``, ``kernel`` ``(L, O, I, kh, kw)``.  One grouped conv: the lanes
+    side by side in the channels of a channels_last ``(N, L * Cin, H, W)``
+    view (group ``l`` reads lane ``l``'s channels with lane ``l``'s kernel),
+    then back to a contiguous lane-major ``(L, N, Ho, Wo, O)``."""
+    lanes, n, _, _, cin = x.shape
+    out_ch = kernel.shape[1]
+    w = kernel.to(dtype).reshape((lanes * out_ch,) + kernel.shape[2:]).contiguous(
+        memory_format=torch.channels_last)
+    (ph0, ph1), (pw0, pw1) = (_same_pads(x.shape[2], w.shape[2], stride),
+                              _same_pads(x.shape[3], w.shape[3], stride))
+    x = x.to(dtype)
+    padding = (ph0, pw0)
+    if ph0 != ph1 or pw0 != pw1:
+        x = F.pad(x, (0, 0, pw0, pw1, ph0, ph1))
+        padding = (0, 0)
+    h, w_ = x.shape[2], x.shape[3]
+    xg = x.permute(1, 2, 3, 0, 4).reshape(n, h, w_, lanes * cin).permute(0, 3, 1, 2)
+    y = F.conv2d(xg, w, stride=stride, padding=padding, groups=lanes)
+    ho, wo = y.shape[2], y.shape[3]
+    return y.permute(0, 2, 3, 1).reshape(n, ho, wo, lanes, out_ch).permute(3, 0, 1, 2, 4).contiguous()
+
+
+def _conv(x: torch.Tensor, kernel: torch.Tensor, stride: int, dtype: torch.dtype) -> torch.Tensor:
+    """The conv of one model (NHWC ``x``) or of ``L`` lanes (lane-major)."""
+    return (conv2d_lanes if x.ndim == 5 else conv2d_nhwc)(x, kernel, stride, dtype)
+
+
+def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-channel ``(C,)`` vector as it is; a lane's ``(L, C)`` one as
+    ``(L, 1, 1, 1, C)``, to broadcast over lane-major ``x``."""
+    return v if v.ndim == 1 else v.reshape(v.shape[:1] + (1,) * (x.ndim - 2) + v.shape[1:])
+
+
 def _batch_stats(x: torch.Tensor, stats: dict, train: bool):
-    """(mean, var, new_stats) of flax BatchNorm with fast variance."""
+    """(mean, var, new_stats) of flax BatchNorm with fast variance; per lane
+    (``(L, C)``) for lane-major ``x``."""
     if not train:
         return stats["mean"], stats["var"], stats
     xf = x.to(torch.float32)
-    axes = tuple(range(x.ndim - 1))
+    axes = tuple(range(1 if x.ndim == 5 else 0, x.ndim - 1))
     mean = xf.mean(axes)
     var = torch.clamp_min(xf.square().mean(axes) - mean.square(), 0.0)
     new = {
@@ -88,7 +135,8 @@ def batch_norm(x, params: dict, stats: dict, train: bool):
     ``x``'s dtype."""
     mean, var, new = _batch_stats(x, stats, train)
     mul = torch.rsqrt(var + _EPS) * params["scale"]
-    y = (x.to(torch.float32) - mean) * mul + params["bias"]
+    y = ((x.to(torch.float32) - _per_channel(mean, x)) * _per_channel(mul, x)
+         + _per_channel(params["bias"], x))
     return y.to(x.dtype), new
 
 
@@ -103,7 +151,7 @@ def bn_scale_shift(x, params: dict, stats: dict, train: bool):
 
 
 def option_a_shortcut(residual: torch.Tensor, stride: int, filters: int) -> torch.Tensor:
-    residual = residual[:, ::stride, ::stride, :]
+    residual = residual[..., ::stride, ::stride, :]
     pad = filters - residual.shape[-1]
     return F.pad(residual, (pad // 2, pad - pad // 2)).contiguous()
 
@@ -112,10 +160,10 @@ def basic_block(p: dict, st: dict, x, stride: int, filters: int, train: bool, dt
     """``BasicBlock`` (reference L29): conv-BN-ReLU-conv-BN, option-A
     shortcut, ReLU.  Returns ``(out, new_batch_stats)``."""
     residual = x
-    y = conv2d_nhwc(x, p["Conv_0"]["kernel"], stride, dtype)
+    y = _conv(x, p["Conv_0"]["kernel"], stride, dtype)
     y, s0 = batch_norm(y, p["BatchNorm_0"], st["BatchNorm_0"], train)
     y = torch.relu(y)
-    y = conv2d_nhwc(y, p["Conv_1"]["kernel"], 1, dtype)
+    y = _conv(y, p["Conv_1"]["kernel"], 1, dtype)
     y, s1 = batch_norm(y, p["BatchNorm_1"], st["BatchNorm_1"], train)
     if residual.shape != y.shape:
         residual = option_a_shortcut(residual, stride, filters)
@@ -126,10 +174,10 @@ def fused_basic_block(p: dict, st: dict, x, stride: int, filters: int, train: bo
     """``FusedBasicBlock`` (reference L105): both epilogues through the fused
     kernels; same variables as :func:`basic_block`."""
     residual = x
-    y = conv2d_nhwc(x, p["Conv_0"]["kernel"], stride, dtype)
+    y = _conv(x, p["Conv_0"]["kernel"], stride, dtype)
     sc, sh, s0 = bn_scale_shift(y, p["BatchNorm_0"], st["BatchNorm_0"], train)
     y = fused_bn_relu(y, sc, sh)
-    y = conv2d_nhwc(y, p["Conv_1"]["kernel"], 1, dtype)
+    y = _conv(y, p["Conv_1"]["kernel"], 1, dtype)
     sc, sh, s1 = bn_scale_shift(y, p["BatchNorm_1"], st["BatchNorm_1"], train)
     if residual.shape != y.shape:
         residual = option_a_shortcut(residual, stride, filters)
@@ -187,10 +235,12 @@ class CifarResNet:
 
     def apply(self, variables: dict, x: torch.Tensor, train: bool = True):
         """NHWC ``x`` -> ``(logits, new_batch_stats)``; logits in ``dtype``.
-        In eval mode the batch stats come back unchanged."""
+        In eval mode the batch stats come back unchanged.  Lane-major ``(L,
+        N, H, W, C)`` ``x`` with lane-stacked variables: ``(L, N, classes)``
+        logits and lane-stacked batch stats."""
         p, st = variables["params"], variables["batch_stats"]
         new_stats = {}
-        x = conv2d_nhwc(x.to(self.dtype), p["Conv_0"]["kernel"], 1, self.dtype)
+        x = _conv(x.to(self.dtype), p["Conv_0"]["kernel"], 1, self.dtype)
         if self.fused:
             sc, sh, new_stats["BatchNorm_0"] = bn_scale_shift(x, p["BatchNorm_0"], st["BatchNorm_0"], train)
             x = fused_bn_relu(x, sc, sh)
@@ -201,10 +251,12 @@ class CifarResNet:
         for idx, (filters, stride, _) in enumerate(self._blocks()):
             name = f"BasicBlock_{idx}"
             x, new_stats[name] = block_fn(p[name], st[name], x, stride, filters, train, self.dtype)
-        x = x.mean(dim=(1, 2))
+        x = x.mean(dim=(-3, -2))
         dense = p["Dense_0"]
-        logits = F.linear(x, dense["kernel"].to(self.dtype)) + dense["bias"].to(self.dtype)
-        return logits, new_stats
+        kernel, bias = dense["kernel"].to(self.dtype), dense["bias"].to(self.dtype)
+        if x.ndim == 3:  # lanes
+            return torch.bmm(x, kernel.transpose(1, 2)) + bias[:, None, :], new_stats
+        return F.linear(x, kernel) + bias, new_stats
 
 
 def resnet20(num_classes: int = 10, dtype=torch.float32, fused: bool = False) -> CifarResNet:

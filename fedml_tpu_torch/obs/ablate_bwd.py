@@ -39,7 +39,7 @@ L2_BYTES = 50e6
 FOLD_START = "  // Cross-block fold: the block that draws the last ticket folds every"
 REDUCTION_START = "\n  // In-block fold: the threads' sums as an (rb, 2 * tile) matrix in shared"
 UNROLL = "constexpr int kUnroll = 2;"
-# an early exit the compiler cannot prove is taken (slots are < 4096)
+# an early exit the compiler cannot prove is taken (slots are < 65536)
 EXIT = "  if (a.slot < 100000) return;\n"
 
 

@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 -m fedml_tpu_torch.obs.profile_round [--fused 0|1]
+    python3 -m fedml_tpu_torch.obs.profile_round [--fused 0|1] [--backend MESH|sp]
     python3 -m fedml_tpu_torch.obs.profile_round --cf RECIPE [--compression NAME]
     python3 -m fedml_tpu_torch.obs.profile_round --ab 4
 
@@ -15,15 +15,27 @@ summed device time of all kernels, the device busy and idle shares (busy =
 union of kernel intervals over the window), the kernel launches per batch
 (a FedAvg local step, or one batch of a FedSGD full-shard gradient) as the
 port counts them and as ``cudaLaunchKernel`` calls, and the top operators by
-host (self CPU) time and by device time.  ``--fused`` and
-``--compression`` override the recipe's ``extra.fused_blocks`` and
-``compression``; without them the recipe runs unchanged.
+host (self CPU) time and by device time.  ``--fused``,
+``--compression`` and ``--backend`` override the recipe's
+``extra.fused_blocks``, ``compression`` and ``backend_sim`` (MESH, the
+default: the round's clients as the lanes of batched steps; or ``sp``, one
+client after another); without them the recipe runs unchanged.  On MESH it
+also gives the batched steps of the round (the longest lane budget; FedSGD:
+its batches) and the launches and device events a batched step.
 
 ``--ab PAIRS`` instead builds the recipe twice, with and without
 ``extra.fused_blocks`` (same seed, so the same data, sampling and initial
 weights), warms both up, and times PAIRS rounds of each without the
 profiler, alternating the order (fused first in even pairs): the fused vs
 unfused A/B of round time on one card.
+
+``--convs`` instead times the MESH round's convolutions alone, bf16, at
+the flagship's 64 lanes of batch 128 and each conv shape of ResNet-20
+(stride 1 at the three stages, the two stride-2 convs, the stem), forward
+and forward + backward, with CUDA events: the lanes' one grouped conv as
+``models/resnet.conv2d_lanes`` runs it (the layout copies included), the
+grouped conv alone on operands already in its layout, and the 64 lanes one
+after another through the single-lane ``conv2d_nhwc``.
 
 ``--silos`` instead builds the cross-silo path of ``chip_smoke.py`` phase 5
 (the flagship recipe as 4 fused silos) and times the silos' local SGD of one
@@ -69,12 +81,26 @@ def _batches(sim, metrics) -> float:
     return metrics["num_steps"] * clients
 
 
+def _batched_steps(sim, round_idx: int) -> int:
+    """Steps of a MESH round, each one batched forward and backward of the
+    active lanes: the longest lane budget (FedSGD: a shard's batches)."""
+    import numpy as np
+
+    if sim.algorithm.name == "FedSGD":
+        return sim.capacity // sim.cfg.batch_size
+    counts = sim.counts[np.asarray(sim.sampler.sample(round_idx))]
+    return int(min(sim.hp.local_steps, sim.hp.epochs * -(-int(counts.max()) // sim.cfg.batch_size)))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cf", default=FLAGSHIP, help="recipe YAML")
     ap.add_argument("--fused", type=int, default=None, help="override extra.fused_blocks")
     ap.add_argument("--compression", default=None, help="override compression (FedSGD)")
+    ap.add_argument("--backend", default=None, help="override backend_sim (MESH or sp)")
     ap.add_argument("--ab", type=int, default=0, help="pairs of fused/unfused rounds to time")
+    ap.add_argument("--convs", action="store_true",
+                    help="time the MESH round's grouped convs against the lanes one by one")
     ap.add_argument("--silos", action="store_true",
                     help="time the cross-silo silos' local SGD, one thread vs four")
     args = ap.parse_args(argv)
@@ -97,14 +123,18 @@ def main(argv=None) -> int:
         return _ab(args.ab)
     if args.silos:
         return _silos()
+    if args.convs:
+        return _convs()
     cfg = fedml_tpu_torch.init(argv=["--cf", args.cf])
     if args.fused is not None:
         cfg.extra["fused_blocks"] = bool(args.fused)
     if args.compression is not None:
         cfg.compression = args.compression
+    if args.backend is not None:
+        cfg.backend_sim = args.backend
     cfg.metrics_jsonl_path = ""
     sim = FedMLRunner(cfg).runner
-    what = (f"{cfg.federated_optimizer} fused={bool(sim.hp.fused_blocks)} "
+    what = (f"{cfg.federated_optimizer} {sim.backend} fused={bool(sim.hp.fused_blocks)} "
             f"compression={getattr(sim.algorithm, 'compression', None)}")
     sim.run_round()  # warm-up: cuDNN autotuning, kernel build, allocator
     torch.cuda.synchronize()
@@ -118,6 +148,8 @@ def main(argv=None) -> int:
           f"{plain_steps * cfg.batch_size / plain_s:.0f} samples/s")
     fb.reset_launch_counts()
     qz.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    profiled_round = sim.round_idx
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         profiled = sim.run_round()
@@ -132,11 +164,17 @@ def main(argv=None) -> int:
     print(f"device: {len(events)} kernel/memcpy events, summed {kernel_us / 1e6:.3f} s, busy "
           f"{busy_us / 1e6:.3f} s = {100 * busy_us / (wall_s * 1e6):.1f}% of wall, idle "
           f"{100 * (1 - busy_us / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device events/batch")
-    print(f"kernel launches (profiled round): {fb.launch_counts()} {qz.launch_counts()}")
+    print(f"kernel launches (profiled round): {fb.launch_counts()} {qz.launch_counts()}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    batched = _batched_steps(sim, profiled_round) if sim.backend != "sp" else None
+    if batched:
+        print(f"MESH: {batched} batched steps, {wall_s / batched * 1e3:.2f} ms a batched step "
+              f"wall, {len(events) / batched:.0f} device events a batched step")
     ka = prof.key_averages()
     for name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
         calls = sum(e.count for e in ka if e.key == name)
-        print(f"{name}: {calls} calls, {calls / steps:.1f} a batch")
+        print(f"{name}: {calls} calls, {calls / steps:.1f} a batch"
+              + (f", {calls / batched:.1f} a batched step" if batched else ""))
     print("top operators by self CPU time:")
     print(ka.table(sort_by="self_cpu_time_total", row_limit=TOP, max_name_column_width=60))
     print("top operators by device time:")
@@ -176,6 +214,65 @@ def _ab(pairs: int) -> int:
         per_step = [dt / st * 1e3 for dt, st in times[fused]]
         print(f"fused={fused}: median {statistics.median(per_step):.2f} ms/step over {pairs} rounds "
               f"(min {min(per_step):.2f}, max {max(per_step):.2f})")
+    return 0
+
+
+def _convs(lanes: int = 64, batch: int = 128, reps: int = 10) -> int:
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.models import resnet
+
+    dev, dtype = torch.device("cuda"), torch.bfloat16
+    # (H = W, Cin, Cout, stride) of ResNet-20's convs
+    shapes = [(32, 3, 16, 1), (32, 16, 16, 1), (32, 16, 32, 2), (16, 32, 32, 1),
+              (16, 32, 64, 2), (8, 64, 64, 1)]
+
+    def timed(fn):
+        for _ in range(2):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    for hw, cin, cout, stride in shapes:
+        x = torch.randn((lanes, batch, hw, hw, cin), device=dev).to(dtype)
+        k = torch.randn((lanes, cout, cin, 3, 3), device=dev) * 0.1
+        xg = x.permute(1, 2, 3, 0, 4).reshape(batch, hw, hw, lanes * cin).permute(0, 3, 1, 2)
+        wg = k.to(dtype).reshape(lanes * cout, cin, 3, 3).contiguous(
+            memory_format=torch.channels_last)
+        pad = 1 if stride == 1 else 0
+        if stride == 2:
+            xg = F.pad(xg, (0, 1, 0, 1))
+        cases = {
+            "lanes (conv2d_lanes)": (lambda x, k: resnet.conv2d_lanes(x, k, stride, dtype),
+                                     (x, k)),
+            "grouped conv alone": (lambda xg, wg: F.conv2d(xg, wg, stride=stride, padding=pad,
+                                                           groups=lanes), (xg, wg)),
+            "lanes one by one": (lambda x, k: [resnet.conv2d_nhwc(x[i], k[i], stride, dtype)
+                                               for i in range(lanes)], (x, k)),
+        }
+        rows = {}
+        for name, (fwd, operands) in cases.items():
+            def forward(fwd=fwd, operands=operands):
+                with torch.no_grad():
+                    fwd(*operands)
+
+            def forward_backward(fwd=fwd, operands=operands):
+                leaves = [t.detach().requires_grad_(True) for t in operands]
+                outs = fwd(*leaves)
+                outs = outs if isinstance(outs, list) else [outs]
+                torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+            rows[name] = (timed(forward), timed(forward_backward))
+        print(f"conv {lanes} lanes x ({batch}, {hw}, {hw}, {cin}) -> {cout}, stride {stride}: "
+              + "; ".join(f"{n} forward {f:.3f} ms, forward + backward {fb:.3f} ms"
+                          for n, (f, fb) in rows.items()))
     return 0
 
 

@@ -12,6 +12,13 @@ a fixed-order cross-block fold of ``d_scale`` / ``d_shift``.
 ``torch.autograd.Function`` wrappers save ``(y, scale, out)``: the ReLU mask
 is recovered as ``out > 0``.
 
+Lanes: given ``(L, C)`` scale and shift, every function here takes ``L``
+lane-major activations ``(L, N, H, W, C)`` (the simulator's batched round:
+one lane a client, each with its own BN statistics) and launches the same
+kernels once for all lanes, each lane bitwise the single-lane launch on its
+slice.  Those launches count under kernels of their own (``*_lanes``,
+:data:`LANE_KERNELS`).
+
 Beside the kernels, their plain PyTorch versions:
 :func:`fused_block_reference` (mirrors the JAX reference at L289) and
 :func:`fused_block_bwd_reference`.  A wrapper takes them only for tensors on
@@ -36,13 +43,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P]),
     "fused_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
+    "fused_fwd_lanes": (_I, [_P, _I, _P, _P, _P, _P, _P, _P]),
+    "fused_bwd_lanes": (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
     "fused_blocks_per_sm": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     "fused_capture_id": (_I, [_P, ctypes.POINTER(ctypes.c_ulonglong)]),
 }
 # the kernels' block size and the backward's ticket slots: kThreads and
 # kTicketSlots in the .cu source
 THREADS = 256
-TICKET_SLOTS = 4096
+TICKET_SLOTS = 65536
+MAX_LANES = 65535  # the grid's z extent
 # most partials (row_blocks * 2 * C floats) the last block folds: 32 KB,
 # at most kFoldBatch 16-byte loads a thread, issued together
 FOLD_FLOATS = 8192
@@ -52,6 +62,12 @@ FWD_RES = build.Kernel("fused_bn_residual_relu_fwd", "fedml_tpu/ops/pallas/fused
 BWD = build.Kernel("fused_bn_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:142")
 BWD_RES = build.Kernel("fused_bn_residual_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:126")
 KERNELS = (FWD, FWD_RES, BWD, BWD_RES)
+# the same kernels launched once for L lanes (fused_fwd_lanes / fused_bwd_lanes)
+FWD_LANES = build.Kernel("fused_bn_relu_fwd_lanes", FWD.replaces)
+FWD_RES_LANES = build.Kernel("fused_bn_residual_relu_fwd_lanes", FWD_RES.replaces)
+BWD_LANES = build.Kernel("fused_bn_relu_bwd_lanes", BWD.replaces)
+BWD_RES_LANES = build.Kernel("fused_bn_residual_relu_bwd_lanes", BWD_RES.replaces)
+LANE_KERNELS = (FWD_LANES, FWD_RES_LANES, BWD_LANES, BWD_RES_LANES)
 SOURCE = "fedml_tpu_torch/csrc/fused_block.cu"
 
 
@@ -61,22 +77,24 @@ VARIANTS = ("vector", "scalar", "fwd_vector", "fwd_scalar")
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    """Launches on the card by kernel since the last reset, the lane-batched
+    ones (``*_lanes``) apart."""
+    return {k.name: k.launches for k in KERNELS + LANE_KERNELS}
 
 
 def variant_counts() -> dict:
-    """Launches on the card by variant, since the last reset: the
-    backward's under ``"vector"`` / ``"scalar"``, the forward's under
+    """Launches on the card by variant, since the last reset, lanes or not:
+    the backward's under ``"vector"`` / ``"scalar"``, the forward's under
     ``"fwd_vector"`` / ``"fwd_scalar"``."""
     counts = dict.fromkeys(VARIANTS, 0)
-    for k in KERNELS:
+    for k in KERNELS + LANE_KERNELS:
         for variant, n in k.variant_counts().items():
             counts[variant] += n
     return counts
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + LANE_KERNELS:
         k.reset()
 
 
@@ -86,9 +104,19 @@ def _lib():
 
 # -- plain PyTorch versions (the CPU path and the kernels' oracle) -----------
 
+def _per_channel(v: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector as it broadcasts over ``y``: ``(C,)`` as it is,
+    a lane's ``(L, C)`` as ``(L, 1, ..., 1, C)``."""
+    if v.ndim == 1:
+        return v
+    return v.reshape(v.shape[:1] + (1,) * (y.ndim - 2) + v.shape[1:])
+
+
 def fused_block_reference(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    z = y.to(torch.float32) * scale.to(torch.float32) + shift.to(torch.float32)
+    """Per lane when scale and shift are ``(L, C)``."""
+    z = (y.to(torch.float32) * _per_channel(scale.to(torch.float32), y)
+         + _per_channel(shift.to(torch.float32), y))
     if residual is not None:
         z = z + residual.to(torch.float32)
     return torch.relu(z).to(y.dtype)
@@ -97,10 +125,11 @@ def fused_block_reference(y: torch.Tensor, scale: torch.Tensor, shift: torch.Ten
 def fused_block_bwd_reference(g: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
                               out: torch.Tensor, with_residual: bool):
     """``(dy, d_scale, d_shift, dr)`` with the kernel's explicit mask
-    ``out > 0`` (never autograd through a max, which splits at a tie)."""
+    ``out > 0`` (never autograd through a max, which splits at a tie); per
+    lane (sums over each lane's pixels) when scale is ``(L, C)``."""
     gm = g.to(torch.float32) * (out > 0).to(torch.float32)
-    dy = (gm * scale.to(torch.float32)).to(y.dtype)
-    axes = tuple(range(gm.ndim - 1))
+    dy = (gm * _per_channel(scale.to(torch.float32), y)).to(y.dtype)
+    axes = tuple(range(scale.ndim - 1, gm.ndim - 1))
     d_scale = (gm * y.to(torch.float32)).sum(axes)
     d_shift = gm.sum(axes)
     dr = gm.to(y.dtype) if with_residual else None
@@ -109,20 +138,27 @@ def fused_block_bwd_reference(g: torch.Tensor, y: torch.Tensor, scale: torch.Ten
 
 # -- kernel launches ---------------------------------------------------------
 
-def _check(y: torch.Tensor, vectors, others) -> None:
+def _check(y: torch.Tensor, vectors, others) -> int:
+    """Checks the operands; returns the lanes (0 for the single-lane form:
+    NHWC ``y``, ``(C,)`` vectors; ``L`` for ``(L, N, H, W, C)`` and ``(L,
+    C)``)."""
     if y.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused block kernel takes float32 or bfloat16, got {y.dtype}")
-    if y.ndim != 4 or not y.is_contiguous():
-        raise ValueError("fused block kernel takes a contiguous NHWC tensor, got shape "
-                         f"{tuple(y.shape)} with strides {y.stride()}")
-    if y.numel() == 0 or y.numel() >= 2**31:
-        raise ValueError(f"fused block kernel takes 1 <= numel < 2**31, got {y.numel()}")
+    lanes = y.shape[0] if vectors[0].ndim == 2 else 0
+    if y.ndim != (5 if lanes else 4) or not y.is_contiguous():
+        raise ValueError(f"fused block kernel takes a contiguous {'lane-major ' if lanes else ''}"
+                         f"NHWC tensor, got shape {tuple(y.shape)} with strides {y.stride()}")
+    lane_numel = y.numel() // max(lanes, 1)
+    if lane_numel == 0 or lane_numel >= 2**31 or lanes > MAX_LANES:
+        raise ValueError(f"fused block kernel takes 1 <= numel < 2**31 a lane and at most "
+                         f"{MAX_LANES} lanes, got {tuple(y.shape)}")
     c = y.shape[-1]
+    want = (lanes, c) if lanes else (c,)
     for v in vectors:
         if v.device != y.device:
             raise ValueError(f"operands on {v.device} and {y.device}")
-        if v.dtype != torch.float32 or v.shape != (c,) or not v.is_contiguous():
-            raise ValueError(f"per-channel vector must be contiguous float32 ({c},), "
+        if v.dtype != torch.float32 or v.shape != want or not v.is_contiguous():
+            raise ValueError(f"per-channel vector must be contiguous float32 {want}, "
                              f"got {v.dtype} {tuple(v.shape)}")
     for t in others:
         if t is None:
@@ -132,20 +168,28 @@ def _check(y: torch.Tensor, vectors, others) -> None:
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != y.device:
             raise ValueError(f"operands on {t.device} and {y.device}")
+    return lanes
 
 
 def _fwd_cuda(y, scale, shift, residual):
-    _check(y, (scale, shift), (residual,))
-    kernel = FWD_RES if residual is not None else FWD
+    lanes = _check(y, (scale, shift), (residual,))
+    if lanes:
+        kernel = FWD_RES_LANES if residual is not None else FWD_LANES
+    else:
+        kernel = FWD_RES if residual is not None else FWD
     device, c = y.device, y.shape[-1]
     stream = build.current_stream(device, "fused block kernel")
     out = torch.empty_like(y)
     # a null residual pointer (0) is aligned
     ptrs = (y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             residual.data_ptr() if residual is not None else 0, out.data_ptr())
-    geo, geo_args = _launch_geometry(False, device.index, y.dtype, y.numel() // c, c,
-                                     aligned16(ptrs), residual is not None)
-    err = _lib().fused_fwd(geo_args, *ptrs, stream)
+    # the geometry of one lane: each lane offsets within the launch
+    geo, geo_args = _launch_geometry(False, device.index, y.dtype, y.numel() // c // max(lanes, 1),
+                                     c, aligned16(ptrs), residual is not None)
+    if lanes:
+        err = _lib().fused_fwd_lanes(geo_args, lanes, *ptrs, stream)
+    else:
+        err = _lib().fused_fwd(geo_args, *ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
     kernel.count_launch("fwd_vector" if geo.vec > 1 else "fwd_scalar")
@@ -259,24 +303,26 @@ _SCRATCH: dict = {}  # (device index, stream) -> float32 scratch
 _WORKSPACE_LOCK = threading.Lock()
 
 
-def _ticket_slot(device_index: int, owner) -> int:
-    """The ticket slot of ``owner`` (a stream, or a capture's key) on the
-    device, assigned at its first launch."""
+def _ticket_slot(device_index: int, owner, lanes: int = 1) -> int:
+    """The first of ``owner``'s consecutive ticket slots on the device (a
+    stream, or a capture's key; one a lane), assigned at its first launch
+    and again, further on, at its first launch of more lanes than it holds
+    (its launches run in order, so its old slots are never in use then)."""
     key = (device_index, owner)
-    slot = _SLOTS.get(key)
-    if slot is None:
+    held = _SLOTS.get(key)
+    if held is None or held[1] < lanes:
         with _WORKSPACE_LOCK:
-            slot = _SLOTS.get(key)
-            if slot is None:
+            held = _SLOTS.get(key)
+            if held is None or held[1] < lanes:
                 slot = _NEXT_SLOT.get(device_index, 0)
-                if slot >= TICKET_SLOTS:
+                if slot + lanes > TICKET_SLOTS:
                     raise RuntimeError(
                         f"fused block backward: all {TICKET_SLOTS} ticket slots of device "
                         f"{device_index} are taken (one per stream and per stream of each "
-                        "capture into a CUDA graph)")
-                _NEXT_SLOT[device_index] = slot + 1
-                _SLOTS[key] = slot
-    return slot
+                        "capture into a CUDA graph, one a lane)")
+                _NEXT_SLOT[device_index] = slot + lanes
+                held = _SLOTS[key] = (slot, lanes)
+    return held[0]
 
 
 def _capture_id(stream: int) -> int:
@@ -288,16 +334,16 @@ def _capture_id(stream: int) -> int:
     return capture.value
 
 
-def _workspace(device: torch.device, stream: int, floats: int):
-    """``(ticket slot, scratch)`` for a launch on ``stream``.  A call
-    captured into a CUDA graph gets the slot of its capture and stream, and
-    scratch from the graph's pool; an eager call gets its stream's slot and
-    scratch, grown when a launch needs more (the old buffer is freed in
-    stream order)."""
+def _workspace(device: torch.device, stream: int, floats: int, lanes: int = 1):
+    """``(first ticket slot, scratch)`` for a launch of ``lanes`` lanes on
+    ``stream``.  A call captured into a CUDA graph gets the slots of its
+    capture and stream, and scratch from the graph's pool; an eager call
+    gets its stream's slots and scratch, grown when a launch needs more (the
+    old buffer is freed in stream order)."""
     if torch.cuda.is_current_stream_capturing():
-        return (_ticket_slot(device.index, ("capture", _capture_id(stream), stream)),
+        return (_ticket_slot(device.index, ("capture", _capture_id(stream), stream), lanes),
                 torch.empty(floats, dtype=torch.float32, device=device))
-    slot = _ticket_slot(device.index, stream)
+    slot = _ticket_slot(device.index, stream, lanes)
     key = (device.index, stream)
     scratch = _SCRATCH.get(key)
     if scratch is None or scratch.numel() < floats:
@@ -310,24 +356,33 @@ def _workspace(device: torch.device, stream: int, floats: int):
 
 
 def _bwd_cuda(g, y, scale, out, with_residual: bool):
-    _check(y, (scale,), (g, out))
-    kernel = BWD_RES if with_residual else BWD
+    lanes = _check(y, (scale,), (g, out))
+    if lanes:
+        kernel = BWD_RES_LANES if with_residual else BWD_LANES
+    else:
+        kernel = BWD_RES if with_residual else BWD
+    n_lanes = max(lanes, 1)
     c = y.shape[-1]
     stream = build.current_stream(y.device, "fused block kernel")
     ptrs = (g.data_ptr(), y.data_ptr(), scale.data_ptr(), out.data_ptr())
-    geo, geo_args = _launch_geometry(True, y.device.index, y.dtype, y.numel() // c, c,
+    geo, geo_args = _launch_geometry(True, y.device.index, y.dtype, y.numel() // c // n_lanes, c,
                                      aligned16(ptrs), with_residual)
     dy = torch.empty_like(y)
     dr = torch.empty_like(y) if with_residual else None
-    dss = torch.empty((2, c), dtype=torch.float32, device=y.device)
-    slot, scratch = _workspace(y.device, stream, geo.scratch_floats)
-    err = _lib().fused_bwd(geo_args, *ptrs, dy.data_ptr(),
-                           dr.data_ptr() if dr is not None else None, dss.data_ptr(),
-                           scratch.data_ptr(), slot, stream)
+    dss = torch.empty((n_lanes, 2, c), dtype=torch.float32, device=y.device)
+    slot, scratch = _workspace(y.device, stream, geo.scratch_floats * n_lanes, n_lanes)
+    tail = (dy.data_ptr(), dr.data_ptr() if dr is not None else None, dss.data_ptr(),
+            scratch.data_ptr(), slot, stream)
+    if lanes:
+        err = _lib().fused_bwd_lanes(geo_args, lanes, *ptrs, *tail)
+    else:
+        err = _lib().fused_bwd(geo_args, *ptrs, *tail)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
     kernel.count_launch("vector" if geo.vec > 1 else "scalar")
-    return dy, dss[0], dss[1], dr
+    if lanes:
+        return dy, dss[:, 0], dss[:, 1], dr
+    return dy, dss[0, 0], dss[0, 1], dr
 
 
 def fused_block_forward(y, scale, shift, residual=None):
@@ -381,12 +436,14 @@ class _FusedBNResidualReLU(torch.autograd.Function):
 
 def fused_bn_relu(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """``relu(y * scale + shift)`` with a per-channel (last-axis) affine, in
-    one fused pass; differentiable (fused backward)."""
+    one fused pass; differentiable (fused backward).  ``(L, C)`` scale and
+    shift: per lane of a lane-major ``(L, N, H, W, C)`` y, one launch."""
     return _FusedBNReLU.apply(y, scale, shift)
 
 
 def fused_bn_residual_relu(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                            residual: torch.Tensor) -> torch.Tensor:
     """``relu(y * scale + shift + residual)``: the whole BasicBlock epilogue
-    (BN apply, shortcut add, activation) in one fused pass; differentiable."""
+    (BN apply, shortcut add, activation) in one fused pass; differentiable;
+    per lane like :func:`fused_bn_relu`."""
     return _FusedBNResidualReLU.apply(y, scale, shift, residual)

@@ -19,6 +19,14 @@ are 16-byte aligned, else its scalar one; the C entry sizes the launch
 from the length.  Each kernel counts its launches (:func:`launch_counts`),
 by variant too (:func:`variant_counts`).
 
+Lanes: :func:`quantize_int8_lanes` and :func:`dequantize_int8_lanes` (and
+:func:`qsgd_int8_lanes`, both) take ``L`` vectors (the simulator's batched
+round, one a client) in one launch of each kernel: each vector padded with
+zeros to whole blocks, as the reference pads one (``_pad_blocks``), and the
+lanes laid end to end, so each lane's blocks and values are bitwise its own
+call's.  Those launches count under kernels of
+their own (``*_lanes``, :data:`LANE_KERNELS`).
+
 Divides are IEEE-rounded on both routes.  The plain version divides by a
 device tensor, never by a Python number: on CUDA, PyTorch turns a division
 by a host scalar into a multiply by its reciprocal, which differs by an ulp.
@@ -45,22 +53,29 @@ _SIGNATURES = {
 QUANTIZE = build.Kernel("quantize_int8", "fedml_tpu/ops/pallas/quantize.py:37")
 DEQUANTIZE = build.Kernel("dequantize_int8", "fedml_tpu/ops/pallas/quantize.py:50")
 KERNELS = (QUANTIZE, DEQUANTIZE)
+# the same kernels launched once for the L lanes of qsgd_int8_lanes
+QUANTIZE_LANES = build.Kernel("quantize_int8_lanes", QUANTIZE.replaces)
+DEQUANTIZE_LANES = build.Kernel("dequantize_int8_lanes", DEQUANTIZE.replaces)
+LANE_KERNELS = (QUANTIZE_LANES, DEQUANTIZE_LANES)
 SOURCE = "fedml_tpu_torch/csrc/quantize.cu"
 VARIANTS = ("vector", "scalar")
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    """Launches on the card by kernel since the last reset, the lane-batched
+    ones (``*_lanes``) apart."""
+    return {k.name: k.launches for k in KERNELS + LANE_KERNELS}
 
 
 def variant_counts() -> dict:
     """Launches on the card by kernel and variant since the last reset:
     ``{kernel name: {"vector": n, "scalar": m}}``."""
-    return {k.name: {v: k.variant_counts().get(v, 0) for v in VARIANTS} for k in KERNELS}
+    return {k.name: {v: k.variant_counts().get(v, 0) for v in VARIANTS}
+            for k in KERNELS + LANE_KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + LANE_KERNELS:
         k.reset()
 
 
@@ -97,7 +112,7 @@ def _check_device(t: torch.Tensor, device: torch.device, what: str) -> None:
         raise ValueError(f"{what} on {t.device}, the vector on {device}")
 
 
-def _quantize_cuda(vec: torch.Tensor, noise: torch.Tensor):
+def _quantize_cuda(vec: torch.Tensor, noise: torch.Tensor, kernel: build.Kernel = QUANTIZE):
     if vec.ndim != 1 or not 0 < vec.numel() < 2**31:
         raise ValueError(f"quantize kernel takes a flat vector of 1 <= n < 2**31, got "
                          f"shape {tuple(vec.shape)}")
@@ -115,12 +130,13 @@ def _quantize_cuda(vec: torch.Tensor, noise: torch.Tensor):
     err = _lib().quantize_int8(*ptrs, scales.data_ptr(), n, aligned,
                                build.current_stream(x.device, "quantize kernel"))
     if err != 0:
-        raise RuntimeError(f"{QUANTIZE.name}: CUDA launch failed with error {err}")
-    QUANTIZE.count_launch("vector" if aligned else "scalar")
+        raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
+    kernel.count_launch("vector" if aligned else "scalar")
     return values, scales, n
 
 
-def _dequantize_cuda(values: torch.Tensor, scales: torch.Tensor, length: int) -> torch.Tensor:
+def _dequantize_cuda(values: torch.Tensor, scales: torch.Tensor, length: int,
+                     kernel: build.Kernel = DEQUANTIZE) -> torch.Tensor:
     blocks = -(-length // BLOCK)
     if length <= 0 or values.dtype != torch.int8 or not values.is_contiguous() \
             or values.numel() != blocks * BLOCK:
@@ -136,8 +152,8 @@ def _dequantize_cuda(values: torch.Tensor, scales: torch.Tensor, length: int) ->
     err = _lib().dequantize_int8(v_ptr, scales.data_ptr(), o_ptr, length, aligned,
                                  build.current_stream(values.device, "dequantize kernel"))
     if err != 0:
-        raise RuntimeError(f"{DEQUANTIZE.name}: CUDA launch failed with error {err}")
-    DEQUANTIZE.count_launch("vector" if aligned else "scalar")
+        raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
+    kernel.count_launch("vector" if aligned else "scalar")
     return out
 
 
@@ -168,3 +184,67 @@ def qsgd_int8(vec: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     (dense in, dense out)."""
     values, scales, n = quantize_int8_stochastic(vec, noise)
     return dequantize_int8(values, scales, n)
+
+
+def lanes_end_to_end(vecs: torch.Tensor, noise: torch.Tensor):
+    """``L`` vectors (``(L, n)``) and their draws (``(L,) + noise_shape(n)``)
+    as one vector and one draw: each vector padded with zeros to whole
+    blocks, the lanes laid end to end (one copy).  Returns ``(x, u,
+    (L,) + noise_shape(n))``."""
+    lanes, n = vecs.shape
+    shape = (lanes,) + noise_shape(n)
+    if tuple(noise.shape) != shape:
+        raise ValueError(f"noise must be {shape} for {lanes} lanes of {n}, got "
+                         f"{tuple(noise.shape)}")
+    x = F.pad(vecs.to(torch.float32), (0, shape[1] * BLOCK - n)).reshape(-1)
+    return x, noise.reshape((-1,) + shape[2:]), shape
+
+
+def quantize_int8_lanes_reference(vecs: torch.Tensor, noise: torch.Tensor):
+    """The plain version of :func:`quantize_int8_lanes`."""
+    x, u, shape = lanes_end_to_end(vecs, noise)
+    values, scales, _ = quantize_int8_reference(x, u)
+    return values.view(shape), scales.view(shape[:2]), vecs.shape[1]
+
+
+def dequantize_int8_lanes_reference(values: torch.Tensor, scales: torch.Tensor,
+                                    length: int) -> torch.Tensor:
+    """The plain version of :func:`dequantize_int8_lanes`."""
+    out = dequantize_int8_reference(values.reshape((-1,) + values.shape[2:]), scales.reshape(-1),
+                                    values.numel())
+    return out.view(values.shape[0], -1)[:, :length]
+
+
+def quantize_int8_lanes(vecs: torch.Tensor, noise: torch.Tensor):
+    """:func:`quantize_int8_stochastic` of each row of ``vecs`` (``(L, n)``)
+    with its row of ``noise`` (``(L,) + noise_shape(n)``) in one launch on
+    the card: the rows padded with zeros to whole blocks and laid end to end
+    (one copy).  Returns ``(int8 values (L, B, 8, 128), f32 scales (L, B),
+    n)``.  The plain version on the CPU; any other device raises."""
+    if vecs.is_cuda:
+        x, u, shape = lanes_end_to_end(vecs, noise)
+        values, scales, _ = _quantize_cuda(x, u.contiguous(), QUANTIZE_LANES)
+        return values.view(shape), scales.view(shape[:2]), vecs.shape[1]
+    if vecs.device.type == "cpu":
+        return quantize_int8_lanes_reference(vecs, noise)
+    raise RuntimeError(f"quantize has no kernel for device {vecs.device}")
+
+
+def dequantize_int8_lanes(values: torch.Tensor, scales: torch.Tensor, length: int) -> torch.Tensor:
+    """The first ``length`` elements of each lane's ``values * scale[block]``
+    (``(L, B, 8, 128)`` values, ``(L, B)`` scales) in one launch on the card:
+    a ``(L, length)`` view.  Dispatched like :func:`quantize_int8_lanes`."""
+    if values.is_cuda:
+        out = _dequantize_cuda(values.reshape((-1,) + values.shape[2:]), scales.reshape(-1),
+                               values.numel(), DEQUANTIZE_LANES)
+        return out.view(values.shape[0], -1)[:, :length]
+    if values.device.type == "cpu":
+        return dequantize_int8_lanes_reference(values, scales, length)
+    raise RuntimeError(f"dequantize has no kernel for device {values.device}")
+
+
+def qsgd_int8_lanes(vecs: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """:func:`qsgd_int8` of each row of ``vecs`` (``(L, n)``) with its row of
+    ``noise``: one quantize and one dequantize launch for all rows on the
+    card, a ``(L, n)`` result."""
+    return dequantize_int8_lanes(*quantize_int8_lanes(vecs, noise))

@@ -1,29 +1,50 @@
 """MeshSimulator — the simulation round on one device.
 
-The port of ``fedml_tpu/sim/engine.py``'s sequential path.  The JAX package
-runs a round as one vmapped, mesh-sharded program; its SP backend
-(``_run_round_sp``) runs the same client math one client after another, and
-``tests/test_m0_fedavg.py`` pins the two equal.  One card runs that
-sequential twin:
+The port of ``fedml_tpu/sim/engine.py``.  The backend is ``cfg.backend_sim``,
+MESH when unset, as in the reference (its L151):
 
-    sampled  = sampler.sample(r)                       (host)
-    for each sampled client: algorithm.client_update   (local SGD on the card)
-    agg      = algorithm.aggregate(stack(contributions), counts)
+- MESH (the default; ``_run_round_mesh``, reference ``_make_round_fn`` and
+  ``_gather_round_inputs``): every sampled client of the round is a lane of
+  one batched round on the card, as the reference runs ``jax.vmap`` over
+  them.  Each local step is one lane-batched forward and backward for all
+  the lanes still active (``FedAlgorithm.client_update_lanes``;
+  ``fl/local_sgd.make_batched_local_train_fn``), so each fused kernel site
+  launches once a step for all lanes, not once a client.  One card is a
+  lane multiple of 1: no pad lanes.
+- ``sp`` (``_run_round_sp``, reference L821): the sequential twin, one
+  client after another; ``tests/test_torch_mesh.py`` holds the two equal,
+  as the reference's ``tests/test_m0_fedavg.py`` does.
+- Multi-process backends (``MPI``, ``MULTIPROCESS``) raise
+  ``NotImplementedError``.
+
+    sampled  = sampler.sample(r)                                 (host)
+    MESH: algorithm.client_update_lanes(all sampled, batched)    (the card)
+    sp:   for each sampled client: algorithm.client_update       (the card)
+    agg      = algorithm.aggregate(stacked contributions, counts)
     global'  = algorithm.server_update(agg)
 
 Client data is stacked once (``data.dataset.stack_clients``) and kept on the
-device in the compute dtype.  Per-client algorithm state (FedSGD's EF-TopK
-residuals) is one stacked tensor tree on the device, one row per client: a
-sampled client gets its row, and the new rows are written back in place
-after the server step (the reference's functional ``.at[c].set``).  The
-vmapped round and CUDA-graph chunks of rounds are later slices;
-checkpointing, the AOT program store, the profiler, OTLP export, trust hooks
-and population mode raise ``NotImplementedError``.
+device in the compute dtype; a MESH step gathers its batch rows from that
+stack.  Per-client algorithm state (FedSGD's EF-TopK residuals) is one
+stacked tensor tree on the device, one row per client: the sampled clients'
+rows are gathered (``core.pytree.tree_take``), and the new rows are written
+back in place after the server step (``tree_scatter_``, the reference's
+functional ``.at[sampled].set``).  ``run_rounds(n)`` on MESH keeps the
+rounds' metrics on the device and syncs once, at the end of the chunk (the
+reference's ``jit(scan(round))`` chunk has one host sync too); CUDA-graph
+capture of rounds is a later slice.  Checkpointing, the AOT program store,
+the profiler, OTLP export, trust hooks and population mode raise
+``NotImplementedError``.
+
+How to run either backend on the CPU: ``FedMLRunner(cfg,
+device="cpu").run()`` with ``cfg.backend_sim`` unset / ``"MESH"`` or
+``"sp"``.
 
 Randomness goes through a sampler object (``sample(r)``, ``perms(r, client,
 epochs, cap)``, ``uniform(r, client, shape, device)``): :class:`ClientSampler`
 derives all three from the port's generators; a test can hand in one built
-from the JAX package's keys.
+from the JAX package's keys.  Both backends take each client's draws from it,
+a MESH lane those of its client.
 """
 
 from __future__ import annotations
@@ -35,6 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import constants as C
 from ..algorithms import create as create_algorithm, hparams_from_config
 from ..arguments import Config
 from ..core import pytree as pt
@@ -42,7 +64,7 @@ from ..core import rng
 from ..core.device import resolve_device
 from ..core.flags import cfg_extra
 from ..data.dataset import FederatedDataset, pad_eval_set, stack_clients
-from ..fl.local_sgd import epoch_permutations, make_eval_fn
+from ..fl.local_sgd import epoch_permutations, make_eval_fn, to_device
 from ..obs.metrics import MetricsLogger
 
 # flags whose subsystems later slices port; setting one must not be a no-op
@@ -50,9 +72,13 @@ _UNPORTED_FLAGS = ("aot_programs", "profile_rounds", "otlp_endpoint", "populatio
                    "cost_model_gauges")
 _UNPORTED_TRUST = ("enable_attack", "enable_defense", "enable_dp", "enable_secagg",
                    "enable_fhe", "enable_contribution")
+_MULTI_PROCESS = ("MULTIPROCESS", C.SIMULATION_BACKEND_MPI)
 
 
 def _refuse_unported(cfg: Config) -> None:
+    if cfg.backend_sim in _MULTI_PROCESS:
+        raise NotImplementedError(f"backend_sim {cfg.backend_sim!r}: multi-process simulation "
+                                  "is not ported yet")
     if cfg.checkpoint_dir or cfg.checkpoint_every_rounds or cfg.resume:
         raise NotImplementedError("checkpointing is not ported yet (first port slice)")
     for flag in _UNPORTED_FLAGS:
@@ -112,6 +138,7 @@ class MeshSimulator:
     ):
         _refuse_unported(cfg)
         self.cfg = cfg
+        self.backend = cfg.backend_sim or C.SIMULATION_BACKEND_MESH
         self.dataset = dataset
         self.model = model
         self.device = resolve_device(device)
@@ -155,11 +182,52 @@ class MeshSimulator:
         agg = self.algorithm.aggregate(contribs, weights)
         return self.algorithm.server_update(self.global_vars, self.server_state, agg, round_idx)
 
-    def run_round(self) -> dict:
-        """One round: every sampled client trains in turn from the global
-        variables, then the weighted mean replaces them.  Returns the round's
-        host metrics (one device sync)."""
+    def _round(self) -> dict:
+        """One round on the backend; its metrics as 0-d tensors (MESH, on
+        the device) or floats (sp)."""
         r = self.round_idx
+        metrics = (self._run_round_sp(r) if self.backend == C.SIMULATION_BACKEND_SP
+                   else self._run_round_mesh(r))
+        self.round_idx += 1
+        return metrics
+
+    def run_round(self) -> dict:
+        """One round: the sampled clients train from the global variables
+        (MESH: as the lanes of one batched round; sp: in turn), then the
+        weighted mean replaces them.  Returns the round's host metrics (one
+        device sync)."""
+        return {k: float(v) for k, v in self._round().items()}
+
+    def _run_round_mesh(self, r: int) -> dict:
+        """The sampled clients as the lanes of one batched round (reference
+        ``_make_round_fn`` L356 with ``_gather_round_inputs`` L326): each
+        lane's permutations and draws from the sampler, the lanes' client
+        state gathered and scattered, the server path shared with sp.
+        Metrics stay on the device."""
+        sampled = np.asarray(self.sampler.sample(r))
+        lanes = to_device(sampled, self.device, torch.long)
+        counts = self.counts[sampled]
+        perms = [self.sampler.perms(r, int(ci), self.hp.epochs, self.capacity) for ci in sampled]
+        perms = None if perms[0] is None else to_device(torch.stack(perms), self.device, torch.long)
+
+        def draw(shape):
+            return torch.stack([self.sampler.uniform(r, int(ci), shape, self.device)
+                                for ci in sampled])
+
+        states = (pt.tree_take(self.client_states, lanes)
+                  if self.client_states is not None else None)
+        out = self.algorithm.client_update_lanes(
+            self.global_vars, states, self.server_state, self._data[0], self._data[1], lanes,
+            counts, perms=perms, draw=draw)
+        weights = to_device(counts, self.device, torch.float32)
+        self.global_vars, self.server_state = self._server_path(out.contribution, weights, r)
+        if self.client_states is not None and out.client_state is not None:
+            pt.tree_scatter_(self.client_states, lanes, out.client_state)
+        return {k: v.to(torch.float32).mean() for k, v in out.metrics.items()}
+
+    def _run_round_sp(self, r: int) -> dict:
+        """The sequential twin (reference ``_run_round_sp`` L821): every
+        sampled client trains in turn."""
         sampled = np.asarray(self.sampler.sample(r))
         rkey = rng.round_key(self.root_key, r)
         contribs, new_states, metrics_list = [], [], []
@@ -180,17 +248,29 @@ class MeshSimulator:
             with torch.no_grad():
                 for ci, ncs in zip(sampled, new_states):
                     pt.tree_map(lambda full, upd: full[int(ci)].copy_(upd), self.client_states, ncs)
-        self.round_idx += 1
         return {k: _mean([m[k] for m in metrics_list]) for k in metrics_list[0]}
 
     def run_rounds(self, n: int) -> list[dict]:
-        out = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            metrics = self.run_round()
-            metrics["round_time_s"] = time.perf_counter() - t0
-            out.append(metrics)
-        return out
+        """``n`` rounds; one dict of host metrics a round.  sp: each round
+        syncs and is timed alone.  MESH (reference L733): the rounds'
+        metrics stay on the device and come to the host in one sync at the
+        end, and each round is given the chunk's time over ``n``."""
+        if self.backend == C.SIMULATION_BACKEND_SP:
+            out = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                metrics = self.run_round()
+                metrics["round_time_s"] = time.perf_counter() - t0
+                out.append(metrics)
+            return out
+        if n <= 0:
+            return []
+        t0 = time.perf_counter()
+        rounds = [self._round() for _ in range(n)]
+        keys = list(rounds[0])
+        host = torch.stack([torch.stack([m[k] for k in keys]) for m in rounds]).cpu()
+        per_round = (time.perf_counter() - t0) / n
+        return [dict(zip(keys, map(float, row)), round_time_s=per_round) for row in host]
 
     def evaluate(self) -> dict:
         res = self._eval_fn(self.global_vars, *self._test)

@@ -104,8 +104,8 @@ inline std::vector<unsigned> emu_shuffled(unsigned n, unsigned seed) {
 }
 
 // Runs body() as every thread of every block of grid x block (block.x *
-// block.y threads), the blocks one after another in `order` (linear ids y *
-// grid.x + x).
+// block.y threads), the blocks one after another in `order` (linear ids
+// (z * grid.y + y) * grid.x + x).
 template <class F>
 void emu_launch(dim3 grid, dim3 block, const std::vector<unsigned>& order, F body) {
   gridDim = grid;
@@ -118,7 +118,7 @@ void emu_launch(dim3 grid, dim3 block, const std::vector<unsigned>& order, F bod
     for (unsigned t = 0; t < nthreads; ++t)
       threads.emplace_back([&, t] {
         threadIdx = dim3(t % block.x, t / block.x);
-        blockIdx = dim3(id % grid.x, id / grid.x);
+        blockIdx = dim3(id % grid.x, id / grid.x % grid.y, id / grid.x / grid.y);
         body();
       });
     for (auto& th : threads) th.join();

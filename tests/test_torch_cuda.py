@@ -10,13 +10,19 @@ to one bf16 ulp (the same f32 math and rounding), and the forward's variants
 bitwise in bf16 too (one rounding of the same f32 value), d_scale / d_shift to rtol
 1e-5 / atol 1e-4 (f32 sums of up to ~10k terms in another order), and at the
 flagship's stage shapes (up to 131k terms a channel) within 1e-5 * sum|terms|
-per channel, as ``chip_smoke.py`` holds them; the backward bitwise equal to
+per channel, as ``chip_smoke.py`` holds them; the lane-batched variants
+(L = 64 lane-major activations, per-lane scale and shift, one launch) every
+lane bitwise the single-lane launch on its slice, d_scale / d_shift included
+(the same fold in the same order), and against the plain version as above; the backward bitwise equal to
 itself over calls, under CUDA-graph replay and from two streams; the fused
 ResNet step on the card against the CPU to rtol 1e-3 / atol 1e-4 (cuDNN and
 CPU convolutions, TF32 off).  The int8 quantize / dequantize kernels:
 values, scales and the dequantized vector bitwise against the plain
 versions on the card and on the CPU (IEEE divides, order-free max), in
-both variants (16-byte and scalar accesses), a NaN scale as a NaN.  The
+both variants (16-byte and scalar accesses), a NaN scale as a NaN; the
+lane-batched quantize and dequantize (16 lanes, one launch each) bitwise per
+lane.  A MESH round on the card against the same round on the CPU to rtol
+1e-3 / atol 1e-4, each fused site launched once a batched step.  The
 central-DP noise kernel: bitwise against its plain version on the card and
 on the CPU (the multiply, then the add, each rounded), in both variants.  A Shamir SecAgg
 finalize on the card against the CPU: bitwise without DP; with central DP
@@ -133,6 +139,62 @@ def test_backward_matches_plain_at_stage_shapes(shape, dtype, residual, cuda_dev
     kernel = fb.BWD_RES if residual else fb.BWD
     assert fb.launch_counts()[kernel.name] == before[kernel.name] + 1
     assert fb.variant_counts()["vector"] == variants["vector"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STAGES)
+def test_lane_kernels_bitwise_per_lane_at_stage_shapes(shape, dtype, residual, cuda_device):
+    """The lane-batched forward and backward at the MESH round's 64 lanes
+    and the three stage shapes: one launch each, every lane bitwise the
+    single-lane launch on its slice, and the plain version's tolerances."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    lanes = 64
+    y, r, g, s, b = _inputs((lanes,) + shape, dtype, cuda_device, seed=13)
+    s, b = (torch.randn((lanes, shape[-1]), device=cuda_device) for _ in range(2))
+    res = r if residual else None
+    before = fb.launch_counts()
+    out = fb.fused_block_forward(y, s, b, res)
+    got = fb.fused_block_backward(g, y, s, out, residual)
+    after = fb.launch_counts()
+    fwd, bwd = (fb.FWD_RES_LANES, fb.BWD_RES_LANES) if residual else (fb.FWD_LANES, fb.BWD_LANES)
+    assert after[fwd.name] == before[fwd.name] + 1 and after[bwd.name] == before[bwd.name] + 1
+    assert torch.equal(out, fb.fused_block_reference(y, s, b, res))
+    want = fb.fused_block_bwd_reference(g, y, s, out, residual)
+    ulp = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got[0], want[0], rtol=ulp, atol=0)
+    gm = g.float() * (out > 0).float()
+    for i, terms in ((1, (gm * y.float()).abs()), (2, gm.abs())):
+        bound = 1e-5 * terms.reshape(lanes, -1, shape[-1]).sum(1) + 1e-30
+        assert bool(((got[i] - want[i]).abs() <= bound).all()), i
+    for lane in range(lanes):
+        one = fb.fused_block_forward(y[lane], s[lane], b[lane], None if res is None else res[lane])
+        assert torch.equal(one, out[lane])
+        single = fb.fused_block_backward(g[lane], y[lane], s[lane], one, residual)
+        for a, e in zip(single, got):
+            assert (a is None and e is None) or torch.equal(a, e[lane])
+
+
+@pytest.mark.cuda
+def test_lane_kernels_take_consecutive_ticket_slots(cuda_device):
+    """A lane-batched backward takes one ticket slot a lane on its stream
+    and leaves every ticket reset: a single-lane call after it on the same
+    stream, and the same lane call again, are bitwise as before."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    lanes = 5
+    y, r, g, s, b = _inputs((lanes, 8, 16, 16, 32), torch.bfloat16, cuda_device, seed=17)
+    s = s.expand(lanes, -1).contiguous()
+    out = fb.fused_block_forward(y, s, b.expand(lanes, -1).contiguous(), r)
+    first = fb.fused_block_backward(g, y, s, out, True)
+    single = fb.fused_block_backward(g[2], y[2], s[2], out[2], True)
+    again = fb.fused_block_backward(g, y, s, out, True)
+    for a, e in zip(again, first):
+        assert torch.equal(a, e)
+    for a, e in zip(single, first):
+        assert torch.equal(a, e[2])
 
 
 def _misaligned(t):
@@ -523,7 +585,8 @@ def test_quantize_special_blocks_match_plain_versions(misaligned, cuda_device):
 @pytest.mark.cuda
 def test_quantize_cuda_tensors_never_reach_the_plain_versions(cuda_device, monkeypatch):
     """With the plain versions made to raise, the wrappers and the round
-    trip still run on CUDA tensors, through the kernels (launches counted)."""
+    trip, single-lane and lane-batched, still run on CUDA tensors, through
+    the kernels (launches counted)."""
     from fedml_tpu_torch.ops import quantize as qz
 
     def refuse(*args, **kwargs):
@@ -539,8 +602,11 @@ def test_quantize_cuda_tensors_never_reach_the_plain_versions(cuda_device, monke
     values, scales, n = qz.quantize_int8_stochastic(_misaligned(x), _misaligned(u))
     qz.dequantize_int8(_misaligned(values), scales, n)
     assert torch.equal(got, want)
+    lanes = qz.qsgd_int8_lanes(torch.stack([x, x]), torch.stack([u, u]))
+    assert torch.equal(lanes[1], want)
     after = qz.launch_counts()
-    assert all(after[k] == before[k] + 2 for k in after)
+    assert all(after[k.name] == before[k.name] + 2 for k in qz.KERNELS)
+    assert all(after[k.name] == before[k.name] + 1 for k in qz.LANE_KERNELS)
 
 
 @pytest.mark.cuda
@@ -628,23 +694,90 @@ def test_quantize_kernel_rejects_bad_operands(cuda_device):
 
 @pytest.mark.cuda
 def test_fedsgd_qsgd_int8_round_launches_the_kernels(cuda_device, tmp_path):
-    """A tiny FedSGD qsgd_int8 run on the card: one quantize and one
-    dequantize launch per client per round, finite metrics."""
+    """A tiny FedSGD qsgd_int8 run on the card: on MESH (the default) one
+    lane-batched quantize and dequantize launch a round for all clients, on
+    sp one launch per client per round; finite metrics."""
     import fedml_tpu_torch
     from fedml_tpu_torch.arguments import Config
     from fedml_tpu_torch.ops import quantize as qz
     from fedml_tpu_torch.runner import FedMLRunner
 
-    cfg = fedml_tpu_torch.init(Config(
-        dataset="cifar10", model="resnet20", client_num_in_total=4, client_num_per_round=4,
-        comm_round=2, batch_size=8, synthetic_train_size=64, synthetic_test_size=40,
-        partition_method="homo", federated_optimizer="FedSGD", compression="qsgd_int8",
-        frequency_of_the_test=2, compute_dtype="bfloat16", data_cache_dir=str(tmp_path)))
-    runner = FedMLRunner(cfg, device=cuda_device)
-    qz.reset_launch_counts()
-    hist = runner.run()
-    assert qz.launch_counts() == {qz.QUANTIZE.name: 8, qz.DEQUANTIZE.name: 8}
-    assert np.isfinite(hist[-1]["test_loss"])
+    for backend, per_client, per_round in (("MESH", 0, 2), ("sp", 8, 0)):
+        cfg = fedml_tpu_torch.init(Config(
+            dataset="cifar10", model="resnet20", client_num_in_total=4, client_num_per_round=4,
+            comm_round=2, batch_size=8, synthetic_train_size=64, synthetic_test_size=40,
+            partition_method="homo", federated_optimizer="FedSGD", compression="qsgd_int8",
+            frequency_of_the_test=2, compute_dtype="bfloat16", data_cache_dir=str(tmp_path),
+            backend_sim=backend))
+        runner = FedMLRunner(cfg, device=cuda_device)
+        qz.reset_launch_counts()
+        hist = runner.run()
+        assert qz.launch_counts() == {
+            qz.QUANTIZE.name: per_client, qz.DEQUANTIZE.name: per_client,
+            qz.QUANTIZE_LANES.name: per_round, qz.DEQUANTIZE_LANES.name: per_round}
+        assert np.isfinite(hist[-1]["test_loss"])
+
+
+@pytest.mark.cuda
+def test_lane_quantize_bitwise_per_lane(cuda_device):
+    """16 lanes of the FedSGD gradient's 269,722 elements: one quantize and
+    one dequantize launch, every lane bitwise its own single-lane calls and
+    the plain versions."""
+    from fedml_tpu_torch.ops import quantize as qz
+
+    lanes, n = 16, 269722
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    x = torch.randn((lanes, n), generator=g, device=cuda_device) * torch.exp(
+        3 * torch.randn((lanes, n), generator=g, device=cuda_device))
+    u = torch.rand((lanes,) + qz.noise_shape(n), generator=g, device=cuda_device)
+    before = qz.launch_counts()
+    values, scales, length = qz.quantize_int8_lanes(x, u)
+    deq = qz.dequantize_int8_lanes(values, scales, length)
+    after = qz.launch_counts()
+    assert all(after[k.name] == before[k.name] + 1 for k in qz.LANE_KERNELS)
+    want = qz.quantize_int8_lanes_reference(x, u)
+    assert torch.equal(values, want[0]) and torch.equal(scales, want[1])
+    assert torch.equal(deq, qz.dequantize_int8_lanes_reference(values, scales, length))
+    for lane in range(lanes):
+        v1, s1, _ = qz.quantize_int8_stochastic(x[lane], u[lane])
+        assert torch.equal(v1, values[lane]) and torch.equal(s1, scales[lane])
+        assert torch.equal(qz.dequantize_int8(v1, s1, n), deq[lane])
+
+
+@pytest.mark.cuda
+def test_mesh_round_card_matches_cpu(cuda_device, tmp_path):
+    """A fused f32 MESH round (ResNet, one block a stage, 3 of 4 clients)
+    on the card against the same round on the CPU, rtol 1e-3 / atol 1e-4
+    (cuDNN and CPU convolutions, TF32 off); each fused site launched in its
+    lanes variant once a batched step, the single-lane backward never."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.models import resnet
+    from fedml_tpu_torch.ops import fused_block as fb
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    sims = {}
+    for dev in ("cpu", cuda_device):
+        cfg = fedml_tpu_torch.init(Config(
+            dataset="cifar10", model="resnet20", client_num_in_total=4, client_num_per_round=3,
+            comm_round=1, batch_size=8, synthetic_train_size=64, synthetic_test_size=40,
+            partition_method="hetero", partition_alpha=0.5, frequency_of_the_test=0,
+            compute_dtype="float32", data_cache_dir=str(tmp_path), extra={"fused_blocks": True}))
+        runner = FedMLRunner(cfg, model=resnet.CifarResNet(1, fused=True), device=dev)
+        fb.reset_launch_counts()
+        runner.run()
+        sims[str(dev)] = runner.runner
+    sim = sims[str(cuda_device)]
+    counts = sim.counts[sim.sampler.sample(0)]
+    steps = int(min(sim.hp.local_steps, -(-counts.max() // cfg.batch_size)))
+    launched = fb.launch_counts()
+    assert launched[fb.FWD_LANES.name] == launched[fb.BWD_LANES.name] == 4 * steps
+    assert launched[fb.FWD_RES_LANES.name] == launched[fb.BWD_RES_LANES.name] == 3 * steps
+    assert launched[fb.BWD.name] == launched[fb.BWD_RES.name] == 0
+    for a, b in zip(pt.tree_leaves(sims["cpu"].global_vars), pt.tree_leaves(sim.global_vars)):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -278,9 +278,10 @@ def test_server_optimizer_refusals():
 
 def test_fedsgd_recipe_shape_through_runner_on_cpu(tmp_path):
     """The slice through its public entry points on the CPU with the port's
-    own randomness: eftopk keeps a non-zero residual per client, metrics
-    are finite, train_loss is 0, learning_rate plays no part, and the
-    batch statistics never move."""
+    own randomness, on the MESH backend (the round's clients as the lanes
+    of one batched gradient): eftopk keeps a non-zero residual per client,
+    metrics are finite, train_loss is 0, learning_rate plays no part, and
+    the batch statistics never move."""
     import fedml_tpu_torch
     from fedml_tpu_torch.core import pytree as pt
     from fedml_tpu_torch.ops import quantize as q
@@ -293,6 +294,7 @@ def test_fedsgd_recipe_shape_through_runner_on_cpu(tmp_path):
                        backend_sim="MESH")
         runner = FedMLRunner(fedml_tpu_torch.init(cfg), device="cpu")
         sim = runner.runner
+        assert sim.backend == "MESH"
         init_stats = pt.tree_map(torch.clone, sim.global_vars["batch_stats"])
         hist = runner.run()
         assert [h["round"] for h in hist] == [0, 1]

@@ -161,7 +161,7 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     fb.reset_launch_counts()
     y, r, g, s, b = _t(*_inputs((2, 4, 4, 16), seed=5))
     fb.fused_bn_residual_relu(y, s, b, r)
-    assert set(fb.launch_counts()) == {k.name for k in fb.KERNELS}
+    assert set(fb.launch_counts()) == {k.name for k in fb.KERNELS + fb.LANE_KERNELS}
     assert all(v == 0 for v in fb.launch_counts().values())
     with pytest.raises(RuntimeError, match="no kernel"):
         fb.fused_block_forward(y.to("meta"), s.to("meta"), b.to("meta"))
@@ -379,10 +379,10 @@ def test_ticket_slots_under_threads(monkeypatch):
 
 
 def test_captured_calls_take_one_slot_per_capture(monkeypatch):
-    """Backward calls captured into a CUDA graph (capture faked): 5,000
-    calls of one capture on one stream take one slot, more than
-    TICKET_SLOTS; a second capture takes a second, a second stream of the
-    same capture a third, and the eager stream keeps its own."""
+    """Backward calls captured into a CUDA graph (capture faked):
+    TICKET_SLOTS + 4 calls of one capture on one stream take one slot; a
+    second capture takes a second, a second stream of the same capture a
+    third, and the eager stream keeps its own."""
     from fedml_tpu_torch.ops import fused_block as fb
 
     monkeypatch.setattr(fb, "_SLOTS", {})
@@ -391,8 +391,8 @@ def test_captured_calls_take_one_slot_per_capture(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     monkeypatch.setattr(fb, "_capture_id", lambda stream: capture["id"])
     cpu = torch.device("cpu")
-    slots = {fb._workspace(cpu, 500, 64)[0] for _ in range(5000)}
-    assert len(slots) == 1 and 5000 > fb.TICKET_SLOTS
+    slots = {fb._workspace(cpu, 500, 64)[0] for _ in range(fb.TICKET_SLOTS + 4)}
+    assert len(slots) == 1
     capture["id"] = 12
     second = {fb._workspace(cpu, 500, 64)[0] for _ in range(100)}
     other_stream = fb._workspace(cpu, 501, 64)[0]
@@ -450,3 +450,109 @@ def test_forward_ablation_copies_patch_the_kernel_source():
         ablate_fwd.variants(src.replace("constexpr int kFwdUnroll", "constexpr int kUnrollFwd"))
     with pytest.raises(RuntimeError, match="has no"):
         ablate_fwd.variants(src.replace(ablate_fwd.EVICT_FIRST, "load_pack<T, VEC>"))
+
+
+def _lane_inputs(lanes, shape, seed):
+    """``lanes`` lane-major copies of ``_inputs`` with per-lane scale and
+    shift (lane 1's differ the most)."""
+    parts = [_inputs(shape, seed=seed + k) for k in range(lanes)]
+    return [np.stack([p[i] for p in parts]) for i in range(5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 4, 16), (2, 3, 3, 300)])
+def test_lane_plain_versions_equal_a_per_lane_loop(shape, dtype):
+    """The plain versions given (L, C) scale and shift and lane-major
+    activations: out, dy and dr bitwise a loop of the single-lane plain
+    versions over the lanes; d_scale / d_shift (L, C) within 1e-5 *
+    sum|terms| of theirs (sums over each lane's pixels, in another order)."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, g, s, b = _t(*_lane_inputs(3, shape, seed=20))
+    y, r, g = y.to(dtype), r.to(dtype), g.to(dtype)
+    for residual in (False, True):
+        res = r if residual else None
+        out = fb.fused_block_reference(y, s, b, res)
+        got = fb.fused_block_bwd_reference(g, y, s, out, residual)
+        assert got[1].shape == got[2].shape == s.shape
+        for lane in range(3):
+            one = fb.fused_block_reference(y[lane], s[lane], b[lane],
+                                           None if res is None else r[lane])
+            assert torch.equal(one, out[lane])
+            want = fb.fused_block_bwd_reference(g[lane], y[lane], s[lane], one, residual)
+            assert torch.equal(got[0][lane], want[0])
+            assert not residual or torch.equal(got[3][lane], want[3])
+            gm = g[lane].float() * (one > 0).float()
+            for i, terms in ((1, (gm * y[lane].float()).abs()), (2, gm.abs())):
+                bound = 1e-5 * terms.reshape(-1, shape[-1]).sum(0) + 1e-30
+                assert bool(((got[i][lane] - want[i]).abs() <= bound).all()), i
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_lane_grads_match_jax_vmap(residual):
+    """The lane form through the autograd.Function against ``jax.vmap`` of
+    the interpret kernel's ``custom_vjp`` (Pallas's batching rule: a lane
+    axis in front, per-lane scale and shift), as ``test_grads_match_jax``
+    holds one lane."""
+    from fedml_tpu.ops.pallas import fused_bn_relu as jax_relu
+    from fedml_tpu.ops.pallas import fused_bn_residual_relu as jax_res
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, g, s, b = _lane_inputs(3, (2, 4, 4, 16), seed=30)
+    s = np.sign(s) * 2.0 ** np.round(np.log2(np.abs(s) + 1e-3)).astype(np.float32)
+    if residual:
+        def loss(y, s, b, r):
+            out = jax.vmap(partial(jax_res, interpret=True))(y, s, b, r)
+            return jnp.sum(out * g)
+        args = (y, s, b, r)
+    else:
+        def loss(y, s, b):
+            return jnp.sum(jax.vmap(partial(jax_relu, interpret=True))(y, s, b) * g)
+        args = (y, s, b)
+    ref = jax.jit(jax.grad(loss, argnums=tuple(range(len(args)))))(*args)
+    leaves = [t.requires_grad_(True) for t in _t(*args)]
+    out = fb.fused_bn_residual_relu(*leaves) if residual else fb.fused_bn_relu(*leaves)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), leaves)
+    for name, a, e in zip(["dy", "d_scale", "d_shift", "dr"], got, ref):
+        e = np.asarray(e)
+        assert tuple(a.shape) == e.shape, name
+        tol = 1e-5 if name in ("d_scale", "d_shift") else 1e-6
+        np.testing.assert_allclose(a.numpy(), e, rtol=tol, atol=tol if tol == 1e-5 else 0,
+                                   err_msg=name)
+
+
+def test_lane_operand_checks():
+    """The lane form takes lane-major contiguous (L, N, H, W, C) with
+    contiguous f32 (L, C) vectors, and raises on anything else."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, _, s, b = _t(*_lane_inputs(3, (2, 4, 4, 16), seed=40))
+    assert fb._check(y, (s, b), (r,)) == 3
+    assert fb._check(y[0], (s[0], b[0]), (r[0],)) == 0
+    with pytest.raises(ValueError, match="lane-major"):
+        fb._check(y[0], (s, b), ())
+    with pytest.raises(ValueError, match="per-channel vector"):
+        fb._check(y, (s[:2], b[:2]), ())
+    with pytest.raises(ValueError, match="per-channel vector"):
+        fb._check(y, (s.t().contiguous().t(), b), ())
+    with pytest.raises(ValueError, match="must match"):
+        fb._check(y, (s, b), (r[:2],))
+
+
+def test_ticket_slots_take_one_a_lane(monkeypatch):
+    """A launch of L lanes takes L consecutive ticket slots of its owner; a
+    later launch of more lanes takes a new, wider range past every slot
+    handed out, and single-lane launches reuse the owner's first slot."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    monkeypatch.setattr(fb, "_SLOTS", {})
+    monkeypatch.setattr(fb, "_NEXT_SLOT", {})
+    assert fb._ticket_slot(0, "a") == 0
+    assert fb._ticket_slot(0, "b", 64) == 1
+    assert fb._ticket_slot(0, "b") == 1 and fb._ticket_slot(0, "b", 64) == 1
+    assert fb._ticket_slot(0, "a", 3) == 65 and fb._ticket_slot(0, "a") == 65
+    assert fb._NEXT_SLOT[0] == 68
+    monkeypatch.setitem(fb._NEXT_SLOT, 0, fb.TICKET_SLOTS - 2)
+    with pytest.raises(RuntimeError, match="ticket slots"):
+        fb._ticket_slot(0, "c", 3)
+    assert fb._ticket_slot(0, "c", 2) == fb.TICKET_SLOTS - 2

@@ -67,6 +67,9 @@ def emu(emu_source):
     so = _build(emu_source, "emu_bwd")
     so.emu_fused_bwd.restype = ctypes.c_int
     so.emu_fused_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_uint]
+    so.emu_fused_bwd_lanes.restype = ctypes.c_int
+    so.emu_fused_bwd_lanes.argtypes = ([ctypes.c_void_p, ctypes.c_uint] + [ctypes.c_void_p] * 8
+                                       + [ctypes.c_uint])
     return so
 
 
@@ -76,6 +79,9 @@ def emu_fwd(emu_source):
     so = _build(emu_source, "emu_fwd")
     so.emu_fused_fwd.restype = ctypes.c_int
     so.emu_fused_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_uint]
+    so.emu_fused_fwd_lanes.restype = ctypes.c_int
+    so.emu_fused_fwd_lanes.argtypes = ([ctypes.c_void_p, ctypes.c_uint] + [ctypes.c_void_p] * 5
+                                       + [ctypes.c_uint])
     return so
 
 
@@ -189,3 +195,67 @@ def test_emulated_forward_matches_plain_version(emu_fwd, shape, dtype, sm_count,
                                    r.data_ptr() if residual else None, out.data_ptr(), seed)
         assert rc == 0, "no instance"
         assert torch.equal(out, want), (seed, geo)
+
+
+# (lane shape, dtype, SMs, blocks a SM): the vector and scalar variants,
+# several row blocks a lane (cross-block folds) and channel tiles
+LANE_CASES = [
+    ((2, 5, 5, 24), torch.float32, 3, 2),
+    ((3, 5, 7, 16), torch.bfloat16, 3, 2),
+    ((2, 3, 3, 300), torch.bfloat16, 4, 2),
+    ((4, 8, 8, 3), torch.float32, 4, 2),
+]
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape,dtype,sm_count,blocks_per_sm", LANE_CASES)
+def test_emulated_lanes_match_single_lane_launches(emu, emu_fwd, shape, dtype, sm_count,
+                                                   blocks_per_sm, residual):
+    """The lane-batched launches (lanes on blockIdx.z): L = 3 lane-major
+    lanes, lane 1 with its own scale and shift, on the single-lane geometry
+    the wrapper gives each lane.  Every lane's out, dy, dr, d_scale and
+    d_shift are bitwise the single-lane launch on its slice (the same fold
+    in the same order), for two block orders; every ticket is reset."""
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    lanes, c = 3, shape[-1]
+    rs = np.random.RandomState(sum(shape) + 3 * residual)
+    y, r, g = (torch.from_numpy(rs.randn(lanes, *shape).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    s = torch.from_numpy(rs.randn(c).astype(np.float32)).expand(lanes, c).contiguous()
+    b = torch.from_numpy(rs.randn(c).astype(np.float32)).expand(lanes, c).contiguous()
+    s[1], b[1] = s[1] * -3.0 + 0.5, b[1] + 1.0
+    rows = y[0].numel() // c
+    res = r if residual else None
+    fgeo = fb.fwd_geometry(rows, c, dtype.itemsize, True, sm_count, blocks_per_sm)
+    bgeo = fb.bwd_geometry(rows, c, dtype.itemsize, True, sm_count, blocks_per_sm)
+    fargs = (ctypes.c_int * 9)(fb._DTYPE_CODES[dtype], *fgeo)
+    bargs = (ctypes.c_int * 9)(fb._DTYPE_CODES[dtype], *bgeo)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    for seed in (1, 2):
+        out = torch.full_like(y, float("nan"))
+        assert emu_fwd.emu_fused_fwd_lanes(fargs, lanes, ptr(y), ptr(s), ptr(b), ptr(res),
+                                           ptr(out), seed) == 0
+        dy = torch.full_like(y, float("nan"))
+        dr = torch.full_like(y, float("nan")) if residual else None
+        dss = torch.full((lanes, 2, c), float("nan"))
+        work = torch.full((lanes * bgeo.scratch_floats,), float("nan"))
+        assert emu.emu_fused_bwd_lanes(bargs, lanes, ptr(g), ptr(y), ptr(s), ptr(out), ptr(dy),
+                                       ptr(dr), ptr(dss), ptr(work), seed) == 0
+        assert torch.equal(out, fb.fused_block_reference(y, s, b, res))
+        for lane in range(lanes):
+            one = torch.empty_like(y[lane])
+            assert emu_fwd.emu_fused_fwd(fargs, ptr(y[lane]), ptr(s[lane]), ptr(b[lane]),
+                                         None if res is None else ptr(res[lane]), ptr(one),
+                                         seed) == 0
+            assert torch.equal(one, out[lane])
+            dy1, dss1 = torch.empty_like(dy[lane]), torch.empty((2, c))
+            dr1 = torch.empty_like(dy[lane]) if residual else None
+            work1 = torch.empty(bgeo.scratch_floats)
+            assert emu.emu_fused_bwd(bargs, ptr(g[lane]), ptr(y[lane]), ptr(s[lane]), ptr(one),
+                                     ptr(dy1), ptr(dr1), ptr(dss1), ptr(work1), seed) == 0
+            assert torch.equal(dy1, dy[lane]) and torch.equal(dss1, dss[lane])
+            assert not residual or torch.equal(dr1, dr[lane])

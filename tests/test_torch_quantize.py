@@ -186,8 +186,10 @@ def test_cpu_path_counts_no_launch_or_variant():
     x = torch.from_numpy(_vec(3000, 2))
     values, scales, n = q.quantize_int8_stochastic(x, torch.rand(q.noise_shape(3000)))
     q.dequantize_int8(values, scales, n)
-    assert q.launch_counts() == {q.QUANTIZE.name: 0, q.DEQUANTIZE.name: 0}
-    assert q.variant_counts() == {k.name: {"vector": 0, "scalar": 0} for k in q.KERNELS}
+    q.qsgd_int8_lanes(torch.stack([x, x]), torch.rand((2,) + q.noise_shape(3000)))
+    kernels = q.KERNELS + q.LANE_KERNELS
+    assert q.launch_counts() == {k.name: 0 for k in kernels}
+    assert q.variant_counts() == {k.name: {"vector": 0, "scalar": 0} for k in kernels}
 
 
 def test_quantize_ablation_copies_patch_the_kernel_source():

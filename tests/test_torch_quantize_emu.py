@@ -163,6 +163,34 @@ def test_emulated_dequantize_matches_plain_version(emu, n, misaligned):
         _assert_bitwise(out, want)
 
 
+@pytest.mark.parametrize("n", [1025, 8 * 1024 + 410])
+def test_emulated_lanes_match_single_lane_calls(emu, n):
+    """The lane-batched form: 3 vectors, one scaled 1e6 apart, padded to
+    whole blocks and laid end to end as ``quantize_int8_lanes`` lays them,
+    one emulated launch of each kernel over all lanes; every lane's values,
+    scales and dequantized vector bitwise its own single-lane launch."""
+    from fedml_tpu_torch.ops import quantize as qz
+
+    lanes = [_inputs(n, False, 40 + k) for k in range(3)]
+    vecs = torch.stack([x * (1e6 if k == 1 else 1.0) for k, (x, _) in enumerate(lanes)])
+    noise = torch.stack([u for _, u in lanes])
+    x, u, shape = qz.lanes_end_to_end(vecs, noise)
+    runs, vec = _quantize(emu, x, u)
+    assert vec and x.numel() == 3 * shape[1] * 1024
+    values, scales = runs[0][0].view(shape), runs[0][1].view(shape[:2])
+    for other in runs[1:]:
+        _assert_bitwise(other[0].view(shape), values)
+    deq_runs, _ = _dequantize(emu, values.view((-1,) + shape[2:]), scales.view(-1), x.numel())
+    deq = deq_runs[0].view(3, -1)[:, :n]
+    for k in range(3):
+        single, _ = _quantize(emu, vecs[k].contiguous(), noise[k].contiguous())
+        _assert_bitwise(values[k], single[0][0])
+        _assert_bitwise(scales[k], single[0][1])
+        single_deq, _ = _dequantize(emu, single[0][0], single[0][1], n)
+        _assert_bitwise(deq[k], single_deq[0])
+    assert not torch.equal(scales[0], scales[1])  # the lanes' own scales
+
+
 def _geometry(emu, kernel, n):
     """(grid, threads a block, values a block) of the C entry's launch."""
     geo = (ctypes.c_uint * 3)()

@@ -108,8 +108,10 @@ def test_two_fedavg_rounds_match_jax_sp(tmp_path):
 
 def test_runner_flagship_shape_learns_on_cpu(tmp_path):
     """The slice through its public entry points (init + FedMLRunner) on the
-    CPU with the port's own randomness: bf16 fused ResNet-20, finite
-    metrics every round, a JSONL record per round, evaluation at the end."""
+    CPU with the port's own randomness, on the MESH backend (the sampled
+    clients as the lanes of one batched round): bf16 fused ResNet-20,
+    finite metrics every round, a JSONL record per round, evaluation at the
+    end."""
     import json
 
     import fedml_tpu_torch
@@ -122,6 +124,7 @@ def test_runner_flagship_shape_learns_on_cpu(tmp_path):
     runner = FedMLRunner(cfg, device="cpu")
     fb.reset_launch_counts()
     hist = runner.run()
+    assert runner.runner.backend == "MESH"
     assert [h["round"] for h in hist] == [0, 1, 2]
     assert all(np.isfinite(h["train_loss"]) for h in hist)
     assert "test_acc" in hist[-1] and np.isfinite(hist[-1]["test_loss"])
