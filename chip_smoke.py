@@ -92,6 +92,30 @@ Phases (any failure exits non-zero; no phase is caught):
    its timed finalize) it prints the round delta's L2 norm before the clip,
    the BN running statistics' share of its squared norm, and its norm after
    the clip.
+6. The rest of the FedAvg family: the FedOpt recipe
+   ``examples/sp_fedopt_cifar10_resnet20`` as shipped (64 clients, 16 a
+   round, batch 64, bf16, server Adam) with only ``comm_round``,
+   ``frequency_of_the_test`` and ``extra.fused_blocks`` overridden, 3 rounds
+   on MESH: each round's time, trained samples/s, losses and peak memory,
+   each fused site once a batched step in its lanes variant and the
+   single-lane kernels only in the test evaluation's forward (asserted);
+   one more round under ``torch.profiler`` for the device busy share
+   (``obs/profile_round.py``'s union of kernel intervals); one sp round
+   (the single-lane kernels, once a lane-step).  Then FedProx, FedNova,
+   SCAFFOLD, FedDyn and Mime, each 2 MESH rounds of that recipe with
+   ``federated_optimizer`` swapped: finite losses, each fused site once a
+   batched step (Mime also once a batch of its full gradient), and for
+   SCAFFOLD and FedDyn the client-state rows of the clients not sampled
+   bitwise unchanged, the sampled rows moved.  Then SCAFFOLD in f32 with 8
+   clients, each lane its own random ``c_i``: one batched local step
+   against each lane alone within rtol 2e-4 / atol 2e-5 (``c_i`` within
+   that times ``1 / (K lr)``), then budgets of 1 and 2 steps alternating
+   (the lanes run in another order than the clients'), each lane held to
+   that tolerance or to twice its one-ulp spread, a neighbour's ``c_i``
+   moving it ten times more.  Then one MESH round with ``client_optimizer:
+   adam``, and the two logistic-regression recipes as shipped,
+   ``sp_fedprox_synthetic_lr`` (30 rounds) and ``cross_silo_horizontal_lr``
+   (20 rounds), with their final test accuracy.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (each kernel's
 launches from its own path's run: the lane-batched kernels from the MESH
@@ -145,6 +169,22 @@ MESH_SP_RTOL, MESH_SP_ATOL = 2e-4, 2e-5  # the reference's own (tests/test_m0_fe
 # its initial weights move by one ulp (PERF.md §6): the round is held to
 # that spread, with room for the draw of the perturbation
 ROUND_SPREADS = 2
+FEDOPT = "examples/sp_fedopt_cifar10_resnet20/fedml_config.yaml"
+LR_RECIPES = ("examples/sp_fedprox_synthetic_lr/fedml_config.yaml",
+              "examples/cross_silo_horizontal_lr/fedml_config.yaml")
+# the rest of the FedAvg family, each on the FedOpt recipe with the optimizer
+# swapped; SCAFFOLD and FedDyn keep per-client state for every client
+FAMILY = ("FedProx", "FedNova", "SCAFFOLD", "FedDyn", "Mime")
+FAMILY_ROUNDS = 2
+SCAFFOLD_CHECK_LANES = 8  # the f32 batched-step check's clients
+# the FedOpt recipe's fused sites: ResNet-20's stages at its batch of 64,
+# its 16 clients a round as lanes, and an active prefix of them (the lanes
+# still inside their step budgets)
+FEDOPT_SHAPES = [(64, 32, 32, 16), (64, 16, 16, 32), (64, 8, 8, 64)]
+FEDOPT_LANES = (16, 7)
+# the SCAFFOLD check's allowance past the MESH-vs-sp tolerance never
+# exceeds this, however large the measured one-ulp spread (ROADMAP Queue 3)
+SCAFFOLD_SPREAD_CAP = 1e-4
 
 
 def _gen(shape, dtype, device, seed):
@@ -457,6 +497,53 @@ def phase_lane_kernels(fb):
               f"device {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
               f"{100 * bound_ms / ms:.1f}% of bound")
     return results
+
+
+def phase_fedopt_shapes(fb):
+    """Rows 1-4 at the FedOpt path's own shapes (FEDOPT_SHAPES), f32 and
+    bf16: the lanes variant at 16 lanes and at an active prefix of 7 (the
+    first lanes of 16-lane operands, as a batched step passes them), held
+    against the plain version with phase 2's tolerances; every lane bitwise
+    the single-lane kernel on its slice, and each such single-lane call
+    (the sp round's launch at batch 64) held against the plain version."""
+    import torch
+
+    dev = torch.device("cuda")
+    cases = _kernel_cases(fb)
+    lane_kernel = {k.name: lk for k, lk in zip(fb.KERNELS, fb.LANE_KERNELS)}
+    for shape in FEDOPT_SHAPES:
+        full, c = (FEDOPT_LANES[0],) + shape, shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            base = (_gen(full, dtype, dev, 61), _gen(full, dtype, dev, 62),
+                    _gen(full, dtype, dev, 63), _gen((full[0], c), torch.float32, dev, 64),
+                    _gen((full[0], c), torch.float32, dev, 65))
+            dt = str(dtype).replace("torch.", "")
+            for name, (kern, plain, build_args, _, _, _) in cases.items():
+                lk = lane_kernel[name]
+                errs = []
+                for lanes in FEDOPT_LANES:
+                    args = build_args(*(t[:lanes] for t in base))
+                    before = fb.launch_counts()
+                    got, want = kern(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    after = fb.launch_counts()
+                    if after[lk.name] != before[lk.name] + 1 or after[name] != before[name]:
+                        raise AssertionError(f"{lk.name} {dt} {lanes} lanes x {shape}: not one "
+                                             "lanes launch")
+                    errs.append(_compare(name, got, want, args, dtype))
+                    for lane in range(lanes):
+                        one_args = tuple(a[lane] for a in args)
+                        one = kern(*one_args)
+                        mine = tuple(None if t is None else t[lane] for t in got) if isinstance(
+                            got, tuple) else got[lane]
+                        if not _equal_outputs(mine, one):
+                            raise AssertionError(f"{lk.name} {dt} {lanes} lanes x {shape}: lane "
+                                                 f"{lane} is not bitwise the single-lane kernel")
+                        errs.append(_compare(name, one, plain(*one_args), one_args, dtype))
+                print(f"kernel {lk.name} / {name} {dt} at the FedOpt path's {shape} x "
+                      f"{'/'.join(map(str, FEDOPT_LANES))} lanes: ok (every lane bitwise the "
+                      f"single-lane kernel, both against the plain version), max_abs_err "
+                      f"{max(errs):.3g}")
 
 
 def _quant_bytes(n):
@@ -840,18 +927,22 @@ def _own_steps(sim, round_idx):
     return np.minimum(own, sim.hp.local_steps)
 
 
-def _flagship(dataset=None, **overrides):
-    """The flagship recipe through ``fedml_tpu_torch.init`` and
+def _recipe(path, dataset=None, **overrides):
+    """The recipe at ``path`` through ``fedml_tpu_torch.init`` and
     ``FedMLRunner`` with ``overrides`` (attributes, ``fused_blocks`` to
-    ``extra``); ``dataset`` reuses an earlier run's data."""
+    ``extra``, on unless given); ``dataset`` reuses an earlier run's data."""
     import fedml_tpu_torch
     from fedml_tpu_torch.runner import FedMLRunner
 
-    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg = fedml_tpu_torch.init(argv=["--cf", path])
     cfg.extra["fused_blocks"] = overrides.pop("fused_blocks", True)
     for k, v in overrides.items():
         setattr(cfg, k, v)
     return FedMLRunner(cfg, dataset=dataset)
+
+
+def _flagship(dataset=None, **overrides):
+    return _recipe(FLAGSHIP, dataset, **overrides)
 
 
 def phase_main_path(mods):
@@ -1246,6 +1337,336 @@ def phase_cross_silo(mods, nz):
     return counts
 
 
+def _check_lane_sites(fb, delta, steps, what):
+    """Each fused site launched once a batched step, in its lanes variant."""
+    for k, lk in zip(fb.KERNELS, fb.LANE_KERNELS):
+        if delta[lk.name] != SITES[k.name] * steps:
+            raise AssertionError(f"{what}: {lk.name} launched {delta[lk.name]} times, expected "
+                                 f"{SITES[k.name]} sites x {steps} batched steps")
+
+
+def _eval_batches(sim):
+    """Batches of one global test evaluation (single-lane forwards)."""
+    return sim._test[0].shape[0] // min(256, max(32, sim.cfg.test_batch_size))
+
+
+def phase_fedopt(mods):
+    """The FedOpt recipe as shipped (64 clients, 16 a round, batch 64, bf16,
+    server Adam) with fused blocks on MESH: each fused site once a batched
+    step in its lanes variant, the single-lane kernels only in the test
+    evaluation's forward; then one profiled round (device busy share), then
+    one sp round.  Returns the dataset."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.obs.profile_round import busy_us
+
+    fb = mods[0]
+    t0 = time.perf_counter()
+    runner = _recipe(FEDOPT, comm_round=ROUNDS, frequency_of_the_test=1)
+    sim, cfg = runner.runner, runner.cfg
+    print(f"fedopt path: set-up {time.perf_counter() - t0:.1f} s (data {sim.dataset.train_num}/"
+          f"{sim.dataset.test_num}, {sim.dataset.n_clients} clients, capacity {sim.capacity}, "
+          f"{cfg.client_num_per_round}/round, batch {cfg.batch_size}, {cfg.compute_dtype}, "
+          f"backend {sim.backend}, {cfg.federated_optimizer} with server {cfg.server_optimizer} "
+          f"lr {cfg.server_lr}, fused)")
+    if sim.backend != "MESH" or sim.algorithm.name != "FedOpt":
+        raise AssertionError(f"the FedOpt recipe ran {sim.algorithm.name} on {sim.backend}")
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(mods)
+    history = runner.run()
+    torch.cuda.synchronize()
+    counts = _all_counts(mods)
+    evals, prev = _eval_batches(sim), {k: 0 for k in counts}
+    for metrics, cum, mem in probe.rows:
+        r = metrics["round"]
+        own = _own_steps(sim, r)
+        steps = int(own.max())
+        delta = {k: cum[k] - prev[k] for k in cum}
+        prev = cum
+        print(f"fedopt round {r}: {metrics['round_time_s']:.3f} s, "
+              f"{int(own.sum()) * cfg.batch_size / metrics['round_time_s']:.0f} trained samples/s, "
+              f"{steps} batched steps of up to {len(own)} lanes ({int(own.sum())} lane-steps), "
+              f"train_loss {metrics['train_loss']:.4f}, test_loss {metrics['test_loss']:.4f}, "
+              f"test_acc {metrics['test_acc']:.4f}, max_memory_allocated {mem / 2**30:.2f} GiB, "
+              f"launches {delta}")
+        _check_lane_sites(fb, delta, steps, f"fedopt round {r}")
+        for k in (fb.BWD, fb.BWD_RES):
+            if delta[k.name]:
+                raise AssertionError(f"fedopt round {r}: {k.name} launched: a client trained alone")
+        for k in (fb.FWD, fb.FWD_RES):
+            if delta[k.name] != SITES[k.name] * evals:
+                raise AssertionError(f"fedopt round {r}: {k.name} launched {delta[k.name]} times, "
+                                     f"the evaluation's {evals} batches need "
+                                     f"{SITES[k.name] * evals}")
+    if len(history) != ROUNDS:
+        raise AssertionError(f"expected {ROUNDS} rounds, got {len(history)}")
+    _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+
+    r = sim.round_idx
+    steps = int(_own_steps(sim, r).max())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = busy_us(events) / 1e6
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"fedopt profiled round {r}: wall {wall:.3f} s (profiler on), {steps} batched steps, "
+          f"device busy {busy:.3f} s = {100 * busy / wall:.1f}%, idle "
+          f"{100 * (1 - busy / wall):.1f}%, "
+          f"{launches / steps:.0f} cudaLaunchKernel a batched step")
+
+    sp = _recipe(FEDOPT, runner.dataset, backend_sim="sp", comm_round=1, frequency_of_the_test=0,
+                 metrics_jsonl_path="")
+    own = _own_steps(sp.runner, 0)
+    _reset_counts(mods)
+    t0 = time.perf_counter()
+    history = sp.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    sp_counts = _all_counts(mods)
+    print(f"fedopt sp (the sequential twin): 1 round in {dt:.3f} s, "
+          f"{int(own.sum()) * cfg.batch_size / dt:.0f} trained samples/s, train_loss "
+          f"{history[-1]['train_loss']:.4f}, launches {sp_counts}")
+    for k, lk in zip(fb.KERNELS, fb.LANE_KERNELS):
+        if sp_counts[k.name] != SITES[k.name] * int(own.sum()) or sp_counts[lk.name]:
+            raise AssertionError(f"fedopt sp: {k.name} {sp_counts[k.name]} / {lk.name} "
+                                 f"{sp_counts[lk.name]} launches, expected "
+                                 f"{SITES[k.name] * int(own.sum())} / 0")
+    _check_finite(sp.runner, history, ("train_loss",))
+    return runner.dataset
+
+
+def phase_family(mods, dataset):
+    """FedProx, FedNova, SCAFFOLD, FedDyn and Mime, each FAMILY_ROUNDS MESH
+    rounds of the FedOpt recipe with ``federated_optimizer`` swapped: finite
+    losses, each fused site once a batched step (Mime also once a batch of
+    its full gradient at the global point), and for SCAFFOLD and FedDyn the
+    client-state rows of the clients not sampled bitwise their initial
+    zeros, the sampled rows moved."""
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+
+    fb = mods[0]
+    for algo in FAMILY:
+        runner = _recipe(FEDOPT, dataset, federated_optimizer=algo, comm_round=FAMILY_ROUNDS,
+                         frequency_of_the_test=0, metrics_jsonl_path="")
+        sim, cfg = runner.runner, runner.cfg
+        if sim.backend != "MESH" or sim.algorithm.name != algo:
+            raise AssertionError(f"{algo}: ran {sim.algorithm.name} on {sim.backend}")
+        before = (None if sim.client_states is None
+                  else pt.tree_map(torch.clone, sim.client_states))
+        steps = sum(int(_own_steps(sim, r).max()) for r in range(FAMILY_ROUNDS))
+        if algo == "Mime":  # the full gradient: every batch of the shards, batched over the lanes
+            steps += FAMILY_ROUNDS * (sim.capacity // cfg.batch_size)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(mods)
+        t0 = time.perf_counter()
+        history = runner.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _all_counts(mods)
+        _check_lane_sites(fb, counts, steps, algo)
+        single = {k.name: counts[k.name] for k in fb.KERNELS if counts[k.name]}
+        if single:
+            raise AssertionError(f"{algo}: single-lane kernels launched on MESH: {single}")
+        _check_finite(sim, history, ("train_loss",))
+        state = ""
+        if before is not None:
+            sampled = {int(c) for r in range(FAMILY_ROUNDS) for c in sim.sampler.sample(r)}
+            for ci in range(sim.dataset.n_clients):
+                rows = [(a[ci], b[ci]) for a, b in zip(pt.tree_leaves(sim.client_states),
+                                                        pt.tree_leaves(before))]
+                same = all(torch.equal(a, b) for a, b in rows)
+                if same == (ci in sampled):
+                    raise AssertionError(f"{algo}: client {ci} (sampled: {ci in sampled}) state "
+                                         f"{'unchanged' if same else 'changed'}")
+                if not all(bool(torch.isfinite(a).all()) for a, _ in rows):
+                    raise AssertionError(f"{algo}: client {ci} state not finite")
+            state = (f", client state: {len(sampled)} sampled rows moved, "
+                     f"{sim.dataset.n_clients - len(sampled)} others bitwise unchanged")
+        print(f"family {algo}: {FAMILY_ROUNDS} MESH rounds in {dt:.3f} s, train_loss "
+              f"{[round(m['train_loss'], 4) for m in history]}, {steps} batched fwd+bwd, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"lane launches {[counts[k.name] for k in fb.LANE_KERNELS]}{state}")
+        del runner, sim, before
+
+
+def _excess(a, b, scale=1.0):
+    """(largest |a - b|, largest excess over ``scale`` times the MESH-vs-sp
+    tolerance) over the leaves."""
+    from fedml_tpu_torch.core import pytree as pt
+
+    worst, excess = 0.0, -math.inf
+    for x, y in zip(pt.tree_leaves(a), pt.tree_leaves(b)):
+        diff = (x - y).abs()
+        worst = max(worst, float(diff.max()))
+        excess = max(excess, float((diff - scale * (MESH_SP_ATOL + MESH_SP_RTOL * y.abs())).max()))
+    return worst, excess
+
+
+def phase_scaffold_step(dataset):
+    """SCAFFOLD in f32 (TF32 off) on the FedOpt recipe with
+    SCAFFOLD_CHECK_LANES clients, each lane its own random ``c_i``, the
+    lanes' batched local train against each lane trained alone.  First one
+    local step: the variables within the reference's MESH-vs-SP tolerance,
+    the new ``c_i`` within it times ``1 / (K lr)``, as phase 3 holds
+    FedAvg's step.  Then budgets of 1 and 2 steps alternating, so that the
+    lanes run in another order than the clients' (a ``c_i`` left in client
+    order would give a lane another client's control variate): a second
+    step of f32 grouped convolutions can leave that tolerance (the f32
+    trajectory amplifies rounding, phase 3), so each lane is held to it or
+    to ROUND_SPREADS times the difference of the lane alone from initial
+    weights one ulp apart, never more than SCAFFOLD_SPREAD_CAP, and the
+    difference a neighbour's ``c_i`` makes must be at least ten times
+    larger than what is allowed.  Each lane's excess over the tolerance is
+    printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.scaffold import Scaffold
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.local_sgd import step_budgets
+
+    runner = _recipe(FEDOPT, dataset, federated_optimizer="SCAFFOLD", compute_dtype="float32",
+                     client_num_per_round=SCAFFOLD_CHECK_LANES, metrics_jsonl_path="")
+    sim = runner.runner
+    sampled = np.asarray(sim.sampler.sample(0))
+    clients = torch.as_tensor(sampled, device=sim.device)
+    gen = torch.Generator(device=sim.device)
+    gen.manual_seed(11)
+
+    def draw(t, *lead):
+        return 0.1 * torch.randn(lead + t.shape, generator=gen, device=t.device)
+
+    c = pt.tree_map(draw, sim.global_vars["params"])
+    c_lanes = pt.tree_map(lambda t: draw(t, len(sampled)), sim.global_vars["params"])
+    ulp_apart = pt.tree_map(lambda t: t * (1 + 2.0 ** -23 * (2 * torch.randint(
+        0, 2, t.shape, generator=gen, device=t.device) - 1)), sim.global_vars)
+
+    def lane(tree, i):
+        return pt.tree_map(lambda t: t[i], tree)
+
+    for spe in (1, 2):
+        hp = dataclasses.replace(sim.hp, steps_per_epoch=spe)
+        algo = Scaffold(hp, sim.cfg).build(sim.model)
+        # every client holds more than two batches, so the budgets are these
+        want = 1 + np.arange(len(sampled)) % spe
+        counts = np.minimum(sim.counts[sampled], want * hp.batch_size)
+        budgets = step_budgets(hp, counts)
+        perms = torch.stack([sim.sampler.perms(0, int(ci), hp.epochs, sim.capacity)
+                             for ci in sampled]).to(sim.device)
+        out = algo.client_update_lanes(sim.global_vars, c_lanes, c, *sim._data, clients, counts,
+                                       perms=perms)
+
+        def alone(i, variables=sim.global_vars, c_i=None):
+            ci = int(sampled[i])
+            res = algo.client_update(variables, lane(c_lanes, i) if c_i is None else c_i, c,
+                                     sim._data[0][ci], sim._data[1][ci], int(counts[i]), None,
+                                     perms=perms[i])
+            return res.contribution["variables"], res.client_state
+
+        worst = {"variables": 0.0, "c_i": 0.0, "spread": 0.0, "swap": math.inf}
+        excesses = []  # each lane's (variables, c_i / scale) excess over the tolerance
+        for i in range(len(sampled)):
+            own_vars, own_ci = alone(i)
+            scale = 1.0 / (int(budgets[i]) * hp.learning_rate)
+            diff, excess = _excess(lane(out.contribution["variables"], i), own_vars)
+            ci_diff, ci_excess = _excess(lane(out.client_state, i), own_ci, scale)
+            worst["variables"] = max(worst["variables"], diff)
+            worst["c_i"] = max(worst["c_i"], ci_diff)
+            excesses.append((excess, ci_excess / scale))
+            if spe == 1:
+                if excess > 0 or ci_excess > 0:
+                    raise AssertionError(f"SCAFFOLD one step, lane {i}: variables differ by "
+                                         f"{diff:.3g}, c_i by {ci_diff:.3g}, beyond rtol "
+                                         f"{MESH_SP_RTOL} / atol {MESH_SP_ATOL} (c_i: x "
+                                         f"{scale:.3g})")
+                continue
+            spread, _ = _excess(alone(i, ulp_apart)[0], own_vars)
+            swap, _ = _excess(alone(i, c_i=lane(c_lanes, (i + 1) % len(sampled)))[0], own_vars)
+            limit = min(ROUND_SPREADS * spread, SCAFFOLD_SPREAD_CAP)
+            allowed = max(limit, MESH_SP_ATOL)
+            worst["spread"] = max(worst["spread"], spread)
+            worst["swap"] = min(worst["swap"], swap)
+            if (excess > 0 and diff > limit) or (ci_excess > 0 and ci_diff > scale * limit):
+                raise AssertionError(f"SCAFFOLD lane {i} ({budgets[i]} steps): variables differ by "
+                                     f"{diff:.3g}, c_i by {ci_diff:.3g}, beyond rtol "
+                                     f"{MESH_SP_RTOL} / atol {MESH_SP_ATOL} and {ROUND_SPREADS} x "
+                                     f"the one-ulp spread {spread:.3g} capped at "
+                                     f"{SCAFFOLD_SPREAD_CAP} (c_i: x {scale:.3g})")
+            if swap < 10 * allowed:
+                raise AssertionError(f"SCAFFOLD lane {i}: a neighbour's c_i moves the lane by "
+                                     f"{swap:.3g}, not ten times the {allowed:.3g} allowed")
+        line = (f"scaffold check: f32 batched local train of {len(sampled)} lanes (budgets "
+                f"{budgets.tolist()} steps, each lane its own c_i) against each lane alone: "
+                f"largest difference {worst['variables']:.3g} in the variables, "
+                f"{worst['c_i']:.3g} in c_i; each lane's largest excess over rtol "
+                f"{MESH_SP_RTOL} / atol {MESH_SP_ATOL} (variables, c_i / scale): "
+                f"{[(float(f'{a:.3g}'), float(f'{b:.3g}')) for a, b in excesses]}")
+        if spe == 1:
+            print(f"{line} (rtol {MESH_SP_RTOL}, atol {MESH_SP_ATOL}; c_i: x 1 / (K lr) = "
+                  f"{1 / hp.learning_rate:.3g}): within")
+        else:
+            print(f"{line}; a lane alone from weights an ulp apart: up to {worst['spread']:.3g} "
+                  f"(allowance {ROUND_SPREADS} x that, at most {SCAFFOLD_SPREAD_CAP}); a "
+                  f"neighbour's c_i moves a lane by at least {worst['swap']:.3g}")
+
+
+def phase_client_adam(mods, dataset):
+    """One MESH round of the FedOpt recipe as FedAvg with the client Adam
+    (optax ``adamw``, a per-lane count in the batched step)."""
+    import torch
+
+    fb = mods[0]
+    runner = _recipe(FEDOPT, dataset, federated_optimizer="FedAvg", client_optimizer="adam",
+                     comm_round=1, frequency_of_the_test=1, metrics_jsonl_path="")
+    sim = runner.runner
+    steps = int(_own_steps(sim, 0).max())
+    _reset_counts(mods)
+    t0 = time.perf_counter()
+    history = runner.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _all_counts(mods)
+    _check_lane_sites(fb, counts, steps, "client adam")
+    _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+    print(f"client adam: 1 MESH round of {sim.cfg.client_num_per_round} lanes in {dt:.3f} s "
+          f"(evaluation included), train_loss {history[-1]['train_loss']:.4f}, test_acc "
+          f"{history[-1]['test_acc']:.4f}, {steps} batched steps")
+
+
+def phase_lr_recipes():
+    """The logistic-regression recipes as shipped: FedProx on MESH (30
+    rounds) and cross-silo FedAvg over the in-process fabric (20 rounds)."""
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    for path in LR_RECIPES:
+        t0 = time.perf_counter()
+        cfg = fedml_tpu_torch.init(argv=["--cf", path])
+        runner = FedMLRunner(cfg)
+        history = runner.run()
+        torch.cuda.synchronize()
+        last = history[-1]
+        if len(history) != cfg.comm_round or not all(
+                math.isfinite(last[k]) for k in ("test_loss", "test_acc")):
+            raise AssertionError(f"{path}: {len(history)} rounds, last {last}")
+        print(f"{path.split('/')[1]}: {cfg.federated_optimizer} {cfg.training_type} "
+              f"{len(history)} rounds in {time.perf_counter() - t0:.2f} s (set-up included), "
+              f"final test_acc {last['test_acc']:.4f}, test_loss {last['test_loss']:.4f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1281,6 +1702,7 @@ def main(argv=None) -> int:
     mods = (fb, qz)
     kernel_rows = {**phase_kernels(fb), **phase_lane_kernels(fb), **phase_quantize(qz),
                    **phase_lane_quantize(qz), **phase_noise(nz)}
+    phase_fedopt_shapes(fb)
     phase_model_check(fb)
     phase_fedsgd_check()
     if args.kernels_only:
@@ -1291,6 +1713,12 @@ def main(argv=None) -> int:
     del dataset
     fedsgd_counts, fedsgd_sp_counts = phase_fedsgd(mods, qz)
     silo_counts = phase_cross_silo(mods, nz)
+    dataset = phase_fedopt(mods)
+    phase_family(mods, dataset)
+    phase_scaffold_step(dataset)
+    phase_client_adam(mods, dataset)
+    del dataset
+    phase_lr_recipes()
     # each kernel's launches on its own path: the lane-batched kernels on
     # the MESH rounds, the single-lane fused kernels on the cross-silo
     # silos, the single-lane quantize kernels on the FedSGD sp round

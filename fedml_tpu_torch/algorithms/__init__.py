@@ -1,5 +1,6 @@
-"""Algorithm registry (the port of ``fedml_tpu/algorithms/__init__.py``).
-Ported so far: the FedAvg family and FedSGD."""
+"""Algorithm registry (the port of ``fedml_tpu/algorithms/__init__.py``):
+the FedAvg family (FedAvg, FedOpt, FedProx, FedNova, FedDyn, SCAFFOLD,
+Mime) and FedSGD, each on both simulator backends."""
 
 from __future__ import annotations
 
@@ -8,21 +9,26 @@ from ..core.flags import cfg_extra
 from ..fl.algorithm import FedAlgorithm
 from ..fl.types import HParams
 from .fedavg import FedAvg, FedAvgSeq
+from .feddyn import FedDyn
+from .fednova import FedNova
+from .fedopt import FedOpt, FedOptSeq
+from .fedprox import FedProx
 from .fedsgd import FedSGD
+from .mime import Mime
+from .scaffold import Scaffold
 
 _REGISTRY = {
     C.FEDERATED_OPTIMIZER_FEDAVG: FedAvg,
     C.FEDERATED_OPTIMIZER_FEDAVG_SEQ: FedAvgSeq,
+    C.FEDERATED_OPTIMIZER_FEDOPT: FedOpt,
+    C.FEDERATED_OPTIMIZER_FEDOPT_SEQ: FedOptSeq,
+    C.FEDERATED_OPTIMIZER_FEDPROX: FedProx,
+    C.FEDERATED_OPTIMIZER_FEDNOVA: FedNova,
+    C.FEDERATED_OPTIMIZER_FEDDYN: FedDyn,
+    C.FEDERATED_OPTIMIZER_SCAFFOLD: Scaffold,
+    C.FEDERATED_OPTIMIZER_MIME: Mime,
     C.FEDERATED_OPTIMIZER_FEDSGD: FedSGD,
 }
-
-# algorithms of the JAX package that later slices port
-_LATER = (
-    C.FEDERATED_OPTIMIZER_FEDOPT, C.FEDERATED_OPTIMIZER_FEDOPT_SEQ,
-    C.FEDERATED_OPTIMIZER_FEDPROX, C.FEDERATED_OPTIMIZER_FEDNOVA,
-    C.FEDERATED_OPTIMIZER_FEDDYN, C.FEDERATED_OPTIMIZER_SCAFFOLD,
-    C.FEDERATED_OPTIMIZER_MIME,
-)
 
 
 def names() -> list[str]:
@@ -33,13 +39,12 @@ def create(cfg, hp: HParams = None) -> FedAlgorithm:
     """Build the algorithm named by ``cfg.federated_optimizer``."""
     if hp is None:
         hp = hparams_from_config(cfg)
-    name = cfg.federated_optimizer
-    if name in _LATER:
-        raise NotImplementedError(
-            f"federated_optimizer {name!r} is not ported yet (ported: {names()})")
-    if name not in _REGISTRY:
-        raise ValueError(f"unknown federated_optimizer {name!r}; known: {names()}")
-    return _REGISTRY[name](hp, cfg)
+    try:
+        cls = _REGISTRY[cfg.federated_optimizer]
+    except KeyError:
+        raise ValueError(f"unknown federated_optimizer {cfg.federated_optimizer!r}; "
+                         f"known: {names()}") from None
+    return cls(hp, cfg)
 
 
 def hparams_from_config(cfg, steps_per_epoch: int = 0) -> HParams:

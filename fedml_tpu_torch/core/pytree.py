@@ -37,6 +37,53 @@ def tree_unflatten_like(template: Tree, leaves) -> Tree:
     return out
 
 
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_axpy(a, x: Tree, y: Tree) -> Tree:
+    """``a * x + y``, elementwise over the tree (``a`` a scalar or a tensor
+    that broadcasts against every leaf)."""
+    return tree_map(lambda xi, yi: a * xi + yi, x, y)
+
+
+def _leaf_sums(a: Tree, b: Tree, reduce) -> torch.Tensor:
+    # the reference's tree_reduce(add, ..., 0.0): leaves folded in JAX order
+    total = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        total = total + reduce(x.to(torch.float32) * y.to(torch.float32))
+    return torch.as_tensor(total, dtype=torch.float32)
+
+
+def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
+    """Inner product over all leaves, in f32 (a 0-d tensor)."""
+    return _leaf_sums(a, b, torch.sum)
+
+
+def tree_sq_norm(tree: Tree) -> torch.Tensor:
+    return tree_dot(tree, tree)
+
+
+def tree_dot_lanes(a: Tree, b: Tree) -> torch.Tensor:
+    """:func:`tree_dot` of each lane: every leaf's leading axis is the lane
+    axis (one side may lack it and broadcast); returns ``(L,)``."""
+    return _leaf_sums(a, b, lambda t: t.reshape(t.shape[0], -1).sum(1))
+
+
+def tree_sq_norm_lanes(tree: Tree) -> torch.Tensor:
+    return tree_dot_lanes(tree, tree)
+
+
+def per_lane(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A 0-d ``v``, or one value a lane ``(L,)`` for a lane-stacked
+    ``leaf``, shaped to broadcast against ``leaf``."""
+    return v.reshape(v.shape + (1,) * (leaf.ndim - v.ndim))
+
+
 def tree_weighted_mean(stacked: Tree, weights: torch.Tensor) -> Tree:
     """Weighted mean over a leading "clients" axis (``fedml_tpu`` L68):
     ``weights`` is normalised internally, the sum runs in f32 and each leaf

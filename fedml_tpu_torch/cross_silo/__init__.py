@@ -13,8 +13,12 @@ per-epoch permutations, ``perms(round, client, epochs, cap)``),
 ``noise_sampler`` (the central-DP draws of Shamir SecAgg) and ``logger``
 (the server's metrics logger).
 
-Refused with ``NotImplementedError``: a client role, any other backend,
-multi-process silos, LightSecAgg, FHE and non-FedAvg optimizers.
+Algorithms: FedAvg, FedOpt and FedProx (their contribution is the client's
+full variables; the server runs the algorithm's ``aggregate`` and
+``server_update`` on the uploads, the client plain local SGD).  Refused with
+``NotImplementedError``: SCAFFOLD, FedNova, FedDyn and Mime, a client role,
+any other backend, multi-process silos, LightSecAgg and FHE; Shamir SecAgg
+takes FedAvg alone.
 """
 
 from __future__ import annotations
@@ -28,7 +32,15 @@ from .client import ClientMasterManager, FedMLTrainer
 from .server import FedMLAggregator, FedMLServerManager, eval_batch_size
 
 _IN_PROCESS_BACKENDS = (C.COMM_BACKEND_INPROC, "MESH", "")
-_CROSS_SILO_OPTIMIZERS = (C.FEDERATED_OPTIMIZER_FEDAVG, C.FEDERATED_OPTIMIZER_FEDAVG_SEQ)
+# the algorithms whose contribution is the client's full variables: the
+# server applies their aggregate and server step to the uploaded models, and
+# the client trains with plain local SGD (no hooks: FedProx trains without
+# its proximal term, as the reference's client does).  The registry's others
+# contribute something else (normalized updates, control variates, full
+# gradients), which the cross-silo wire does not carry.
+_CROSS_SILO_OPTIMIZERS = (C.FEDERATED_OPTIMIZER_FEDAVG, C.FEDERATED_OPTIMIZER_FEDAVG_SEQ,
+                          C.FEDERATED_OPTIMIZER_FEDOPT, C.FEDERATED_OPTIMIZER_FEDOPT_SEQ,
+                          C.FEDERATED_OPTIMIZER_FEDPROX)
 
 
 def build_aggregator(cfg, dataset, model, device, global_vars=None) -> FedMLAggregator:
@@ -89,8 +101,13 @@ def refuse_unported_cross_silo(cfg) -> None:
         raise NotImplementedError(f"cross-silo backend {cfg.backend!r} is not ported yet "
                                   f"(ported: {C.COMM_BACKEND_INPROC!r})")
     if cfg.federated_optimizer not in _CROSS_SILO_OPTIMIZERS:
-        raise NotImplementedError(f"cross-silo federated_optimizer {cfg.federated_optimizer!r} "
-                                  f"is not ported yet (ported: {_CROSS_SILO_OPTIMIZERS})")
+        from ..algorithms import names
+
+        simulated = [n for n in names() if n not in _CROSS_SILO_OPTIMIZERS]
+        raise NotImplementedError(
+            f"cross-silo federated_optimizer {cfg.federated_optimizer!r}: a silo uploads its "
+            f"full variables, which is the contribution of {_CROSS_SILO_OPTIMIZERS} alone; "
+            f"{simulated} contribute something else and run in the simulator")
     if getattr(cfg, "enable_fhe", False):
         raise NotImplementedError("enable_fhe (the FHE cross-silo protocol) is not ported yet")
     from ..comm.comm_manager import refuse_unported_transport

@@ -1,6 +1,6 @@
-"""Dataset loading for the port's first slice (CIFAR images).
+"""Dataset loading: CIFAR images and the ``synthetic`` feature vectors.
 
-The main-path subset of ``fedml_tpu/data/loader.py``: ``load`` ->
+The ported subset of ``fedml_tpu/data/loader.py``: ``load`` ->
 ``_load_image_like`` -> the real CIFAR python batches under
 ``data_cache_dir`` when present, else the deterministic class-structured
 synthetic stand-in with the real shapes.  Arrays are numpy and bitwise equal
@@ -28,6 +28,7 @@ _DATASET_SPECS = {
     # name: (feat shape, classes, default train size, default test size)
     "cifar10": ((32, 32, 3), 10, 50000, 10000),
     "cifar100": ((32, 32, 3), 100, 50000, 10000),
+    "synthetic": ((60,), 10, 20000, 4000),
 }
 
 
@@ -35,8 +36,8 @@ def load(cfg: Config) -> FederatedDataset:
     name = cfg.dataset.lower()
     if name not in _DATASET_SPECS:
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet: the first port slice "
-            f"(FedAvg ResNet on CIFAR) loads only {sorted(_DATASET_SPECS)}")
+            f"dataset {cfg.dataset!r} is not ported yet: the first port slice loaded "
+            f"CIFAR, a later one 'synthetic' (ported: {sorted(_DATASET_SPECS)})")
     return _load_image_like(cfg, name)
 
 

@@ -13,7 +13,13 @@ on the client's device.  What stays the same:
   same state, so the loop simply ends there; the loss is averaged over the
   active steps;
 - the optimizer is optax's ``chain(add_decayed_weights(wd), sgd(lr,
-  momentum))``, with the same update order.
+  momentum))`` or ``adamw(lr, weight_decay=wd)``, with the same update
+  order (``fl/optim.py``);
+- an algorithm customises the step through two hooks, as in the reference:
+  ``loss_extra(params, ctx)`` is added to the loss that is differentiated
+  (and to the reported ``train_loss``), ``grad_hook(grads, ctx)`` rewrites
+  the gradient before the optimizer.  ``ctx`` is the pair ``(shared,
+  client)`` that ``FedAlgorithm.make_ctx`` builds.
 
 Randomness: the permutation table is an explicit ``perms`` argument
 (``(epochs, cap)`` ints).  Without it, it is drawn from the client key with
@@ -25,12 +31,15 @@ client over the sampled clients): :func:`make_batched_local_train_fn` and
 lane, each step one forward and one backward of the model's lane form
 (``models/resnet.py``) for every lane.  Lanes are independent, so the
 gradient of the sum of the lanes' losses gives each lane exactly its own
-gradient.
+gradient.  There ``loss_extra`` returns one value a lane (added to the
+lanes' losses before the sum, so no lane's gradient is scaled), and the
+``client`` half of ``ctx`` is lane-stacked: it is put in the lanes' running
+order and cut to the active lanes at every step, as the parameters are.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -39,40 +48,30 @@ import torch.nn.functional as F
 from ..core import pytree as pt
 from ..core import rng
 from .losses import get_lane_loss_fn, get_loss_fn
+from .optim import SGD, Adam
 from .types import HParams
 
 
-class SGD:
-    """optax ``chain(add_decayed_weights(wd), sgd(lr, momentum))`` over a
-    params tree: ``g += wd * p``; ``t = g + momentum * t``; ``p += -lr * t``."""
-
-    def __init__(self, learning_rate: float, momentum: float = 0.0, weight_decay: float = 0.0):
-        self.lr = learning_rate
-        self.momentum = momentum
-        self.weight_decay = weight_decay
-
-    def init(self, params) -> Any:
-        return pt.tree_map(torch.zeros_like, params) if self.momentum else None
-
-    @torch.no_grad()
-    def update(self, grads, state, params):
-        """Returns ``(new_params, new_state)``."""
-        if self.weight_decay:
-            grads = pt.tree_map(lambda g, p: g + self.weight_decay * p, grads, params)
-        if self.momentum:
-            state = pt.tree_map(lambda g, t: g + self.momentum * t, grads, state)
-            grads = state
-        new_params = pt.tree_map(lambda p, g: p + g * (-self.lr), params, grads)
-        return new_params, state
-
-
-def make_optimizer(hp: HParams) -> SGD:
+def make_optimizer(hp: HParams):
+    """The client optimizer (reference L42): ``sgd`` is optax's
+    ``chain(add_decayed_weights(wd), sgd(lr, momentum))``, ``adam`` is
+    ``adamw(lr, weight_decay=wd)`` with optax's defaults (b1 0.9, b2 0.999,
+    eps 1e-8); both in ``fl/optim.py``."""
     if hp.client_optimizer == "sgd":
         return SGD(hp.learning_rate, hp.momentum, hp.weight_decay)
     if hp.client_optimizer == "adam":
-        raise NotImplementedError("client_optimizer 'adam' is not ported yet "
-                                  "(first port slice: sgd)")
+        return Adam(hp.learning_rate, weight_decay=hp.weight_decay)
     raise ValueError(f"unknown client optimizer {hp.client_optimizer!r}")
+
+
+def step_budgets(hp: HParams, counts) -> np.ndarray:
+    """Each client's local step budget from its sample count (host ints):
+    ``epochs * ceil(count / batch)`` under ``step_mode`` match (the
+    reference's ``own_steps``), ``local_steps`` under fixed."""
+    counts = np.asarray(counts, dtype=np.int64)
+    if hp.step_mode == "match":
+        return hp.epochs * ((counts + hp.batch_size - 1) // hp.batch_size)
+    return np.full(counts.shape, hp.local_steps, dtype=np.int64)
 
 
 def split_variables(variables: dict) -> tuple[Any, dict]:
@@ -87,10 +86,12 @@ def epoch_permutations(key: rng.Key, epochs: int, cap: int) -> torch.Tensor:
                         for e in range(epochs)])
 
 
-def make_local_train_fn(model, hp: HParams):
-    """Build ``local_train(variables, x, y, count, key, perms=None)
+def make_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = None,
+                        grad_hook: Optional[Callable] = None):
+    """Build ``local_train(variables, x, y, count, key, perms=None, ctx=None)
     -> (new_variables, metrics)``.  ``x``/``y`` are one client's padded shard
-    on the device, ``count`` its true sample count (int)."""
+    on the device, ``count`` its true sample count (int), ``ctx`` what the
+    hooks read (module docstring)."""
     if hp.steps_per_epoch <= 0:
         raise ValueError(
             "HParams.steps_per_epoch must be positive (got "
@@ -103,7 +104,7 @@ def make_local_train_fn(model, hp: HParams):
     total_steps = hp.epochs * spe
 
     def local_train(variables: dict, x: torch.Tensor, y: torch.Tensor, count: int,
-                    key: rng.Key, perms: Optional[torch.Tensor] = None):
+                    key: rng.Key, perms: Optional[torch.Tensor] = None, ctx=None):
         params, rest = split_variables(variables)
         cap = x.shape[0]
         if cap < bsz:
@@ -113,8 +114,7 @@ def make_local_train_fn(model, hp: HParams):
         if perms is None:
             perms = epoch_permutations(key, hp.epochs, cap)
         perms = perms.to(device=x.device, dtype=torch.long)
-        own_steps = hp.epochs * ((int(count) + bsz - 1) // bsz)
-        n_steps = min(total_steps, own_steps) if hp.step_mode == "match" else total_steps
+        n_steps = min(total_steps, int(step_budgets(hp, count)))
         opt_state = opt.init(params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for s in range(n_steps):
@@ -128,7 +128,11 @@ def make_local_train_fn(model, hp: HParams):
             p = pt.tree_unflatten_like(params, leaves)
             logits, new_stats = model.apply({"params": p, **rest}, bx, train=True)
             loss = base_loss(logits.to(torch.float32), by)
+            if loss_extra is not None:
+                loss = loss + loss_extra(p, ctx)
             grads = pt.tree_unflatten_like(params, torch.autograd.grad(loss, leaves))
+            if grad_hook is not None:
+                grads = grad_hook(grads, ctx)
             params, opt_state = opt.update(grads, opt_state, params)
             rest = {**rest, "batch_stats": new_stats} if "batch_stats" in rest else rest
             loss_sum = loss_sum + loss.detach()
@@ -152,9 +156,10 @@ def to_device(array, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
-def make_batched_local_train_fn(model, hp: HParams):
-    """Build ``batched_train(variables, x, y, clients, counts, perms) ->
-    (new_variables, metrics)``: :func:`make_local_train_fn` for ``L``
+def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = None,
+                                grad_hook: Optional[Callable] = None):
+    """Build ``batched_train(variables, x, y, clients, counts, perms,
+    ctx=None) -> (new_variables, metrics)``: :func:`make_local_train_fn` for ``L``
     clients at once (reference ``make_local_train_fn`` under ``jax.vmap``).
 
     ``variables``: lane-stacked (a leading lane axis ``L`` on every leaf);
@@ -162,7 +167,9 @@ def make_batched_local_train_fn(model, hp: HParams):
     ...)`` on the device (a step's batch is gathered from them, never a
     lane's whole shard); ``clients``: the lanes' rows of that stack (``(L,)``
     ints); ``counts``: the lanes' true sample counts on the host; ``perms``:
-    the lanes' ``(L, epochs, cap)`` permutation tables.  Returns lane-stacked
+    the lanes' ``(L, epochs, cap)`` permutation tables; ``ctx``: the hooks'
+    ``(shared, client)`` pair, ``client`` lane-stacked in the given lane
+    order (the loss hook returns one value a lane).  Returns lane-stacked
     variables and ``(L,)`` metric tensors on the device, lanes in the given
     order.
 
@@ -186,7 +193,7 @@ def make_batched_local_train_fn(model, hp: HParams):
     total_steps = hp.epochs * spe
 
     def batched_train(variables: dict, x: torch.Tensor, y: torch.Tensor, clients: torch.Tensor,
-                      counts, perms: torch.Tensor):
+                      counts, perms: torch.Tensor, ctx=None):
         cap, device = x.shape[1], x.device
         if cap < bsz:
             raise ValueError(
@@ -196,9 +203,7 @@ def make_batched_local_train_fn(model, hp: HParams):
             raise ValueError("batched local training takes each lane's permutation table "
                              "(the simulator's sampler gives them)")
         counts = np.asarray(counts, dtype=np.int64)
-        own = hp.epochs * ((counts + bsz - 1) // bsz)
-        steps = (np.minimum(own, total_steps) if hp.step_mode == "match"
-                 else np.full(counts.shape, total_steps))
+        steps = np.minimum(step_budgets(hp, counts), total_steps)
         order = np.argsort(-steps, kind="stable")  # longest budget first
         ranked = steps[order]
         take, back = to_device(order, device), to_device(np.argsort(order), device)
@@ -206,7 +211,10 @@ def make_batched_local_train_fn(model, hp: HParams):
         rows = (clients.to(device, torch.long).index_select(0, take) * cap)[:, None]
         perms = perms.to(device=device, dtype=torch.long).index_select(0, take)
         x_rows, y_rows = x.reshape((-1,) + x.shape[2:]), y.reshape(-1)
-        opt_state = opt.init(params)
+        opt_state = opt.init(params, lanes=counts.shape[0])
+        if ctx is not None:  # the per-lane half follows the lanes' running order
+            shared, lane_ctx = ctx
+            lane_ctx = None if lane_ctx is None else pt.tree_take(lane_ctx, take)
         loss_sum = torch.zeros(counts.shape[0], dtype=torch.float32, device=device)
         for s in range(int(ranked[0]) if ranked.size else 0):
             n = int((ranked > s).sum())  # the active lanes: a prefix
@@ -222,7 +230,13 @@ def make_batched_local_train_fn(model, hp: HParams):
             logits, new_stats = model.apply({"params": p, **pt.tree_head(rest, n)}, bx,
                                             train=True)
             losses = lane_loss(logits.to(torch.float32), by)
+            step_ctx = None if ctx is None else (
+                shared, None if lane_ctx is None else pt.tree_head(lane_ctx, n))
+            if loss_extra is not None:
+                losses = losses + loss_extra(p, step_ctx)
             grads = pt.tree_unflatten_like(params, torch.autograd.grad(losses.sum(), leaves))
+            if grad_hook is not None:
+                grads = grad_hook(grads, step_ctx)
             state = None if opt_state is None else pt.tree_head(opt_state, n)
             new_params, new_state = opt.update(grads, state, p)
             pt.tree_set_head_(params, n, new_params)

@@ -56,7 +56,7 @@ FLAGSHIP = "examples/sp_fedavg_cifar10_resnet20/fedml_config.yaml"
 TOP = 25  # rows of each operator table
 
 
-def _busy_us(events) -> float:
+def busy_us(events) -> float:
     """Union of device kernel intervals (us)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, cur_s, cur_e = 0.0, None, None
@@ -158,12 +158,12 @@ def main(argv=None) -> int:
     steps = _batches(sim, profiled)
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
     kernel_us = sum(e.time_range.end - e.time_range.start for e in events)
-    busy_us = _busy_us(events)
+    busy = busy_us(events)
     print(f"{what} profiled round wall {wall_s:.3f} s, batches {steps:.0f}, "
           f"{wall_s / steps * 1e3:.2f} ms/batch wall")
     print(f"device: {len(events)} kernel/memcpy events, summed {kernel_us / 1e6:.3f} s, busy "
-          f"{busy_us / 1e6:.3f} s = {100 * busy_us / (wall_s * 1e6):.1f}% of wall, idle "
-          f"{100 * (1 - busy_us / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device events/batch")
+          f"{busy / 1e6:.3f} s = {100 * busy / (wall_s * 1e6):.1f}% of wall, idle "
+          f"{100 * (1 - busy / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device events/batch")
     print(f"kernel launches (profiled round): {fb.launch_counts()} {qz.launch_counts()}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     batched = _batched_steps(sim, profiled_round) if sim.backend != "sp" else None
@@ -331,10 +331,10 @@ def _silos() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s = timed(threaded, 5)
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_us = _busy_us(events)
+    busy = busy_us(events)
     print(f"four threads at once, profiled: wall {wall_s:.3f} s, device busy "
-          f"{busy_us / 1e6:.3f} s = {100 * busy_us / (wall_s * 1e6):.1f}% of wall, idle "
-          f"{100 * (1 - busy_us / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device "
+          f"{busy / 1e6:.3f} s = {100 * busy / (wall_s * 1e6):.1f}% of wall, idle "
+          f"{100 * (1 - busy / (wall_s * 1e6)):.1f}%; {len(events) / steps:.0f} device "
           "events/step")
     print("top operators by self CPU time:")
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=TOP,

@@ -1,6 +1,7 @@
 """FedMLRunner — platform dispatch (the port of ``fedml_tpu/runner.py``).
 
-Ported so far: the simulation platform with the FedAvg family and FedSGD,
+Ported so far: the simulation platform with the algorithms of the registry
+(``algorithms/__init__.py``: the FedAvg family and FedSGD),
 and the cross-silo platform (``cross_silo/``: the plain synchronous server
 and Shamir SecAgg, in one process); every other platform and optimizer
 raises ``NotImplementedError``.
@@ -8,13 +9,14 @@ raises ``NotImplementedError``.
 
 from __future__ import annotations
 
-from . import constants as C
+import math
+
+from . import algorithms, constants as C
 from .arguments import Config
 from .core.device import resolve_device
 
 _PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO)
-_PORTED_OPTIMIZERS = (C.FEDERATED_OPTIMIZER_FEDAVG, C.FEDERATED_OPTIMIZER_FEDAVG_SEQ,
-                      C.FEDERATED_OPTIMIZER_FEDSGD)
+_PORTED_OPTIMIZERS = tuple(algorithms.names())
 
 
 class FedMLRunner:
@@ -55,7 +57,8 @@ class FedMLRunner:
         if self.model is None:
             from .models import model_hub
 
-            self.model = model_hub.create(self.cfg, self.dataset.class_num)
+            self.model = model_hub.create(self.cfg, self.dataset.class_num,
+                                          in_features=math.prod(self.dataset.train_x.shape[1:]))
 
     def _init_simulation_runner(self, client_trainer):
         self._load_dataset_and_model()

@@ -25,11 +25,14 @@ MESH when unset, as in the reference (its L151):
 
 Client data is stacked once (``data.dataset.stack_clients``) and kept on the
 device in the compute dtype; a MESH step gathers its batch rows from that
-stack.  Per-client algorithm state (FedSGD's EF-TopK residuals) is one
-stacked tensor tree on the device, one row per client: the sampled clients'
-rows are gathered (``core.pytree.tree_take``), and the new rows are written
-back in place after the server step (``tree_scatter_``, the reference's
-functional ``.at[sampled].set``).  ``run_rounds(n)`` on MESH keeps the
+stack.  Per-client algorithm state (SCAFFOLD's control variates, FedDyn's
+linear terms, FedSGD's EF-TopK residuals: a tensor or a tree of them) is
+stacked on the device, one row per client: the sampled clients' rows are
+gathered (``core.pytree.tree_take``), and the new rows are written back in
+place after the server step (``tree_scatter_``, the reference's functional
+``.at[sampled].set``); the rows of clients not sampled are never touched.
+Server state (an optimizer's moments, SCAFFOLD's ``c``, FedDyn's ``h``,
+Mime's momentum) is whatever tree ``server_update`` returns.  ``run_rounds(n)`` on MESH keeps the
 rounds' metrics on the device and syncs once, at the end of the chunk (the
 reference's ``jit(scan(round))`` chunk has one host sync too); CUDA-graph
 capture of rounds is a later slice.  Checkpointing, the AOT program store,
@@ -122,9 +125,10 @@ class ClientSampler:
 
 
 class MeshSimulator:
-    """FedAvg-family and FedSGD simulation on ``device`` (the card unless the caller
-    names another; see ``core/device.py``): :meth:`run` is the fit loop,
-    :meth:`run_round` one round, :meth:`evaluate` the global test eval."""
+    """Simulation of the registry's algorithms (the FedAvg family, FedSGD)
+    on ``device`` (the card unless the caller names another; see
+    ``core/device.py``): :meth:`run` is the fit loop, :meth:`run_round` one
+    round, :meth:`evaluate` the global test eval."""
 
     def __init__(
         self,

@@ -103,6 +103,92 @@ def test_synthetic_cifar10_load_bitwise(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("train,test", [(None, None), (500, 120)])
+def test_synthetic_features_load_bitwise(tmp_path, train, test):
+    """The ``synthetic`` dataset (60 features, 10 classes, 20,000 / 4,000 by
+    default) and its Dirichlet partition are bitwise the reference's."""
+    import fedml_tpu.arguments as ref_args
+    import fedml_tpu_torch.arguments as args
+    from fedml_tpu.data import loader as ref_loader
+    from fedml_tpu_torch.data import loader
+
+    kw = dict(dataset="synthetic", client_num_in_total=16, partition_alpha=0.3,
+              synthetic_train_size=train, synthetic_test_size=test,
+              data_cache_dir=str(tmp_path))
+    ref, got = ref_loader.load(_cfg(ref_args, **kw)), loader.load(_cfg(args, **kw))
+    for f in ("train_x", "train_y", "test_x", "test_y"):
+        a, b = getattr(ref, f), getattr(got, f)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    assert got.train_x.shape == ((train or 20000), 60) and got.test_x.shape[0] == (test or 4000)
+    assert got.class_num == ref.class_num == 10
+    for a, b in zip(ref.client_idx, got.client_idx, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_logistic_regression_matches_flax(dtype):
+    """``lr``: the flax ``LogisticRegression``'s weights carried over
+    (``weights.flax_to_torch`` turns the Dense kernel ``(in, out)`` into
+    ``(out, in)`` and back), the same logits within f32 rounding, for f32
+    input and for the bf16 input local training gives it (the flax Dense has
+    no dtype: it widens the input to f32)."""
+    import jax.numpy as jnp
+    from fedml_tpu.models import simple as flax_simple
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.models import model_hub, simple
+
+    model = model_hub.create(Config(model="lr"), 10, in_features=60)
+    assert model == simple.LogisticRegression(10, 60)
+    rs = np.random.RandomState(0)
+    x = rs.randn(13, 60).astype(np.float32)
+    ref_model = flax_simple.LogisticRegression(10)
+    ref_vars = jax.tree_util.tree_map(np.asarray, ref_model.init(jax.random.PRNGKey(0), x))
+    ref_vars["params"]["Dense_0"]["bias"] = rs.randn(10).astype(np.float32)
+    port_vars = weights.flax_to_torch(ref_vars)
+    assert port_vars["params"]["Dense_0"]["kernel"].shape == (10, 60)
+    back = weights.torch_to_flax(port_vars)
+    np.testing.assert_array_equal(back["params"]["Dense_0"]["kernel"],
+                                  ref_vars["params"]["Dense_0"]["kernel"])
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    if dtype == "bfloat16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+    want = np.asarray(ref_model.apply(ref_vars, jx))
+    got, stats = model.apply(weights.to_torch(port_vars), tx)
+    assert stats == {} and got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_logistic_regression_lane_form_is_each_lane_alone():
+    """The lane form (lane-stacked variables, ``(L, N, ...)`` input) is
+    decided from the kernel's leading lane axis, not from the input's rank:
+    each lane's logits bitwise the lane run alone, for feature vectors and
+    for image-shaped input (flattened), and a single batch of images of one
+    more rank stays a single batch."""
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.models import simple
+
+    for shape in ((5, 60), (5, 4, 5, 3)):
+        n_in = int(np.prod(shape[1:]))
+        model = simple.LogisticRegression(10, n_in)
+        lanes = [model.init(torch.Generator().manual_seed(k)) for k in range(3)]
+        for v in lanes:
+            v["params"]["Dense_0"]["bias"] += torch.randn(10, generator=torch.Generator())
+        stacked = pt.tree_stack(lanes)
+        x = torch.from_numpy(np.random.RandomState(1).randn(3, *shape).astype(np.float32))
+        logits, _ = model.apply(stacked, x)
+        assert logits.shape == (3, 5, 10)
+        for lane, v in enumerate(lanes):
+            alone, _ = model.apply(v, x[lane])
+            assert torch.equal(logits[lane], alone)
+    single = simple.LogisticRegression(10, 5 * 4 * 5 * 3)
+    v = single.init(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, 5, 4, 5, 3).astype(np.float32))
+    logits, _ = single.apply(v, x)  # 2 samples of rank 4, as flax flattens them: not 2 lanes
+    assert logits.shape == (2, 10) and torch.equal(logits, single.apply(v, x.reshape(2, -1))[0])
+
+
 def test_real_cifar_batches_read_equal(tmp_path):
     """The CIFAR python-batch reader (the path taken when real files exist)
     gives the reference's arrays."""

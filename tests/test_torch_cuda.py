@@ -24,7 +24,10 @@ lane-batched quantize and dequantize (16 lanes, one launch each) bitwise per
 lane.  A MESH round on the card against the same round on the CPU to rtol
 1e-3 / atol 1e-4, each fused site launched once a batched step.  The
 central-DP noise kernel: bitwise against its plain version on the card and
-on the CPU (the multiply, then the add, each rounded), in both variants.  A Shamir SecAgg
+on the CPU (the multiply, then the add, each rounded), in both variants.
+SCAFFOLD's batched local step with the fused lane kernels against each lane
+trained alone, rtol 2e-4 / atol 2e-5 (its ``c_i`` times ``1 / (K lr)``),
+and the client Adam's per-lane state bitwise a lane run alone.  A Shamir SecAgg
 finalize on the card against the CPU: bitwise without DP; with central DP
 the clip's norm sums in another order, so one ulp plus 1e-5 of the clipped
 delta's largest element (two ulps after the noise).
@@ -778,6 +781,87 @@ def test_mesh_round_card_matches_cpu(cuda_device, tmp_path):
     assert launched[fb.BWD.name] == launched[fb.BWD_RES.name] == 0
     for a, b in zip(pt.tree_leaves(sims["cpu"].global_vars), pt.tree_leaves(sim.global_vars)):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_scaffold_batched_step_on_card_matches_lanes_alone(cuda_device):
+    """SCAFFOLD's corrected local SGD for 3 lanes of a fused f32 ResNet on
+    the card (the lane-batched kernels), budgets 2, 6 and 4 steps (counts
+    5, 20, 13; not in budget order), each lane its own ``c_i``: each lane
+    within rtol 2e-4 / atol 2e-5 of the lane trained alone (the single-lane
+    kernels), its new ``c_i`` within that times ``1 / (K lr)`` (K its
+    budget, lr 0.05), each fused site once a batched step."""
+    from fedml_tpu_torch.algorithms.scaffold import Scaffold
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.types import HParams
+    from fedml_tpu_torch.models import resnet
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    hp = HParams(batch_size=8, steps_per_epoch=3, epochs=2, learning_rate=0.05)
+    model = resnet.CifarResNet(1, fused=True)
+    variables = pt.tree_map(lambda t: t.to(cuda_device),
+                            model.init(torch.Generator().manual_seed(0)))
+    rs = np.random.RandomState(0)
+
+    def dev(a):
+        return torch.from_numpy(a).to(cuda_device)
+
+    x = dev(rs.randn(3, 24, 8, 8, 3).astype(np.float32))
+    y = dev(rs.randint(0, 10, (3, 24))).long()
+    perms = dev(np.stack([np.stack([rs.permutation(24) for _ in range(2)]) for _ in range(3)]))
+    c = pt.tree_map(lambda t: dev(rs.randn(*t.shape).astype(np.float32)), variables["params"])
+    c_lanes = pt.tree_map(lambda t: dev(rs.randn(3, *t.shape).astype(np.float32)),
+                          variables["params"])
+    algo = Scaffold(hp).build(model)
+    clients, counts = torch.tensor([2, 0, 1], device=cuda_device), np.array([5, 20, 13])
+    fb.reset_launch_counts()
+    out = algo.client_update_lanes(variables, c_lanes, c, x, y, clients, counts,
+                                   perms=perms[[2, 0, 1]])
+    launched = fb.launch_counts()
+    assert launched[fb.FWD_LANES.name] == launched[fb.BWD_LANES.name] == 4 * 6
+    assert launched[fb.FWD_RES_LANES.name] == launched[fb.BWD_RES_LANES.name] == 3 * 6
+    assert launched[fb.BWD.name] == 0
+    for lane, (ci, k) in enumerate(zip([2, 0, 1], [2, 6, 4])):
+        own = pt.tree_map(lambda t, lane=lane: t[lane], c_lanes)
+        alone = algo.client_update(variables, own, c, x[ci], y[ci], int(counts[lane]), None,
+                                   perms=perms[ci])
+        got = pt.tree_map(lambda t, lane=lane: t[lane], out.contribution["variables"])
+        for a, b in zip(pt.tree_leaves(alone.contribution["variables"]), pt.tree_leaves(got)):
+            torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5)
+        scale = 1.0 / (k * hp.learning_rate)
+        for a, b in zip(pt.tree_leaves(alone.client_state), pt.tree_leaves(out.client_state)):
+            torch.testing.assert_close(b[lane], a, rtol=2e-4 * scale, atol=2e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_adam_lanes_keep_a_spent_lanes_state_on_card(cuda_device):
+    """The client Adam on the card over 3 lane-stacked trees, the active
+    lanes a shrinking prefix (3, 3, 2, 1): each lane's count, moments and
+    parameters bitwise the lane run alone on the card for its own steps."""
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.optim import Adam
+
+    opt = Adam(0.01, weight_decay=0.1)
+    rs = np.random.RandomState(1)
+    p0 = torch.from_numpy(rs.randn(3, 4, 5).astype(np.float32)).to(cuda_device)
+    grads = [torch.from_numpy(rs.randn(3, 4, 5).astype(np.float32)).to(cuda_device)
+             for _ in range(4)]
+    params = {"w": p0.clone()}
+    state = opt.init(params, lanes=3)
+    for g, n in zip(grads, (3, 3, 2, 1)):
+        new_p, new_s = opt.update({"w": g[:n]}, pt.tree_head(state, n), pt.tree_head(params, n))
+        pt.tree_set_head_(params, n, new_p)
+        pt.tree_set_head_(state, n, new_s)
+    assert state["count"].tolist() == [4, 3, 2]
+    for lane, steps in enumerate((4, 3, 2)):
+        p = {"w": p0[lane].clone()}
+        s = opt.init(p)
+        for g in grads[:steps]:
+            p, s = opt.update({"w": g[lane]}, s, p)
+        assert int(s["count"]) == steps
+        assert torch.equal(params["w"][lane], p["w"])
+        assert torch.equal(state["mu"]["w"][lane], s["mu"]["w"])
+        assert torch.equal(state["nu"]["w"][lane], s["nu"]["w"])
 
 
 @pytest.mark.cuda

@@ -266,12 +266,17 @@ def test_server_optimizer_matches_optax():
 
 
 def test_server_optimizer_refusals():
+    """The FedOpt optimizers are built (their numerics:
+    ``tests/test_torch_algorithms.py``); an unknown name is refused."""
+    from fedml_tpu_torch.fl import optim
     from fedml_tpu_torch.fl.algorithm import make_server_optimizer
     from fedml_tpu_torch.fl.types import HParams
 
-    for name in ("adam", "adagrad", "yogi"):
-        with pytest.raises(NotImplementedError, match="FedOpt slice"):
-            make_server_optimizer(HParams(server_optimizer=name))
+    for name, cls in (("adam", optim.Adam), ("adagrad", optim.Adagrad), ("yogi", optim.Yogi)):
+        opt = make_server_optimizer(HParams(server_optimizer=name, server_lr=0.25))
+        assert type(opt) is cls and opt.lr == 0.25
+    adam = make_server_optimizer(HParams(server_optimizer="adam"))
+    assert (adam.b1, adam.b2, adam.eps, adam.weight_decay) == (0.9, 0.99, 1e-3, None)
     with pytest.raises(ValueError, match="unknown server optimizer"):
         make_server_optimizer(HParams(server_optimizer="lamb"))
 

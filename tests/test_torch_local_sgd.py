@@ -121,10 +121,15 @@ def test_eval_fn_matches_reference():
 
 
 def test_optimizer_refusals():
+    """The client ``adam`` is built as optax's ``adamw(lr,
+    weight_decay=wd)`` with its defaults (its numerics:
+    ``tests/test_torch_algorithms.py``); an unknown name is refused."""
     from fedml_tpu_torch.fl.local_sgd import make_optimizer
+    from fedml_tpu_torch.fl.optim import Adam
     from fedml_tpu_torch.fl.types import HParams
 
-    with pytest.raises(NotImplementedError, match="first port slice"):
-        make_optimizer(HParams(client_optimizer="adam"))
+    opt = make_optimizer(HParams(client_optimizer="adam", learning_rate=0.01, weight_decay=0.1))
+    assert type(opt) is Adam
+    assert (opt.lr, opt.b1, opt.b2, opt.eps, opt.weight_decay) == (0.01, 0.9, 0.999, 1e-8, 0.1)
     with pytest.raises(ValueError):
         make_optimizer(HParams(client_optimizer="rmsprop"))
