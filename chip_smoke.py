@@ -116,6 +116,24 @@ Phases (any failure exits non-zero; no phase is caught):
    adam``, and the two logistic-regression recipes as shipped,
    ``sp_fedprox_synthetic_lr`` (30 rounds) and ``cross_silo_horizontal_lr``
    (20 rounds), with their final test accuracy.
+7. The paths of slice 10, none of which runs any of the seven kernels
+   (every launch count read after each must be 0): ``sim_hierarchical_
+   cifar10`` as shipped but for its depth (3 rounds instead of 20: 16
+   clients in 4 balanced groups, 2 sub-rounds, batch 32, the FedAvg CNN
+   with dropout on the bf16 input, 50,000 / 10,000 synthetic CIFAR-10
+   images): each round's time, trained samples/s, peak memory and finite
+   losses, a profiled round's device busy share, then one f32 batched
+   sub-round step of 8 lanes (the sampler's dropout draws) against each
+   lane alone within rtol 2e-4 / atol 2e-5.  ``myavg_condshift_mlp`` as
+   shipped (40 rounds; CKA must run in no round), again with
+   ``agg_mod_list: [2]`` (CKA every even round, counted), and under FedAvg,
+   held to the reference's test: FedAvg accuracy < 0.55, personalized mean
+   > FedAvg + 0.2, personalized minimum > 0.55.  ``cross_silo_lightsecagg_lr``
+   as shipped (4 silos, 10 rounds, T = 2, U = 3, straggler timeout 10 s):
+   each round's time, decode time and upload bytes, the final accuracy;
+   then one round in which silo 4 sends its mask shares and drops out: the
+   global must be bitwise the uniform mean of the three survivors'
+   field-quantized models.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (each kernel's
 launches from its own path's run: the lane-batched kernels from the MESH
@@ -185,6 +203,10 @@ FEDOPT_LANES = (16, 7)
 # the SCAFFOLD check's allowance past the MESH-vs-sp tolerance never
 # exceeds this, however large the measured one-ulp spread (ROADMAP Queue 3)
 SCAFFOLD_SPREAD_CAP = 1e-4
+HIERARCHICAL = "examples/sim_hierarchical_cifar10/fedml_config.yaml"
+HIER_CHECK_LANES = 8  # the f32 batched-sub-round check's clients
+MYAVG = "examples/myavg_condshift_mlp/fedml_config.yaml"
+LIGHTSECAGG = "examples/cross_silo_lightsecagg_lr/fedml_config.yaml"
 
 
 def _gen(shape, dtype, device, seed):
@@ -1644,6 +1666,248 @@ def phase_client_adam(mods, dataset):
           f"{history[-1]['test_acc']:.4f}, {steps} batched steps")
 
 
+def _zero_counts(counts, what):
+    """The paths of this slice run none of the seven kernels: every count
+    read after the run must still be 0."""
+    if any(counts.values()):
+        raise AssertionError(f"{what}: kernels launched on a path that has none: {counts}")
+
+
+def _trained_lane_steps(sim) -> int:
+    """The lane-steps of one hierarchical round: each sub-round's clients
+    take their own budgets (every client trains in every sub-round when all
+    take part)."""
+    import numpy as np
+
+    from fedml_tpu_torch.fl.local_sgd import step_budgets
+
+    own = np.minimum(step_budgets(sim.hp, sim.counts), sim.hp.epochs * sim.hp.steps_per_epoch)
+    return int(own.sum()) * sim.group_comm_round
+
+
+def phase_hierarchical(mods):
+    """``sim_hierarchical_cifar10`` as shipped but for its depth (3 rounds):
+    16 clients in 4 balanced groups, 2 sub-rounds, the FedAvg CNN with
+    dropout on the bf16 input; each round's time, samples/s, peak memory and
+    finite losses, a profiled round's device busy share; then, in f32 with
+    the sampler's dropout draws, one batched sub-round step of 8 lanes
+    against each lane alone."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.local_sgd import (lane_dropout_table, make_batched_local_train_fn,
+                                              make_local_train_fn, to_device)
+    from fedml_tpu_torch.obs.profile_round import busy_us
+
+    t0 = time.perf_counter()
+    runner = _recipe(HIERARCHICAL, comm_round=ROUNDS, fused_blocks=False)
+    sim, cfg = runner.runner, runner.cfg
+    lane_steps = _trained_lane_steps(sim)
+    print(f"hierarchical path: set-up {time.perf_counter() - t0:.1f} s (data "
+          f"{sim.dataset.train_num}/{sim.dataset.test_num}, {sim.dataset.n_clients} clients in "
+          f"{sim.group_num} {cfg.extra.get('group_assignment', 'balanced')} groups of sample "
+          f"mass {np.bincount(sim.group_of, weights=sim.counts).astype(int).tolist()}, "
+          f"{sim.group_comm_round} sub-rounds, capacity {sim.capacity}, batch {cfg.batch_size}, "
+          f"{cfg.compute_dtype} input, model {type(sim.model).__name__} with dropout "
+          f"{1 - sim.model.keep_prob}; {lane_steps} lane-steps a round)")
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(mods)
+    history = runner.run()
+    torch.cuda.synchronize()
+    counts = _all_counts(mods)
+    _zero_counts(counts, "hierarchical path")
+    for metrics, _, mem in probe.rows:
+        print(f"hierarchical round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"{lane_steps * cfg.batch_size / metrics['round_time_s']:.0f} trained samples/s, "
+              f"train_loss {metrics['train_loss']:.4f}, test_loss "
+              f"{metrics.get('test_loss', float('nan')):.4f}, test_acc "
+              f"{metrics.get('test_acc', float('nan')):.4f}, max_memory_allocated "
+              f"{mem / 2**30:.2f} GiB")
+    if len(history) != ROUNDS:
+        raise AssertionError(f"expected {ROUNDS} rounds, got {len(history)}")
+    _check_finite(sim, history, ("train_loss",))
+    _check_finite(sim, history[-1:], ("test_loss", "test_acc"))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_us([e for e in prof.events() if e.device_type.name == "CUDA"]) / 1e6
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"hierarchical profiled round: wall {wall:.3f} s (profiler on), device busy "
+          f"{busy:.3f} s = {100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%, "
+          f"{launches} cudaLaunchKernel")
+
+    f32 = _recipe(HIERARCHICAL, runner.dataset, comm_round=1, compute_dtype="float32",
+                  fused_blocks=False, metrics_jsonl_path="").runner
+    f32.global_vars = pt.tree_map(torch.clone, sim.global_vars)
+    lanes = np.arange(HIER_CHECK_LANES)
+    shape = f32.model.dropout_shape(cfg.batch_size)
+    tables = [f32.sampler.dropout(0, 0, int(c), 1, shape, f32.model.keep_prob, f32.device)
+              for c in lanes]
+    perms = torch.stack([f32.sampler.perms(0, 0, int(c), f32.hp.epochs, f32.capacity)
+                         for c in lanes])
+    ones = np.full(len(lanes), cfg.batch_size)  # a budget of one step each
+    groups = to_device(f32.group_of[lanes], f32.device, torch.long)
+    start = pt.tree_take(pt.tree_map(
+        lambda t: t.unsqueeze(0).repeat((f32.group_num,) + (1,) * t.ndim), f32.global_vars),
+        groups)
+    x, y = f32._data
+    batched, _ = make_batched_local_train_fn(f32.model, f32.hp)(
+        start, x, y, to_device(lanes, f32.device, torch.long), ones, perms, None,
+        lane_dropout_table(tables))
+    single = make_local_train_fn(f32.model, f32.hp)
+    worst = 0.0
+    for i, c in enumerate(lanes):
+        alone, _ = single(pt.tree_map(lambda t: t[i], start), x[c], y[c], cfg.batch_size, (0,),
+                          perms=perms[i], dropout=tables[i])
+        for a, b in zip(pt.tree_leaves(pt.tree_map(lambda t: t[i], batched)),
+                        pt.tree_leaves(alone)):
+            err = float(((a - b).abs() - MESH_SP_RTOL * b.abs()).max())
+            worst = max(worst, float((a - b).abs().max()))
+            if err > MESH_SP_ATOL:
+                raise AssertionError(f"hierarchical lane {i}: batched step vs alone off by "
+                                     f"{float((a - b).abs().max()):.3g}")
+    print(f"hierarchical f32 check: one batched sub-round step of {len(lanes)} lanes (each from "
+          f"its group's model, the sampler's dropout draws) vs each lane alone: largest "
+          f"difference {worst:.3g} (rtol {MESH_SP_RTOL}, atol {MESH_SP_ATOL})")
+    return counts, runner.dataset
+
+
+def _myavg_run(mods, what, **overrides):
+    """The MyAvg recipe (or it with ``overrides``) on the card: history,
+    simulator, seconds, counts."""
+    import torch
+
+    from fedml_tpu_torch.fl.local_sgd import step_budgets
+
+    t0 = time.perf_counter()
+    runner = _recipe(MYAVG, fused_blocks=False, **overrides)
+    sim = runner.runner
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(mods)
+    t1 = time.perf_counter()
+    history = runner.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = _all_counts(mods)
+    _zero_counts(counts, what)
+    if len(history) != runner.cfg.comm_round:
+        raise AssertionError(f"{what}: {len(history)} rounds of {runner.cfg.comm_round}")
+    _check_finite(sim, history, ("train_loss",))
+    # every client takes part in every round of this recipe
+    samples = int(step_budgets(sim.hp, sim.counts).sum()) * sim.hp.batch_size * len(history)
+    print(f"{what}: {len(history)} rounds in {dt:.3f} s ({1e3 * dt / len(history):.2f} ms a "
+          f"round incl. evaluation, {samples / dt:.0f} trained samples/s; set-up "
+          f"{t1 - t0:.1f} s), max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, final train_loss "
+          f"{history[-1]['train_loss']:.4f}, test_acc {history[-1]['test_acc']:.4f}")
+    return history, sim, counts
+
+
+def phase_myavg(mods):
+    """``myavg_condshift_mlp`` as shipped (40 rounds: its gate never runs
+    CKA), again with ``agg_mod_list: [2]`` (CKA on ``Dense_1`` every even
+    round), and the same recipe under FedAvg, held to what the reference's
+    ``test_condshift_personalization_beats_fedavg`` asserts."""
+    history, sim, counts = _myavg_run(mods, "myavg (shipped gate)")
+    pers = sim.evaluate_personalized()
+    if sim.cka_rounds != 0:
+        raise AssertionError(f"the shipped gate ran CKA in {sim.cka_rounds} rounds")
+    var_hist, var, _ = _myavg_run(mods, "myavg (agg_mod_list [2])", agg_mod_list=(2,),
+                                  agg_mod_dict={2: {}})
+    var_pers = var.evaluate_personalized()
+    if var.cka_rounds <= 0:
+        raise AssertionError("agg_mod_list [2] never ran CKA")
+    fed_hist, _, _ = _myavg_run(mods, "myavg recipe under FedAvg", federated_optimizer="FedAvg")
+    fed_acc = fed_hist[-1]["test_acc"]
+    print(f"myavg: CKA rounds {sim.cka_rounds} (shipped) / {var.cka_rounds} (variant) of "
+          f"{len(history)}; personalized mean / min {pers['personalized_test_acc_mean']:.4f} / "
+          f"{pers['personalized_test_acc_min']:.4f} (shipped), "
+          f"{var_pers['personalized_test_acc_mean']:.4f} / "
+          f"{var_pers['personalized_test_acc_min']:.4f} (variant); global test_acc "
+          f"{history[-1]['test_acc']:.4f} / {var_hist[-1]['test_acc']:.4f}; FedAvg test_acc "
+          f"{fed_acc:.4f}")
+    if not (fed_acc < 0.55 and pers["personalized_test_acc_mean"] > fed_acc + 0.2
+            and pers["personalized_test_acc_min"] > 0.55):
+        raise AssertionError(f"myavg: FedAvg {fed_acc:.4f} (< 0.55), personalized "
+                             f"{pers} (mean > FedAvg + 0.2, min > 0.55)")
+    return counts
+
+
+def phase_lightsecagg(mods):
+    """``cross_silo_lightsecagg_lr`` as shipped (4 silos, 10 rounds, T = 2,
+    U = 3, straggler timeout 10 s): each round's time, decode time and
+    upload bytes, the final accuracy; then one round in which silo 4 sends
+    its mask shares and drops out: the global must be bitwise the uniform
+    mean of the three survivors' field-quantized models."""
+    import numpy as np
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.cross_silo import run_group
+    from fedml_tpu_torch.cross_silo.lightsecagg import build_lightsecagg_process_group
+    from fedml_tpu_torch.runner import FedMLRunner
+    from fedml_tpu_torch.trust.secagg.field import dequantize_from_field
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", LIGHTSECAGG])
+    runner = FedMLRunner(cfg)
+    runner.runner.setup()
+    clients = runner.runner.clients
+    samples = sum(c.trainer.trained_samples for c in clients)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(mods)
+    t0 = time.perf_counter()
+    history = runner.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _all_counts(mods)
+    _zero_counts(counts, "lightsecagg path")
+    agg = runner.runner.server.aggregator
+    print(f"lightsecagg path: {len(history)} rounds in {dt:.2f} s, T={agg.protocol.t} "
+          f"U={agg.protocol.u} over {agg.model_dim} elements (padded {agg.d_pad}), "
+          f"{len(clients)} silos of {[c.trainer.count for c in clients]} samples, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for m in history:
+        print(f"lightsecagg round {m['round']}: {m['round_time_s']:.4f} s, "
+              f"{samples / m['round_time_s']:.0f} trained samples/s, decode (finalize) "
+              f"{1e3 * m['finalize_time_s']:.2f} ms, uploads {m['upload_bytes']} bytes"
+              + (f", test_acc {m['test_acc']:.4f}" if "test_acc" in m else ""))
+    last = history[-1]
+    if len(history) != cfg.comm_round or not math.isfinite(last["test_loss"]):
+        raise AssertionError(f"lightsecagg: {len(history)} rounds, last {last}")
+
+    cfg1 = fedml_tpu_torch.init(argv=["--cf", LIGHTSECAGG])
+    cfg1.comm_round = 1
+    server, clients = build_lightsecagg_process_group(cfg1, runner.dataset, runner.model,
+                                                      runner.device, drop_ranks=frozenset({4}))
+    t0 = time.perf_counter()
+    drop_hist = run_group(server, clients, timeout=120.0)
+    dt = time.perf_counter() - t0
+    agg = server.aggregator
+    total = np.zeros(agg.model_dim, np.int64)
+    for c in clients[:3]:
+        total = (total + c.last_field_vec) % agg.protocol.p
+    want = (dequantize_from_field(total, 3, bits=agg.q_bits) / 3).astype(np.float32)
+    got = weights.flatten_reference(agg.global_vars)[0].cpu().numpy()
+    if server.active_first != [1, 2, 3] or clients[3].last_field_vec is not None:
+        raise AssertionError(f"straggler round: survivors {server.active_first}")
+    if not np.array_equal(got, want):
+        raise AssertionError("straggler round: the global is not the survivors' uniform mean")
+    print(f"lightsecagg straggler round: silo 4 dropped after its mask shares; decoded from "
+          f"survivors {server.active_first} in {dt:.2f} s (timeout "
+          f"{server.straggler_timeout} s), decode {1e3 * drop_hist[0]['finalize_time_s']:.2f} ms, "
+          f"global bitwise the uniform mean of their field-quantized models")
+    return counts
+
+
 def phase_lr_recipes():
     """The logistic-regression recipes as shipped: FedProx on MESH (30
     rounds) and cross-silo FedAvg over the in-process fabric (20 rounds)."""
@@ -1719,6 +1983,12 @@ def main(argv=None) -> int:
     phase_client_adam(mods, dataset)
     del dataset
     phase_lr_recipes()
+    hier_counts, dataset = phase_hierarchical(mods)
+    del dataset
+    myavg_counts = phase_myavg(mods)
+    lsa_counts = phase_lightsecagg(mods + (nz,))
+    print(f"launches on this slice's paths (none of the seven kernels runs there): "
+          f"hierarchical {hier_counts}, myavg {myavg_counts}, lightsecagg {lsa_counts}")
     # each kernel's launches on its own path: the lane-batched kernels on
     # the MESH rounds, the single-lane fused kernels on the cross-silo
     # silos, the single-lane quantize kernels on the FedSGD sp round

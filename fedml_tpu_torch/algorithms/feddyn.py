@@ -46,15 +46,15 @@ class FedDyn(FedAlgorithm):
         return global_variables["params"], client_state
 
     def client_update(self, global_variables, client_state, server_state, x, y, count, key,
-                      perms=None, draw=None):
+                      perms=None, draw=None, dropout=None):
         new_vars, metrics = self._train_one(global_variables, client_state, server_state, x, y,
-                                            count, key, perms)
+                                            count, key, perms, dropout)
         return self._output(global_variables, client_state, new_vars, metrics)
 
     def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
-                            counts, perms=None, draw=None):
+                            counts, perms=None, draw=None, dropout=None):
         new_vars, metrics = self._train_lanes(global_variables, client_states, server_state, x,
-                                              y, clients, counts, perms)
+                                              y, clients, counts, perms, dropout)
         return self._output(global_variables, client_states, new_vars, metrics)
 
     def _output(self, global_variables, lam, new_vars, metrics):

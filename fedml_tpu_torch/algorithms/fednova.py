@@ -24,18 +24,18 @@ class FedNova(FedAlgorithm):
     name = "FedNova"
 
     def client_update(self, global_variables, client_state, server_state, x, y, count, key,
-                      perms=None, draw=None):
+                      perms=None, draw=None, dropout=None):
         new_vars, metrics = self._train_one(global_variables, client_state, server_state, x, y,
-                                            count, key, perms)
+                                            count, key, perms, dropout)
         tau = torch.tensor(float(step_budgets(self.hp, count)), dtype=torch.float32,
                            device=x.device)
         return ClientOutput(self._normalized(global_variables, new_vars, tau), client_state,
                             metrics)
 
     def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
-                            counts, perms=None, draw=None):
+                            counts, perms=None, draw=None, dropout=None):
         new_vars, metrics = self._train_lanes(global_variables, client_states, server_state, x,
-                                              y, clients, counts, perms)
+                                              y, clients, counts, perms, dropout)
         tau = to_device(step_budgets(self.hp, counts).astype(np.float32), x.device)
         return ClientOutput(self._normalized(global_variables, new_vars, tau), client_states,
                             metrics)

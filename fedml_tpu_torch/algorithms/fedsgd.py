@@ -56,7 +56,7 @@ class FedSGD(FedAlgorithm):
         return None
 
     def client_update(self, global_variables, client_state, server_state, x, y, count, key,
-                      perms=None, draw=None):
+                      perms=None, draw=None, dropout=None):
         grad = self._full_grad(global_variables, x, y)
         new_state = client_state
         if self.compression != "no":
@@ -71,7 +71,7 @@ class FedSGD(FedAlgorithm):
         return ClientOutput(contribution=grad, client_state=new_state, metrics=metrics)
 
     def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
-                            counts, perms=None, draw=None):
+                            counts, perms=None, draw=None, dropout=None):
         grad = self._batched_full_grad(global_variables, x, y, clients)
         new_states = client_states
         if self.compression != "no":

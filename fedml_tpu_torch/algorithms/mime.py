@@ -42,16 +42,16 @@ class Mime(FedAlgorithm):
         return server_state, None
 
     def client_update(self, global_variables, client_state, server_state, x, y, count, key,
-                      perms=None, draw=None):
+                      perms=None, draw=None, dropout=None):
         new_vars, metrics = self._train_one(global_variables, client_state, server_state, x, y,
-                                            count, key, perms)
+                                            count, key, perms, dropout)
         contribution = {"variables": new_vars, "full_grad": self._full_grad(global_variables, x, y)}
         return ClientOutput(contribution=contribution, client_state=client_state, metrics=metrics)
 
     def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
-                            counts, perms=None, draw=None):
+                            counts, perms=None, draw=None, dropout=None):
         new_vars, metrics = self._train_lanes(global_variables, client_states, server_state, x,
-                                              y, clients, counts, perms)
+                                              y, clients, counts, perms, dropout)
         contribution = {"variables": new_vars,
                         "full_grad": self._batched_full_grad(global_variables, x, y, clients)}
         return ClientOutput(contribution=contribution, client_state=client_states, metrics=metrics)

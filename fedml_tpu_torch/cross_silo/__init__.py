@@ -3,22 +3,25 @@
 ``FedMLRunner`` with ``training_type: cross_silo``, ``role: server`` and an
 in-process backend (``INPROC``, or ``MESH`` / unset as the reference reads
 them) runs 1 server + ``client_num_in_total`` clients as threads of one
-process over the in-process fabric: the plain synchronous server, or Shamir
-SecAgg (``enable_secagg`` with ``extra.secagg_method: shamir``).
+process over the in-process fabric: the plain synchronous server, LightSecAgg
+(``enable_secagg``, the reference's default ``extra.secagg_method:
+lightsecagg``, ``cross_silo/lightsecagg.py``) or Shamir SecAgg
+(``extra.secagg_method: shamir``, ``cross_silo/secagg_shamir.py``).
 
 Parity hooks, read when the group is built (:meth:`_CrossSiloRunner.setup`,
 which :meth:`run` calls): ``global_vars`` (the initial global model, the
 port's tree; default: the port's own init stream), ``perms`` (the clients'
 per-epoch permutations, ``perms(round, client, epochs, cap)``),
-``noise_sampler`` (the central-DP draws of Shamir SecAgg) and ``logger``
-(the server's metrics logger).
+``noise_sampler`` (the central-DP draws of Shamir SecAgg), ``mask_seeds``
+(LightSecAgg's client mask seeds by rank; default OS entropy) and
+``logger`` (the server's metrics logger).
 
 Algorithms: FedAvg, FedOpt and FedProx (their contribution is the client's
 full variables; the server runs the algorithm's ``aggregate`` and
 ``server_update`` on the uploads, the client plain local SGD).  Refused with
 ``NotImplementedError``: SCAFFOLD, FedNova, FedDyn and Mime, a client role,
-any other backend, multi-process silos, LightSecAgg and FHE; Shamir SecAgg
-takes FedAvg alone.
+any other backend, multi-process silos and FHE; both SecAgg protocols take
+FedAvg alone.
 """
 
 from __future__ import annotations
@@ -119,19 +122,30 @@ def refuse_unported_cross_silo(cfg) -> None:
     refuse_unported_server(cfg, secure=secure)
     refuse_unported_client(cfg)
     if secure:
-        method = str(cfg_extra(cfg, "secagg_method")).lower()
-        if method in ("lightsecagg", "lsa"):
-            raise NotImplementedError("LightSecAgg is not ported yet; use extra.secagg_method "
-                                      "'shamir'")
-        if method not in ("shamir", "secagg", "pairwise"):
-            raise ValueError(f"unknown secagg_method {method!r}; use 'lightsecagg' or 'shamir'")
-        from .secagg_shamir import shamir_secagg_params
+        method = _secagg_method(cfg)
+        if method == "lightsecagg":
+            from .lightsecagg import secagg_params
 
-        shamir_secagg_params(cfg)
+            secagg_params(cfg)
+        else:
+            from .secagg_shamir import shamir_secagg_params
+
+            shamir_secagg_params(cfg)
         if cfg.client_num_per_round < cfg.client_num_in_total:
+            name = "LightSecAgg" if method == "lightsecagg" else "Shamir SecAgg"
             raise ValueError(
-                "Shamir SecAgg requires full participation per round (client_num_per_round="
+                f"{name} requires full participation per round (client_num_per_round="
                 f"{cfg.client_num_per_round} != N={cfg.client_num_in_total})")
+
+
+def _secagg_method(cfg) -> str:
+    """``"lightsecagg"`` or ``"shamir"``, from ``extra.secagg_method``."""
+    method = str(cfg_extra(cfg, "secagg_method")).lower()
+    if method in ("lightsecagg", "lsa"):
+        return "lightsecagg"
+    if method in ("shamir", "secagg", "pairwise"):
+        return "shamir"
+    raise ValueError(f"unknown secagg_method {method!r}; use 'lightsecagg' or 'shamir'")
 
 
 class _CrossSiloRunner:
@@ -142,6 +156,7 @@ class _CrossSiloRunner:
         self.global_vars = None
         self.perms = None
         self.noise_sampler = None
+        self.mask_seeds = None
         self.logger = None
         self.server: Optional[FedMLServerManager] = None
         self.clients: list = []
@@ -150,15 +165,25 @@ class _CrossSiloRunner:
         """Build the server and the clients (their shards go to the device)."""
         hooks = {k: v for k, v in (("global_vars", self.global_vars), ("perms", self.perms),
                                    ("logger", self.logger)) if v is not None}
-        if getattr(self.cfg, "enable_secagg", False):
+        secure = bool(getattr(self.cfg, "enable_secagg", False))
+        lsa = secure and _secagg_method(self.cfg) == "lightsecagg"
+        if self.noise_sampler is not None and (not secure or lsa):
+            raise ValueError("noise_sampler serves Shamir SecAgg's central DP only")
+        if self.mask_seeds is not None and not lsa:
+            raise ValueError("mask_seeds serves LightSecAgg only")
+        if lsa:
+            from .lightsecagg import build_lightsecagg_process_group
+
+            if self.mask_seeds is not None:
+                hooks["mask_seeds"] = self.mask_seeds
+            group = build_lightsecagg_process_group
+        elif secure:
             from .secagg_shamir import build_shamir_secagg_process_group
 
             if self.noise_sampler is not None:
                 hooks["noise_sampler"] = self.noise_sampler
             group = build_shamir_secagg_process_group
         else:
-            if self.noise_sampler is not None:
-                raise ValueError("noise_sampler serves Shamir SecAgg's central DP only")
             group = build_process_group
         self.server, self.clients = group(self.cfg, self.dataset, self.model, self.device,
                                           C.COMM_BACKEND_INPROC, **hooks)

@@ -99,7 +99,7 @@ class FedMLAggregator:
 
     def __init__(self, cfg, model, test_arrays, device, global_vars=None):
         self.cfg = cfg
-        self.device = device
+        self.device = torch.device(device)
         self.hp = hparams_from_config(cfg, steps_per_epoch=provisional_steps_per_epoch(cfg))
         self.algorithm = create_algorithm(cfg, self.hp).build(model)
         self.root_key = rng.root_key(cfg.random_seed)

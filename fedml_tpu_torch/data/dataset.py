@@ -1,7 +1,8 @@
 """Federated dataset containers (numpy, host side).
 
 The port's copy of ``fedml_tpu/data/dataset.py``'s main-path pieces:
-:class:`FederatedDataset` (global arrays + per-client index lists),
+:class:`FederatedDataset` (global arrays + per-client index lists, and
+per-client test index lists where a loader splits its test set by client),
 :func:`stack_clients` (cyclic-padded ``(n_clients, capacity, ...)`` arrays +
 true sample counts) and :func:`pad_eval_set`.  Bitwise equal to the
 reference for the same inputs (``tests/test_torch_config_data.py``).
@@ -23,6 +24,7 @@ class FederatedDataset:
     test_y: np.ndarray
     client_idx: list  # list[np.ndarray] — per-client train sample indices
     class_num: int
+    test_client_idx: Optional[list] = None  # per-client test split (LEAF-style)
     name: str = ""
 
     @property

@@ -1,11 +1,13 @@
-"""Dataset loading: CIFAR images and the ``synthetic`` feature vectors.
+"""Dataset loading: CIFAR images, the ``synthetic`` feature vectors and
+the ``synthetic_condshift`` benchmark.
 
 The ported subset of ``fedml_tpu/data/loader.py``: ``load`` ->
 ``_load_image_like`` -> the real CIFAR python batches under
 ``data_cache_dir`` when present, else the deterministic class-structured
-synthetic stand-in with the real shapes.  Arrays are numpy and bitwise equal
-to the reference's for the same config.  Every other dataset belongs to a
-later slice and raises ``NotImplementedError``.
+synthetic stand-in with the real shapes; ``synthetic_condshift`` ->
+``_load_condshift`` (per-client train and test shards).  Arrays are numpy
+and bitwise equal to the reference's for the same config.  Every other
+dataset belongs to a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from ..arguments import Config
+from ..core.flags import cfg_extra
 from . import partition as part
 from .dataset import FederatedDataset
 
@@ -34,10 +37,13 @@ _DATASET_SPECS = {
 
 def load(cfg: Config) -> FederatedDataset:
     name = cfg.dataset.lower()
+    if name == "synthetic_condshift":
+        return _load_condshift(cfg)
     if name not in _DATASET_SPECS:
         raise NotImplementedError(
             f"dataset {cfg.dataset!r} is not ported yet: the first port slice loaded "
-            f"CIFAR, a later one 'synthetic' (ported: {sorted(_DATASET_SPECS)})")
+            f"CIFAR, later ones 'synthetic' and 'synthetic_condshift' (ported: "
+            f"{sorted(_DATASET_SPECS) + ['synthetic_condshift']})")
     return _load_image_like(cfg, name)
 
 
@@ -107,6 +113,51 @@ def _load_cifar_batches(d: Path, train_files, test_files, label_key):
     train_x = (np.concatenate(xs) - mean) / std
     test_x = (np.concatenate(txs) - mean) / std
     return train_x, np.concatenate(ys), test_x, np.concatenate(tys)
+
+
+def _load_condshift(cfg: Config) -> FederatedDataset:
+    """The conditional-shift benchmark (reference L267): clients belong to
+    ``extra.condshift_clusters`` clusters that share one set of class
+    prototypes, but each cluster maps the prototypes to labels through its
+    own rotation of the label set, so ``p(x | y)`` differs by cluster while
+    ``p(x)`` matches.  Each client's test shard follows its own cluster
+    (``test_client_idx``).  Draws in the reference's order from its seed."""
+    rng = np.random.RandomState(0xC04D ^ (cfg.random_seed * 2654435761 % (2**31)))
+    d, classes = 64, 6
+    n_clients = cfg.client_num_in_total
+    clusters = int(cfg_extra(cfg, "condshift_clusters"))
+    if not 1 <= clusters <= 6:
+        # np.roll wraps at 6 classes: more clusters would alias earlier ones
+        raise ValueError(f"condshift_clusters={clusters} out of range [1, 6] "
+                         "(label permutations alias beyond the class count)")
+    per_client = int((cfg.synthetic_train_size or 4800) // max(n_clients, 1))
+    test_per_client = int((cfg.synthetic_test_size or 1200) // max(n_clients, 1))
+    scale = float(cfg_extra(cfg, "condshift_scale"))
+
+    protos = rng.normal(0, 1.0, size=(classes, d)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
+    perms = [np.roll(np.arange(classes), c) for c in range(clusters)]
+
+    def gen(cluster: int, n: int):
+        p = rng.randint(0, classes, size=n)
+        x = scale * protos[p] + rng.normal(0, 1.0, size=(n, d)).astype(np.float32)
+        return x.astype(np.float32), perms[cluster][p].astype(np.int32)
+
+    xs, ys, txs, tys, client_idx, test_client_idx = [], [], [], [], [], []
+    for cid in range(n_clients):
+        x, y = gen(cid % clusters, per_client)
+        tx, ty = gen(cid % clusters, test_per_client)
+        xs.append(x)
+        ys.append(y)
+        txs.append(tx)
+        tys.append(ty)
+        client_idx.append(np.arange(cid * per_client, (cid + 1) * per_client))
+        test_client_idx.append(np.arange(cid * test_per_client, (cid + 1) * test_per_client))
+    return FederatedDataset(
+        train_x=np.concatenate(xs), train_y=np.concatenate(ys),
+        test_x=np.concatenate(txs), test_y=np.concatenate(tys),
+        client_idx=client_idx, test_client_idx=test_client_idx,
+        class_num=classes, name="synthetic_condshift")
 
 
 def _synthetic_classification(name, feat, classes, n_train, n_test, seed):

@@ -64,41 +64,45 @@ class FedAlgorithm:
         return None
 
     def client_update(self, global_variables, client_state, server_state, x, y, count,
-                      key, perms=None, draw=None) -> ClientOutput:
+                      key, perms=None, draw=None, dropout=None) -> ClientOutput:
         """One client's round.  ``perms`` is its per-epoch permutation table;
         ``draw(shape)`` returns its uniform ``U[0, 1)`` draw of this round
-        for algorithms that compress (both from the simulator's sampler)."""
+        for algorithms that compress; ``dropout`` its table of dropout
+        keep-masks for a model with dropout (all from the simulator's
+        sampler)."""
         new_vars, metrics = self._train_one(global_variables, client_state, server_state, x, y,
-                                            count, key, perms)
+                                            count, key, perms, dropout)
         return ClientOutput(contribution=new_vars, client_state=client_state, metrics=metrics)
 
     def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
-                            counts, perms=None, draw=None) -> ClientOutput:
+                            counts, perms=None, draw=None, dropout=None) -> ClientOutput:
         """The round of ``L`` clients at once, a client a lane (the
         reference's ``client_update`` under ``jax.vmap``): ``x`` / ``y`` are
         every client's stacked shards on the device, ``clients`` the lanes'
         rows of them (``(L,)`` ints), ``counts`` the lanes' sample counts
         (host), ``client_states`` the lanes' stacked state, ``perms`` their
-        ``(L, epochs, cap)`` permutation tables and ``draw(shape)`` their
-        ``(L,) + shape`` uniform draws.  Returns lane-stacked contributions
-        and client state and ``(L,)`` metric tensors."""
+        ``(L, epochs, cap)`` permutation tables, ``draw(shape)`` their
+        ``(L,) + shape`` uniform draws and ``dropout`` their ``(L, steps,
+        ...)`` dropout keep-masks.  Returns lane-stacked contributions and
+        client state and ``(L,)`` metric tensors."""
         new_vars, metrics = self._train_lanes(global_variables, client_states, server_state, x,
-                                              y, clients, counts, perms)
+                                              y, clients, counts, perms, dropout)
         return ClientOutput(contribution=new_vars, client_state=client_states, metrics=metrics)
 
     def _train_one(self, global_variables, client_state, server_state, x, y, count, key,
-                   perms):
+                   perms, dropout=None):
         """One client's local training from the global variables."""
         ctx = self.make_ctx(global_variables, client_state, server_state)
-        return self._local_train(global_variables, x, y, count, key, perms=perms, ctx=ctx)
+        return self._local_train(global_variables, x, y, count, key, perms=perms, ctx=ctx,
+                                 dropout=dropout)
 
     def _train_lanes(self, global_variables, client_states, server_state, x, y, clients, counts,
-                     perms):
+                     perms, dropout=None):
         """The lanes' local training from the global variables."""
         lanes = clients.shape[0]
         start = pt.tree_map(lambda t: t.unsqueeze(0).expand((lanes,) + t.shape), global_variables)
         ctx = self.make_ctx(global_variables, client_states, server_state)
-        return self._batched_train(start, x, y, clients, counts, perms, ctx)
+        return self._batched_train(start, x, y, clients, counts, perms, ctx, dropout)
 
     def supports_associative_fold(self) -> bool:
         """True when ``aggregate`` is a weight-associative fold (reference

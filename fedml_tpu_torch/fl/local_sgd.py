@@ -23,7 +23,13 @@ on the client's device.  What stays the same:
 
 Randomness: the permutation table is an explicit ``perms`` argument
 (``(epochs, cap)`` ints).  Without it, it is drawn from the client key with
-the port's generators; tests pass the reference's table instead.
+the port's generators; tests pass the reference's table instead.  So is a
+model's dropout (a model with ``dropout_shape``, ``models/simple.FedAvgCNN``;
+the reference folds a dropout key into every step): ``dropout`` is the
+client's table of keep-masks, one a step, ``(steps, *dropout_shape(batch))``
+bool, drawn from the client key by :func:`dropout_masks` when not given.
+Each step passes its mask to ``model.apply(..., dropout=mask)``; a model
+without dropout takes none.
 
 Lanes (the simulator's MESH round; the reference's ``jax.vmap`` of the
 client over the sampled clients): :func:`make_batched_local_train_fn` and
@@ -34,7 +40,8 @@ gradient of the sum of the lanes' losses gives each lane exactly its own
 gradient.  There ``loss_extra`` returns one value a lane (added to the
 lanes' losses before the sum, so no lane's gradient is scaled), and the
 ``client`` half of ``ctx`` is lane-stacked: it is put in the lanes' running
-order and cut to the active lanes at every step, as the parameters are.
+order and cut to the active lanes at every step, as the parameters are, and
+so is the lanes' dropout table ``(L, steps, ...)``.
 """
 
 from __future__ import annotations
@@ -79,6 +86,36 @@ def split_variables(variables: dict) -> tuple[Any, dict]:
     return variables["params"], {k: v for k, v in variables.items() if k != "params"}
 
 
+# tag of the dropout stream folded into a client key ("drop")
+_DROPOUT_TAG = 0x64726F70
+
+
+def dropout_spec(model, batch_size: int) -> Optional[tuple]:
+    """The shape of one step's dropout keep-mask of ``model`` at
+    ``batch_size``, or None for a model without dropout."""
+    shape = getattr(model, "dropout_shape", None)
+    return None if shape is None else tuple(shape(batch_size))
+
+
+def dropout_masks(key: rng.Key, n_steps: int, shape: tuple, keep_prob: float,
+                  device) -> torch.Tensor:
+    """A client's ``(n_steps, *shape)`` bool keep-masks drawn on ``device``
+    from its client key: ``U[0, 1) < keep_prob``, flax's Bernoulli draw."""
+    g = rng.generator(rng.fold_in(key, _DROPOUT_TAG), device)
+    return torch.rand((int(n_steps),) + tuple(shape), generator=g, device=device) < keep_prob
+
+
+def lane_dropout_table(tables: list) -> torch.Tensor:
+    """The lanes' keep-mask tables, each ``(own steps, ...)``, stacked into
+    one ``(L, most steps, ...)`` table; a lane's steps past its own are
+    never read."""
+    steps = max(t.shape[0] for t in tables)
+    out = tables[0].new_zeros((len(tables), steps) + tuple(tables[0].shape[1:]))
+    for lane, t in enumerate(tables):
+        out[lane, :t.shape[0]] = t
+    return out
+
+
 def epoch_permutations(key: rng.Key, epochs: int, cap: int) -> torch.Tensor:
     """The ``(epochs, cap)`` permutation table drawn from a client key (the
     reference folds ``(key, epoch, 1)``; so does this)."""
@@ -88,10 +125,11 @@ def epoch_permutations(key: rng.Key, epochs: int, cap: int) -> torch.Tensor:
 
 def make_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = None,
                         grad_hook: Optional[Callable] = None):
-    """Build ``local_train(variables, x, y, count, key, perms=None, ctx=None)
-    -> (new_variables, metrics)``.  ``x``/``y`` are one client's padded shard
-    on the device, ``count`` its true sample count (int), ``ctx`` what the
-    hooks read (module docstring)."""
+    """Build ``local_train(variables, x, y, count, key, perms=None, ctx=None,
+    dropout=None) -> (new_variables, metrics)``.  ``x``/``y`` are one
+    client's padded shard on the device, ``count`` its true sample count
+    (int), ``ctx`` what the hooks read, ``dropout`` the client's keep-masks
+    (module docstring)."""
     if hp.steps_per_epoch <= 0:
         raise ValueError(
             "HParams.steps_per_epoch must be positive (got "
@@ -102,9 +140,11 @@ def make_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = Non
     compute_dtype = torch.bfloat16 if hp.compute_dtype == "bfloat16" else torch.float32
     bsz, spe = hp.batch_size, hp.steps_per_epoch
     total_steps = hp.epochs * spe
+    drop_shape = dropout_spec(model, bsz)
 
     def local_train(variables: dict, x: torch.Tensor, y: torch.Tensor, count: int,
-                    key: rng.Key, perms: Optional[torch.Tensor] = None, ctx=None):
+                    key: rng.Key, perms: Optional[torch.Tensor] = None, ctx=None,
+                    dropout: Optional[torch.Tensor] = None):
         params, rest = split_variables(variables)
         cap = x.shape[0]
         if cap < bsz:
@@ -115,6 +155,8 @@ def make_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = Non
             perms = epoch_permutations(key, hp.epochs, cap)
         perms = perms.to(device=x.device, dtype=torch.long)
         n_steps = min(total_steps, int(step_budgets(hp, count)))
+        if drop_shape is not None and dropout is None:
+            dropout = dropout_masks(key, n_steps, drop_shape, model.keep_prob, x.device)
         opt_state = opt.init(params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for s in range(n_steps):
@@ -126,7 +168,8 @@ def make_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = Non
                 bx = bx.to(compute_dtype)
             leaves = [p.detach().requires_grad_(True) for p in pt.tree_leaves(params)]
             p = pt.tree_unflatten_like(params, leaves)
-            logits, new_stats = model.apply({"params": p, **rest}, bx, train=True)
+            drop = {} if drop_shape is None else {"dropout": dropout[s]}
+            logits, new_stats = model.apply({"params": p, **rest}, bx, train=True, **drop)
             loss = base_loss(logits.to(torch.float32), by)
             if loss_extra is not None:
                 loss = loss + loss_extra(p, ctx)
@@ -159,8 +202,9 @@ def to_device(array, device, dtype=None) -> torch.Tensor:
 def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = None,
                                 grad_hook: Optional[Callable] = None):
     """Build ``batched_train(variables, x, y, clients, counts, perms,
-    ctx=None) -> (new_variables, metrics)``: :func:`make_local_train_fn` for ``L``
-    clients at once (reference ``make_local_train_fn`` under ``jax.vmap``).
+    ctx=None, dropout=None) -> (new_variables, metrics)``:
+    :func:`make_local_train_fn` for ``L`` clients at once (reference
+    ``make_local_train_fn`` under ``jax.vmap``).
 
     ``variables``: lane-stacked (a leading lane axis ``L`` on every leaf);
     ``x`` / ``y``: every client's padded shard, stacked ``(clients, cap,
@@ -169,7 +213,9 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
     ints); ``counts``: the lanes' true sample counts on the host; ``perms``:
     the lanes' ``(L, epochs, cap)`` permutation tables; ``ctx``: the hooks'
     ``(shared, client)`` pair, ``client`` lane-stacked in the given lane
-    order (the loss hook returns one value a lane).  Returns lane-stacked
+    order (the loss hook returns one value a lane); ``dropout``: a model
+    with dropout takes the lanes' keep-masks, ``(L, steps, ...)`` bool with
+    at least each lane's own budget of steps.  Returns lane-stacked
     variables and ``(L,)`` metric tensors on the device, lanes in the given
     order.
 
@@ -191,9 +237,10 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
     compute_dtype = torch.bfloat16 if hp.compute_dtype == "bfloat16" else torch.float32
     bsz, spe = hp.batch_size, hp.steps_per_epoch
     total_steps = hp.epochs * spe
+    drop_shape = dropout_spec(model, bsz)
 
     def batched_train(variables: dict, x: torch.Tensor, y: torch.Tensor, clients: torch.Tensor,
-                      counts, perms: torch.Tensor, ctx=None):
+                      counts, perms: torch.Tensor, ctx=None, dropout: Optional[torch.Tensor] = None):
         cap, device = x.shape[1], x.device
         if cap < bsz:
             raise ValueError(
@@ -202,6 +249,9 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
         if perms is None:
             raise ValueError("batched local training takes each lane's permutation table "
                              "(the simulator's sampler gives them)")
+        if drop_shape is not None and dropout is None:
+            raise ValueError("batched local training of a model with dropout takes each "
+                             "lane's keep-masks (the simulator's sampler gives them)")
         counts = np.asarray(counts, dtype=np.int64)
         steps = np.minimum(step_budgets(hp, counts), total_steps)
         order = np.argsort(-steps, kind="stable")  # longest budget first
@@ -210,6 +260,8 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
         params, rest = split_variables(pt.tree_take(variables, take))
         rows = (clients.to(device, torch.long).index_select(0, take) * cap)[:, None]
         perms = perms.to(device=device, dtype=torch.long).index_select(0, take)
+        if drop_shape is not None:
+            dropout = dropout.to(device).index_select(0, take)
         x_rows, y_rows = x.reshape((-1,) + x.shape[2:]), y.reshape(-1)
         opt_state = opt.init(params, lanes=counts.shape[0])
         if ctx is not None:  # the per-lane half follows the lanes' running order
@@ -227,8 +279,9 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
                 bx = bx.to(compute_dtype)
             leaves = [t[:n].detach().requires_grad_(True) for t in pt.tree_leaves(params)]
             p = pt.tree_unflatten_like(params, leaves)
+            drop = {} if drop_shape is None else {"dropout": dropout[:n, s]}
             logits, new_stats = model.apply({"params": p, **pt.tree_head(rest, n)}, bx,
-                                            train=True)
+                                            train=True, **drop)
             losses = lane_loss(logits.to(torch.float32), by)
             step_ctx = None if ctx is None else (
                 shared, None if lane_ctx is None else pt.tree_head(lane_ctx, n))
@@ -258,6 +311,11 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
     return batched_train
 
 
+def _refuse_dropout(model, what: str) -> None:
+    if getattr(model, "dropout_shape", None) is not None:
+        raise NotImplementedError(f"a model with dropout in {what} is not ported yet")
+
+
 def make_full_grad_fn(model, hp: HParams):
     """Build ``full_grad(variables, x, y) -> grads``: the gradient of the
     mean loss over a client's whole cyclic-padded shard at fixed variables
@@ -266,6 +324,7 @@ def make_full_grad_fn(model, hp: HParams):
     over the true count; each batch runs in train mode (batch statistics)
     and its new running stats are thrown away.  ``x`` is used as given (no
     cast: the simulator keeps it in the compute dtype)."""
+    _refuse_dropout(model, "the full-gradient pass (FedSGD, Mime)")
     base_loss = get_loss_fn(hp.loss)
     bsz = hp.batch_size
 
@@ -295,6 +354,7 @@ def make_batched_full_grad_fn(model, hp: HParams):
     backward of every lane's batch, with each lane's own BN statistics; the
     parameters enter as an ``L``-wide expanded view, so each lane gets its
     own gradient.  Returns the lane-stacked ``(L, ...)`` gradient tree."""
+    _refuse_dropout(model, "the full-gradient pass (FedSGD, Mime)")
     lane_loss = get_lane_loss_fn(hp.loss)
     bsz = hp.batch_size
 

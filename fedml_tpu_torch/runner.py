@@ -1,22 +1,25 @@
 """FedMLRunner — platform dispatch (the port of ``fedml_tpu/runner.py``).
 
 Ported so far: the simulation platform with the algorithms of the registry
-(``algorithms/__init__.py``: the FedAvg family and FedSGD),
-and the cross-silo platform (``cross_silo/``: the plain synchronous server
-and Shamir SecAgg, in one process); every other platform and optimizer
+(``algorithms/__init__.py``: the FedAvg family and FedSGD) and the
+hierarchical and MyAvg simulators (``HierarchicalFL``, ``MyAvg`` /
+``MyAgg-7``: ``sim/hierarchical.py``, ``sim/myavg.py``), and the
+cross-silo platform (``cross_silo/``: the plain synchronous server, Shamir
+SecAgg and LightSecAgg, in one process); every other platform and optimizer
 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
-
-import math
 
 from . import algorithms, constants as C
 from .arguments import Config
 from .core.device import resolve_device
 
 _PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO)
-_PORTED_OPTIMIZERS = tuple(algorithms.names())
+# simulators of their own (reference runner.py L158, L194), beside the
+# registry's algorithms on the engine
+_SPECIAL_SIMULATORS = (C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL,) + C.FEDERATED_OPTIMIZER_MYAVG_ALIASES
+_PORTED_OPTIMIZERS = tuple(algorithms.names()) + _SPECIAL_SIMULATORS
 
 
 class FedMLRunner:
@@ -58,9 +61,25 @@ class FedMLRunner:
             from .models import model_hub
 
             self.model = model_hub.create(self.cfg, self.dataset.class_num,
-                                          in_features=math.prod(self.dataset.train_x.shape[1:]))
+                                          input_shape=self.dataset.train_x.shape[1:])
 
     def _init_simulation_runner(self, client_trainer):
+        opt = self.cfg.federated_optimizer
+        if opt in _SPECIAL_SIMULATORS and client_trainer is not None:
+            raise ValueError(f"a custom client_trainer is not used by the {opt!r} simulator; "
+                             "remove it or use a FedAvg-family optimizer")
+        if opt == C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL:
+            from .sim.hierarchical import HierarchicalSimulator, refuse_unported_hierarchical
+
+            refuse_unported_hierarchical(self.cfg)  # before the data is loaded
+            self._load_dataset_and_model()
+            return HierarchicalSimulator(self.cfg, self.dataset, self.model, device=self.device)
+        if opt in C.FEDERATED_OPTIMIZER_MYAVG_ALIASES:
+            from .sim.myavg import MyAvgSimulator, refuse_unported_myavg
+
+            refuse_unported_myavg(self.cfg)
+            self._load_dataset_and_model()
+            return MyAvgSimulator(self.cfg, self.dataset, self.model, device=self.device)
         self._load_dataset_and_model()
         from .sim.engine import MeshSimulator
 

@@ -44,10 +44,11 @@ device="cpu").run()`` with ``cfg.backend_sim`` unset / ``"MESH"`` or
 ``"sp"``.
 
 Randomness goes through a sampler object (``sample(r)``, ``perms(r, client,
-epochs, cap)``, ``uniform(r, client, shape, device)``): :class:`ClientSampler`
-derives all three from the port's generators; a test can hand in one built
-from the JAX package's keys.  Both backends take each client's draws from it,
-a MESH lane those of its client.
+epochs, cap)``, ``uniform(r, client, shape, device)`` and, for a model with
+dropout, ``dropout(r, client, n_steps, shape, keep_prob, device)``):
+:class:`ClientSampler` derives them all from the port's generators; a test
+can hand in one built from the JAX package's keys.  Both backends take each
+client's draws from it, a MESH lane those of its client.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ from ..core import rng
 from ..core.device import resolve_device
 from ..core.flags import cfg_extra
 from ..data.dataset import FederatedDataset, pad_eval_set, stack_clients
-from ..fl.local_sgd import epoch_permutations, make_eval_fn, to_device
+from ..fl.local_sgd import (dropout_masks, dropout_spec, epoch_permutations, lane_dropout_table,
+                            make_eval_fn, step_budgets, to_device)
 from ..obs.metrics import MetricsLogger
 
 # flags whose subsystems later slices port; setting one must not be a no-op
@@ -123,6 +125,25 @@ class ClientSampler:
         key = rng.fold_in(rng.client_key(rng.round_key(self.root, round_idx), client), 7)
         return torch.rand(shape, generator=rng.generator(key, device), device=device)
 
+    def dropout(self, round_idx: int, client: int, n_steps: int, shape: tuple,
+                keep_prob: float, device) -> torch.Tensor:
+        """The client's dropout keep-masks of this round, ``(n_steps,
+        *shape)`` bool, drawn on ``device`` from its client key (the
+        reference folds a dropout key into every step)."""
+        key = rng.client_key(rng.round_key(self.root, round_idx), client)
+        return dropout_masks(key, n_steps, shape, keep_prob, device)
+
+
+def client_dropout(sampler, model, hp, r: int, clients, counts, device) -> Optional[list]:
+    """Each client's keep-mask table of round ``r`` from ``sampler``, one
+    row a step of its own budget; None for a model without dropout."""
+    shape = dropout_spec(model, hp.batch_size)
+    if shape is None:
+        return None
+    steps = np.minimum(step_budgets(hp, counts), hp.epochs * hp.steps_per_epoch)
+    return [sampler.dropout(r, int(ci), int(n), shape, model.keep_prob, device)
+            for ci, n in zip(clients, steps)]
+
 
 class MeshSimulator:
     """Simulation of the registry's algorithms (the FedAvg family, FedSGD)
@@ -166,7 +187,7 @@ class MeshSimulator:
         self.client_states = None if template is None else pt.tree_map(
             lambda t: t.unsqueeze(0).repeat((n_total,) + (1,) * t.ndim), template)
 
-        eval_bs = min(256, max(32, cfg.test_batch_size))
+        self._eval_bs = eval_bs = min(256, max(32, cfg.test_batch_size))
         tx, ty, n_test = pad_eval_set(dataset.test_x, dataset.test_y, eval_bs)
         self._test = (torch.from_numpy(np.ascontiguousarray(tx)).to(self.device),
                       torch.from_numpy(np.ascontiguousarray(ty)).to(self.device, torch.long),
@@ -220,9 +241,12 @@ class MeshSimulator:
 
         states = (pt.tree_take(self.client_states, lanes)
                   if self.client_states is not None else None)
+        drops = client_dropout(self.sampler, self.model, self.hp, r, sampled, counts, self.device)
+        # a model without dropout is trained through the same call as before
+        drop = {} if drops is None else {"dropout": lane_dropout_table(drops)}
         out = self.algorithm.client_update_lanes(
             self.global_vars, states, self.server_state, self._data[0], self._data[1], lanes,
-            counts, perms=perms, draw=draw)
+            counts, perms=perms, draw=draw, **drop)
         weights = to_device(counts, self.device, torch.float32)
         self.global_vars, self.server_state = self._server_path(out.contribution, weights, r)
         if self.client_states is not None and out.client_state is not None:
@@ -235,14 +259,17 @@ class MeshSimulator:
         sampled = np.asarray(self.sampler.sample(r))
         rkey = rng.round_key(self.root_key, r)
         contribs, new_states, metrics_list = [], [], []
-        for ci in (int(c) for c in sampled):
+        drops = client_dropout(self.sampler, self.model, self.hp, r, sampled,
+                               self.counts[sampled], self.device)
+        for lane, ci in enumerate(int(c) for c in sampled):
             perms = self.sampler.perms(r, ci, self.hp.epochs, self.capacity)
             cs = (pt.tree_map(lambda s: s[ci], self.client_states)
                   if self.client_states is not None else None)
             out = self.algorithm.client_update(
                 self.global_vars, cs, self.server_state, self._data[0][ci], self._data[1][ci],
                 int(self.counts[ci]), rng.client_key(rkey, ci), perms=perms,
-                draw=lambda shape, ci=ci: self.sampler.uniform(r, ci, shape, self.device))
+                draw=lambda shape, ci=ci: self.sampler.uniform(r, ci, shape, self.device),
+                **({} if drops is None else {"dropout": drops[lane]}))
             contribs.append(out.contribution)
             new_states.append(out.client_state)
             metrics_list.append(out.metrics)

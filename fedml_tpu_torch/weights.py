@@ -5,8 +5,11 @@ with the same keys; only layouts differ:
 
 - Conv kernels: flax HWIO <-> torch OIHW;
 - Dense kernels: flax ``(in, out)`` <-> torch ``(out, in)``;
-- BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` and Dense ``bias`` as
-  they are.
+- BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` and the Dense and
+  Conv ``bias`` as they are.
+
+So every model of the port (the ResNets and the small models of
+``models/simple.py``) carries its flax weights across leaf by leaf.
 
 The two directions are exact inverses, so aggregated state can be compared
 leaf by leaf.  :func:`to_torch` / :func:`to_numpy` move a converted tree

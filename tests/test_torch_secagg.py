@@ -397,8 +397,9 @@ def test_plain_cross_silo_server_runs_through_the_runner(tmp_path):
                                   "client_role", "qsgd8_wire", "fhe"])
 def test_refusals_match_the_reference(tmp_path, case):
     """(d) What the reference refuses the port refuses (LDP, CDP without
-    the streaming fold, partial participation, a non-FedAvg optimizer),
-    and what this slice has not ported raises ``NotImplementedError``."""
+    the streaming fold, partial participation, a non-FedAvg optimizer, DP
+    under LightSecAgg), and what this slice has not ported raises
+    ``NotImplementedError``."""
     from fedml_tpu.cross_silo.secagg_shamir import shamir_secagg_params as ref_params
     from fedml_tpu_torch.runner import FedMLRunner
 
@@ -409,13 +410,17 @@ def test_refusals_match_the_reference(tmp_path, case):
         "fedprox": dict(federated_optimizer="FedProx"),
         "unported_flag": dict(extra={"server_journal_dir": str(tmp_path / "j")}),
         "grpc_backend": dict(backend="GRPC"),
-        "lightsecagg": dict(extra={"secagg_method": "lightsecagg"}),
+        "lightsecagg": dict(DP_KW, extra={"secagg_method": "lightsecagg"}),
         "client_role": dict(role="client"),
         "qsgd8_wire": dict(extra={"comm_compression": "qsgd8"}),
         "fhe": dict(enable_fhe=True),
     }[case]
     ref_cfg, cfg = _cfgs(tmp_path, f"refuse_{case}", **kw)
-    if case in ("ldp", "cdp_without_stream"):
+    if case in ("ldp", "cdp_without_stream", "lightsecagg"):
+        if case == "lightsecagg":  # ported; DP stays refused, as the reference refuses it
+            from fedml_tpu.cross_silo.lightsecagg import secagg_params as ref_lsa_params
+
+            ref_params = ref_lsa_params
         with pytest.raises(NotImplementedError, match="enable_dp"):
             ref_params(ref_cfg)
         with pytest.raises(NotImplementedError, match="enable_dp"):

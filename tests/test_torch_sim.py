@@ -137,7 +137,9 @@ def test_runner_flagship_shape_learns_on_cpu(tmp_path):
 def test_unported_features_raise(tmp_path):
     from fedml_tpu_torch.runner import FedMLRunner
 
-    for kw in (dict(federated_optimizer="HierarchicalFL"), dict(training_type="cross_device"),
+    for kw in (dict(federated_optimizer="FedLLM"),
+               dict(federated_optimizer="HierarchicalFL", enable_dp=True),
+               dict(training_type="cross_device"),
                dict(training_type="cross_silo", role="client"),
                dict(enable_dp=True), dict(checkpoint_every_rounds=1),
                dict(extra={"aot_programs": True})):
