@@ -37,7 +37,8 @@ Phases (any failure exits non-zero; no phase is caught):
    included), next to its bound (bytes at 3.35 TB/s vs operations at 67
    TFLOP/s); for the noise kernel also the one PyTorch call that computes
    the same function, ``torch.add(x, noise, alpha=sigma)``, also in 7
-   alternating runs each (median, min and max).  The lane-batched
+   alternating runs each (median, min and max), and for the dequantize
+   (single-lane and lanes) ``values.view(-1, 1024) * scales[:, None]``.  The lane-batched
    variants (``*_lanes``: one launch for all lanes of the MESH round): the
    four fused kernels at L = 64 and the three stage shapes, f32 and bf16,
    every lane bitwise the single-lane kernel on its slice and each held
@@ -134,6 +135,26 @@ Phases (any failure exits non-zero; no phase is caught):
    then one round in which silo 4 sends its mask shares and drops out: the
    global must be bitwise the uniform mean of the three survivors'
    field-quantized models.
+8. FedLLM and round checkpointing, neither through any of the seven
+   kernels (every launch count read after must be 0).  8a:
+   ``fedllm_shakespeare_lora`` as shipped (10 rounds of 2 of 4 clients, 16
+   adamw steps each of 8 sequences of 80 tokens, LoRA r 8 on the tiny bf16
+   transformer, the synthetic Markov-chain corpus): each round's time,
+   trained tokens/s, train_loss and peak memory, test loss and perplexity
+   at rounds 5 and 10, every loss finite and the last round's train_loss
+   below the first's; a profiled round (busy share, ``cudaLaunchKernel`` a
+   step); one f32 client update (TF32 off) on the card against the CPU,
+   the adapters within a relative L2 of 2e-5 and 4e-5 elementwise.  8b:
+   one round of 2 clients at Llama-2-7B's widths with the depth cut from
+   32 layers to 4 (d_model 4096, 32 heads, d_ff 11008, vocab 32000, bf16,
+   1.07e9 f32 base parameters): each client's step time, trained tokens/s,
+   6 x tokens x parameters over the step time, peak memory, finite losses
+   that fall.  8c: FedLLM 2 rounds + a checkpoint + a fresh simulator
+   resumed for 2 more against 4 straight rounds, and the flagship on MESH
+   with fused blocks 1 + 1 rounds against 2 with cuDNN deterministic: both
+   bitwise.  Every phase from 3 on starts with the caching allocator
+   emptied and prints its peak memory raw and as its own (less what was
+   allocated when it started).
 
 The line before the last is the ``{"kernels": [...]}`` JSON (each kernel's
 launches from its own path's run: the lane-batched kernels from the MESH
@@ -207,6 +228,13 @@ HIERARCHICAL = "examples/sim_hierarchical_cifar10/fedml_config.yaml"
 HIER_CHECK_LANES = 8  # the f32 batched-sub-round check's clients
 MYAVG = "examples/myavg_condshift_mlp/fedml_config.yaml"
 LIGHTSECAGG = "examples/cross_silo_lightsecagg_lr/fedml_config.yaml"
+FEDLLM = "examples/fedllm_shakespeare_lora/fedml_config.yaml"
+FULL_WIDTH_LAYERS = 4  # Llama-2-7B's widths, its 32 layers cut to this depth
+# an f32 FedLLM client update, card against CPU, as the update from where
+# it started: the relative L2 of the difference and its largest element
+# (adamw turns a rounding difference of a near-zero gradient element into
+# a step's worth; the CPU parity test holds the JAX package to the same)
+FEDLLM_CHECK_REL, FEDLLM_CHECK_ATOL = 2e-5, 4e-5
 
 
 def _gen(shape, dtype, device, seed):
@@ -609,6 +637,12 @@ def _check_quant(qz, x, u, what, variant):
     return ran
 
 
+def _dequantize_library(values, scales, n):
+    """The one PyTorch call that computes the dequantize: int8 values times
+    f32 scales promote to f32; the slice to the length is a view."""
+    return (values.view(-1, 1024) * scales[:, None]).view(-1)[:n]
+
+
 def phase_quantize(qz):
     """The int8 quantize / dequantize kernels against their plain versions:
     values, scales and the dequantized vector bitwise; each line names the
@@ -640,23 +674,28 @@ def phase_quantize(qz):
             return values.view(-1)[:n].to(torch.float32)
 
         cases = [(qz.QUANTIZE, qz.quantize_int8_stochastic, qz.quantize_int8_reference, sets,
-                  q_bytes, 7 * shape[0] * 1024, q_stream),
+                  q_bytes, 7 * shape[0] * 1024, q_stream, None),
                  (qz.DEQUANTIZE, qz.dequantize_int8, qz.dequantize_int8_reference, dq_sets,
-                  dq_bytes, n, dq_stream)]
-        for kern, fn, plain, arg_sets, nbytes, nops, stream in cases:
+                  dq_bytes, n, dq_stream, _dequantize_library)]
+        for kern, fn, plain, arg_sets, nbytes, nops, stream, library in cases:
             ms, plain_ms = _device_ms(fn, arg_sets), _device_ms(plain, arg_sets)
             stream_ms = _device_ms(stream, arg_sets)
+            library_ms = _device_ms(library, arg_sets) if library else None
+            if library and not torch.equal(library(*arg_sets[0]), fn(*arg_sets[0])):
+                raise AssertionError(f"{kern.name} n={n}: the PyTorch call computes another "
+                                     "function")
             eager_ms = _eager_ms(fn, arg_sets)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             print(f"kernel {kern.name} n={n} ({shape[0]} blocks): ok (bitwise), device "
                   f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
                   f"{100 * bound_ms / ms:.1f}% of bound, same-bytes stream {stream_ms * 1e3:.2f} us "
-                  f"({ms / stream_ms:.2f}x)), eager call {eager_ms * 1e3:.2f} us, "
-                  f"{ran[kern.name]} variant")
+                  f"({ms / stream_ms:.2f}x)"
+                  + (f", PyTorch call {library_ms * 1e3:.2f} us" if library else "")
+                  + f"), eager call {eager_ms * 1e3:.2f} us, {ran[kern.name]} variant")
             if n == GRAD_LENGTH:
                 results[kern.name].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                           "stream_ms": stream_ms,
+                                           "stream_ms": stream_ms, "library_ms": library_ms,
                                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
     for n, misaligned in ((1025, False), (GRAD_LENGTH, True)):
         g = torch.Generator(device=dev)
@@ -717,16 +756,19 @@ def phase_lane_quantize(qz):
                qz.DEQUANTIZE_LANES.name: (qz.dequantize_int8_lanes,
                                           [qz.quantize_int8_lanes(*a) for a in sets])}
     results = {}
-    for kern, fn, plain, arg_sets, nbytes, nops, stream in (
+    for kern, fn, plain, arg_sets, nbytes, nops, stream, library in (
             (qz.QUANTIZE_LANES, lambda x, u: qz._quantize_cuda(x, u, qz.QUANTIZE_LANES),
              qz.quantize_int8_reference, laid_out, q_bytes, 7 * shape[1] * 1024 * lanes,
-             lambda x, u: torch.lt(x, u.view(-1))),
+             lambda x, u: torch.lt(x, u.view(-1)), None),
             (qz.DEQUANTIZE_LANES,
              lambda v, s, m: qz._dequantize_cuda(v, s, m, qz.DEQUANTIZE_LANES),
              qz.dequantize_int8_reference, dq_laid_out, dq_bytes, n * lanes,
-             lambda v, s, m: v.view(-1).to(torch.float32))):
+             lambda v, s, m: v.view(-1).to(torch.float32), _dequantize_library)):
         ms, plain_ms = _device_ms(fn, arg_sets), _device_ms(plain, arg_sets)
         stream_ms = _device_ms(stream, arg_sets)
+        library_ms = _device_ms(library, arg_sets) if library else None
+        if library and not torch.equal(library(*arg_sets[0]), fn(*arg_sets[0])):
+            raise AssertionError(f"{kern.name}: the PyTorch call computes another function")
         wrapper_fn, wrapper_sets = wrapped[kern.name]
         wrapper_ms = _device_ms(wrapper_fn, wrapper_sets)
         eager_ms = _eager_ms(wrapper_fn, wrapper_sets)
@@ -735,10 +777,13 @@ def phase_lane_quantize(qz):
         print(f"kernel {kern.name} {lanes} x {n}: ok (bitwise, every lane the single-lane "
               f"kernels'), device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
               f"{bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}% of bound, same-bytes stream "
-              f"{stream_ms * 1e3:.2f} us ({ms / stream_ms:.2f}x); the wrapper with its layout "
-              f"{wrapper_ms * 1e3:.2f} us), eager call {eager_ms * 1e3:.2f} us")
+              f"{stream_ms * 1e3:.2f} us ({ms / stream_ms:.2f}x)"
+              + (f", PyTorch call {library_ms * 1e3:.2f} us" if library else "")
+              + f"; the wrapper with its layout {wrapper_ms * 1e3:.2f} us), eager call "
+              f"{eager_ms * 1e3:.2f} us")
         results[kern.name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "stream_ms": stream_ms,
+                              "library_ms": library_ms,
                               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     return results
 
@@ -915,6 +960,34 @@ class _RoundProbe:
         self.inner.log(metrics, step)
 
 
+# the device allocation when the running phase started (``_phase_start``)
+_PHASE_BASE = {"bytes": 0}
+
+
+def _phase_start():
+    """Free what earlier phases left (garbage, the caching allocator's
+    blocks), reset the peak and note the allocation still held, so a
+    phase's peak can be read as its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _PHASE_BASE["bytes"] = torch.cuda.memory_allocated()
+
+
+def _mem(peak=None) -> str:
+    """The raw peak (``max_memory_allocated``) and the phase's own: the
+    peak less what was allocated when the phase started."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated() if peak is None else peak
+    return (f"max_memory_allocated {peak / 2**30:.3f} GiB (this phase's own "
+            f"{(peak - _PHASE_BASE['bytes']) / 2**30:.3f} GiB)")
+
+
 def _all_counts(mods):
     return {k: v for m in mods for k, v in m.launch_counts().items()}
 
@@ -1003,8 +1076,8 @@ def phase_main_path(mods):
               f"{steps} batched steps of up to {len(own)} lanes, lane-steps computed "
               f"{computed:.0f} against the lanes' own steps {int(own.sum())} (every lane every "
               f"step: {len(own) * sim.hp.local_steps}), train_loss {metrics['train_loss']:.4f}, "
-              f"test_acc {metrics.get('test_acc', float('nan')):.4f}, max_memory_allocated "
-              f"{mem / 2**30:.2f} GiB, launches {delta}")
+              f"test_acc {metrics.get('test_acc', float('nan')):.4f}, "
+              f"{_mem(mem)}, launches {delta}")
         if round(computed) != int(own.sum()):
             raise AssertionError(f"round {r}: {computed} lane-steps, the budgets sum to "
                                  f"{int(own.sum())}")
@@ -1048,8 +1121,7 @@ def phase_fused_ab(dataset):
             times[fused].append(dt / steps)
             print(f"fused A/B pair {i} fused={fused} round {sim.round_idx - 1}: {dt:.3f} s, "
                   f"{steps} batched steps, {dt / steps * 1e3:.2f} ms a batched step, train_loss "
-                  f"{metrics['train_loss']:.4f}, max_memory_allocated "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                  f"{metrics['train_loss']:.4f}, {_mem()}")
     for fused, per_step in times.items():
         print(f"fused A/B fused={fused}: median {statistics.median(per_step) * 1e3:.2f} ms a "
               f"batched step over {AB_PAIRS} rounds (min {min(per_step) * 1e3:.2f}, max "
@@ -1183,7 +1255,7 @@ def phase_fedsgd(mods, qz):
         print(f"round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
               f"{batches * cfg.batch_size / metrics['round_time_s']:.0f} gradient samples/s, "
               f"test_loss {metrics['test_loss']:.4f}, test_acc {metrics['test_acc']:.4f}, "
-              f"max_memory_allocated {mem / 2**30:.2f} GiB, launches {delta}")
+              f"{_mem(mem)}, launches {delta}")
         for k in qz.LANE_KERNELS:
             if delta[k.name] != 1:
                 raise AssertionError(f"{k.name}: {delta[k.name]} launches in round "
@@ -1321,7 +1393,7 @@ def phase_cross_silo(mods, nz):
               f"{metrics['test_loss']:.4f}, test_acc {metrics['test_acc']:.4f}, finalize "
               f"(unmask + clip + noise) {1e3 * metrics['finalize_time_s']:.1f} ms, uploads "
               f"{wire - prev_bytes} bytes (frames {metrics['upload_bytes']}), "
-              f"max_memory_allocated {mem / 2**30:.2f} GiB, launches {delta}")
+              f"{_mem(mem)}, launches {delta}")
         print(f"round {metrics['round']} delta: L2 norm before the clip {norm:.6g}, BN "
               f"statistics' share of its squared norm {bn_share:.6g} ({probe.n_stats} of "
               f"{agg.model_dim} elements), after the clip {clipped:.6g} (clip "
@@ -1412,7 +1484,7 @@ def phase_fedopt(mods):
               f"{int(own.sum()) * cfg.batch_size / metrics['round_time_s']:.0f} trained samples/s, "
               f"{steps} batched steps of up to {len(own)} lanes ({int(own.sum())} lane-steps), "
               f"train_loss {metrics['train_loss']:.4f}, test_loss {metrics['test_loss']:.4f}, "
-              f"test_acc {metrics['test_acc']:.4f}, max_memory_allocated {mem / 2**30:.2f} GiB, "
+              f"test_acc {metrics['test_acc']:.4f}, {_mem(mem)}, "
               f"launches {delta}")
         _check_lane_sites(fb, delta, steps, f"fedopt round {r}")
         for k in (fb.BWD, fb.BWD_RES):
@@ -1515,7 +1587,7 @@ def phase_family(mods, dataset):
                      f"{sim.dataset.n_clients - len(sampled)} others bitwise unchanged")
         print(f"family {algo}: {FAMILY_ROUNDS} MESH rounds in {dt:.3f} s, train_loss "
               f"{[round(m['train_loss'], 4) for m in history]}, {steps} batched fwd+bwd, "
-              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"{_mem()}, "
               f"lane launches {[counts[k.name] for k in fb.LANE_KERNELS]}{state}")
         del runner, sim, before
 
@@ -1725,8 +1797,8 @@ def phase_hierarchical(mods):
               f"{lane_steps * cfg.batch_size / metrics['round_time_s']:.0f} trained samples/s, "
               f"train_loss {metrics['train_loss']:.4f}, test_loss "
               f"{metrics.get('test_loss', float('nan')):.4f}, test_acc "
-              f"{metrics.get('test_acc', float('nan')):.4f}, max_memory_allocated "
-              f"{mem / 2**30:.2f} GiB")
+              f"{metrics.get('test_acc', float('nan')):.4f}, "
+              f"{_mem(mem)}")
     if len(history) != ROUNDS:
         raise AssertionError(f"expected {ROUNDS} rounds, got {len(history)}")
     _check_finite(sim, history, ("train_loss",))
@@ -1805,8 +1877,7 @@ def _myavg_run(mods, what, **overrides):
     samples = int(step_budgets(sim.hp, sim.counts).sum()) * sim.hp.batch_size * len(history)
     print(f"{what}: {len(history)} rounds in {dt:.3f} s ({1e3 * dt / len(history):.2f} ms a "
           f"round incl. evaluation, {samples / dt:.0f} trained samples/s; set-up "
-          f"{t1 - t0:.1f} s), max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, final train_loss "
+          f"{t1 - t0:.1f} s), {_mem()}, final train_loss "
           f"{history[-1]['train_loss']:.4f}, test_acc {history[-1]['test_acc']:.4f}")
     return history, sim, counts
 
@@ -1874,7 +1945,7 @@ def phase_lightsecagg(mods):
     print(f"lightsecagg path: {len(history)} rounds in {dt:.2f} s, T={agg.protocol.t} "
           f"U={agg.protocol.u} over {agg.model_dim} elements (padded {agg.d_pad}), "
           f"{len(clients)} silos of {[c.trainer.count for c in clients]} samples, "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+          f"{_mem()}")
     for m in history:
         print(f"lightsecagg round {m['round']}: {m['round_time_s']:.4f} s, "
               f"{samples / m['round_time_s']:.0f} trained samples/s, decode (finalize) "
@@ -1931,6 +2002,250 @@ def phase_lr_recipes():
               f"final test_acc {last['test_acc']:.4f}, test_loss {last['test_loss']:.4f}")
 
 
+def _lora_gap(got, want, start):
+    """Two adapter trees as updates from ``start``: (relative L2 of their
+    difference over the update's norm, its largest element)."""
+    diff = upd = largest = 0.0
+    for path, ab in want.items():
+        for k, w in ab.items():
+            g, w, s0 = got[path][k].double().cpu(), w.double().cpu(), start[path][k].double().cpu()
+            diff += float(((g - w) ** 2).sum())
+            upd += float(((w - s0) ** 2).sum())
+            largest = max(largest, float((g - w).abs().max()))
+    return math.sqrt(diff / upd), largest
+
+
+def phase_fedllm(mods):
+    """8a: the FedLLM recipe as shipped (10 rounds) through ``init`` and
+    ``FedMLRunner(cfg).run()``: each round's time, trained tokens/s,
+    train_loss and peak memory, the test loss and perplexity at rounds 5
+    and 10; then a profiled round (busy share, ``cudaLaunchKernel`` a
+    step) and one f32 client update on the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.llm.fedllm import FedLLMSimulator
+    from fedml_tpu_torch.llm.lora import lora_size
+    from fedml_tpu_torch.obs.profile_round import busy_us
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    t0 = time.perf_counter()
+    cfg = fedml_tpu_torch.init(argv=["--cf", FEDLLM])
+    runner = FedMLRunner(cfg)
+    sim = runner.runner
+    if not isinstance(sim, FedLLMSimulator) or sim.device.type != "cuda":
+        raise AssertionError(f"the FedLLM recipe built {type(sim).__name__} on {sim.device}")
+    m = min(cfg.client_num_per_round, sim.dataset.n_clients)
+    tokens = sim.trained_tokens(m)
+    tc = sim.tcfg
+    print(f"fedllm path: set-up {time.perf_counter() - t0:.1f} s (data {sim.dataset.train_num}/"
+          f"{sim.dataset.test_num} sequences of {sim._x.shape[-1]} tokens, vocab {tc.vocab_size}, "
+          f"{sim.dataset.n_clients} clients, {m} a round, {sim.steps} steps each of batch "
+          f"{cfg.batch_size}: {tokens} trained tokens a round; transformer d_model {tc.d_model}, "
+          f"{tc.n_layers} layers, {tc.n_heads} heads, d_ff {tc.d_ff}, {tc.dtype}, "
+          f"{sum(t.numel() for t in pt.tree_leaves(sim.base_params))} base parameters; LoRA "
+          f"r {sim.rank} on {len(sim.global_lora)} kernels, {lora_size(sim.global_lora)} "
+          f"adapter parameters)")
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    _reset_counts(mods)
+    history = runner.run()
+    torch.cuda.synchronize()
+    counts = _all_counts(mods)
+    _zero_counts(counts, "fedllm path")
+    for metrics, _, mem in probe.rows:
+        evals = (f", test_loss {metrics['test_loss']:.4f}, test_ppl {metrics['test_ppl']:.3f}"
+                 if "test_loss" in metrics else "")
+        print(f"fedllm round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"{tokens / metrics['round_time_s']:.0f} trained tokens/s, train_loss "
+              f"{metrics['train_loss']:.4f}{evals}, {_mem(mem)}")
+    if len(history) != cfg.comm_round:
+        raise AssertionError(f"fedllm: {len(history)} rounds of {cfg.comm_round}")
+    for metrics in history:
+        if not math.isfinite(metrics["train_loss"]):
+            raise AssertionError(f"fedllm round {metrics['round']}: train_loss not finite")
+    evaluated = [h["round"] for h in history if "test_loss" in h]
+    if evaluated != [4, 9] or not all(math.isfinite(h[k]) for h in history if "test_loss" in h
+                                      for k in ("test_loss", "test_ppl")):
+        raise AssertionError(f"fedllm: evaluated rounds {evaluated}, expected 4 and 9, finite")
+    if not history[-1]["train_loss"] < history[0]["train_loss"]:
+        raise AssertionError("fedllm: the last round's train_loss is not below the first's")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_us([e for e in prof.events() if e.device_type.name == "CUDA"]) / 1e6
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"fedllm profiled round: wall {wall:.3f} s (profiler on), device busy {busy:.3f} s = "
+          f"{100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%, {launches} "
+          f"cudaLaunchKernel ({launches / (m * sim.steps):.0f} a step)")
+
+    # one f32 client update of the recipe, on the card and on the CPU
+    f32 = dataclasses.replace(tc, dtype=torch.float32, logits_dtype=torch.float32)
+    card = FedLLMSimulator(cfg, sim.dataset, tcfg=f32)
+    host = FedLLMSimulator(cfg, sim.dataset, tcfg=f32, device="cpu")
+    with torch.no_grad():
+        pt.tree_map(lambda h, c: h.copy_(c.cpu()), host.base_params, card.base_params)
+    start = pt.tree_map(lambda t: t + 0.01, card.global_lora)
+    ci = int(card.sampler.sample(0)[0])
+    table = card.sampler.batches(0, ci, card.steps, cfg.batch_size, int(card.counts[ci]),
+                                 card.device)
+    got, got_losses = card.client_update(start, card._x[ci], card._y[ci], table)
+    want, want_losses = host.client_update(pt.tree_map(lambda t: t.cpu(), start), host._x[ci],
+                                           host._y[ci], table.cpu())
+    rel, largest = _lora_gap(got, want, start)
+    loss_gap = float((got_losses.cpu() - want_losses).abs().max())
+    print(f"fedllm f32 client update ({card.steps} steps, TF32 off), card against CPU: adapters "
+          f"relative L2 {rel:.3g} (bound {FEDLLM_CHECK_REL}), largest element {largest:.3g} "
+          f"(bound {FEDLLM_CHECK_ATOL}), step losses within {loss_gap:.3g}")
+    if rel > FEDLLM_CHECK_REL or largest > FEDLLM_CHECK_ATOL or not np.isfinite(loss_gap) \
+            or loss_gap > 1e-4:
+        raise AssertionError("fedllm f32 client update: the card and the CPU disagree")
+    return counts
+
+
+def phase_fedllm_full(mods):
+    """8b: one FedLLM round of 2 clients at Llama-2-7B's widths, the depth
+    cut from 32 layers to 4 (``dataclasses.replace(llama_7b(),
+    n_layers=4)``), bf16, on the recipe's data: each client's step time,
+    trained tokens/s, 6 x tokens x parameters a step over the step time,
+    peak memory, finite losses that fall."""
+    import dataclasses
+
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.llm.fedllm import FedLLMSimulator
+    from fedml_tpu_torch.llm.lora import lora_size
+    from fedml_tpu_torch.models.transformer import TransformerConfig
+
+    t0 = time.perf_counter()
+    cfg = fedml_tpu_torch.init(argv=["--cf", FEDLLM])
+    cfg.comm_round, cfg.frequency_of_the_test = 1, 1
+    tcfg = dataclasses.replace(TransformerConfig.llama_7b(), n_layers=FULL_WIDTH_LAYERS)
+    sim = FedLLMSimulator(cfg, loader.load(cfg), tcfg=tcfg)
+    params = sum(t.numel() for t in pt.tree_leaves(sim.base_params))
+    torch.cuda.synchronize()
+    step_tokens = cfg.batch_size * int(sim._x.shape[-1])
+    print(f"fedllm full width: set-up {time.perf_counter() - t0:.1f} s (d_model {tcfg.d_model}, "
+          f"{tcfg.n_heads} heads, d_ff {tcfg.d_ff}, vocab {tcfg.vocab_size}, {tcfg.n_layers} "
+          f"layers of Llama-2-7B's 32, {tcfg.dtype}, remat {'on' if tcfg.remat else 'off'}: {params} f32 "
+          f"base parameters, {lora_size(sim.global_lora)} adapter parameters; "
+          f"{cfg.client_num_per_round} clients x {sim.steps} steps x {step_tokens} tokens), "
+          f"{_mem()}")
+    timed = []
+    update = sim.client_update
+
+    def timed_update(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*args)
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t, out[1].cpu()))
+        return out
+
+    sim.client_update = timed_update
+    _reset_counts(mods)
+    metrics = sim.run_round()
+    metrics.update(sim.evaluate())
+    torch.cuda.synchronize()
+    flops = 6 * step_tokens * params
+    for i, (dt, losses) in enumerate(timed):
+        step = dt / len(losses)
+        print(f"fedllm full width client {i}: {sim.steps} steps in {dt:.3f} s, {step * 1e3:.2f} ms "
+              f"a step{' (the first includes the warm-up)' if i == 0 else ''}, "
+              f"{step_tokens / step:.0f} trained tokens/s, {flops / step / 1e12:.1f} TFLOP/s "
+              f"(6 x {step_tokens} tokens x {params} parameters a step), step losses "
+              f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}")
+        quarter = max(1, len(losses) // 4)
+        if not bool(torch.isfinite(losses).all()) or not (
+                losses[-quarter:].mean() < losses[:quarter].mean()):
+            raise AssertionError(f"fedllm full width client {i}: losses not finite and falling")
+    print(f"fedllm full width round: train_loss {metrics['train_loss']:.4f}, test_loss "
+          f"{metrics['test_loss']:.4f}, test_ppl {metrics['test_ppl']:.3f}, {_mem()}")
+    if not all(math.isfinite(metrics[k]) for k in ("train_loss", "test_loss", "test_ppl")):
+        raise AssertionError(f"fedllm full width: {metrics}")
+    counts = _all_counts(mods)
+    _zero_counts(counts, "fedllm full width")
+    return counts
+
+
+def phase_resume(mods, flagship):
+    """8c: FedLLM 2 rounds + a checkpoint + a fresh simulator resumed for 2
+    more against 4 straight rounds, the adapters bitwise; the flagship on
+    MESH with fused blocks 1 + 1 rounds against 2 (cuDNN deterministic),
+    the global variables bitwise or the largest difference printed.
+    Returns the kernels' launches over the three FedLLM runs."""
+    import tempfile
+
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    def fedllm(**kw):
+        cfg = fedml_tpu_torch.init(argv=["--cf", FEDLLM])
+        cfg.frequency_of_the_test = 0
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        return FedMLRunner(cfg).runner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = fedllm(comm_round=4)
+        _reset_counts(mods)
+        straight.run()
+        fedllm(comm_round=2, checkpoint_dir=f"{tmp}/llm", checkpoint_every_rounds=1).run()
+        resumed = fedllm(comm_round=4, checkpoint_dir=f"{tmp}/llm", resume=True)
+        hist = resumed.run()
+        torch.cuda.synchronize()
+        fedllm_counts = _all_counts(mods)
+        _zero_counts(fedllm_counts, "fedllm resume")
+        same = all(torch.equal(a, b) for a, b in zip(pt.tree_leaves(straight.global_lora),
+                                                      pt.tree_leaves(resumed.global_lora)))
+        print(f"fedllm resume: 2 rounds + checkpoint + 2 resumed (rounds "
+              f"{[h['round'] for h in hist]}) against 4 straight: adapters "
+              f"{'bitwise' if same else 'DIFFER'}")
+        if not same or [h["round"] for h in hist] != [2, 3]:
+            raise AssertionError("fedllm resume is not bitwise the straight run")
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            _reset_counts(mods)
+            runs = {}
+            for name, kw in (("straight", dict(comm_round=2)),
+                             ("first", dict(comm_round=1, checkpoint_dir=f"{tmp}/mesh",
+                                            checkpoint_every_rounds=1)),
+                             ("resumed", dict(comm_round=2, checkpoint_dir=f"{tmp}/mesh",
+                                              resume=True))):
+                runner = _flagship(flagship, frequency_of_the_test=0, **kw)
+                runner.run()
+                runs[name] = runner.runner
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        a, b = runs["straight"], runs["resumed"]
+        pairs = list(zip(pt.tree_leaves(a.global_vars), pt.tree_leaves(b.global_vars)))
+        worst = max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
+        launched = {k: v for k, v in _all_counts(mods).items() if v}
+        print(f"flagship MESH resume (fused, cuDNN deterministic): 1 round + checkpoint + 1 "
+              f"resumed against 2 straight: global variables "
+              f"{'bitwise' if worst == 0 else f'differ by up to {worst:.3g}'}; launches {launched}")
+        if worst != 0 or b.round_idx != 2:
+            raise AssertionError("flagship MESH resume is not bitwise the straight run")
+    return fedllm_counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1971,24 +2286,42 @@ def main(argv=None) -> int:
     phase_fedsgd_check()
     if args.kernels_only:
         return 0
-    fedavg_counts, dataset = phase_main_path(mods)
-    phase_fused_ab(dataset)
-    phase_mesh_vs_sp(dataset)
-    del dataset
+    _phase_start()
+    fedavg_counts, flagship = phase_main_path(mods)
+    _phase_start()
+    phase_fused_ab(flagship)
+    _phase_start()
+    phase_mesh_vs_sp(flagship)
+    _phase_start()
     fedsgd_counts, fedsgd_sp_counts = phase_fedsgd(mods, qz)
+    _phase_start()
     silo_counts = phase_cross_silo(mods, nz)
+    _phase_start()
     dataset = phase_fedopt(mods)
+    _phase_start()
     phase_family(mods, dataset)
     phase_scaffold_step(dataset)
     phase_client_adam(mods, dataset)
     del dataset
     phase_lr_recipes()
+    _phase_start()
     hier_counts, dataset = phase_hierarchical(mods)
     del dataset
+    _phase_start()
     myavg_counts = phase_myavg(mods)
+    _phase_start()
     lsa_counts = phase_lightsecagg(mods + (nz,))
-    print(f"launches on this slice's paths (none of the seven kernels runs there): "
+    print(f"launches on slice 10's paths (none of the seven kernels runs there): "
           f"hierarchical {hier_counts}, myavg {myavg_counts}, lightsecagg {lsa_counts}")
+    _phase_start()
+    fedllm_counts = phase_fedllm(mods + (nz,))
+    _phase_start()
+    full_counts = phase_fedllm_full(mods + (nz,))
+    _phase_start()
+    resume_counts = phase_resume(mods + (nz,), flagship)
+    del flagship
+    print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
+          f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
     # each kernel's launches on its own path: the lane-batched kernels on
     # the MESH rounds, the single-lane fused kernels on the cross-silo
     # silos, the single-lane quantize kernels on the FedSGD sp round

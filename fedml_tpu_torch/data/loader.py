@@ -1,17 +1,21 @@
-"""Dataset loading: CIFAR images, the ``synthetic`` feature vectors and
-the ``synthetic_condshift`` benchmark.
+"""Dataset loading: CIFAR images, the ``synthetic`` feature vectors, the
+``synthetic_condshift`` benchmark and the token-sequence datasets.
 
 The ported subset of ``fedml_tpu/data/loader.py``: ``load`` ->
 ``_load_image_like`` -> the real CIFAR python batches under
 ``data_cache_dir`` when present, else the deterministic class-structured
 synthetic stand-in with the real shapes; ``synthetic_condshift`` ->
-``_load_condshift`` (per-client train and test shards).  Arrays are numpy
-and bitwise equal to the reference's for the same config.  Every other
-dataset belongs to a later slice and raises ``NotImplementedError``.
+``_load_condshift`` (per-client train and test shards); the text datasets
+(``shakespeare``, ``fed_shakespeare``, ``stackoverflow_nwp``, ``reddit``)
+-> ``_load_text_like`` -> a LEAF json under ``data_cache_dir/<name>/`` when
+present, else a Markov-chain token stream.  Arrays are numpy and bitwise
+equal to the reference's for the same config.  Every other dataset belongs
+to a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import pickle
@@ -34,16 +38,26 @@ _DATASET_SPECS = {
     "synthetic": ((60,), 10, 20000, 4000),
 }
 
+_TEXT_SPECS = {
+    # name: (seq len, vocab)
+    "shakespeare": (80, 90),
+    "fed_shakespeare": (80, 90),
+    "stackoverflow_nwp": (20, 10004),
+    "reddit": (20, 10000),
+}
+
 
 def load(cfg: Config) -> FederatedDataset:
     name = cfg.dataset.lower()
     if name == "synthetic_condshift":
         return _load_condshift(cfg)
+    if name in _TEXT_SPECS:
+        return _load_text_like(cfg, name)
     if name not in _DATASET_SPECS:
+        ported = sorted(_DATASET_SPECS) + sorted(_TEXT_SPECS) + ["synthetic_condshift"]
         raise NotImplementedError(
             f"dataset {cfg.dataset!r} is not ported yet: the first port slice loaded "
-            f"CIFAR, later ones 'synthetic' and 'synthetic_condshift' (ported: "
-            f"{sorted(_DATASET_SPECS) + ['synthetic_condshift']})")
+            f"CIFAR, later ones the rest of {ported}")
     return _load_image_like(cfg, name)
 
 
@@ -174,3 +188,113 @@ def _synthetic_classification(name, feat, classes, n_train, n_test, seed):
     train_x, train_y = gen(n_train)
     test_x, test_y = gen(n_test)
     return train_x, train_y, test_x, test_y
+
+
+def _load_text_like(cfg: Config, name: str) -> FederatedDataset:
+    """Token sequences ``(n, seq_len)`` and their next-token targets
+    (reference L397): the LEAF json when present (clients are its users),
+    else Markov-chain streams from the seed, partitioned by their first
+    target token."""
+    seq_len, vocab = _TEXT_SPECS[name]
+    cache = Path(os.path.expanduser(cfg.data_cache_dir))
+    leaf = _try_load_leaf_text(name, cache, seq_len, vocab)
+    if leaf is not None:
+        train_x, train_y, test_x, test_y, client_idx = leaf
+    else:
+        if not cfg.synthetic_fallback:
+            raise FileNotFoundError(f"{name} not found under {cache}")
+        n_train = cfg.synthetic_train_size or 20000
+        n_test = cfg.synthetic_test_size or 4000
+        rng = np.random.RandomState(zlib.crc32(name.encode()) % (2**31) ^ cfg.random_seed)
+        # a sparse transition matrix: the next token is learnable
+        trans = rng.dirichlet(np.ones(vocab) * 0.05, size=vocab).astype(np.float64)
+
+        def gen(n):
+            seqs = np.empty((n, seq_len + 1), np.int32)
+            seqs[:, 0] = rng.randint(0, vocab, size=n)
+            for t in range(1, seq_len + 1):
+                u = rng.random(n)
+                cdf = np.cumsum(trans[seqs[:, t - 1]], axis=1)
+                seqs[:, t] = (u[:, None] > cdf).sum(axis=1)
+            return seqs[:, :-1], seqs[:, 1:]
+
+        train_x, train_y = gen(n_train)
+        test_x, test_y = gen(n_test)
+        client_idx = part.partition(cfg.partition_method, train_y[:, 0], cfg.client_num_in_total,
+                                    cfg.partition_alpha, cfg.random_seed)
+    return FederatedDataset(
+        train_x=train_x, train_y=train_y, test_x=test_x, test_y=test_y,
+        client_idx=client_idx, class_num=vocab, name=name)
+
+
+# the LEAF shakespeare character set; id 0 is every other character and the pad
+_LEAF_CHARS = sorted(set(
+    "\n !\"&'(),-.0123456789:;>?ABCDEFGHIJKLMNOPQRSTUVWXYZ[]abcdefghijklmnopqrstuvwxyz}"))
+
+
+def _try_load_leaf_text(name: str, cache: Path, seq_len: int, vocab: int):
+    """The LEAF json reader (reference L436): ``{"users": [...],
+    "user_data": {user: {"x": [...], "y": [...]}}}`` from the first json
+    of ``<cache>/<name>/train`` and ``/test``; None when either is missing.
+
+    - char-level (the shakespeare family): the fixed character table,
+      next-character targets;
+    - word-level (``reddit``, ``stackoverflow_nwp``): whitespace tokens
+      hashed into ``[1, vocab)`` by crc32, next-word targets.
+    Returns ``(train_x, train_y, test_x, test_y, client_idx)``, one client
+    per train user in sorted order."""
+    d = cache / name
+    train_file = next(iter(sorted((d / "train").glob("*.json"))), None) if d.is_dir() else None
+    test_file = next(iter(sorted((d / "test").glob("*.json"))), None) if d.is_dir() else None
+    if train_file is None or test_file is None:
+        return None
+    word_level = name in ("reddit", "stackoverflow_nwp")
+    table = {c: i + 1 for i, c in enumerate(_LEAF_CHARS)}
+
+    def encode(ids):
+        arr = np.zeros(seq_len, np.int32)
+        ids = ids[:seq_len]
+        arr[:len(ids)] = ids
+        return arr
+
+    def chars(s: str) -> list:
+        return [table.get(c, 0) for c in s]
+
+    def words(tokens) -> list:
+        return [1 + (zlib.crc32(t.encode()) % (vocab - 1)) for t in tokens]
+
+    def tokens_of(sample) -> list:
+        # a LEAF reddit sample is a string or a list of token lists
+        if isinstance(sample, str):
+            return sample.split()
+        flat = []
+        for piece in sample:
+            flat.extend(piece if isinstance(piece, list) else str(piece).split())
+        return flat
+
+    def load_split(path):
+        with open(path) as f:
+            data = json.load(f)
+        xs, ys, users = [], [], []
+        for u in data["users"]:
+            ud = data["user_data"][u]
+            for sx, sy in zip(ud["x"], ud["y"]):
+                if word_level:
+                    tx = tokens_of(sx)
+                    ty = tokens_of(sy) if sy else []
+                    xs.append(encode(words(tx)))
+                    ys.append(encode(words(tx[1:] + ty[:1])))
+                else:
+                    xs.append(encode(chars(sx)))
+                    ys.append(encode(chars(sx[1:] + sy)))
+                users.append(u)
+        return np.stack(xs), np.stack(ys), users
+
+    train_x, train_y, train_users = load_split(train_file)
+    test_x, test_y, _ = load_split(test_file)
+    users = sorted(set(train_users))
+    of_user = {u: i for i, u in enumerate(users)}
+    client_idx = [[] for _ in users]
+    for i, u in enumerate(train_users):
+        client_idx[of_user[u]].append(i)
+    return train_x, train_y, test_x, test_y, [np.array(ix, np.int64) for ix in client_idx]

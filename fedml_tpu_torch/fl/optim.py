@@ -9,8 +9,8 @@ an operation:
 
 - :class:`SGD`: ``chain(add_decayed_weights(wd), sgd(lr, momentum))``;
 - :class:`Adam`: ``scale_by_adam(b1, b2, eps)``, then
-  ``add_decayed_weights(wd)`` when ``wd`` is given (``adamw``), then
-  ``scale_by_learning_rate(lr)``;
+  ``add_decayed_weights(wd)`` when ``wd`` is given (``adamw``, and
+  :func:`adamw` with optax's defaults), then ``scale_by_learning_rate(lr)``;
 - :class:`Adagrad`: ``adagrad(lr)``; :class:`Yogi`: ``yogi(lr)``.
 
 The bias correction ``1 - b ** count`` is computed in f32 from an int32
@@ -104,6 +104,13 @@ class Adam:
         if self.weight_decay is not None:
             updates = pt.tree_map(lambda u, p: u + self.weight_decay * p, updates, params)
         return _step(params, updates, self.lr), {"count": count, "mu": mu, "nu": nu}
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> Adam:
+    """optax ``adamw(lr)`` with its defaults: ``scale_by_adam``, then
+    ``add_decayed_weights(1e-4)`` on every leaf, then ``-lr``."""
+    return Adam(learning_rate, b1, b2, eps, weight_decay=weight_decay)
 
 
 class Adagrad:

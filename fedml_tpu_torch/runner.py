@@ -2,8 +2,10 @@
 
 Ported so far: the simulation platform with the algorithms of the registry
 (``algorithms/__init__.py``: the FedAvg family and FedSGD) and the
-hierarchical and MyAvg simulators (``HierarchicalFL``, ``MyAvg`` /
-``MyAgg-7``: ``sim/hierarchical.py``, ``sim/myavg.py``), and the
+hierarchical, MyAvg and FedLLM simulators (``HierarchicalFL``, ``MyAvg`` /
+``MyAgg-7``, ``FedLLM``: ``sim/hierarchical.py``, ``sim/myavg.py``,
+``llm/fedllm.py``; FedLLM builds its own transformer, not a ``model_hub``
+model), and the
 cross-silo platform (``cross_silo/``: the plain synchronous server, Shamir
 SecAgg and LightSecAgg, in one process); every other platform and optimizer
 raises ``NotImplementedError``.
@@ -18,7 +20,8 @@ from .core.device import resolve_device
 _PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO)
 # simulators of their own (reference runner.py L158, L194), beside the
 # registry's algorithms on the engine
-_SPECIAL_SIMULATORS = (C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL,) + C.FEDERATED_OPTIMIZER_MYAVG_ALIASES
+_SPECIAL_SIMULATORS = ((C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL, C.FEDERATED_OPTIMIZER_FEDLLM)
+                       + C.FEDERATED_OPTIMIZER_MYAVG_ALIASES)
 _PORTED_OPTIMIZERS = tuple(algorithms.names()) + _SPECIAL_SIMULATORS
 
 
@@ -74,6 +77,15 @@ class FedMLRunner:
             refuse_unported_hierarchical(self.cfg)  # before the data is loaded
             self._load_dataset_and_model()
             return HierarchicalSimulator(self.cfg, self.dataset, self.model, device=self.device)
+        if opt == C.FEDERATED_OPTIMIZER_FEDLLM:
+            from .llm.fedllm import FedLLMSimulator, refuse_unported_fedllm
+
+            refuse_unported_fedllm(self.cfg)
+            if self.dataset is None:
+                from .data import loader
+
+                self.dataset = loader.load(self.cfg)
+            return FedLLMSimulator(self.cfg, self.dataset, device=self.device)
         if opt in C.FEDERATED_OPTIMIZER_MYAVG_ALIASES:
             from .sim.myavg import MyAvgSimulator, refuse_unported_myavg
 

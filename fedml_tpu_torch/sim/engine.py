@@ -35,9 +35,15 @@ Server state (an optimizer's moments, SCAFFOLD's ``c``, FedDyn's ``h``,
 Mime's momentum) is whatever tree ``server_update`` returns.  ``run_rounds(n)`` on MESH keeps the
 rounds' metrics on the device and syncs once, at the end of the chunk (the
 reference's ``jit(scan(round))`` chunk has one host sync too); CUDA-graph
-capture of rounds is a later slice.  Checkpointing, the AOT program store,
-the profiler, OTLP export, trust hooks and population mode raise
-``NotImplementedError``.
+capture of rounds is a later slice.  The AOT program store, the profiler,
+OTLP export, trust hooks and population mode raise ``NotImplementedError``.
+
+Round checkpointing (``core/checkpoint.py``, reference L871-903): with
+``checkpoint_dir`` and ``checkpoint_every_rounds`` set, :meth:`run` saves
+the global variables, the server state, the round, the root key and every
+client's state (when the algorithm keeps one) at that cadence and at the
+last round; with ``resume`` it first installs the newest intact step, whose
+root key replaces the seed's (the default sampler's too).
 
 How to run either backend on the CPU: ``FedMLRunner(cfg,
 device="cpu").run()`` with ``cfg.backend_sim`` unset / ``"MESH"`` or
@@ -65,6 +71,7 @@ from ..algorithms import create as create_algorithm, hparams_from_config
 from ..arguments import Config
 from ..core import pytree as pt
 from ..core import rng
+from ..core.checkpoint import RoundCheckpointMixin, tree_to_device
 from ..core.device import resolve_device
 from ..core.flags import cfg_extra
 from ..data.dataset import FederatedDataset, pad_eval_set, stack_clients
@@ -84,8 +91,6 @@ def _refuse_unported(cfg: Config) -> None:
     if cfg.backend_sim in _MULTI_PROCESS:
         raise NotImplementedError(f"backend_sim {cfg.backend_sim!r}: multi-process simulation "
                                   "is not ported yet")
-    if cfg.checkpoint_dir or cfg.checkpoint_every_rounds or cfg.resume:
-        raise NotImplementedError("checkpointing is not ported yet (first port slice)")
     for flag in _UNPORTED_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported yet (first port slice)")
@@ -145,7 +150,7 @@ def client_dropout(sampler, model, hp, r: int, clients, counts, device) -> Optio
             for ci, n in zip(clients, steps)]
 
 
-class MeshSimulator:
+class MeshSimulator(RoundCheckpointMixin):
     """Simulation of the registry's algorithms (the FedAvg family, FedSGD)
     on ``device`` (the card unless the caller names another; see
     ``core/device.py``): :meth:`run` is the fit loop, :meth:`run_round` one
@@ -307,21 +312,42 @@ class MeshSimulator:
         res = self._eval_fn(self.global_vars, *self._test)
         return {k: float(v) for k, v in res.items()}
 
+    # -- round checkpoint (reference L871-903) -------------------------------
+    def _ckpt_state(self) -> dict:
+        state = {"global_vars": self.global_vars, "server_state": self.server_state,
+                 "round_idx": self.round_idx, "root_key": self.root_key}
+        if self.client_states is not None:
+            state["client_states"] = self.client_states
+        return state
+
+    def _apply_ckpt_state(self, state: dict) -> None:
+        self.global_vars = tree_to_device(state["global_vars"], self.device)
+        self.server_state = tree_to_device(state["server_state"], self.device)
+        self.round_idx = int(state["round_idx"])
+        # the checkpointed key is authoritative over the config's seed
+        self.root_key = tuple(int(w) for w in state["root_key"])
+        if isinstance(self.sampler, ClientSampler):
+            self.sampler.root = self.root_key
+        if "client_states" in state:
+            self.client_states = tree_to_device(state["client_states"], self.device)
+
     def _next_boundary(self, r0: int) -> int:
-        """First round index > r0 at which the host evaluates or training
-        ends."""
+        """First round index > r0 at which the host evaluates, checkpoints
+        or training ends."""
         cfg = self.cfg
         ends = [cfg.comm_round]
-        if cfg.frequency_of_the_test:
-            f = cfg.frequency_of_the_test
-            ends.append(((r0 // f) + 1) * f)
+        for every in (cfg.frequency_of_the_test, cfg.checkpoint_every_rounds):
+            if every:
+                ends.append(((r0 // every) + 1) * every)
         return max(r0 + 1, min(e for e in ends if e > r0))
 
     def run(self) -> list[dict]:
-        """The fit loop (reference ``FedAvgAPI.train``): rounds between host
-        boundaries, evaluation at the test cadence and at the last round."""
+        """The fit loop (reference ``FedAvgAPI.train``): resume when asked,
+        rounds between host boundaries, evaluation at the test cadence and at
+        the last round, a checkpoint at its cadence and at the last round."""
         history = []
         cfg = self.cfg
+        self.try_resume()
         while self.round_idx < cfg.comm_round:
             r0 = self.round_idx
             end = self._next_boundary(r0)
@@ -340,4 +366,5 @@ class MeshSimulator:
             for metrics in chunk:
                 self.logger.log(metrics)
                 history.append(metrics)
+            self.maybe_save_checkpoint(r_last)
         return history

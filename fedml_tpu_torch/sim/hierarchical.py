@@ -32,8 +32,9 @@ keys them as the reference does, sub-round ``s`` of round ``r`` from
 hand in the reference's.
 
 Refused with ``NotImplementedError``: the trust features (as the reference
-refuses them for this simulator) and the engine's unported flags (the AOT
-store, the profiler, OTLP export, checkpointing).
+refuses them for this simulator), the engine's unported flags (the AOT
+store, the profiler, OTLP export), and round checkpointing, which the
+reference's hierarchical simulator does not have (it ignores the keys).
 """
 
 from __future__ import annotations
@@ -66,7 +67,10 @@ def refuse_unported_hierarchical(cfg: Config) -> None:
         raise NotImplementedError(f"trust features {active} are not wired into the "
                                   "'HierarchicalFL' simulator; refusing to run without them")
     if cfg.checkpoint_dir or cfg.checkpoint_every_rounds or cfg.resume:
-        raise NotImplementedError("checkpointing is not ported yet")
+        # the reference's hierarchical simulator has no round checkpoint (it
+        # ignores these keys); the port refuses them rather than add one
+        raise NotImplementedError("checkpointing is not served by the 'HierarchicalFL' "
+                                  "simulator (the reference has none there)")
     for flag in _UNPORTED_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported yet")

@@ -9,7 +9,11 @@ with the same keys; only layouts differ:
   Conv ``bias`` as they are.
 
 So every model of the port (the ResNets and the small models of
-``models/simple.py``) carries its flax weights across leaf by leaf.
+``models/simple.py``) carries its flax weights across leaf by leaf.  The
+transformer (``models/transformer.py``) keeps flax's layouts, and so do
+LoRA adapter trees: :func:`tree_from_flax` and :func:`to_numpy` copy them
+leaf for leaf and transpose nothing (:func:`flax_to_torch` would
+transpose the 2-D ``lm_head`` and MLP kernels).
 
 The two directions are exact inverses, so aggregated state can be compared
 leaf by leaf.  :func:`to_torch` / :func:`to_numpy` move a converted tree
@@ -104,3 +108,12 @@ def to_numpy(tree):
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     return tree.detach().to("cpu", torch.float32 if tree.is_floating_point() else tree.dtype).numpy()
+
+
+
+def tree_from_flax(tree, device="cpu") -> dict:
+    """A flax tree whose layouts the port keeps (the transformer's
+    ``params``, a LoRA adapter tree ``{path: {"a", "b"}}``; numpy or jax
+    leaves) -> f32 tensors on ``device``.  :func:`to_numpy` is the
+    inverse."""
+    return to_torch(_convert(tree, lambda _, a: np.asarray(a, np.float32)), device)

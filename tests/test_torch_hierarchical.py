@@ -182,6 +182,8 @@ def test_recipe_runs_through_the_runner(tmp_path):
     assert [h["round"] for h in hist] == [0, 1]
     assert all(np.isfinite(h["train_loss"]) and np.isfinite(h["test_loss"]) for h in hist)
 
+    from fedml_tpu_torch.llm.fedllm import FedLLMSimulator
+
     cfg = fedml_tpu_torch.init(argv=["--cf", "examples/fedllm_shakespeare_lora/fedml_config.yaml"])
-    with pytest.raises(NotImplementedError, match="FedLLM"):
-        FedMLRunner(cfg, device="cpu")
+    cfg.data_cache_dir = str(tmp_path)
+    assert isinstance(FedMLRunner(cfg, device="cpu").runner, FedLLMSimulator)

@@ -137,11 +137,11 @@ def test_runner_flagship_shape_learns_on_cpu(tmp_path):
 def test_unported_features_raise(tmp_path):
     from fedml_tpu_torch.runner import FedMLRunner
 
-    for kw in (dict(federated_optimizer="FedLLM"),
+    for kw in (dict(federated_optimizer="FedGAN"),
                dict(federated_optimizer="HierarchicalFL", enable_dp=True),
                dict(training_type="cross_device"),
                dict(training_type="cross_silo", role="client"),
-               dict(enable_dp=True), dict(checkpoint_every_rounds=1),
+               dict(enable_dp=True), dict(extra={"population_store": "/nonexistent"}),
                dict(extra={"aot_programs": True})):
         _, cfg = _cfgs(tmp_path, **kw)
         with pytest.raises(NotImplementedError):
