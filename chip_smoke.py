@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; no phase is caught):
    weighted by its launches at the three shapes.  The forward's scalar
    variant (odd C, a misaligned operand) is held bitwise too.  Hold the int8
    quantize and dequantize kernels against theirs at the FedSGD gradient's
-   length (269,722 elements, 264 blocks) and at 2^24 elements: int8 values,
+   length (269,722 elements, 264 blocks), at 2^24 elements and at the
+   lengths of ResNet-20's conv kernels that a qsgd8 upload compresses
+   (2,304, 4,608, 9,216, 18,432, 36,864; phase 9): int8 values,
    scales and the dequantized vector bitwise; each line names the variant
    that ran and gives the same-bytes stream (``torch.lt(x, u)``,
    ``values.to(float32)``); then at 1,025 (vector) and at 269,722 with x
@@ -152,15 +154,37 @@ Phases (any failure exits non-zero; no phase is caught):
    that fall.  8c: FedLLM 2 rounds + a checkpoint + a fresh simulator
    resumed for 2 more against 4 straight rounds, and the flagship on MESH
    with fused blocks 1 + 1 rounds against 2 with cuDNN deterministic: both
-   bitwise.  Every phase from 3 on starts with the caching allocator
-   emptied and prints its peak memory raw and as its own (less what was
-   allocated when it started).
+   bitwise.
+9. Compressed cross-silo uploads (run right after phase 5, on its data):
+   phase 5's recipe, 4 silos, fused blocks, in three forms, 2 rounds each
+   after one warm-up round: (a) ``extra.comm_compression: qsgd8``, (b)
+   ``topk`` (ratio 0.01), (c) Shamir SecAgg with ``secagg_stream``, central
+   DP and ``qsgd8`` (the quantize-then-mask ring).  Each round prints its
+   time, upload bytes a silo and the ratio, the aggregate time (the
+   server's fold and finalize host times), test metrics, launches by kernel
+   and variant and the peak memory.  Asserted: the upload bytes computed
+   from the tree's shapes (288,784 for qsgd8, 36,680 for topk, 542,196 for
+   the masked u16 vector) and met every round; rows 5 and 6 (quantize,
+   dequantize) 18 times an upload in (a) (the 18 conv kernels) and never
+   in (b) or (c); row 7 once a round in (c); the server's streaming fold on
+   in (a) and (b), at most 2 updates buffered, finite metrics and weights.
+   Then (i) silo 1's round-0 qsgd8 frame built on the card (18 quantize
+   launches) byte-identical to the same frame built by the plain versions
+   on the CPU, from the same delta and draws; (ii) round 1's four frames
+   folded again on the card: the dequantize kernel bitwise numpy's decode
+   at each leaf length, the sums, the division and the new global bitwise
+   the reference's numpy host fold of the same frames, and the run's own
+   global.
+   Every phase from 3 on starts with the caching allocator emptied and
+   prints its peak memory raw and as its own (less what was allocated when
+   it started).
 
-The line before the last is the ``{"kernels": [...]}`` JSON (each kernel's
+The script's wall time, then the ``{"kernels": [...]}`` JSON (each kernel's
 launches from its own path's run: the lane-batched kernels from the MESH
 rounds of phases 3-4, the single-lane fused kernels from phase 5, the
-single-lane quantize kernels from phase 4's sp round); the last line is
-``{"ok": true,
+single-lane quantize kernels from phase 4's sp round; ``wire_launches``:
+each kernel's launches on phase 9's form (a), the noise kernel's on form
+(c)), then the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  ``--kernels-only`` stops after phase 2 and prints
 neither.
 """
@@ -184,13 +208,16 @@ SHAPES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64)]
 STEP_LAUNCHES = {"fused_bn_relu_fwd": (4, 3, 3), "fused_bn_residual_relu_fwd": (3, 3, 3),
                  "fused_bn_relu_bwd": (4, 3, 3), "fused_bn_residual_relu_bwd": (3, 3, 3)}
 GRAD_LENGTH = 269722  # ResNet-20's parameters: the FedSGD gradient
-QUANT_LENGTHS = [GRAD_LENGTH, 2**24]
+# ResNet-20's 18 conv kernels: the leaves a qsgd8 upload compresses (phase 9)
+WIRE_LENGTHS = [2304, 4608, 9216, 18432, 36864]
+QUANT_LENGTHS = [GRAD_LENGTH, 2**24] + WIRE_LENGTHS
 SECAGG_LENGTH = 271098  # ResNet-20's parameters and BN statistics: the SecAgg vector
 NOISE_LENGTHS = [SECAGG_LENGTH, 2**24]
 # the cross-silo path's central DP (the reference's own CDP test values)
 DP = dict(enable_dp=True, dp_solution_type="cdp", mechanism_type="gaussian", epsilon=50.0,
           delta=1e-5, sensitivity=0.01, clipping_norm=1.0)
 SILOS = 4
+WIRE_ROUNDS = 2  # each form of phase 9, after one warm-up round
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6
@@ -1428,8 +1455,283 @@ def phase_cross_silo(mods, nz):
     print(f"cross-silo check: round 0's global bitwise the plain noise of its clipped global, "
           f"max |noise| applied {float((post - pre).abs().max()):.3g}; peak buffered "
           f"{agg.peak_buffered_updates}; every client trained {[c.rounds_trained for c in clients]}")
-    return counts
+    return counts, runner.dataset
 
+
+# -- phase 9: compressed cross-silo uploads ------------------------------------
+
+def _wire_cfg(codec, secagg=False, rounds=None):
+    """The flagship recipe as phase 5 runs it (4 silos, all in every round,
+    fused blocks), with ``extra.comm_compression`` set; ``secagg`` adds
+    phase 5's Shamir SecAgg with the streaming fold and central DP."""
+    import fedml_tpu_torch
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.training_type, cfg.role, cfg.backend = "cross_silo", "server", "INPROC"
+    cfg.client_num_in_total = cfg.client_num_per_round = SILOS
+    cfg.comm_round = WIRE_ROUNDS if rounds is None else rounds
+    cfg.frequency_of_the_test = 1
+    cfg.extra.update(fused_blocks=True, comm_compression=codec)
+    if secagg:
+        cfg.enable_secagg = True
+        for k, v in DP.items():
+            setattr(cfg, k, v)
+        cfg.extra.update(secagg_method="shamir", secagg_stream=True)
+    return cfg
+
+
+def _upload_bytes(tree, codec):
+    """Payload bytes of one compressed upload of ``tree`` (flax layout),
+    from its shapes: leaves of 1024 elements or more compress (qsgd8: a f32
+    scale and 1024 int8 values a block; topk: k = int(0.01 n) int32 / f32
+    pairs), the rest ride raw."""
+    total = 0
+    for leaf in tree:
+        n = leaf.numel()
+        if n < 1024:
+            total += n * leaf.element_size()
+        elif codec == "qsgd8":
+            total += -(-n // 1024) * (4 + 1024)
+        else:
+            total += max(1, int(0.01 * n)) * 8
+    return total
+
+
+class _WireProbe(_RoundProbe):
+    """The round probe of phase 9: also the payload counters and the
+    launches by kernel and variant at each round, and the round's global
+    (flat clone) for the fold check."""
+
+    def __init__(self, inner, counts, payload, aggregator):
+        super().__init__(inner, counts)
+        self.payload, self.aggregator, self.wire, self.globals = payload, aggregator, [], []
+
+    def log(self, metrics, step=None):
+        from fedml_tpu_torch.core import pytree as pt
+
+        self.wire.append(self.payload())
+        self.globals.append(pt.tree_map(lambda t: t.clone(), self.aggregator.global_vars))
+        super().log(metrics, step)
+
+
+def _host_fold(frames, base, total_w, w_delta):
+    """The reference's host fold (``HostStreamAccumulator``) in numpy over
+    ``[(weight, decoded leaves)]``: ``sum += f32(w) * leaf``, then
+    ``((sum + f32(w_delta) * base) / f32(total)).astype(dtype)``."""
+    import numpy as np
+
+    sums = [np.zeros(b.shape, np.float32) for b in base]
+    for w, arrays in frames:
+        for i, arr in enumerate(arrays):
+            sums[i] += np.float32(w) * np.asarray(arr, dtype=np.float32)
+    out = []
+    for acc, b in zip(sums, base):
+        if w_delta:
+            acc = acc + np.float32(w_delta) * np.asarray(b, dtype=np.float32)
+        out.append((acc / np.float32(total_w)).astype(b.dtype))
+    return sums, out
+
+
+def phase_wire(mods, qz, nz, dataset):
+    """Phase 9: the compressed cross-silo path, three forms, 2 rounds each
+    after a warm-up round, then the card-against-CPU checks of the upload
+    frame and of the fold."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.comm import codecs, wire
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo import client as client_mod
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    all_mods = mods + (nz,)
+    t0 = time.perf_counter()
+    FedMLRunner(_wire_cfg("qsgd8", rounds=1), dataset=dataset).run()
+    torch.cuda.synchronize()
+    print(f"wire path: warm-up round (qsgd8) {time.perf_counter() - t0:.1f} s with set-up")
+    forms = (("a", "qsgd8", False), ("b", "topk", False), ("c", "qsgd8", True))
+    results, counts_by_form, captured = {}, {}, {}
+    for form, codec, secagg in forms:
+        runner = group = server = clients = agg = probe = None  # free the last form's
+        _phase_start()
+        runner = FedMLRunner(_wire_cfg(codec, secagg), dataset=dataset)
+        group = runner.runner
+        t1 = time.perf_counter()
+        group.setup()
+        server, clients = group.server, group.clients
+        agg = server.aggregator
+        tmpl = wire.flatten_with_skeleton(weights.tensors_to_flax(agg.global_vars))[1]
+        raw_bytes = sum(t.numel() * t.element_size() for t in tmpl)
+        key = f"secagg_{codec}" if secagg else codec
+        if secagg:
+            expected = 2 * agg.model_dim
+            if agg.ring.bits != 11 or agg.ring.codec != "qsgd8":
+                raise AssertionError(f"form (c): ring {agg.ring.codec} of {agg.ring.bits} bits, "
+                                     "expected the 11-bit qsgd8 ring")
+        else:
+            expected = _upload_bytes(tmpl, codec)
+            if not agg.stream_mode:
+                raise AssertionError(f"form ({form}): the server's streaming fold is off")
+        want = {"qsgd8": 288784, "topk": 36680}[codec] if not secagg else 542196
+        if expected != want:
+            raise AssertionError(f"form ({form}): {expected} bytes an upload from the shapes, "
+                                 f"{want} expected")
+        if form == "a":
+            # one silo's round-0 upload inputs (the trained and the received
+            # global, on the card) and the server's round-1 frames, kept for
+            # the checks after the runs
+            rank1 = clients[0]
+            inner = rank1.upload_payload
+
+            def keep_inputs(new_vars, global_vars, round_idx, inner=inner):
+                if round_idx == 0:
+                    captured["upload"] = (pt.tree_map(torch.clone, new_vars),
+                                          pt.tree_map(torch.clone, global_vars))
+                return inner(new_vars, global_vars, round_idx)
+
+            rank1.upload_payload = keep_inputs
+            ingest = agg.ingest_streaming
+
+            def keep_frames(cid, msg, n, is_delta, ingest=ingest, server=server):
+                if server.round_idx == 1:
+                    captured.setdefault("frames", []).append((cid, msg, n, is_delta))
+                return ingest(cid, msg, n, is_delta)
+
+            agg.ingest_streaming = keep_frames
+
+        def payload(key=key):
+            return codecs.payload_counters().get(key, {}).get("wire_bytes", 0)
+
+        def counts():
+            return (_all_counts(all_mods), {k: dict(v) for k, v in qz.variant_counts().items()},
+                    nz.variant_counts()[nz.NOISE.name])
+
+        probe = _WireProbe(server.logger, counts, payload, agg)
+        server.logger = probe
+        init = pt.tree_map(torch.clone, agg.global_vars)
+        print(f"wire path ({form}) {codec}{' under SecAgg + CDP' if secagg else ''}: set-up "
+              f"{time.perf_counter() - t1:.1f} s, {len(tmpl)} leaves, {raw_bytes} raw bytes, "
+              f"{expected} bytes an upload ({raw_bytes / expected:.3f}x)")
+        torch.cuda.reset_peak_memory_stats()
+        before = payload()
+        _reset_counts(all_mods)
+        history = runner.run()
+        torch.cuda.synchronize()
+        counts_by_form[form] = _all_counts(all_mods)
+        prev_counts, prev_var, prev_noise, prev_bytes = ({k: 0 for k in counts_by_form[form]},
+                                                         None, 0, before)
+        for (metrics, (cum, var, noise_var), mem), wire_b in zip(probe.rows, probe.wire):
+            delta = {k: cum[k] - prev_counts[k] for k in cum if cum[k] - prev_counts[k]}
+            prev_counts, r = cum, metrics["round"]
+            per_upload = (wire_b - prev_bytes) / SILOS
+            prev_bytes = wire_b
+            fin = metrics.get("finalize_time_s", 0.0)
+            print(f"round {r} ({form}): {metrics['round_time_s']:.3f} s, upload "
+                  f"{per_upload:.0f} bytes a silo ({raw_bytes / per_upload:.3f}x; frames "
+                  f"{metrics['upload_bytes']} bytes in all), aggregate "
+                  f"{1e3 * metrics['aggregate_time_s']:.1f} ms (fold "
+                  f"{1e3 * metrics.get('fold_time_s', 0.0):.1f} ms host, finalize "
+                  f"{1e3 * fin:.1f} ms), test_acc {metrics['test_acc']:.4f}, test_loss "
+                  f"{metrics['test_loss']:.4f}, {_mem(mem)}, launches {delta}, variants "
+                  f"quantize {var[qz.QUANTIZE.name]} dequantize {var[qz.DEQUANTIZE.name]} "
+                  f"noise {noise_var}")
+            if per_upload != expected:
+                raise AssertionError(f"round {r} ({form}): {per_upload} bytes an upload, "
+                                     f"{expected} expected")
+            quant, dequant = delta.get(qz.QUANTIZE.name, 0), delta.get(qz.DEQUANTIZE.name, 0)
+            leaves = sum(1 for t in tmpl if t.numel() >= 1024) if form == "a" else 0
+            if quant != leaves * SILOS or dequant != leaves * SILOS:
+                raise AssertionError(f"round {r} ({form}): quantize {quant} / dequantize "
+                                     f"{dequant} launches, expected {leaves} an upload x {SILOS}")
+            if secagg and delta.get(nz.NOISE.name, 0) != 1:
+                raise AssertionError(f"round {r} ({form}): {delta.get(nz.NOISE.name, 0)} noise "
+                                     "launches, expected 1")
+        if len(history) != WIRE_ROUNDS or agg.peak_buffered_updates > 2:
+            raise AssertionError(f"form ({form}): {len(history)} rounds, peak buffered "
+                                 f"{agg.peak_buffered_updates}")
+        for metrics in history:
+            for k in ("test_loss", "test_acc"):
+                if not math.isfinite(metrics[k]):
+                    raise AssertionError(f"round {metrics['round']} ({form}): {k} = {metrics[k]}")
+        if not all(bool(torch.isfinite(leaf).all()) for leaf in pt.tree_leaves(agg.global_vars)):
+            raise AssertionError(f"form ({form}): non-finite global variables")
+        bad = [k.name for k in mods[0].KERNELS if counts_by_form[form][k.name] == 0]
+        if bad:
+            raise AssertionError(f"form ({form}): fused kernels never launched: {bad}")
+        print(f"wire path ({form}): peak buffered {agg.peak_buffered_updates}, every silo "
+              f"trained {[c.rounds_trained for c in clients]}, launches "
+              f"{ {k: v for k, v in counts_by_form[form].items() if v} }")
+        results[form] = (init, probe.globals, agg.global_vars)
+    print(f"payload counters: {codecs.payload_counters()}")
+
+    # (i) one silo's round-0 qsgd8 frame: the card's against the plain
+    # versions' on the CPU, from the same delta and the same draws
+    new_vars, global_vars = captured["upload"]
+    delta = weights.tensors_to_flax(pt.tree_map(client_mod._leaf_delta, new_vars, global_vars))
+    gen = torch.Generator().manual_seed(9)
+    draws = {}
+
+    def uniform(i, shape, device):
+        if i not in draws:
+            draws[i] = torch.rand(shape, generator=gen)
+        return draws[i].to(device)
+
+    frames = []
+    for tree in (delta, pt.tree_map(lambda t: t.cpu(), delta)):
+        before = qz.launch_counts()[qz.QUANTIZE.name]
+        out, _, _ = codecs.compress_pytree(tree, "qsgd8", uniform=uniform)
+        frames.append((wire.encode_pytree({"model_params": out}),
+                       qz.launch_counts()[qz.QUANTIZE.name] - before))
+    if frames[0][0] != frames[1][0] or frames[0][1] != 18 or frames[1][1] != 0:
+        raise AssertionError(f"check (i): the card's qsgd8 frame ({len(frames[0][0])} bytes, "
+                             f"{frames[0][1]} launches) is not the CPU's ({len(frames[1][0])} "
+                             "bytes)")
+    print(f"wire check (i): silo 1's round-0 qsgd8 frame, {len(frames[0][0])} bytes, built on "
+          f"the card (18 quantize launches) byte-identical to the plain versions' on the CPU")
+
+    # (ii) round 1's four frames folded again on the card against the numpy
+    # host fold: kernel 6 against numpy's decode at each leaf length, the
+    # sums, the division and the new global bitwise; the run's own global too
+    from fedml_tpu_torch.parallel.stream_fold import DeviceStreamAccumulator, decode_leaf
+
+    init, globals_after, final = results["a"]
+    base = wire.flatten_with_skeleton(weights.tensors_to_flax(globals_after[0]))[1]
+    kept = captured["frames"]
+    if len(kept) != SILOS:
+        raise AssertionError(f"check (ii): {len(kept)} frames kept, expected {SILOS}")
+    acc = DeviceStreamAccumulator(base, base[0].device)
+    host, lengths = [], set()
+    total_w = w_delta = 0.0
+    for cid, msg, n, is_delta in kept:
+        arrays = [arr for _, _, arr in msg.tensor_frame()[1]]  # numpy's decode
+        for i, spec, segs in msg.tensor_segments()[1]:
+            x = decode_leaf(spec, segs, acc.device)
+            if spec.get("codec") == "qsgd8":
+                lengths.add(int(spec["length"]))
+                if not np.array_equal(x.cpu().numpy(), arrays[i]):
+                    raise AssertionError(f"check (ii): dequantize kernel at {spec['length']} "
+                                         "is not numpy's decode")
+            acc.fold_leaf(i, n, x)
+        host.append((n, arrays))
+        total_w += n
+        w_delta += n if is_delta else 0.0
+    sums_np, out_np = _host_fold(host, [b.cpu().numpy() for b in base], total_w, w_delta)
+    out = acc.finalize(base, w_delta, total_w)
+    for i, (s, s_np) in enumerate(zip(acc.sums(), sums_np)):
+        if not np.array_equal(s.cpu().numpy(), s_np):
+            raise AssertionError(f"check (ii): leaf {i}'s device sum is not the host fold's")
+    for i, (o, o_np) in enumerate(zip(out, out_np)):
+        if not np.array_equal(o.cpu().numpy(), o_np):
+            raise AssertionError(f"check (ii): leaf {i}'s finalized leaf (the division) is not "
+                                 "numpy's")
+    run_final = wire.flatten_with_skeleton(weights.tensors_to_flax(final))[1]
+    if not all(torch.equal(a, b) for a, b in zip(out, run_final)):
+        raise AssertionError("check (ii): the run's round-1 global is not the fold of its frames")
+    print(f"wire check (ii): round 1's {SILOS} frames folded on the card bitwise the numpy host "
+          f"fold (sums, division, {len(out)} leaves) and the run's global; dequantize kernel "
+          f"bitwise numpy's decode at lengths {sorted(lengths)}")
+    return counts_by_form
 
 def _check_lane_sites(fb, delta, steps, what):
     """Each fused site launched once a batched step, in its lanes variant."""
@@ -2251,6 +2553,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building and checking the kernels (phases 1-2)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2295,7 +2598,10 @@ def main(argv=None) -> int:
     _phase_start()
     fedsgd_counts, fedsgd_sp_counts = phase_fedsgd(mods, qz)
     _phase_start()
-    silo_counts = phase_cross_silo(mods, nz)
+    silo_counts, silo_data = phase_cross_silo(mods, nz)
+    _phase_start()
+    wire_counts = phase_wire(mods, qz, nz, silo_data)
+    del silo_data
     _phase_start()
     dataset = phase_fedopt(mods)
     _phase_start()
@@ -2331,9 +2637,15 @@ def main(argv=None) -> int:
               **{k.name: fedsgd_sp_counts[k.name] for k in qz.KERNELS},
               **{k.name: silo_counts[k.name] for k in nz.KERNELS}}
 
+    # and each kernel's launches on phase 9's compressed uploads: (a) qsgd8
+    # (rows 5-6 and the fused silo kernels), (c) SecAgg qsgd8 (row 7)
+    wire = {k: wire_counts["a"][k] + (wire_counts["c"][k] if k == nz.NOISE.name else 0)
+            for k in wire_counts["a"]}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, kernels' build included")
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": m.SOURCE, "replaces": k.replaces,
-         "launches": counts[k.name], "max_abs_err": kernel_rows[k.name]["max_abs_err"],
+         "launches": counts[k.name], "wire_launches": wire[k.name],
+         "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],
          "library_ms": kernel_rows[k.name].get("library_ms"),

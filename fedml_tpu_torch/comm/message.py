@@ -5,7 +5,11 @@ A typed dict with msg_type / sender / receiver plus params.  Encoding puts
 the non-array params in a JSON control section and the array-valued ones
 through the pytree wire (``comm.wire``); for the same params the bytes equal
 the reference's.  Decoding parses the control section and validates the
-tensor header at once, and restores the tensors at first access.
+tensor header at once, and restores the tensors at first access; until then
+a streaming consumer reads the tensor section leaf by leaf
+(:meth:`Message.tensor_frame`, decoded; :meth:`Message.tensor_segments`,
+the raw segments) and control keys (:meth:`Message.get_control`) without
+restoring it.
 """
 
 from __future__ import annotations
@@ -43,8 +47,9 @@ class Message:
         return self.msg_params.get(key, default)
 
     def get_control(self, key: str, default=None) -> Any:
-        """``get`` restricted to the JSON control section (never restores
-        tensors)."""
+        """``get`` restricted to the JSON control section: never restores
+        the tensors, so an optional control key (the delta flag) can be read
+        before the frame it describes is folded."""
         return self.msg_params.get(key, default)
 
     def get_type(self) -> int:
@@ -78,6 +83,22 @@ class Message:
         msg.wire_nbytes = len(data)
         return msg
 
+    def tensor_frame(self):
+        """``(wire header, iterator of (index, spec, dense array))`` over the
+        still-unrestored tensor section, else None."""
+        if self._tensor_stream is None:
+            return None
+        header, offset, blob = self._tensor_stream
+        return header, wire.iter_leaf_arrays(blob, header=header, offset=offset)
+
+    def tensor_segments(self):
+        """:meth:`tensor_frame` with each leaf's raw segments in place of its
+        decode (``wire.iter_leaf_segments``), else None."""
+        if self._tensor_stream is None:
+            return None
+        header, offset, blob = self._tensor_stream
+        return header, wire.iter_leaf_segments(blob, header=header, offset=offset)
+
     def _materialize_tensors(self) -> None:
         header, offset, blob = self._tensor_stream
         self._tensor_stream = None
@@ -93,7 +114,7 @@ class Message:
 
 
 def _is_arraylike(v) -> bool:
-    if isinstance(v, np.ndarray):
+    if isinstance(v, (np.ndarray, wire.CompressedLeaf)):
         return True
     if isinstance(v, dict):
         return bool(v) and all(_is_arraylike(x) for x in v.values())

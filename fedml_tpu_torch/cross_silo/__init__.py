@@ -13,8 +13,16 @@ which :meth:`run` calls): ``global_vars`` (the initial global model, the
 port's tree; default: the port's own init stream), ``perms`` (the clients'
 per-epoch permutations, ``perms(round, client, epochs, cap)``),
 ``noise_sampler`` (the central-DP draws of Shamir SecAgg), ``mask_seeds``
-(LightSecAgg's client mask seeds by rank; default OS entropy) and
+(LightSecAgg's client mask seeds by rank; default OS entropy),
+``upload_noise`` (the upload codec's uniform draws, ``upload_noise(round,
+rank, leaf, shape, device)``; default the clients' generators) and
 ``logger`` (the server's metrics logger).
+
+Compressed uploads (``extra.comm_compression: qsgd8 | topk``) and
+``extra.streaming_aggregation`` run on the plain protocol: delta uploads on
+wire v2, folded on the server's device as they land.  Under Shamir SecAgg
+with ``secagg_stream``, ``qsgd8`` selects the quantize-then-mask ring; under
+the other secure configurations the codec is ignored, as in the reference.
 
 Algorithms: FedAvg, FedOpt and FedProx (their contribution is the client's
 full variables; the server runs the algorithm's ``aggregate`` and
@@ -157,6 +165,7 @@ class _CrossSiloRunner:
         self.perms = None
         self.noise_sampler = None
         self.mask_seeds = None
+        self.upload_noise = None
         self.logger = None
         self.server: Optional[FedMLServerManager] = None
         self.clients: list = []
@@ -187,6 +196,8 @@ class _CrossSiloRunner:
             group = build_process_group
         self.server, self.clients = group(self.cfg, self.dataset, self.model, self.device,
                                           C.COMM_BACKEND_INPROC, **hooks)
+        for c in self.clients:
+            c.upload_noise = self.upload_noise
 
     def run(self) -> list:
         if self.server is None:

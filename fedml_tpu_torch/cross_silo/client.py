@@ -4,16 +4,28 @@ Handles check-status / init / sync messages, trains the local shard with the
 port's local SGD on the device, uploads weights + sample count, honours the
 finish protocol.  Models arrive and leave as numpy trees in flax layout.
 
+Compressed uploads (``extra.comm_compression: qsgd8 | topk``): the reply
+carries the **delta** against the global model it received, computed on
+the device in f32 and cast back, relaid to flax layout on the device and
+compressed leaf by leaf on the wire-v2 format (``comm/codecs.py``; qsgd8
+through the quantize kernel, so only int8 values and f32 scales leave the
+card), with ``model_is_delta`` set.  The draw is keyed
+``fold_in(client_key(round_key(seed_key, r), rank), 0x5157)``, leaf ``i``
+from ``fold_in(key, i)``, as the reference keys it; an ``upload_noise(round,
+rank, i, shape, device)`` hook can supply it instead (tests hand in the
+reference's).  The top-k residuals carry across rounds.  A codec failure
+raises and fails the run: the reference uploads the raw model instead,
+which here would hide a failed kernel (ROADMAP Queue 3).
+
 :class:`FedMLTrainer` keeps its cyclic-padded shard on the device (in the
 compute dtype, as the simulator does).  Its local SGD is keyed
 ``client_key(round_key(seed_key, r), client_idx)`` as the reference's is;
 the per-epoch permutations can come from a ``perms(round_idx, client_idx,
 epochs, cap)`` hook instead, so tests hand in the reference's.
 
-Refused with ``NotImplementedError`` when flagged: compressed uploads
-(``extra.comm_compression``), the client journal, remote observability, the
-flight recorder, the AOT store and silo DP (``enable_dp`` with
-``dp_solution_type`` ``ldp`` on a plain client).
+Refused with ``NotImplementedError`` when flagged: the client journal,
+remote observability, the flight recorder, the AOT store and silo DP
+(``enable_dp`` with ``dp_solution_type`` ``ldp`` on a plain client).
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from ..algorithms import hparams_from_config
 from ..comm import codecs
 from ..comm.comm_manager import FedMLCommManager
 from ..comm.message import Message
+from ..core import pytree as pt
 from ..core import rng
 from ..core.flags import cfg_extra
 from ..fl.local_sgd import make_local_train_fn
@@ -42,12 +55,26 @@ _UNPORTED_CLIENT_FLAGS = ("client_journal_dir", "enable_remote_obs", "flight_rec
                           "aot_programs")
 
 
+#: the fold of the client key that seeds the upload codec's draws (a stream
+#: apart from the training keys'; the reference's constant)
+UPLOAD_NOISE_TAG = 0x5157
+
+
 def refuse_unported_client(cfg) -> None:
-    """Raise for a client feature this slice does not serve."""
+    """Raise for a client feature this slice does not serve (and for an
+    unknown codec name, as the reference does)."""
     codecs.codec_from_config(cfg)
     for flag in _UNPORTED_CLIENT_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo client yet")
+
+
+def _leaf_delta(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """new - old per leaf: float leaves in f32, cast back; integer leaves
+    natively, so the server's add-back reconstructs them exactly."""
+    if new.is_floating_point():
+        return (new.to(torch.float32) - old.to(torch.float32)).to(new.dtype)
+    return new - old
 
 
 class FedMLTrainer:
@@ -94,6 +121,22 @@ class ClientMasterManager(FedMLCommManager):
         #: ``fn(reason, error)`` told when a handler raises (the process-group
         #: runner points it at the server's ``abort``)
         self.on_error: Optional[Callable] = None
+        self.comm_codec = codecs.codec_from_config(cfg)
+        self._comm_residuals = None
+        self._comm_ratio = float(cfg_extra(
+            cfg, "comm_topk_ratio", getattr(cfg, "compression_ratio", 0.01) or 0.01))
+        # an explicit comm_compress_min_size wins, then the trainer's own
+        # floor (a low-rank tree), then the model-scale default
+        min_elems = cfg_extra(cfg, "comm_compress_min_size", None)
+        if min_elems is None:
+            min_elems = getattr(trainer, "comm_compress_min_elems", None)
+        self._comm_min_elems = int(
+            min_elems if min_elems is not None else codecs.DEFAULT_MIN_COMPRESS_ELEMS)
+        #: ``fn(round, rank, leaf, shape, device)``: the codec's uniform draws
+        #: in place of the port's generators (module docstring)
+        self.upload_noise: Optional[Callable] = None
+        #: ``compress_pytree``'s stats of the last compressed upload
+        self.last_upload_stats: Optional[dict] = None
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS,
@@ -135,15 +178,38 @@ class ClientMasterManager(FedMLCommManager):
         round_idx = int(msg.get(md.MSG_ARG_KEY_ROUND_INDEX))
         params = msg.get(md.MSG_ARG_KEY_MODEL_PARAMS)
         client_idx = int(msg.get(md.MSG_ARG_KEY_CLIENT_INDEX, self.rank - 1))
-        new_vars, n_samples = self.trainer.train(self.to_device(params), round_idx,
-                                                 self.seed_key, client_idx)
+        global_vars = self.to_device(params)
+        new_vars, n_samples = self.trainer.train(global_vars, round_idx, self.seed_key,
+                                                 client_idx)
         self.rounds_trained += 1
         reply = Message(md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.rank, 0)
-        reply.add_params(md.MSG_ARG_KEY_MODEL_PARAMS,
-                         weights.torch_to_flax(weights.to_numpy(new_vars)))
+        payload, is_delta = self.upload_payload(new_vars, global_vars, round_idx)
+        reply.add_params(md.MSG_ARG_KEY_MODEL_PARAMS, payload)
+        if is_delta:
+            reply.add_params(md.MSG_ARG_KEY_MODEL_IS_DELTA, True)
         reply.add_params(md.MSG_ARG_KEY_NUM_SAMPLES, n_samples)
         reply.add_params(md.MSG_ARG_KEY_ROUND_INDEX, round_idx)
         self.send_message(reply)
+
+    def upload_payload(self, new_vars: dict, global_vars: dict, round_idx: int) -> tuple:
+        """``(payload, is_delta)`` of a model reply: without a codec the
+        trained variables (flax-layout numpy, the v1 bytes); with one the
+        compressed delta against ``global_vars`` (the received global on the
+        device).  The reference's ``_maybe_compress``, less its raw
+        fallback: a codec failure raises."""
+        if not self.comm_codec:
+            return weights.torch_to_flax(weights.to_numpy(new_vars)), False
+        delta = weights.tensors_to_flax(pt.tree_map(_leaf_delta, new_vars, global_vars))
+        key = rng.fold_in(rng.client_key(rng.round_key(self.seed_key, round_idx), self.rank),
+                          UPLOAD_NOISE_TAG)
+        uniform = None
+        if self.upload_noise is not None:
+            def uniform(i, shape, device, hook=self.upload_noise):
+                return hook(round_idx, self.rank, i, shape, device)
+        payload, self._comm_residuals, self.last_upload_stats = codecs.compress_pytree(
+            delta, self.comm_codec, key=key, residuals=self._comm_residuals,
+            ratio=self._comm_ratio, min_elems=self._comm_min_elems, uniform=uniform)
+        return payload, True
 
     def handle_message_finish(self, msg: Message) -> None:
         self.send_message(Message(md.MSG_TYPE_C2S_FINISHED, self.rank, 0))

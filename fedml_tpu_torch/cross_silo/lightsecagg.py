@@ -139,6 +139,8 @@ class LSAAggregator(FedMLAggregator):
 
     def __init__(self, cfg, model, test_arrays, device, global_vars=None):
         super().__init__(cfg, model, test_arrays, device, global_vars=global_vars)
+        # masked uploads never take the f32 fold, whatever the comm flags say
+        self.stream_mode = False
         t, u, self.q_bits = secagg_params(cfg)
         self.protocol = LightSecAggProtocol(cfg.client_num_in_total, t, u)
         self.model_dim = model_size(self.global_vars)

@@ -36,10 +36,18 @@ The central-DP draw comes from a sampler object on the aggregator
 ``fold_in(round_key(root, r), 0xCD9)`` as the reference does), so tests can
 hand in the reference's draw.
 
+Quantize-then-mask (``comm_compression: qsgd8`` under ``secagg_stream``):
+a client uploads its round **delta** against the global it received (f64 on
+the host), stochastically rounded to the int8 grid at
+``secagg_q8_frac_bits`` (numpy, seeded ``[seed, round, rank]``: bitwise the
+reference's) and masked in the cohort-sized ring (11 bits, a u16 wire, at 4
+clients); the server adds the unmasked mean delta back onto the old global
+at finalize, before central DP.  Without ``secagg_stream`` the codec is
+ignored (the buffer-all dense wire), as in the reference.
+
 Refused as the reference refuses them: LDP and every other trust feature,
 CDP without ``secagg_stream``, partial participation and non-FedAvg
-optimizers.  The quantize-then-mask composition (``comm_compression:
-qsgd8``) waits for the qsgd8 wire codec: ``codec_from_config`` raises.
+optimizers.
 """
 
 from __future__ import annotations
@@ -121,18 +129,25 @@ def _share_pad(c_key: int, src: int, dst: int) -> tuple[int, int]:
 
 
 def mask_upload(flat: np.ndarray, rank: int, peer_seeds: dict, self_seed: int, q_bits: int,
-                ring: Optional[secagg_stream.MaskedRing]) -> tuple:
+                ring: Optional[secagg_stream.MaskedRing], base: Optional[np.ndarray] = None,
+                seed=None) -> tuple:
     """``(wire array, secagg meta or None)`` of one client's flat f32 model
     (the reference's flat vector): fixed point in the field, masked; with a
     streaming ``ring`` packed to its wire width, else the buffer-all int64
-    vector."""
-    x_field = quantize_to_field(flat, bits=q_bits)
+    vector.  A ``qsgd8`` ring takes the delta ``flat - base`` in f64 onto
+    its int8 grid instead, rounded with ``np.random.default_rng(seed)``."""
+    if ring is not None and ring.codec == "qsgd8":
+        delta = np.asarray(flat, np.float64) - np.asarray(base, np.float64)
+        q = secagg_stream.quantize_stochastic_int8(delta, ring.frac_bits, seed)
+        x_field = np.mod(q, ring.modulus)
+    else:
+        x_field = quantize_to_field(flat, bits=q_bits)
     if ring is None:
         return masked_input(x_field, rank, peer_seeds, self_seed), None
     masked = secagg_stream.mask_vector(x_field, rank, peer_seeds, self_seed, ring.modulus)
     packed = secagg_stream.pack_ring(masked, ring.bits)
     codecs.note_masked_payload(f"secagg_{ring.codec}", packed.nbytes, flat.nbytes)
-    return packed, dict(ring.meta(int(x_field.size)), delta=False)
+    return packed, dict(ring.meta(int(x_field.size)), delta=ring.codec == "qsgd8")
 
 
 def shamir_secagg_params(cfg) -> tuple[int, int]:
@@ -171,6 +186,8 @@ class SAAggregator(FedMLAggregator):
     def __init__(self, cfg, model, test_arrays, device, global_vars=None,
                  noise_sampler: Optional[NoiseSampler] = None):
         super().__init__(cfg, model, test_arrays, device, global_vars=global_vars)
+        # masked uploads never take the f32 fold, whatever the comm flags say
+        self.stream_mode = False
         self.t, self.q_bits = shamir_secagg_params(cfg)
         self.model_dim = int(weights.flatten_reference(self.global_vars)[0].numel())
         self.n = cfg.client_num_in_total
@@ -179,6 +196,8 @@ class SAAggregator(FedMLAggregator):
             codecs.codec_from_config(cfg), self.n, q_bits=self.q_bits,
             q8_frac_bits=int(cfg_extra(cfg, "secagg_q8_frac_bits")))
         self._msum: Optional[secagg_stream.StreamingMaskedSum] = None
+        # the round's masked uploads are deltas against the broadcast global
+        self._stream_is_delta = False
         self._dp = FedMLDifferentialPrivacy(cfg) if getattr(cfg, "enable_dp", False) else None
         #: source of the central-DP draws (``gaussian`` / ``laplace``)
         self.noise_sampler = noise_sampler or NoiseSampler(cfg.random_seed)
@@ -219,15 +238,13 @@ class SAAggregator(FedMLAggregator):
             log.warning("client %d masked upload ring %s != server %s; rejecting",
                         client_idx, meta, self.ring.meta(0))
             return
-        if meta.get("delta"):
-            raise NotImplementedError("quantize-then-mask delta uploads (comm_compression "
-                                      "qsgd8) are not ported yet")
         vec = secagg_stream.unpack_ring(packed, self.ring.bits,
                                         int(meta.get("length", self.model_dim)))
         if vec.shape != (self.model_dim,):
             raise ValueError(f"masked vector shape {vec.shape} != ({self.model_dim},)")
         if self._msum is None:
             self._msum = secagg_stream.StreamingMaskedSum(self.model_dim, self.ring)
+        self._stream_is_delta = bool(meta.get("delta"))
         self._msum.fold(vec)
         self.sample_num_dict[client_idx] = sample_num
         self.flag_client_model_uploaded[client_idx] = True
@@ -277,14 +294,19 @@ class SAAggregator(FedMLAggregator):
             total = unmask_sum(masked, self_seeds, dropped_pair_seeds)
             avg = dequantize_from_field(total, len(active), bits=self.q_bits)
         avg = avg / max(len(active), 1)
+        old_flat, unravel = weights.flatten_reference(self.global_vars)
+        if self._msum is not None and self._stream_is_delta:
+            # quantize-then-mask uploads are deltas against the broadcast
+            # global: the unmasked mean delta lands on it, in f64
+            avg = old_flat.cpu().numpy().astype(np.float64) + avg
         # the reference's f64 -> f32 rounding, then one copy to the device
         flat = torch.from_numpy(avg.astype(np.float32)).to(self.device)
-        old_flat, unravel = weights.flatten_reference(self.global_vars)
         self.global_vars = unravel(self._apply_central_dp(flat, old_flat, round_idx))
         self.last_finalize_s = time.perf_counter() - t0
         self._reset_round()
         self.reveals.clear()
         self._msum = None
+        self._stream_is_delta = False
         return self.global_vars
 
     def _apply_central_dp(self, avg: torch.Tensor, old_flat: torch.Tensor,
@@ -528,13 +550,20 @@ class SAClientManager(ClientMasterManager):
             self._setup_done.set()
             self._train_masked()
 
-    def masked_upload(self, new_vars: dict, round_idx: int) -> tuple:
-        """``(wire array, secagg meta or None)`` of the trained variables."""
+    def masked_upload(self, new_vars: dict, round_idx: int, global_vars: dict) -> tuple:
+        """``(wire array, secagg meta or None)`` of the trained variables
+        (under the qsgd8 ring, of their delta against ``global_vars``, the
+        received global)."""
         flat = weights.flatten_reference(new_vars)[0].cpu().numpy()  # the one d2h copy
         peer_seeds = {v: derive_round_seed(dh_agree(self.s_sk, self.pk_table[v][1]), round_idx)
                       for v in self.pk_table if v != self.rank}
+        ring = self.ring if self.stream else None
+        base = seed = None
+        if ring is not None and ring.codec == "qsgd8":
+            base = weights.flatten_reference(global_vars)[0].cpu().numpy()
+            seed = [int(self.cfg.random_seed), int(round_idx), int(self.rank)]
         return mask_upload(flat, self.rank, peer_seeds, derive_round_seed(self.b_u, round_idx),
-                           self.q_bits, self.ring if self.stream else None)
+                           self.q_bits, ring, base=base, seed=seed)
 
     def _train_masked(self) -> None:
         with self._lock:
@@ -544,10 +573,11 @@ class SAClientManager(ClientMasterManager):
         round_idx = int(msg.get(md.MSG_ARG_KEY_ROUND_INDEX))
         params = msg.get(md.MSG_ARG_KEY_MODEL_PARAMS)
         client_idx = int(msg.get(md.MSG_ARG_KEY_CLIENT_INDEX, self.rank - 1))
-        new_vars, n_samples = self.trainer.train(self.to_device(params), round_idx,
-                                                 self.seed_key, client_idx)
+        global_vars = self.to_device(params)
+        new_vars, n_samples = self.trainer.train(global_vars, round_idx, self.seed_key,
+                                                 client_idx)
         self.rounds_trained += 1
-        payload, meta = self.masked_upload(new_vars, round_idx)
+        payload, meta = self.masked_upload(new_vars, round_idx, global_vars)
         reply = Message(md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.rank, 0)
         reply.add_params(md.MSG_ARG_KEY_MODEL_PARAMS, payload)
         if meta is not None:

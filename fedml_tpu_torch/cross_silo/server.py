@@ -13,20 +13,30 @@ layout (``weights.torch_to_flax`` before a send, ``flax_to_torch`` after a
 receive), so a frame carries the reference's bytes for the same weights.
 
 Kept as the reference keeps it: the buffer-all aggregate through the
-algorithm's ``aggregate`` / ``server_update`` (the FedAvg family).  Each
-history row also carries ``round_time_s`` (broadcast to evaluated),
-``aggregate_time_s`` and ``upload_bytes`` (wire bytes of the round's model
-uploads): the reference records these in its metrics registry and trace
-spans, which the port has not ported yet; for the same reason a broadcast
-carries no trace-propagation header.  A handler that raises fails the
-run at once (``run_until_done`` raises), where the reference logs it and
-waits for its timeout.
+algorithm's ``aggregate`` / ``server_update`` (the FedAvg family), and the
+streaming fold.  Under a codec (``extra.comm_compression``) or
+``extra.streaming_aggregation``, for an algorithm whose ``aggregate`` is
+the stock weighted mean (``supports_associative_fold``), each arriving
+reply's still-undecoded frame folds leaf by leaf into a running weighted
+sum as it lands (``parallel/stream_fold.py``: f32, flax layout, on the
+server's device, bitwise the reference's host fold; a ``qsgd8`` leaf
+through the dequantize kernel), so at most the sum and one reply are
+buffered; a delta upload (``model_is_delta``) folds as sent and the round's
+base comes back at finalize.  A frame whose structure or shapes differ from
+the model's falls back to the dense buffer, with a warning, as in the
+reference.  Each history row also carries ``round_time_s`` (broadcast to
+evaluated), ``aggregate_time_s`` and ``upload_bytes`` (wire bytes of the
+round's model uploads): the reference records these in its metrics
+registry and trace spans, which the port has not ported yet; for the same
+reason a broadcast carries no trace-propagation header.  A handler that
+raises fails the run at once (``run_until_done`` raises), where the
+reference logs it and waits for its timeout.
 
 Refused with ``NotImplementedError`` when flagged: the recovery journal,
 the hierarchy, the async server, the flight recorder, SLOs, the timeline,
 OTLP, remote observability, model publication, health-aware selection,
-upload dedup keys, the AOT store, the streaming f32 fold and the sharded
-fold, the metrics endpoint, and the trust pipeline (DP, attacks, defenses,
+upload dedup keys, the AOT store, the sharded fold (it needs a device
+mesh), the metrics endpoint, and the trust pipeline (DP, attacks, defenses,
 contribution) on the plain server.
 """
 
@@ -43,6 +53,7 @@ import torch
 
 from .. import weights
 from ..algorithms import create as create_algorithm, hparams_from_config
+from ..comm import codecs, wire
 from ..comm.base import BACKOFF_PURPOSE_STATUS_PROBE, backoff_delay
 from ..comm.comm_manager import FedMLCommManager
 from ..comm.message import Message
@@ -59,7 +70,7 @@ _UNPORTED_SERVER_FLAGS = (
     "server_journal_dir", "hier_fanout", "hier_topology", "hier_hop_codec",
     "async_aggregation", "flight_recorder", "slo_specs", "perf_timeline", "otlp_endpoint",
     "enable_remote_obs", "model_publish_dir", "health_aware_selection", "aot_programs",
-    "streaming_aggregation", "server_shard_fold", "metrics_port")
+    "server_shard_fold", "metrics_port")
 _UNPORTED_TRUST = ("enable_attack", "enable_defense", "enable_dp", "enable_contribution")
 
 
@@ -74,6 +85,15 @@ def refuse_unported_server(cfg, secure: bool = False) -> None:
             if getattr(cfg, flag, False):
                 raise NotImplementedError(f"{flag} (the trust pipeline) is not ported to the "
                                           "cross-silo server yet")
+
+
+def _apply_delta(global_leaf, delta_leaf):
+    """global + delta per leaf (host numpy), mirroring the client's
+    ``_leaf_delta``: f32 math for float leaves, a native add for integers."""
+    g, d = np.asarray(global_leaf), np.asarray(delta_leaf)
+    if g.dtype.kind in "fc":
+        return (g.astype(np.float32) + d.astype(np.float32)).astype(g.dtype)
+    return g + d
 
 
 def provisional_steps_per_epoch(cfg) -> int:
@@ -110,25 +130,124 @@ class FedMLAggregator:
         self.model_dict: dict[int, object] = {}
         self.sample_num_dict: dict[int, float] = {}
         self.flag_client_model_uploaded: dict[int, bool] = {}
-        #: high-water mark of client updates buffered at once
-        self.peak_buffered_updates = 0
         tx, ty, n_valid = test_arrays
         self._test = (torch.from_numpy(np.ascontiguousarray(tx)).to(device),
                       torch.from_numpy(np.ascontiguousarray(ty)).to(device, torch.long),
                       int(n_valid))
         self._eval_fn = make_eval_fn(model, self.hp, batch_size=eval_batch_size(cfg))
+        self._init_stream_mode(cfg)
+
+    def _init_stream_mode(self, cfg) -> None:
+        """The streaming fold is on under a codec or
+        ``extra.streaming_aggregation`` when the algorithm's aggregate is a
+        weight-associative fold; otherwise the buffer-all path.  (The
+        reference also turns it on for its async server and keeps it off
+        under a trust pipeline other than central DP: the port's plain
+        server refuses both.)"""
+        self.stream_mode = bool(
+            (codecs.codec_from_config(cfg) or cfg_extra(cfg, "streaming_aggregation"))
+            and self.algorithm.supports_associative_fold())
+        self._np_global = None      # host copy of the global (flax layout), per round
+        self._stream_tmpl = None    # (base leaves on the device, wire skeleton), per round
+        self._stream_acc = None     # the round's DeviceStreamAccumulator
+        self._stream_w = 0.0
+        self._stream_w_delta = 0.0
+        self._stream_folded = 0
+        #: high-water mark of client updates buffered at once (the streaming
+        #: fold's bound: <= 2 whatever the clients a round)
+        self.peak_buffered_updates = 0
+        #: host seconds of the round's folds and of its finalize (launches
+        #: enqueued, not waited for)
+        self.fold_time_s = 0.0
+        self.finalize_time_s = 0.0
 
     def host_global_flax(self) -> dict:
         """The global model as the wire carries it: numpy, flax layout (one
         device-to-host copy)."""
         return weights.torch_to_flax(weights.to_numpy(self.global_vars))
 
-    def add_local_trained_result(self, client_idx: int, params, sample_num: float) -> None:
-        """Buffer one client's model (a flax-layout numpy tree off the wire)."""
+    def _host_global(self) -> dict:
+        if self._np_global is None:
+            self._np_global = self.host_global_flax()
+        return self._np_global
+
+    def _stream_template(self) -> tuple:
+        """The round's base leaves (flax layout, on the device) in wire
+        order, and the wire skeleton of a model reply."""
+        if self._stream_tmpl is None:
+            skel, leaves = wire.flatten_with_skeleton(
+                {md.MSG_ARG_KEY_MODEL_PARAMS: weights.tensors_to_flax(self.global_vars)})
+            self._stream_tmpl = (leaves, skel)
+        return self._stream_tmpl
+
+    def _note_buffered(self, inflight: int = 0) -> None:
+        n = len(self.model_dict) + inflight + (1 if self._stream_acc is not None else 0)
+        self.peak_buffered_updates = max(self.peak_buffered_updates, n)
+
+    def add_local_trained_result(self, client_idx: int, params, sample_num: float,
+                                 is_delta: bool = False) -> None:
+        """Buffer one client's model (a flax-layout numpy tree off the wire);
+        a delta is added to the round's global first."""
+        if is_delta:
+            params = pt.tree_map(_apply_delta, self._host_global(), params)
         self.model_dict[client_idx] = params
         self.sample_num_dict[client_idx] = sample_num
         self.flag_client_model_uploaded[client_idx] = True
-        self.peak_buffered_updates = max(self.peak_buffered_updates, len(self.model_dict))
+        self._note_buffered()
+
+    def fold(self, client_idx: int, msg, sample_num: float, is_delta: bool,
+             scale: float = 1.0) -> bool:
+        """Fold one reply's still-undecoded tensor frame into the running
+        weighted sum with weight ``sample_num * scale``, leaf by leaf on the
+        device.  False when the reply must take the dense buffer instead:
+        stream mode off, tensors already restored, or a frame whose
+        structure or shapes differ from the model's."""
+        if not self.stream_mode:
+            return False
+        frame = msg.tensor_segments() if hasattr(msg, "tensor_segments") else None
+        if frame is None:
+            return False
+        header, segments = frame
+        tmpl, skel = self._stream_template()
+        specs = header["leaves"]
+        if header["treedef"] != skel or len(specs) != len(tmpl):
+            log.warning("client %d frame structure mismatch; buffering densely", client_idx)
+            return False
+        for spec, t in zip(specs, tmpl):
+            if tuple(spec["shape"]) != tuple(t.shape):
+                log.warning("client %d leaf shape mismatch; buffering densely", client_idx)
+                return False
+        t0 = time.perf_counter()
+        from ..parallel.stream_fold import DeviceStreamAccumulator, decode_leaf
+
+        if self._stream_acc is None:
+            self._stream_acc = DeviceStreamAccumulator(tmpl, self.device)
+        # buffered now: the sum and this reply (and any dense fallbacks)
+        self._note_buffered(inflight=1)
+        w = float(sample_num) * float(scale)
+        w32 = self._stream_acc.scalar(w)
+        for i, spec, segs in segments:
+            self._stream_acc.fold_leaf(i, w32, decode_leaf(spec, segs, self.device))
+        self._stream_w += w
+        if is_delta:
+            self._stream_w_delta += w
+        self._stream_folded += 1
+        self.sample_num_dict[client_idx] = sample_num
+        self.fold_time_s += time.perf_counter() - t0
+        return True
+
+    def ingest_streaming(self, client_idx: int, msg, sample_num: float, is_delta: bool) -> bool:
+        """:meth:`fold` for the synchronous round: one contribution per
+        client a round (a second delivery is swallowed, since a second fold
+        would count it twice).  False when the reply must be buffered."""
+        if not self.stream_mode:
+            return False
+        if client_idx in self.flag_client_model_uploaded:
+            return True
+        if not self.fold(client_idx, msg, sample_num, is_delta):
+            return False
+        self.flag_client_model_uploaded[client_idx] = True
+        return True
 
     def received_count(self) -> int:
         return len(self.flag_client_model_uploaded)
@@ -137,6 +256,8 @@ class FedMLAggregator:
         return self.received_count() >= expected
 
     def aggregate(self, round_idx: int):
+        if self._stream_folded:
+            return self._aggregate_streaming(round_idx)
         ids = sorted(self.model_dict)
         trees = [weights.to_torch(weights.flax_to_torch(self.model_dict[i]), self.device)
                  for i in ids]
@@ -148,14 +269,50 @@ class FedMLAggregator:
         self._reset_round()
         return self.global_vars
 
+    def _aggregate_streaming(self, round_idx: int):
+        """Finalize the running sum: dense fallbacks fold now, then one
+        division (with the delta senders' base added back) per leaf and the
+        algorithm's server step."""
+        t0 = time.perf_counter()
+        from ..parallel.stream_fold import host_to_device
+
+        tmpl, skel = self._stream_template()
+        for cid in sorted(self.model_dict):
+            w = float(self.sample_num_dict[cid])
+            w32 = self._stream_acc.scalar(w)
+            _, leaves = wire.flatten_with_skeleton(
+                {md.MSG_ARG_KEY_MODEL_PARAMS: self.model_dict[cid]})
+            for i, leaf in enumerate(leaves):
+                self._stream_acc.fold_leaf(i, w32, host_to_device(leaf, self.device))
+            self._stream_w += w
+        out = self._stream_acc.finalize(tmpl, self._stream_w_delta, max(self._stream_w, 1e-12))
+        agg = weights.tensors_from_flax(
+            wire.restore_skeleton(skel, out)[md.MSG_ARG_KEY_MODEL_PARAMS])
+        self.global_vars, self.server_state = self.algorithm.server_update(
+            self.global_vars, self.server_state, agg, round_idx)
+        self.finalize_time_s = time.perf_counter() - t0
+        self._reset_round()
+        return self.global_vars
+
     def _reset_round(self) -> None:
         self.model_dict.clear()
         self.sample_num_dict.clear()
         self.flag_client_model_uploaded.clear()
+        self._stream_acc = None
+        self._stream_w = self._stream_w_delta = 0.0
+        self._stream_folded = 0
+        # the global changed: its host copy and the fold's base are stale
+        self._np_global = None
+        self._stream_tmpl = None
 
     def round_metrics(self) -> dict:
-        """Extra history fields of the round just aggregated."""
-        return {}
+        """Extra history fields of the round just aggregated: under the
+        streaming fold, the host seconds of its folds and its finalize."""
+        if not self.stream_mode:
+            return {}
+        out = {"fold_time_s": self.fold_time_s, "finalize_time_s": self.finalize_time_s}
+        self.fold_time_s = self.finalize_time_s = 0.0
+        return out
 
     def test_on_server(self) -> dict:
         return {k: float(v) for k, v in self._eval_fn(self.global_vars, *self._test).items()}
@@ -266,9 +423,14 @@ class FedMLServerManager(FedMLCommManager):
             if msg.get(md.MSG_ARG_KEY_ROUND_INDEX) != self.round_idx:
                 return  # stale round (post-timeout arrival)
             self._round_payload_bytes += int(msg.wire_nbytes)
-            self.aggregator.add_local_trained_result(
-                int(msg.get_sender_id()), msg.get(md.MSG_ARG_KEY_MODEL_PARAMS),
-                float(msg.get(md.MSG_ARG_KEY_NUM_SAMPLES)))
+            sender = int(msg.get_sender_id())
+            n_samples = float(msg.get(md.MSG_ARG_KEY_NUM_SAMPLES))
+            # control-only read: a plain get() of the absent key would restore
+            # the tensors and demote the streaming fold to the dense buffer
+            is_delta = bool(msg.get_control(md.MSG_ARG_KEY_MODEL_IS_DELTA, False))
+            if not self.aggregator.ingest_streaming(sender, msg, n_samples, is_delta):
+                self.aggregator.add_local_trained_result(
+                    sender, msg.get(md.MSG_ARG_KEY_MODEL_PARAMS), n_samples, is_delta=is_delta)
             if self.aggregator.check_whether_all_receive(len(self.selected)):
                 self._finish_round()
 

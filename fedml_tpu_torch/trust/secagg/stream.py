@@ -7,8 +7,10 @@ at a time into a running field total (peak buffered <= 2 at any cohort
 size) and the masks come out once, at finalize.
 
 - :class:`MaskedRing` / :func:`ring_for`: the masking ring a config implies
-  (the dense fixed-point M31 field; the qsgd8 ring comes with the qsgd8
-  wire codec, a later slice).
+  (the dense fixed-point M31 field, or with ``comm_compression: qsgd8`` the
+  quantize-then-mask ring).
+- :func:`quantize_stochastic_int8` / :func:`dequantize_sum`: the qsgd8
+  ring's int8 grid at a config-shared scale, and its decode.
 - :func:`ring_mask` / :func:`mask_vector` / :func:`unmask_ring_total`: the
   masking equation over the ring, expanded with PCG64.
 - :func:`pack_ring` / :func:`unpack_ring`: the smallest unsigned wire dtype
@@ -25,7 +27,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .field import DEFAULT_PRIME
+from .field import DEFAULT_PRIME, dequantize_from_field
 
 #: the dense path keeps the prime field M31; its wire is u32
 DENSE_RING_BITS = 31
@@ -80,6 +82,24 @@ def ring_for(codec: Optional[str], n_clients: int, *, q_bits: int,
     if codec == "qsgd8":
         return MaskedRing("qsgd8", n_clients, q8_frac_bits)
     return MaskedRing("dense", n_clients, q_bits)
+
+
+def quantize_stochastic_int8(flat: np.ndarray, frac_bits: int, seed) -> np.ndarray:
+    """Vector -> int8-range integers on the fixed grid ``2^-frac_bits``,
+    stochastically rounded (``floor(x * 2^bits + u)``, ``u`` from
+    ``np.random.default_rng(seed)``: the qsgd8 rounding rule at a shared
+    scale, so masked sums stay decodable); beyond the grid clipped to
+    [-127, 127]."""
+    scaled = np.asarray(flat, np.float64) * float(1 << int(frac_bits))
+    u = np.random.default_rng(seed).random(scaled.shape)
+    q = np.floor(scaled + u)
+    return np.clip(q, -127, 127).astype(np.int64)
+
+
+def dequantize_sum(total_signed: np.ndarray, ring: MaskedRing, n_summands: int) -> np.ndarray:
+    """Centered ring total -> the f64 mean over ``n_summands`` uploads."""
+    return (dequantize_from_field(total_signed, n_summands, p=ring.modulus, bits=ring.frac_bits)
+            / max(int(n_summands), 1)).astype(np.float64)
 
 
 # -- mask expansion -------------------------------------------------------------

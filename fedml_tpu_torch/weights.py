@@ -17,7 +17,9 @@ transpose the 2-D ``lm_head`` and MLP kernels).
 
 The two directions are exact inverses, so aggregated state can be compared
 leaf by leaf.  :func:`to_torch` / :func:`to_numpy` move a converted tree
-between numpy and tensors.
+between numpy and tensors; :func:`tensors_to_flax` / :func:`tensors_from_flax`
+relayout a tree of tensors where it lies (the cross-silo upload's delta and
+the server's fold are in flax layout on the card).
 
 :func:`flatten_reference` flattens the port's tree on its own device into
 the flat f32 vector the JAX package's ``tree_flatten_to_vector`` gives for
@@ -66,6 +68,27 @@ def flax_to_torch(variables: dict) -> dict:
 def torch_to_flax(variables: dict) -> dict:
     """The port's layout (numpy leaves) -> flax variables (numpy leaves)."""
     return _convert(variables, _relayout(_TO_FLAX))
+
+
+def _permute_kernels(axes: dict):
+    def leaf(name: str, t: torch.Tensor) -> torch.Tensor:
+        if name == "kernel" and t.ndim in axes:
+            return t.permute(axes[t.ndim]).contiguous()
+        return t
+
+    return leaf
+
+
+def tensors_to_flax(variables: dict) -> dict:
+    """The port's tree of tensors -> flax layouts, on the tensors' own
+    device (kernels permuted into fresh contiguous tensors, the other leaves
+    as they are)."""
+    return _convert(variables, _permute_kernels(_TO_FLAX))
+
+
+def tensors_from_flax(variables: dict) -> dict:
+    """Inverse of :func:`tensors_to_flax`."""
+    return _convert(variables, _permute_kernels(_TO_TORCH))
 
 
 def _named_leaves(tree, name=None):

@@ -30,7 +30,10 @@ trained alone, rtol 2e-4 / atol 2e-5 (its ``c_i`` times ``1 / (K lr)``),
 and the client Adam's per-lane state bitwise a lane run alone.  A Shamir SecAgg
 finalize on the card against the CPU: bitwise without DP; with central DP
 the clip's norm sums in another order, so one ulp plus 1e-5 of the clipped
-delta's largest element (two ulps after the noise).
+delta's largest element (two ulps after the noise).  Compressed uploads: a
+ResNet-20 delta's qsgd8 and topk frames built on the card byte-identical to
+the CPU's (the same draws; ties at topk's k-th place), and the server's
+device fold of qsgd8 / topk / raw frames bitwise numpy's host fold.
 """
 
 import numpy as np
@@ -1118,3 +1121,95 @@ def test_secagg_finalize_card_matches_cpu(dp, cuda_device):
     assert (np.abs(pre_card - pre_cpu) <= np.spacing(np.abs(pre_cpu)) + 1e-5 * scale).all()
     assert (np.abs(got - want) <= 2 * np.spacing(np.abs(want)) + 1e-5 * scale).all()
     assert not np.array_equal(got, pre_card)
+
+
+def _resnet20_delta(device, seed=3):
+    """A ResNet-20 delta in flax layout on ``device`` (the upload's input):
+    the conv kernels' values from a small set, so topk meets ties."""
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.models import resnet
+
+    v = resnet.resnet20(10).init(rng.generator((seed,)), "cpu")
+    rs = np.random.RandomState(seed)
+    delta = pt.tree_map(lambda t: torch.from_numpy(
+        (rs.choice([-2.0, -1.0, 1.0, 2.0], size=tuple(t.shape)) * 1e-3).astype(np.float32)), v)
+    return weights.tensors_to_flax(pt.tree_map(lambda t: t.to(device), delta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["qsgd8", "topk"])
+def test_upload_frame_card_matches_cpu(codec, cuda_device):
+    """A ResNet-20 delta compressed on the card and on the CPU from the same
+    draws: the same wire bytes; qsgd8 launches the quantize kernel once a
+    conv kernel (18), topk never."""
+    from fedml_tpu_torch.comm import codecs, wire
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.ops import quantize as qz
+
+    gen, draws = torch.Generator().manual_seed(5), {}
+
+    def uniform(i, shape, device):
+        if i not in draws:
+            draws[i] = torch.rand(shape, generator=gen)
+        return draws[i].to(device)
+
+    delta = _resnet20_delta(cuda_device)
+    frames, launches = [], []
+    for tree in (delta, pt.tree_map(lambda t: t.cpu(), delta)):
+        before = qz.launch_counts()[qz.QUANTIZE.name]
+        out, res, stats = codecs.compress_pytree(tree, codec, uniform=uniform)
+        launches.append(qz.launch_counts()[qz.QUANTIZE.name] - before)
+        frames.append((wire.encode_pytree({"m": out}), stats["wire_bytes"]))
+    assert frames[0] == frames[1]
+    assert frames[0][1] == {"qsgd8": 288784, "topk": 36680}[codec]
+    assert launches == ([18, 0] if codec == "qsgd8" else [0, 0])
+
+
+@pytest.mark.cuda
+def test_stream_fold_card_matches_numpy(cuda_device):
+    """qsgd8, topk and raw ResNet-20 frames folded by the server's device
+    accumulator on the card: the sums and the finalized leaves bitwise the
+    reference's numpy host fold of the same frames (decoded by
+    ``wire``'s numpy decoder), the dequantize kernel once a qsgd8 leaf."""
+    from fedml_tpu_torch.comm import codecs, wire
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.ops import quantize as qz
+    from fedml_tpu_torch.parallel.stream_fold import DeviceStreamAccumulator, decode_leaf
+
+    base = _resnet20_delta("cpu", seed=9)
+    base = pt.tree_map(lambda t: t * 300.0, base)
+    frames = []
+    for cid, codec in ((1, "qsgd8"), (2, "topk"), (3, None), (4, "qsgd8")):
+        delta = _resnet20_delta("cpu", seed=cid)
+        if codec is None:
+            payload = pt.tree_map(lambda a, d: (a + d).numpy(), base, delta)
+        else:
+            payload = codecs.compress_pytree(delta, codec, key=(cid,))[0]
+        m = Message(3, cid, 0)
+        m.add_params("model_params", payload)
+        m.add_params("num_samples", 100.0 + cid)
+        frames.append((100.0 + cid, codec is not None, Message.decode(m.encode())))
+    _, tmpl = wire.flatten_with_skeleton({"model_params": base})
+    acc = DeviceStreamAccumulator([t.to(cuda_device) for t in tmpl], cuda_device)
+    sums = [np.zeros(tuple(t.shape), np.float32) for t in tmpl]
+    before = qz.launch_counts()[qz.DEQUANTIZE.name]
+    w_total = w_delta = 0.0
+    for w, is_delta, msg in frames:
+        w32 = acc.scalar(w)
+        for i, spec, segs in msg.tensor_segments()[1]:
+            acc.fold_leaf(i, w32, decode_leaf(spec, segs, cuda_device))
+        for i, _, arr in msg.tensor_frame()[1]:
+            sums[i] += np.float32(w) * np.asarray(arr, np.float32)
+        w_total += w
+        w_delta += w if is_delta else 0.0
+    assert qz.launch_counts()[qz.DEQUANTIZE.name] - before == 2 * 18
+    for got, want in zip(acc.sums(), sums):
+        assert np.array_equal(got.cpu().numpy(), want)
+    out = acc.finalize([t.to(cuda_device) for t in tmpl], w_delta, w_total)
+    for got, want, t in zip(out, sums, tmpl):
+        t = t.numpy()
+        want = ((want + np.float32(w_delta) * t) / np.float32(w_total)).astype(t.dtype)
+        assert np.array_equal(got.cpu().numpy(), want)

@@ -399,7 +399,9 @@ def test_refusals_match_the_reference(tmp_path, case):
     """(d) What the reference refuses the port refuses (LDP, CDP without
     the streaming fold, partial participation, a non-FedAvg optimizer, DP
     under LightSecAgg), and what this slice has not ported raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``.  ``qsgd8_wire`` runs as the reference runs it:
+    the quantize-then-mask ring under ``secagg_stream``, the codec ignored
+    (the dense buffer-all wire) without it; neither takes the f32 fold."""
     from fedml_tpu.cross_silo.secagg_shamir import shamir_secagg_params as ref_params
     from fedml_tpu_torch.runner import FedMLRunner
 
@@ -425,6 +427,22 @@ def test_refusals_match_the_reference(tmp_path, case):
             ref_params(ref_cfg)
         with pytest.raises(NotImplementedError, match="enable_dp"):
             FedMLRunner(cfg, device="cpu")
+    elif case == "qsgd8_wire":
+        from fedml_tpu_torch.models import resnet
+
+        for stream in (True, False):
+            ref_cfg, cfg = _cfgs(tmp_path, f"qsgd8_wire_{stream}",
+                                 extra={"comm_compression": "qsgd8", "secagg_stream": stream})
+            runner = FedMLRunner(cfg, model=resnet.CifarResNet(1), device="cpu")
+            runner.runner.setup()
+            agg, ref_agg = runner.runner.server.aggregator, _ref_aggregator(ref_cfg)
+            ring = (agg.ring.codec, agg.ring.bits, agg.ring.frac_bits, agg.ring.modulus)
+            assert ring == (ref_agg.ring.codec, ref_agg.ring.bits, ref_agg.ring.frac_bits,
+                            ref_agg.ring.modulus) == ("qsgd8", 11, 7, 2**11)
+            assert agg.field_stream == ref_agg.field_stream == stream
+            assert not agg.stream_mode and not ref_agg.stream_mode
+            assert all(c.stream == stream and c.ring.codec == "qsgd8"
+                       for c in runner.runner.clients)
     elif case == "partial_participation":
         with pytest.raises(ValueError, match="full participation"):
             FedMLRunner(cfg, device="cpu")

@@ -103,8 +103,10 @@ def test_secagg_message_bytes_equal_the_reference(payload):
 
 
 def test_wire_frames_and_refusals():
-    """``encode_pytree`` bytes equal the reference's; a truncated frame, a v2
-    (compressed-leaf) frame and a tensor leaf raise."""
+    """``encode_pytree`` bytes equal the reference's; a v2 (compressed-leaf)
+    frame encodes to the reference's bytes and decodes as the reference
+    decodes it; a truncated frame, an unknown version and a tensor leaf
+    raise."""
     from fedml_tpu.comm import wire as ref_wire
     from fedml_tpu_torch.comm import wire
 
@@ -119,8 +121,17 @@ def test_wire_frames_and_refusals():
     compressed = ref_wire.encode_pytree(
         {"w": ref_wire.CompressedLeaf("qsgd8", "float32", (4,), {"blocks": 1, "length": 4},
                                       (np.ones(1, np.float32), np.zeros(1024, np.int8)))})
-    with pytest.raises(NotImplementedError, match="v2"):
-        wire.decode_header(compressed)
+    assert wire.encode_pytree(
+        {"w": wire.CompressedLeaf("qsgd8", "float32", (4,), {"blocks": 1, "length": 4},
+                                  (np.ones(1, np.float32), np.zeros(1024, np.int8)))}) == compressed
+    header, _ = wire.decode_header(compressed)
+    assert header["version"] == 2 and header["leaves"][0]["codec"] == "qsgd8"
+    got, want = wire.decode_pytree(compressed)["w"], ref_wire.decode_pytree(compressed)["w"]
+    assert got.dtype == want.dtype and np.array_equal(got, want) and got.shape == (4,)
+    bad = bytearray(data)
+    bad[4:4 + len(b'{"version":1')] = b'{"version":3'
+    with pytest.raises(ValueError, match="unsupported wire version 3"):
+        wire.decode_header(bytes(bad))
     with pytest.raises(TypeError, match="numpy"):
         wire.encode_pytree({"w": torch.zeros(3)})
 
@@ -137,8 +148,8 @@ def test_backoff_and_codec_config_match_the_reference():
     assert codecs.codec_from_config(Config()) is None
     assert codecs.codec_from_config(Config(extra={"comm_compression": "off"})) is None
     for name in ("qsgd8", "topk"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            codecs.codec_from_config(Config(extra={"comm_compression": name}))
+        assert codecs.codec_from_config(Config(extra={"comm_compression": name})) == name
+        assert codecs.codec_from_config(Config(extra={"comm_compression": name.upper()})) == name
     with pytest.raises(ValueError, match="unknown comm_compression"):
         codecs.codec_from_config(Config(extra={"comm_compression": "zstd"}))
 
