@@ -28,9 +28,10 @@ Phases (any failure exits non-zero; no phase is caught):
    that ran and gives the same-bytes stream (``torch.lt(x, u)``,
    ``values.to(float32)``); then at 1,025 (vector) and at 269,722 with x
    one element off a 16-byte line (the scalar variant, checked), bitwise.
-   Hold the central-DP noise kernel against its plain
-   version at the SecAgg vector's length (271,098: ResNet-20's parameters
-   and BN statistics) and at 2^24, bitwise, at the slice's DP sigma, at
+   Hold the noise kernel against its plain version at the SecAgg vector's
+   length (271,098: ResNet-20's parameters and BN statistics), at 2^24 and
+   at local DP's 64 x 271,098 = 17,350,272 with a flat draw (phase 10),
+   bitwise, at the slice's DP sigma, at
    0.25 and at 0 (the identity); each line names the variant that ran;
    then at 271,098 with x one element off a 16-byte line (the scalar
    variant, checked).  Time each kernel and its plain version
@@ -175,6 +176,30 @@ Phases (any failure exits non-zero; no phase is caught):
    at each leaf length, the sums, the division and the new global bitwise
    the reference's numpy host fold of the same frames, and the run's own
    global.
+10. Trust in the simulator (run after phase 8c, on phase 3's data): the
+   flagship on MESH, 2 rounds a form, each with a test evaluation, every
+   tenth client id an attacker (13 of 128).  (a) ``byzantine_random``
+   against ``multikrum`` (``krum_param_m`` 32, 7 Byzantine): the sampled
+   attackers kept with a non-zero weight and the test accuracy against the
+   undefended attack; a profiled round's device busy share and
+   ``cudaLaunchKernel`` a batched step with the defense and with no trust
+   flag.  (b) local DP: the noise kernel once a round over the 64 updates
+   laid end to end (17,350,272 elements, a flat draw); (c) central DP (once
+   a round at 271,098), then NbAFL (both): every launch and length
+   asserted.  (d) the last round of (a)'s matrix (64 x 271,098), weights and
+   global through all 24 registered defenses on the card and on the CPU
+   with the same draws and history: selections bitwise, every other result
+   within 1e-5 of its scale (weights of FoolsGold and the residual
+   reweighting within 1e-4 relative), ``weak_dp`` and ``crfl`` one launch
+   of the noise kernel each, the others none.  (e) ``label_flipping`` and
+   ``backdoor``, one round each: the attackers' shards on the card bitwise
+   the host's poisoned stack.  (f) contribution with 8 clients a round
+   (leave-one-out, GTG-Shapley): the replayed round's global bitwise the
+   run's (cuDNN deterministic), the scores finite.  (g)
+   ``myavg_condshift_mlp`` with ``norm_diff_clipping`` and local DP, 3
+   rounds: the noise kernel once a round.  (h) ``cross_round`` 1 + 1 rounds
+   through a checkpoint against 2 straight: globals and history bitwise.
+   Each round prints its time, test accuracy, peak memory and launches.
    Every phase from 3 on starts with the caching allocator emptied and
    prints its peak memory raw and as its own (less what was allocated when
    it started).
@@ -184,7 +209,9 @@ launches from its own path's run: the lane-batched kernels from the MESH
 rounds of phases 3-4, the single-lane fused kernels from phase 5, the
 single-lane quantize kernels from phase 4's sp round; ``wire_launches``:
 each kernel's launches on phase 9's form (a), the noise kernel's on form
-(c)), then the card's name and power limit; the last line is ``{"ok": true,
+(c); ``trust_launches``: each kernel's launches on phase 10's forms
+(a)-(c); the noise kernel's line also has its times at local DP's length,
+``ldp_length``), then the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  ``--kernels-only`` stops after phase 2 and prints
 neither.
 """
@@ -212,7 +239,11 @@ GRAD_LENGTH = 269722  # ResNet-20's parameters: the FedSGD gradient
 WIRE_LENGTHS = [2304, 4608, 9216, 18432, 36864]
 QUANT_LENGTHS = [GRAD_LENGTH, 2**24] + WIRE_LENGTHS
 SECAGG_LENGTH = 271098  # ResNet-20's parameters and BN statistics: the SecAgg vector
-NOISE_LENGTHS = [SECAGG_LENGTH, 2**24]
+LANES = 64  # the flagship's clients a round: the lanes of its MESH round
+# local DP's one launch a round: the flagship's 64 client updates laid end to
+# end, with a flat draw (phase 10)
+LDP_LENGTH = LANES * SECAGG_LENGTH
+NOISE_LENGTHS = [SECAGG_LENGTH, 2**24, LDP_LENGTH]
 # the cross-silo path's central DP (the reference's own CDP test values)
 DP = dict(enable_dp=True, dp_solution_type="cdp", mechanism_type="gaussian", epsilon=50.0,
           delta=1e-5, sensitivity=0.01, clipping_norm=1.0)
@@ -223,7 +254,6 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6
 ROUNDS = 3
 NOISE_RUNS = 7  # alternating timings of the noise kernel and torch.add
-LANES = 64  # the flagship's clients a round: the lanes of its MESH round
 FEDSGD_LANES = 16  # the FedSGD recipe's clients a round
 # ResNet-20's fused sites a local step: the stem and each block's first
 # epilogue without a residual, each block's second with one (either direction)
@@ -849,7 +879,8 @@ def phase_noise(nz):
     sigma = gaussian_sigma(DP["epsilon"], DP["delta"], DP["sensitivity"])
     results = {nz.NOISE.name: {"max_abs_err": 0.0}}
     for n in NOISE_LENGTHS:
-        shape = nz.noise_shape(n)
+        # the trust pipeline's draws are flat; the SecAgg path's padded
+        shape = (n,) if n == LDP_LENGTH else nz.noise_shape(n)
         nbytes = 12 * n  # read x, read the first n noise values, write out
         sets = []
         for k in range(max(2, int(3 * L2_BYTES // nbytes) + 1)):
@@ -871,7 +902,7 @@ def phase_noise(nz):
         eager_ms = _eager_ms(nz.apply_gaussian_noise, sets)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * n / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        print(f"kernel {nz.NOISE.name} n={n} ({shape[0]} blocks): ok (bitwise at sigma "
+        print(f"kernel {nz.NOISE.name} n={n} (draw {shape}): ok (bitwise at sigma "
               f"{sigma:.6g}, 0.25, 0), device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
               f"torch.add {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
               f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us, "
@@ -885,10 +916,12 @@ def phase_noise(nz):
         print(f"kernel {nz.NOISE.name} n={n} against torch.add, {NOISE_RUNS} alternating runs: "
               + ", ".join(f"{k} median {statistics.median(v) * 1e3:.3f} us (min {min(v) * 1e3:.3f}, "
                           f"max {max(v) * 1e3:.3f})" for k, v in runs.items()))
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": library_ms,
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         if n == SECAGG_LENGTH:
-            results[nz.NOISE.name].update({
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": library_ms,
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+            results[nz.NOISE.name].update(row)
+        if n == LDP_LENGTH:
+            results[nz.NOISE.name]["ldp_length"] = {"n": n, **row}
     g = torch.Generator(device=dev)
     g.manual_seed(250)
     x = torch.randn(SECAGG_LENGTH, generator=g, device=dev)
@@ -2548,6 +2581,397 @@ def phase_resume(mods, flagship):
     return fedllm_counts
 
 
+# -- phase 10: trust in the simulator ------------------------------------------
+
+# every tenth client id attacks (13 of the flagship's 128); the defenses are
+# told of 7 per round (64 sampled: 6.5 expected attackers)
+ATTACKERS = tuple(range(0, 128, 10))
+TRUST_ATTACK = dict(enable_attack=True, attack_type="byzantine_random",
+                    poisoned_client_list=ATTACKERS, byzantine_client_num=7)
+TRUST_DEFENSE = dict(enable_defense=True, defense_type="multikrum", krum_param_m=32)
+LDP = dict(enable_dp=True, dp_solution_type="ldp", mechanism_type="gaussian", epsilon=50.0,
+           delta=1e-5, sensitivity=0.01)
+TRUST_ROUNDS = 2
+CONTRIBUTION_CLIENTS = 8  # form (f): GTG-Shapley evaluates up to 20 x m coalitions
+# form (d): selections (0/1 weights) bitwise card against CPU; every other
+# result within this times the CPU result's largest magnitude (sums of up to
+# 271,098 f32 terms, or of 64 rows, in another order)
+TRUST_REL = 1e-5
+# FoolsGold's and the residual reweighting's weights: cosine / norm sums in
+# another order, then a log or a division (relative, plus absolute 1e-6)
+TRUST_WEIGHT_REL = 1e-4
+SELECTING = ("krum", "multikrum", "three_sigma", "three_sigma_geomedian", "three_sigma_krum",
+             "cross_round")
+# outlier_detection replaces an element whose |u - mean| sits within rounding
+# of k * std (64-term sums) by the median: such elements may differ, counted
+OUTLIER_FLIPS_MAX = 16
+
+
+class _NoiseLengths:
+    """Records the length of every noise-kernel call on the card (the
+    wrapper is the module's own, so the kernel still counts its launch)."""
+
+    def __init__(self, nz):
+        self.nz, self.orig, self.lengths = nz, nz.apply_gaussian_noise, []
+
+    def __enter__(self):
+        def wrapped(vec, noise, sigma):
+            self.lengths.append(int(vec.numel()))
+            return self.orig(vec, noise, sigma)
+
+        self.nz.apply_gaussian_noise = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.nz.apply_gaussian_noise = self.orig
+
+
+def _trust_run(mods, nz, what, dataset, rounds=TRUST_ROUNDS, **flags):
+    """The flagship on MESH with ``flags``, ``rounds`` rounds: each round's
+    time, test accuracy, launches of kernels 1-4 (lanes) and 7 and the noise
+    lengths; returns (runner, history, counts, noise lengths)."""
+    import torch
+
+    t0 = time.perf_counter()
+    # a test evaluation every round: each round its own chunk, timed alone
+    runner = _flagship(dataset, comm_round=rounds, frequency_of_the_test=1, **flags)
+    sim = runner.runner
+    setup = time.perf_counter() - t0
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods + (nz,)))
+    sim.logger = probe
+    _reset_counts(mods + (nz,))
+    with _NoiseLengths(nz) as lengths:
+        history = runner.run()
+        torch.cuda.synchronize()
+    counts = _all_counts(mods + (nz,))
+    prev = {k: 0 for k in counts}
+    for metrics, cum, mem in probe.rows:
+        delta = {k: cum[k] - prev[k] for k in cum if cum[k] - prev[k]}
+        prev = cum
+        print(f"trust {what} round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"train_loss {metrics['train_loss']:.4f}, test_acc "
+              f"{metrics.get('test_acc', float('nan')):.4f}, {_mem(mem)}, launches {delta}")
+    print(f"trust {what}: set-up {setup:.1f} s, noise kernel lengths {lengths.lengths}")
+    if len(history) != rounds or sim.backend != "MESH":
+        raise AssertionError(f"trust {what}: {len(history)} rounds on {sim.backend}")
+    _check_finite(sim, history, ("train_loss",))
+    return runner, history, counts, lengths.lengths
+
+
+def _noise_launches(counts, nz, lengths, want, what):
+    ran = counts[nz.NOISE.name]
+    if ran != len(want) or sorted(lengths) != sorted(want):
+        raise AssertionError(f"trust {what}: the noise kernel ran {ran} times at {lengths}, "
+                             f"expected {want}")
+
+
+def _profiled_round(sim, what):
+    """One more round under torch.profiler: wall, device busy share and
+    ``cudaLaunchKernel`` a batched step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.obs.profile_round import busy_us
+
+    steps = int(_own_steps(sim, sim.round_idx).max())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_us([e for e in prof.events() if e.device_type.name == "CUDA"]) / 1e6
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"trust profiled round ({what}): wall {wall:.3f} s (profiler on), {steps} batched "
+          f"steps, device busy {busy:.3f} s = {100 * busy / wall:.1f}%, "
+          f"{launches / steps:.0f} cudaLaunchKernel a batched step ({launches} in the round)")
+    return launches / steps
+
+
+def _capture_aggregation(sim):
+    """Wraps the pipeline's second hook: keeps the last round's matrix,
+    weights and global as they enter it, and the weights it returns."""
+    from fedml_tpu_torch import weights as wl
+    from fedml_tpu_torch.core import pytree as pt
+
+    inner, seen = sim.trust.on_aggregation, {}
+
+    def hook(contribs, weights, global_vars, round_idx, prev_delta=None):
+        seen["matrix"] = pt.stacked_tree_to_matrix(contribs)
+        seen["weights"], seen["global"] = weights.clone(), wl.flatten_reference(global_vars)[0]
+        out = inner(contribs, weights, global_vars, round_idx, prev_delta=prev_delta)
+        seen["kept"] = out[1].clone()
+        return out
+
+    sim.trust.on_aggregation = hook
+    return seen
+
+
+def _defense_on(name, cfg, device, mat, w, g, prev, draws):
+    """``name``'s three hooks on ``device``: (updates, weights, aggregate,
+    after, seconds)."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.trust.defense import create
+    from fedml_tpu_torch.trust.defense.base import DrawingDefense
+
+    cfg = dataclasses.replace(cfg, defense_type=name)
+    dfn = create(cfg)
+    if isinstance(dfn, DrawingDefense):
+        dfn.set_draw(lambda kind, shape: draws[kind].reshape(-1)[:math.prod(shape)].view(
+            shape).to(device))
+    if hasattr(dfn, "set_history"):
+        dfn.set_history(prev.to(device))
+    mat, w, g = mat.to(device), w.to(device), g.to(device)
+    new_g = g + 0.01 * prev.to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u2, w2 = dfn.before(mat, w, g)
+    agg = dfn.on_agg(u2, w2, g)
+    after = dfn.after(new_g, g)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return u2, w2, agg, after, time.perf_counter() - t0
+
+
+def _all_defenses(nz, cfg, seen):
+    """Form (d): the captured round through every registered defense on the
+    card and on the CPU."""
+    import torch
+
+    from fedml_tpu_torch.trust.defense import names
+    from fedml_tpu_torch.trust.defense.robust_agg import krum_scores
+    from fedml_tpu_torch.trust.dp.dp import laplace_from_uniform
+
+    mat, w, g = seen["matrix"], seen["weights"], seen["global"]
+    dev = mat.device
+    m, d = mat.shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1013)
+    prev = torch.randn(d, generator=gen, device=dev) * 1e-3
+    draws = {"gaussian": torch.randn(m * d, generator=gen, device=dev)}
+    draws["laplace"] = laplace_from_uniform(torch.rand(m * d, generator=gen, device=dev))
+    cpu_draws = {k: v.cpu() for k, v in draws.items()}
+    cpu = torch.device("cpu")
+    print(f"trust (d): the captured round's matrix ({m}, {d}) = {m * d} elements through the "
+          f"{len(names())} registered defenses, card against CPU")
+    for name in names():
+        _reset_counts((nz,))
+        card = _defense_on(name, cfg, dev, mat, w, g, prev, draws)
+        launched = nz.launch_counts()[nz.NOISE.name]
+        host = _defense_on(name, cfg, cpu, mat.cpu(), w.cpu(), g.cpu(), prev.cpu(), cpu_draws)
+        notes, worst = [], 0.0
+        if name in SELECTING:
+            same = torch.equal(card[1].cpu(), host[1])
+            if not same:
+                sc, sh = krum_scores(mat, cfg.byzantine_client_num).cpu(), krum_scores(
+                    mat.cpu(), cfg.byzantine_client_num)
+                print(f"  {name}: selection differs; card {card[1].cpu().tolist()} CPU "
+                      f"{host[1].tolist()}; Krum score gap card-CPU "
+                      f"{float((sc - sh).abs().max()):.3g}")
+                raise AssertionError(f"trust (d) {name}: the selection differs card vs CPU")
+            notes.append(f"weights bitwise, kept {int((host[1] > 0).sum())} of {m}")
+        else:
+            a, b = card[1].cpu(), host[1]
+            gap = float(((a - b).abs() - TRUST_WEIGHT_REL * b.abs()).max())
+            if gap > 1e-6:
+                raise AssertionError(f"trust (d) {name}: weights beyond the tolerance: {a} {b}")
+            notes.append(f"weights within {TRUST_WEIGHT_REL:g} rel")
+        for what, a, b in (("updates", card[0], host[0]), ("aggregate", card[2], host[2]),
+                           ("after", card[3], host[3])):
+            if b is None:
+                continue
+            a = a.cpu()
+            scale = max(1.0, float(b.abs().max()))
+            diff = (a - b).abs()
+            bad = int((diff > TRUST_REL * scale).sum())
+            worst = max(worst, float(diff.max()) / scale)
+            if bad and not (name == "outlier_detection" and what == "updates"
+                            and bad <= OUTLIER_FLIPS_MAX):
+                raise AssertionError(f"trust (d) {name}: {bad} {what} elements beyond "
+                                     f"{TRUST_REL:g} of {scale:.3g}")
+            if bad:
+                notes.append(f"{bad} {what} elements at a mask boundary")
+        want = 1 if name in ("weak_dp", "crfl") else 0
+        if launched != want:
+            raise AssertionError(f"trust (d) {name}: the noise kernel ran {launched} times, "
+                                 f"expected {want}")
+        print(f"  {name}: card {card[4] * 1e3:.2f} ms, CPU {host[4] * 1e3:.1f} ms; "
+              f"{', '.join(notes)}; largest difference {worst:.3g} of the result's scale; "
+              f"noise kernel {launched}")
+
+
+def phase_trust(mods, nz, flagship):
+    """Phase 10: trust in the simulator on the flagship (module docstring).
+    Returns each kernel's launches over forms (a)-(c)."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.data.dataset import stack_clients
+    from fedml_tpu_torch.weights import flatten_reference
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # (a) byzantine_random, defended by multikrum, against undefended
+    runner, hist, counts, lengths = _trust_run(
+        mods, nz, "(a) byzantine_random + multikrum", flagship, **TRUST_ATTACK, **TRUST_DEFENSE)
+    add(counts)
+    _noise_launches(counts, nz, lengths, [], "(a)")
+    sim = runner.runner
+    seen = _capture_aggregation(sim)
+    per_step_defended = _profiled_round(sim, "(a) attack + multikrum")
+    sampled = np.asarray(sim.sampler.sample(sim.round_idx - 1))
+    kept = seen["kept"].cpu().numpy()
+    attackers = [int(c) for c in sampled if int(c) in ATTACKERS]
+    kept_attackers = [int(c) for c, k in zip(sampled, kept) if int(c) in ATTACKERS and k > 0]
+    print(f"trust (a): round {sim.round_idx - 1} sampled attackers {attackers}; kept with a "
+          f"non-zero weight: {kept_attackers}; {int((kept > 0).sum())} of {len(kept)} kept")
+    defended_acc = sim.evaluate()["test_acc"]
+    plain, phist, _, _ = _trust_run(mods, nz, "(a') byzantine_random undefended", flagship,
+                                    **TRUST_ATTACK)
+    clean = _flagship(flagship, comm_round=2, frequency_of_the_test=0)
+    clean.runner.run_round()  # warm, as (a)'s profiled round is
+    per_step_plain = _profiled_round(clean.runner, "no trust flag")
+    print(f"trust (a): test_acc defended {defended_acc:.4f} against undefended "
+          f"{phist[-1]['test_acc']:.4f}; cudaLaunchKernel a batched step with the defense "
+          f"{per_step_defended:.0f}, with no trust flag {per_step_plain:.0f}")
+    del plain, clean
+
+    # (b) local DP: one launch of kernel 7 a round over the 64 updates
+    _, _, counts, lengths = _trust_run(mods, nz, "(b) LDP Gaussian", flagship, **LDP)
+    add(counts)
+    _noise_launches(counts, nz, lengths, [LDP_LENGTH] * TRUST_ROUNDS, "(b)")
+    # (c) central DP, then NbAFL (local and central)
+    _, _, counts, lengths = _trust_run(mods, nz, "(c) CDP", flagship,
+                                       **{**LDP, "dp_solution_type": "cdp"}, clipping_norm=1.0)
+    add(counts)
+    _noise_launches(counts, nz, lengths, [SECAGG_LENGTH] * TRUST_ROUNDS, "(c) CDP")
+    _, _, counts, lengths = _trust_run(mods, nz, "(c) NbAFL", flagship,
+                                       **{**LDP, "dp_solution_type": "nbafl"}, clipping_norm=1.0)
+    add(counts)
+    _noise_launches(counts, nz, lengths, [LDP_LENGTH, SECAGG_LENGTH] * TRUST_ROUNDS,
+                    "(c) NbAFL")
+
+    # (d) the captured round through all 24 defenses, card against CPU
+    _all_defenses(nz, runner.runner.cfg, seen)
+    del runner, sim, seen
+
+    # (e) data attacks: the poisoned shards on the card bitwise the host's
+    for attack in ("label_flipping", "backdoor"):
+        r, _, counts, _ = _trust_run(mods, nz, f"(e) {attack}", flagship, rounds=1,
+                                     enable_attack=True, attack_type=attack,
+                                     poisoned_client_list=ATTACKERS)
+        sim = r.runner
+        host = stack_clients(sim.dataset, multiple_of=sim.cfg.batch_size)
+        rows = list(ATTACKERS)
+        x_host = torch.from_numpy(host.x[rows]).to(sim._data[0].dtype)
+        same = (torch.equal(sim._data[0][rows].cpu(), x_host)
+                and torch.equal(sim._data[1][rows].cpu(), torch.from_numpy(host.y[rows]).long()))
+        changed = int((sim.dataset.train_y != flagship.train_y).sum()) + int(
+            (sim.dataset.train_x != flagship.train_x).any(axis=(1, 2, 3)).sum())
+        print(f"trust (e) {attack}: the {len(rows)} attackers' shards on the card "
+              f"{'bitwise' if same else 'DIFFER from'} the host's poisoned stack; "
+              f"{changed} labels / images changed")
+        if not same or not changed:
+            raise AssertionError(f"trust (e) {attack}: poisoned shards not bitwise, or nothing "
+                                 "poisoned")
+        del r, sim, host
+
+    # (f) contribution, 8 clients a round: the replay bitwise under cuDNN
+    # deterministic, then leave-one-out and GTG-Shapley
+    torch.backends.cudnn.deterministic = True
+    try:
+        for method in ("leave_one_out", "gtg_shapley"):
+            r = _flagship(flagship, comm_round=1, frequency_of_the_test=0,
+                          client_num_per_round=CONTRIBUTION_CLIENTS, enable_contribution=True,
+                          contribution_method=method)
+            sim = r.runner
+            assess, box = sim.assess_contribution, {}
+
+            def timed(assess=assess, box=box):
+                t0 = time.perf_counter()
+                box["scores"] = assess()
+                torch.cuda.synchronize()
+                box["s"] = time.perf_counter() - t0
+                return box["scores"]
+
+            sim.assess_contribution = timed  # the run assesses once, at its end
+            r.run()
+            stacked, weights, sampled, snap = sim.last_round_contributions()
+            agg = sim.algorithm.aggregate(stacked, torch.tensor(weights, device=sim.device))
+            replayed, _ = sim.algorithm.server_update(snap["global_vars"], snap["server_state"],
+                                                      agg, snap["round"])
+            gap = float((flatten_reference(replayed)[0]
+                         - flatten_reference(sim.global_vars)[0]).abs().max())
+            scores = box["scores"]
+            print(f"trust (f) {method}: {len(sampled)} clients {sampled.tolist()}, replay's "
+                  f"global {'bitwise' if gap == 0 else f'off by {gap:.3g}'}; scores "
+                  f"{np.round(scores, 4).tolist()} in {box['s']:.1f} s")
+            if gap != 0 or not np.isfinite(scores).all():
+                raise AssertionError(f"trust (f) {method}: replay off by {gap} or scores "
+                                     f"{scores}")
+            del r, sim, stacked
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (g) MyAvg with a transforming defense and local DP
+    _reset_counts(mods + (nz,))
+    t0 = time.perf_counter()
+    with _NoiseLengths(nz) as lengths:
+        r = _recipe(MYAVG, fused_blocks=False, comm_round=3, enable_defense=True,
+                    defense_type="norm_diff_clipping", norm_bound=1.0, **LDP)
+        hist = r.run()
+        torch.cuda.synchronize()
+    pers = r.runner.evaluate_personalized()
+    print(f"trust (g) myavg + norm_diff_clipping + LDP: 3 rounds in {time.perf_counter() - t0:.2f}"
+          f" s incl. set-up, test_acc {hist[-1]['test_acc']:.4f}, personalized mean / min "
+          f"{pers['personalized_test_acc_mean']:.4f} / {pers['personalized_test_acc_min']:.4f}, "
+          f"noise kernel lengths {lengths.lengths}")
+    if len(lengths.lengths) != 3 or _all_counts(mods + (nz,))[nz.NOISE.name] != 3:
+        raise AssertionError("trust (g): local DP must launch the noise kernel once a round")
+    _check_finite(r.runner, hist, ("train_loss",))
+
+    # (h) resume with cross_round: 1 + 1 rounds bitwise 2
+    import tempfile
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = {}
+            for name, kw in (("straight", dict(comm_round=2)),
+                             ("first", dict(comm_round=1, checkpoint_dir=tmp,
+                                            checkpoint_every_rounds=1)),
+                             ("resumed", dict(comm_round=2, checkpoint_dir=tmp, resume=True))):
+                r = _flagship(flagship, frequency_of_the_test=0, enable_defense=True,
+                              defense_type="cross_round", **kw)
+                r.run()
+                runs[name] = r.runner
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = runs["straight"], runs["resumed"]
+    worst = max(float((x.float() - y.float()).abs().max())
+                for x, y in zip(pt.tree_leaves(a.global_vars), pt.tree_leaves(b.global_vars)))
+    hist_same = torch.equal(a.defense_history, b.defense_history)
+    print(f"trust (h) cross_round resume: 1 round + checkpoint + 1 resumed against 2 straight: "
+          f"globals {'bitwise' if worst == 0 else f'differ by {worst:.3g}'}, history "
+          f"{'bitwise' if hist_same else 'DIFFERS'} (norm "
+          f"{float(b.defense_history.norm()):.4g})")
+    if worst != 0 or not hist_same or b.round_idx != 2:
+        raise AssertionError("trust (h): the resumed run is not bitwise the straight one")
+    print(f"trust phase: {time.perf_counter() - t_phase:.1f} s, {_mem()}")
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2625,6 +3049,8 @@ def main(argv=None) -> int:
     full_counts = phase_fedllm_full(mods + (nz,))
     _phase_start()
     resume_counts = phase_resume(mods + (nz,), flagship)
+    _phase_start()
+    trust_counts = phase_trust(mods, nz, flagship)
     del flagship
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
@@ -2645,12 +3071,15 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": m.SOURCE, "replaces": k.replaces,
          "launches": counts[k.name], "wire_launches": wire[k.name],
+         "trust_launches": trust_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],
          "library_ms": kernel_rows[k.name].get("library_ms"),
          **({"stream_ms": kernel_rows[k.name]["stream_ms"]}
-            if "stream_ms" in kernel_rows[k.name] else {})}
+            if "stream_ms" in kernel_rows[k.name] else {}),
+         **({"ldp_length": kernel_rows[k.name]["ldp_length"]}
+            if "ldp_length" in kernel_rows[k.name] else {})}
         for m in (fb, qz, nz) for k in m.KERNELS + getattr(m, "LANE_KERNELS", ())]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import weights
-from ..core.pytree import tree_unflatten_like
+from ..core import pytree as pt
 from ..fl.algorithm import FedAlgorithm, make_server_optimizer
 from ..fl.local_sgd import (make_batched_full_grad_fn, make_full_grad_fn, split_variables,
                             to_device)
@@ -98,22 +98,4 @@ def flatten_reference_lanes(tree):
     """:func:`weights.flatten_reference` of each lane of a lane-stacked tree:
     ``(L, n)`` rows in the reference's flat layout, and the inverse
     ``unravel(rows)`` back to the lane-stacked tree."""
-    named = list(weights._named_leaves(tree))
-    axes = [(weights._TO_FLAX.get(t.ndim - 1) if name == "kernel" else None)
-            for name, t in named]
-    flax_leaves = [t.permute((0,) + tuple(a + 1 for a in a_)) if a_ else t
-                   for (_, t), a_ in zip(named, axes)]
-    lanes = flax_leaves[0].shape[0]
-
-    def unravel(rows: torch.Tensor) -> dict:
-        out, offset = [], 0
-        for leaf, a in zip(flax_leaves, axes):
-            size = leaf[0].numel()
-            part = rows[:, offset:offset + size].reshape(leaf.shape)
-            if a:
-                part = part.permute((0,) + tuple(i + 1 for i in weights._TO_TORCH[leaf.ndim - 1]))
-            out.append(part.to(leaf.dtype).contiguous())
-            offset += size
-        return tree_unflatten_like(tree, out)
-
-    return torch.cat([t.reshape(lanes, -1).to(torch.float32) for t in flax_leaves], 1), unravel
+    return pt.stacked_tree_to_matrix(tree), lambda rows: pt.matrix_to_stacked_tree(rows, tree)

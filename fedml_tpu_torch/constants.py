@@ -76,3 +76,8 @@ DATASETS_IMAGE = ("mnist", "femnist", "cifar10", "cifar100", "cinic10", "fashion
 DATASETS_TEXT = ("shakespeare", "fed_shakespeare", "stackoverflow_nwp", "reddit")
 DATASETS_VECTOR = ("stackoverflow_lr", "lending_club")
 DATASET_SYNTHETIC = "synthetic"
+
+# Trust flags (reference runner.py:23): the security and privacy features a
+# config can turn on
+TRUST_FLAGS = ("enable_attack", "enable_defense", "enable_dp", "enable_secagg", "enable_fhe",
+               "enable_contribution")

@@ -15,6 +15,11 @@ import torch
 
 Tree = Any
 
+# kernel rank -> axis order between the port's layouts and flax's, for a
+# leaf named "kernel": conv OIHW <-> HWIO, dense (out, in) <-> (in, out)
+KERNEL_TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
+KERNEL_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
+
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     if isinstance(tree, dict):
@@ -149,3 +154,60 @@ def tree_flatten_to_vector(tree: Tree) -> tuple[torch.Tensor, Callable[[torch.Te
         return tree_unflatten_like(tree, out)
 
     return flat, unravel
+
+
+def named_leaves(tree, name=None):
+    """``(key, leaf)`` pairs in JAX leaf order (sorted keys at every level)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], k)
+    else:
+        yield name, tree
+
+
+def _flax_lane_axes(name, leaf: torch.Tensor):
+    """The permutation that puts a lane-stacked leaf's kernel in flax
+    layout behind its lane axis, or None."""
+    axes = KERNEL_TO_FLAX.get(leaf.ndim - 1) if name == "kernel" else None
+    return None if axes is None else (0,) + tuple(a + 1 for a in axes)
+
+
+def stacked_tree_to_matrix(stacked: Tree) -> torch.Tensor:
+    """``(m, *)`` lane-stacked tree -> ``(m, d)`` f32 matrix (reference
+    L128): each row the reference's flat vector of that lane (flax kernels,
+    JAX leaf order), so row ``i`` is bitwise the reference's row for the
+    same values.  A structured contribution (SCAFFOLD's ``{"delta_c",
+    "variables"}``, FedNova's ``{"a", "d", "rest"}``) flattens wholesale."""
+    named = list(named_leaves(stacked))
+    m = named[0][1].shape[0]
+    parts = []
+    for name, leaf in named:
+        axes = _flax_lane_axes(name, leaf)
+        parts.append((leaf.permute(axes) if axes else leaf).reshape(m, -1).to(torch.float32))
+    return torch.cat(parts, 1)
+
+
+def matrix_to_stacked_tree(mat: torch.Tensor, template_stacked: Tree) -> Tree:
+    """Inverse of :func:`stacked_tree_to_matrix` (reference L135): the
+    template's structure, layouts and dtypes."""
+    out, offset = [], 0
+    for name, leaf in named_leaves(template_stacked):
+        axes = _flax_lane_axes(name, leaf)
+        shape = leaf.permute(axes).shape if axes else leaf.shape
+        size = leaf[0].numel()
+        part = mat[:, offset:offset + size].reshape(shape)
+        if axes:
+            part = part.permute((0,) + tuple(a + 1 for a in KERNEL_TO_TORCH[leaf.ndim - 1]))
+        out.append(part.to(leaf.dtype).contiguous())
+        offset += size
+    return tree_unflatten_like(template_stacked, out)
+
+
+def same_structure(a: Tree, b: Tree) -> bool:
+    """True when two trees have the same nested keys (JAX's
+    ``tree_structure`` equality for dict trees)."""
+    if isinstance(a, dict) != isinstance(b, dict):
+        return False
+    if not isinstance(a, dict):
+        return True
+    return sorted(a) == sorted(b) and all(same_structure(a[k], b[k]) for k in a)

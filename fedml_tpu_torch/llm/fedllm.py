@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import constants as C
 from ..arguments import Config
 from ..core import pytree as pt
 from ..core import rng
@@ -57,9 +58,9 @@ _BASE_TAG, _LORA_TAG = 1, 2
 def refuse_unported_fedllm(cfg: Config) -> None:
     """Raise for flags this simulator does not serve (the reference wires
     no trust feature into it either)."""
-    from ..sim.engine import _UNPORTED_FLAGS, _UNPORTED_TRUST
+    from ..sim.engine import _UNPORTED_FLAGS
 
-    active = [f for f in _UNPORTED_TRUST if getattr(cfg, f, False)]
+    active = [f for f in C.TRUST_FLAGS if getattr(cfg, f, False)]
     if active:
         raise NotImplementedError(f"trust features {active} are not wired into the 'FedLLM' "
                                   "simulator; refusing to run without them")

@@ -1,11 +1,13 @@
-"""Central-DP Gaussian noise on a flat f32 vector: ``x + noise * sigma``.
+"""Gaussian noise on a flat f32 vector: ``x + noise * sigma``.
 
 The port of ``fedml_tpu/ops/pallas/noise.py``.  Streaming Shamir SecAgg
 adds central-DP noise exactly once, at finalize, to the unmasked aggregate
-(``cross_silo/secagg_shamir.py``).  The N(0, 1) draw is an explicit argument
+(``cross_silo/secagg_shamir.py``); the simulator's trust pipeline adds each
+of its Gaussian draws through it too (``trust/dp/dp.py`` names the sites).  The N(0, 1) draw is an explicit argument
 of shape :func:`noise_shape` (the reference pads the vector to ``(blocks, 8,
-128)`` and draws that shape from the round key); only its first ``n``
-elements meet the vector.
+128)`` and draws that shape from the round key) or flat ``(n,)`` (the trust
+pipeline's draws, local DP's m client draws laid end to end); only its
+first ``n`` elements meet the vector.
 
 A hand-written CUDA kernel (``csrc/noise.cu``; its header note names the TPU
 kernel it replaces, its bound and its design: 16-byte accesses contiguous
@@ -67,12 +69,13 @@ def _check(vec: torch.Tensor, noise: torch.Tensor) -> None:
     if vec.ndim != 1 or not 0 < vec.numel() < 2**31:
         raise ValueError(f"noise takes a flat vector of 1 <= n < 2**31, got shape "
                          f"{tuple(vec.shape)}")
-    shape = noise_shape(vec.numel())
+    shapes = (noise_shape(vec.numel()), (vec.numel(),))
     if noise.device != vec.device:
         raise ValueError(f"noise on {noise.device}, the vector on {vec.device}")
-    if noise.dtype != torch.float32 or tuple(noise.shape) != shape or not noise.is_contiguous():
-        raise ValueError(f"noise must be contiguous float32 {shape}, got {noise.dtype} "
-                         f"{tuple(noise.shape)}")
+    if noise.dtype != torch.float32 or tuple(noise.shape) not in shapes \
+            or not noise.is_contiguous():
+        raise ValueError(f"noise must be contiguous float32 {shapes[0]} or {shapes[1]}, got "
+                         f"{noise.dtype} {tuple(noise.shape)}")
 
 
 def apply_gaussian_noise_reference(vec: torch.Tensor, noise: torch.Tensor,
@@ -98,8 +101,9 @@ def _noise_cuda(vec: torch.Tensor, noise: torch.Tensor, sigma: float) -> torch.T
 
 def apply_gaussian_noise(vec: torch.Tensor, noise: torch.Tensor, sigma: float) -> torch.Tensor:
     """flat vector + ``noise * sigma`` (f32) given the N(0, 1) draw ``noise``
-    of shape :func:`noise_shape`: the CUDA kernel on the card, the plain
-    version on the CPU; any other device raises."""
+    of shape :func:`noise_shape` or flat ``(n,)`` (the kernel reads the first
+    ``n`` draws either way): the CUDA kernel on the card, the plain version
+    on the CPU; any other device raises."""
     _check(vec, noise)
     if vec.is_cuda:
         return _noise_cuda(vec, noise, float(sigma))

@@ -9,6 +9,12 @@ model), and the
 cross-silo platform (``cross_silo/``: the plain synchronous server, Shamir
 SecAgg and LightSecAgg, in one process); every other platform and optimizer
 raises ``NotImplementedError``.
+
+Trust flags as the reference routes them (L17-41, L113-140): attack,
+defense, DP and contribution run on the engine's FedAvg family (MESH and
+sp); MyAvg takes attack, defense and DP and refuses the rest itself; every
+other special simulator refuses them all; SecAgg and FHE are cross-silo
+protocols, refused in simulation.
 """
 
 from __future__ import annotations
@@ -16,6 +22,20 @@ from __future__ import annotations
 from . import algorithms, constants as C
 from .arguments import Config
 from .core.device import resolve_device
+
+# the reference's implemented set (all six); a flag outside it would be a
+# silent no-op, so it is refused
+_IMPLEMENTED_TRUST_FLAGS = frozenset(C.TRUST_FLAGS)
+
+
+def _check_unimplemented_flags(cfg: Config) -> None:
+    """Security and privacy flags are never silent no-ops: a flag the trust
+    stack does not handle is an error (reference L17)."""
+    pending = [f for f in C.TRUST_FLAGS
+               if getattr(cfg, f, False) and f not in _IMPLEMENTED_TRUST_FLAGS]
+    if pending:
+        raise NotImplementedError(f"trust features {pending} are enabled in the config but not "
+                                  "yet implemented; refusing to run without them")
 
 _PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO)
 # simulators of their own (reference runner.py L158, L194), beside the
@@ -44,6 +64,7 @@ class FedMLRunner:
                                       f"not ported yet (ported: {_PORTED_OPTIMIZERS})")
         if server_aggregator is not None:
             raise NotImplementedError("custom server_aggregator is not ported yet")
+        _check_unimplemented_flags(cfg)
         if cfg.training_type == C.TRAINING_PLATFORM_CROSS_SILO:
             if client_trainer is not None:
                 raise NotImplementedError("custom client_trainer is not ported to cross-silo yet")
@@ -67,10 +88,21 @@ class FedMLRunner:
                                           input_shape=self.dataset.train_x.shape[1:])
 
     def _init_simulation_runner(self, client_trainer):
+        from .sim.engine import refuse_protocol_flags
+
+        refuse_protocol_flags(self.cfg)
         opt = self.cfg.federated_optimizer
-        if opt in _SPECIAL_SIMULATORS and client_trainer is not None:
-            raise ValueError(f"a custom client_trainer is not used by the {opt!r} simulator; "
-                             "remove it or use a FedAvg-family optimizer")
+        if opt in _SPECIAL_SIMULATORS:
+            # these simulators bypass the engine's trust hooks; MyAvg routes
+            # attack, defense and DP through them and refuses the rest itself
+            active = [f for f in C.TRUST_FLAGS if getattr(self.cfg, f, False)]
+            if active and opt not in C.FEDERATED_OPTIMIZER_MYAVG_ALIASES:
+                raise NotImplementedError(
+                    f"trust features {active} are not yet wired into the {opt!r} simulator "
+                    "(supported on the FedAvg-family mesh engine); refusing to run without them")
+            if client_trainer is not None:
+                raise ValueError(f"a custom client_trainer is not used by the {opt!r} "
+                                 "simulator; remove it or use a FedAvg-family optimizer")
         if opt == C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL:
             from .sim.hierarchical import HierarchicalSimulator, refuse_unported_hierarchical
 

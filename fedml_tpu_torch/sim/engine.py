@@ -36,7 +36,24 @@ Mime's momentum) is whatever tree ``server_update`` returns.  ``run_rounds(n)`` 
 rounds' metrics on the device and syncs once, at the end of the chunk (the
 reference's ``jit(scan(round))`` chunk has one host sync too); CUDA-graph
 capture of rounds is a later slice.  The AOT program store, the profiler,
-OTLP export, trust hooks and population mode raise ``NotImplementedError``.
+OTLP export and population mode raise ``NotImplementedError``.
+
+Trust (``trust/pipeline.py``, reference L145-158 and L402-425): with
+``enable_attack``, ``enable_defense`` or ``enable_dp`` the round's
+contributions go through the pipeline's three hooks in :meth:`_server_path`,
+shared by both backends (the attack and local DP, the defense before and at
+aggregation, central DP and the defense after it), with the sampled ids and
+the round index; a data attack poisons the dataset before the shards are
+stacked.  A defense that reads the previous round's global delta
+(``cross_round``, ``wbc``) gets it from :attr:`defense_history`, a tensor
+on the device carried from round to round and through the checkpoint.  With
+``enable_contribution`` the last round's pre-round state is kept, the
+round's client work replayed through the same backend call (MESH: one
+lane-batched call, so the replayed contributions are bitwise the round's),
+and the clients scored by test accuracy (``trust/contribution.py``,
+reference L902-1047).  ``enable_secagg`` and ``enable_fhe`` are cross-silo
+protocols: the simulator refuses them, as the reference's runner does.
+With no trust flag set the round does no trust work at all.
 
 Round checkpointing (``core/checkpoint.py``, reference L871-903): with
 ``checkpoint_dir`` and ``checkpoint_every_rounds`` set, :meth:`run` saves
@@ -78,13 +95,26 @@ from ..data.dataset import FederatedDataset, pad_eval_set, stack_clients
 from ..fl.local_sgd import (dropout_masks, dropout_spec, epoch_permutations, lane_dropout_table,
                             make_eval_fn, step_budgets, to_device)
 from ..obs.metrics import MetricsLogger
+from ..trust.contribution import ContributionAssessorManager
+from ..trust.dp.dp import NoiseSampler
+from ..trust.pipeline import build_trust_pipeline
+from ..weights import flatten_reference
 
 # flags whose subsystems later slices port; setting one must not be a no-op
 _UNPORTED_FLAGS = ("aot_programs", "profile_rounds", "otlp_endpoint", "population_store",
                    "cost_model_gauges")
-_UNPORTED_TRUST = ("enable_attack", "enable_defense", "enable_dp", "enable_secagg",
-                   "enable_fhe", "enable_contribution")
 _MULTI_PROCESS = ("MULTIPROCESS", C.SIMULATION_BACKEND_MPI)
+
+
+def refuse_protocol_flags(cfg: Config) -> None:
+    """SecAgg and FHE are cross-silo protocols: the simulator refuses them
+    with the reference runner's reason (``fedml_tpu/runner.py:113-120``)."""
+    for flag, feature in (("enable_secagg", "LightSecAgg"), ("enable_fhe", "FHE aggregation")):
+        if getattr(cfg, flag, False):
+            raise NotImplementedError(
+                f"{flag} is a cross-silo protocol feature ({feature} over the wire); the "
+                "single-process simulator has no adversarial server to hide updates from "
+                "— set training_type='cross_silo'")
 
 
 def _refuse_unported(cfg: Config) -> None:
@@ -94,9 +124,7 @@ def _refuse_unported(cfg: Config) -> None:
     for flag in _UNPORTED_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported yet (first port slice)")
-    for flag in _UNPORTED_TRUST:
-        if getattr(cfg, flag, False):
-            raise NotImplementedError(f"{flag} is not ported yet (first port slice)")
+    refuse_protocol_flags(cfg)
 
 
 def _mean(values: list) -> float:
@@ -165,13 +193,18 @@ class MeshSimulator(RoundCheckpointMixin):
         logger: Optional[MetricsLogger] = None,
         device=None,
         sampler=None,
+        trust=None,
     ):
         _refuse_unported(cfg)
         self.cfg = cfg
         self.backend = cfg.backend_sim or C.SIMULATION_BACKEND_MESH
+        self.device = resolve_device(device)
+        self.trust = trust if trust is not None else build_trust_pipeline(cfg)
+        if self.trust is not None and self.trust.attacker is not None \
+                and self.trust.attacker.is_data_attack():
+            dataset = self.trust.attacker.poison_data(dataset)
         self.dataset = dataset
         self.model = model
-        self.device = resolve_device(device)
         self.logger = logger or MetricsLogger(cfg.metrics_jsonl_path or None)
 
         stacked = stack_clients(dataset, multiple_of=cfg.batch_size)
@@ -199,6 +232,12 @@ class MeshSimulator(RoundCheckpointMixin):
                       int(n_test))
         self._eval_fn = make_eval_fn(model, self.hp, batch_size=eval_bs)
         self.round_idx = 0
+        # the previous round's global delta (the reference's flat layout) for
+        # a defense that reads it; zeros before the first round
+        self.defense_history = (
+            torch.zeros_like(flatten_reference(self.global_vars)[0])
+            if self.trust is not None and self.trust.needs_history else None)
+        self._contribution_snapshot = None
 
     def _place_data(self, stacked):
         x = torch.from_numpy(stacked.x)
@@ -208,9 +247,26 @@ class MeshSimulator(RoundCheckpointMixin):
             x = x.to(torch.bfloat16)
         return x.to(self.device), torch.from_numpy(stacked.y).to(self.device, torch.long)
 
-    def _server_path(self, contribs, weights, round_idx: int):
-        agg = self.algorithm.aggregate(contribs, weights)
-        return self.algorithm.server_update(self.global_vars, self.server_state, agg, round_idx)
+    def _server_path(self, contribs, weights, sampled, round_idx: int):
+        """Trust hooks, aggregation and the server update, shared by both
+        backends (reference L402).  Returns the new global variables and
+        server state; updates :attr:`defense_history`."""
+        old = self.global_vars
+        agg = None
+        if self.trust is not None:
+            contribs, weights = self.trust.on_client_outputs(contribs, weights, sampled, old,
+                                                             round_idx)
+            contribs, weights, agg = self.trust.on_aggregation(
+                contribs, weights, old, round_idx, prev_delta=self.defense_history)
+        if agg is None:
+            agg = self.algorithm.aggregate(contribs, weights)
+        new_global, new_server = self.algorithm.server_update(old, self.server_state, agg,
+                                                              round_idx)
+        if self.trust is not None:
+            new_global = self.trust.on_after_aggregation(new_global, old, round_idx)
+        if self.defense_history is not None:
+            self.defense_history = flatten_reference(new_global)[0] - flatten_reference(old)[0]
+        return new_global, new_server
 
     def _round(self) -> dict:
         """One round on the backend; its metrics as 0-d tensors (MESH, on
@@ -236,6 +292,22 @@ class MeshSimulator(RoundCheckpointMixin):
         Metrics stay on the device."""
         sampled = np.asarray(self.sampler.sample(r))
         lanes = to_device(sampled, self.device, torch.long)
+        states = (pt.tree_take(self.client_states, lanes)
+                  if self.client_states is not None else None)
+        out = self._client_outputs_mesh(r, sampled, lanes, self.global_vars, self.server_state,
+                                        states)
+        weights = to_device(self.counts[sampled], self.device, torch.float32)
+        self.global_vars, self.server_state = self._server_path(out.contribution, weights,
+                                                                sampled, r)
+        if self.client_states is not None and out.client_state is not None:
+            pt.tree_scatter_(self.client_states, lanes, out.client_state)
+        return {k: v.to(torch.float32).mean() for k, v in out.metrics.items()}
+
+    def _client_outputs_mesh(self, r: int, sampled, lanes, global_vars, server_state, states):
+        """Round ``r``'s client work on MESH: the sampled clients (``lanes``
+        their ids on the device) trained in one batched call from
+        ``global_vars`` / ``server_state`` and their gathered client
+        ``states``."""
         counts = self.counts[sampled]
         perms = [self.sampler.perms(r, int(ci), self.hp.epochs, self.capacity) for ci in sampled]
         perms = None if perms[0] is None else to_device(torch.stack(perms), self.device, torch.long)
@@ -244,47 +316,49 @@ class MeshSimulator(RoundCheckpointMixin):
             return torch.stack([self.sampler.uniform(r, int(ci), shape, self.device)
                                 for ci in sampled])
 
-        states = (pt.tree_take(self.client_states, lanes)
-                  if self.client_states is not None else None)
         drops = client_dropout(self.sampler, self.model, self.hp, r, sampled, counts, self.device)
         # a model without dropout is trained through the same call as before
         drop = {} if drops is None else {"dropout": lane_dropout_table(drops)}
-        out = self.algorithm.client_update_lanes(
-            self.global_vars, states, self.server_state, self._data[0], self._data[1], lanes,
-            counts, perms=perms, draw=draw, **drop)
-        weights = to_device(counts, self.device, torch.float32)
-        self.global_vars, self.server_state = self._server_path(out.contribution, weights, r)
-        if self.client_states is not None and out.client_state is not None:
-            pt.tree_scatter_(self.client_states, lanes, out.client_state)
-        return {k: v.to(torch.float32).mean() for k, v in out.metrics.items()}
+        return self.algorithm.client_update_lanes(
+            global_vars, states, server_state, self._data[0], self._data[1], lanes, counts,
+            perms=perms, draw=draw, **drop)
 
     def _run_round_sp(self, r: int) -> dict:
         """The sequential twin (reference ``_run_round_sp`` L821): every
         sampled client trains in turn."""
         sampled = np.asarray(self.sampler.sample(r))
+        states = (pt.tree_take(self.client_states, to_device(sampled, self.device, torch.long))
+                  if self.client_states is not None else None)
+        contribs, new_states, metrics_list = self._client_outputs_sp(
+            r, sampled, self.global_vars, self.server_state, states)
+        weights = torch.as_tensor(self.counts[sampled], dtype=torch.float32, device=self.device)
+        self.global_vars, self.server_state = self._server_path(contribs, weights, sampled, r)
+        if self.client_states is not None and new_states[0] is not None:
+            with torch.no_grad():
+                for ci, ncs in zip(sampled, new_states):
+                    pt.tree_map(lambda full, upd: full[int(ci)].copy_(upd), self.client_states, ncs)
+        return {k: _mean([m[k] for m in metrics_list]) for k in metrics_list[0]}
+
+    def _client_outputs_sp(self, r: int, sampled, global_vars, server_state, states):
+        """Round ``r``'s client work on sp: each sampled client in turn, lane
+        ``i`` of ``states`` its client state.  Returns the stacked
+        contributions, each client's new state and its metrics."""
         rkey = rng.round_key(self.root_key, r)
         contribs, new_states, metrics_list = [], [], []
         drops = client_dropout(self.sampler, self.model, self.hp, r, sampled,
                                self.counts[sampled], self.device)
         for lane, ci in enumerate(int(c) for c in sampled):
             perms = self.sampler.perms(r, ci, self.hp.epochs, self.capacity)
-            cs = (pt.tree_map(lambda s: s[ci], self.client_states)
-                  if self.client_states is not None else None)
+            cs = pt.tree_map(lambda s: s[lane], states) if states is not None else None
             out = self.algorithm.client_update(
-                self.global_vars, cs, self.server_state, self._data[0][ci], self._data[1][ci],
+                global_vars, cs, server_state, self._data[0][ci], self._data[1][ci],
                 int(self.counts[ci]), rng.client_key(rkey, ci), perms=perms,
                 draw=lambda shape, ci=ci: self.sampler.uniform(r, ci, shape, self.device),
                 **({} if drops is None else {"dropout": drops[lane]}))
             contribs.append(out.contribution)
             new_states.append(out.client_state)
             metrics_list.append(out.metrics)
-        weights = torch.as_tensor(self.counts[sampled], dtype=torch.float32, device=self.device)
-        self.global_vars, self.server_state = self._server_path(pt.tree_stack(contribs), weights, r)
-        if self.client_states is not None and new_states[0] is not None:
-            with torch.no_grad():
-                for ci, ncs in zip(sampled, new_states):
-                    pt.tree_map(lambda full, upd: full[int(ci)].copy_(upd), self.client_states, ncs)
-        return {k: _mean([m[k] for m in metrics_list]) for k in metrics_list[0]}
+        return pt.tree_stack(contribs), new_states, metrics_list
 
     def run_rounds(self, n: int) -> list[dict]:
         """``n`` rounds; one dict of host metrics a round.  sp: each round
@@ -318,6 +392,8 @@ class MeshSimulator(RoundCheckpointMixin):
                  "round_idx": self.round_idx, "root_key": self.root_key}
         if self.client_states is not None:
             state["client_states"] = self.client_states
+        if self.defense_history is not None:
+            state["defense_history"] = self.defense_history
         return state
 
     def _apply_ckpt_state(self, state: dict) -> None:
@@ -328,17 +404,25 @@ class MeshSimulator(RoundCheckpointMixin):
         self.root_key = tuple(int(w) for w in state["root_key"])
         if isinstance(self.sampler, ClientSampler):
             self.sampler.root = self.root_key
+        if self.trust is not None and isinstance(self.trust.sampler, NoiseSampler):
+            self.trust.sampler.root = self.root_key
         if "client_states" in state:
             self.client_states = tree_to_device(state["client_states"], self.device)
+        if "defense_history" in state:
+            self.defense_history = tree_to_device(state["defense_history"], self.device)
 
     def _next_boundary(self, r0: int) -> int:
-        """First round index > r0 at which the host evaluates, checkpoints
-        or training ends."""
+        """First round index > r0 at which the host evaluates, checkpoints,
+        snapshots the last round for contribution, or training ends."""
         cfg = self.cfg
         ends = [cfg.comm_round]
         for every in (cfg.frequency_of_the_test, cfg.checkpoint_every_rounds):
             if every:
                 ends.append(((r0 // every) + 1) * every)
+        if getattr(cfg, "enable_contribution", False) and r0 < cfg.comm_round - 1:
+            # a chunk must not straddle the last round: its pre-round state
+            # is kept for the contribution replay
+            ends.append(cfg.comm_round - 1)
         return max(r0 + 1, min(e for e in ends if e > r0))
 
     def run(self) -> list[dict]:
@@ -348,8 +432,13 @@ class MeshSimulator(RoundCheckpointMixin):
         history = []
         cfg = self.cfg
         self.try_resume()
+        contribution = getattr(cfg, "enable_contribution", False)
         while self.round_idx < cfg.comm_round:
             r0 = self.round_idx
+            if contribution and r0 == cfg.comm_round - 1:
+                # keep the pre-round state: the last round's contributions are
+                # replayed from it (reference L920-927)
+                self._contribution_snapshot = self._snapshot_pre_round(r0)
             end = self._next_boundary(r0)
             t0 = time.perf_counter()
             chunk = self.run_rounds(end - r0)
@@ -367,4 +456,60 @@ class MeshSimulator(RoundCheckpointMixin):
                 self.logger.log(metrics)
                 history.append(metrics)
             self.maybe_save_checkpoint(r_last)
+        if contribution:
+            scores = self.assess_contribution()
+            if scores is not None:
+                self.logger.log({f"contribution_c{i}": float(s) for i, s in enumerate(scores)})
         return history
+
+    # -- contribution (reference L960-1047) ----------------------------------
+    def _snapshot_pre_round(self, r: int) -> dict:
+        """Round ``r``'s starting state: the global variables and the server
+        state (the round replaces them, never writes into them) and a copy of
+        the sampled clients' states (the round writes those rows in place)."""
+        sampled = np.asarray(self.sampler.sample(r))
+        states = None
+        if self.client_states is not None:
+            states = pt.tree_take(self.client_states, to_device(sampled, self.device, torch.long))
+        return {"round": r, "global_vars": self.global_vars, "server_state": self.server_state,
+                "client_states": states}
+
+    def last_round_contributions(self):
+        """Replay the last round's client work from the kept pre-round state:
+        the same sampled clients, draws and starting state, through the same
+        backend call as the round (MESH: one lane-batched call, so the
+        contributions are bitwise the round's).  Returns (stacked
+        contributions, weights, sampled ids, snapshot), or None when no
+        snapshot was kept."""
+        snap = self._contribution_snapshot
+        if snap is None:
+            return None
+        r = snap["round"]
+        sampled = np.asarray(self.sampler.sample(r))
+        if self.backend == C.SIMULATION_BACKEND_SP:
+            contribs, _, _ = self._client_outputs_sp(r, sampled, snap["global_vars"],
+                                                     snap["server_state"], snap["client_states"])
+        else:
+            contribs = self._client_outputs_mesh(
+                r, sampled, to_device(sampled, self.device, torch.long), snap["global_vars"],
+                snap["server_state"], snap["client_states"]).contribution
+        return contribs, [float(self.counts[int(ci)]) for ci in sampled], sampled, snap
+
+    def assess_contribution(self):
+        """Shapley contribution of the last round's sampled clients
+        (reference ``ServerAggregator.assess_contribution``): coalitions of
+        the replayed contributions scored by test accuracy."""
+        mgr = ContributionAssessorManager(self.cfg)
+        if not mgr.enabled or self.round_idx == 0:
+            return None
+        replay = self.last_round_contributions()
+        if replay is None:
+            return None
+        stacked, weights, _, snap = replay
+        if not pt.same_structure(pt.tree_map(lambda x: x[0], stacked), self.global_vars):
+            return None  # contribution is defined on weight-style contributions
+
+        def eval_fn(agg_vars):
+            return float(self._eval_fn(agg_vars, *self._test)["test_acc"])
+
+        return mgr.assess(stacked, np.asarray(weights), eval_fn, empty_model=snap["global_vars"])

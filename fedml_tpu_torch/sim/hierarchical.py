@@ -46,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import constants as C
 from ..algorithms import hparams_from_config
 from ..arguments import Config
 from ..core import pytree as pt
@@ -57,12 +58,12 @@ from ..fl.local_sgd import (dropout_masks, dropout_spec, epoch_permutations, lan
                             make_batched_local_train_fn, make_eval_fn, step_budgets, to_device)
 from ..obs.metrics import MetricsLogger
 from ..sched.seq_scheduler import SeqTrainScheduler, round_robin_groups
-from .engine import _UNPORTED_FLAGS, _UNPORTED_TRUST
+from .engine import _UNPORTED_FLAGS
 
 
 def refuse_unported_hierarchical(cfg: Config) -> None:
     """Raise for what this simulator does not serve."""
-    active = [f for f in _UNPORTED_TRUST if getattr(cfg, f, False)]
+    active = [f for f in C.TRUST_FLAGS if getattr(cfg, f, False)]
     if active:
         raise NotImplementedError(f"trust features {active} are not wired into the "
                                   "'HierarchicalFL' simulator; refusing to run without them")

@@ -29,11 +29,20 @@ The config id is known on the host, so a gated-off leaf skips the CKA work
 outright (the reference's ``lax.cond``); :attr:`MyAvgSimulator.cka_rounds`
 counts the rounds in which it ran.
 
-Refused as the reference refuses them: the ``sp`` backend and
-``enable_secagg`` / ``enable_fhe`` / ``enable_contribution``
-(``NotImplementedError``), a non-positive ``agg_mod_list`` entry, a filter
-substring that matches no leaf and a configured CKA filter that selects none
-(``ValueError``).  The rest of the trust pipeline is refused by the engine.
+Trust (reference L349-367, L428-432): the sampled clients' trained models
+go through the engine's trust hooks (``trust/pipeline.py``: the attack and
+local DP, then the defense's ``before``) before the server rebuilds the
+global and the personal models from them, so a reweighted client loses its
+vote as a CKA partner too; central DP and the defense's ``after`` touch the
+global only.  A leaf that does not aggregate keeps each client's clean
+locally trained leaf, never the transformed copy.
+
+Refused as the reference refuses them: the ``sp`` backend,
+``enable_secagg`` / ``enable_fhe`` / ``enable_contribution`` and a defense
+that replaces the aggregation (``on_agg``: MyAvg needs the clients'
+individual deltas) (``NotImplementedError``), a non-positive
+``agg_mod_list`` entry, a filter substring that matches no leaf and a
+configured CKA filter that selects none (``ValueError``).
 """
 
 from __future__ import annotations
@@ -47,14 +56,18 @@ import torch
 from .. import constants as C
 from ..core import pytree as pt
 from ..fl.local_sgd import lane_dropout_table, make_batched_local_train_fn, to_device
+from ..trust.defense import create as create_defense
+from ..trust.defense.base import Defense
+from ..weights import flatten_reference
 from .engine import MeshSimulator, client_dropout
 
 _MYAVG_REFUSED_TRUST = ("enable_secagg", "enable_fhe", "enable_contribution")
 
 
 def refuse_unported_myavg(cfg) -> None:
-    """The reference's refusals that need no model: ``sp`` and the trust
-    features that change the aggregation protocol."""
+    """The reference's refusals that need no model: ``sp``, the trust
+    features that change the aggregation protocol, and a defense that
+    replaces the aggregation."""
     if cfg.backend_sim == C.SIMULATION_BACKEND_SP:
         raise NotImplementedError("MyAvg runs as the batched round; the sequential sp twin is "
                                   "not provided for it (set backend_sim='MESH')")
@@ -64,6 +77,15 @@ def refuse_unported_myavg(cfg) -> None:
         # personalization needs; contribution replay assumes FedAvg's server
         raise NotImplementedError(f"trust features {active} are not wired into the MyAvg "
                                   "round; use a FedAvg-family optimizer for them")
+    if getattr(cfg, "enable_defense", False):
+        defense = create_defense(cfg)
+        if type(defense).on_agg is not Defense.on_agg:
+            # an aggregation-replacing defense collapses the m client deltas
+            # to one aggregate: the per-client structure CKA personalizes from
+            raise NotImplementedError(
+                f"defense {type(defense).name!r} replaces the aggregation (on_agg); MyAvg needs "
+                "per-client deltas — use a transforming defense (e.g. norm_diff_clipping, "
+                "weak_dp, foolsgold) or a FedAvg-family optimizer")
 
 
 class LayerFilter:
@@ -272,17 +294,28 @@ class MyAvgSimulator(MeshSimulator):
             pt.tree_take(self.client_states, lanes), self._data[0], self._data[1], lanes, counts,
             perms, None, None if drops is None else lane_dropout_table(drops))
         weights = to_device(counts, self.device, torch.float32)
+        old = self.global_vars
+        # the clients keep their clean trained models; the trust hooks
+        # transform only the copy the server aggregates from
+        retained = trained
+        if self.trust is not None:
+            trained, weights = self.trust.on_client_outputs(trained, weights, sampled, old, r)
+            trained, weights, agg = self.trust.on_aggregation(
+                trained, weights, old, r, prev_delta=self.defense_history)
+            if agg is not None:
+                raise NotImplementedError("the trust pipeline returned an aggregation override; "
+                                          "MyAvg needs per-client deltas")
         wnorm = weights / torch.clamp(weights.sum(), min=1e-12)
         cid = self.config_id(r)
         new_g, new_p, cka_ran = [], [], False
         with torch.no_grad():
-            for li, (g, t) in enumerate(zip(pt.tree_leaves(self.global_vars),
-                                            pt.tree_leaves(trained))):
+            for li, (g, t, t_clean) in enumerate(zip(pt.tree_leaves(old), pt.tree_leaves(trained),
+                                                     pt.tree_leaves(retained))):
                 if not self._agg_table[li][cid]:
                     # gated off: the global keeps its leaf, each client its
-                    # locally trained one
+                    # clean locally trained one
                     new_g.append(g)
-                    new_p.append(t)
+                    new_p.append(t_clean)
                     continue
                 delta = (t - g[None]).to(torch.float32)
                 g_all = torch.tensordot(wnorm, delta, dims=1)  # the weighted mean delta
@@ -293,9 +326,14 @@ class MyAvgSimulator(MeshSimulator):
                 else:
                     pers = g_all.expand((m,) + tuple(g.shape))
                 new_p.append((g[None] + pers).to(t.dtype))
-            self.global_vars = pt.tree_unflatten_like(self.global_vars, new_g)
-            pt.tree_scatter_(self.client_states, lanes,
-                             pt.tree_unflatten_like(self.global_vars, new_p))
+            new_global = pt.tree_unflatten_like(old, new_g)
+            if self.trust is not None:
+                # central DP and the defense's after() on the global only
+                new_global = self.trust.on_after_aggregation(new_global, old, r)
+            self.global_vars = new_global
+            pt.tree_scatter_(self.client_states, lanes, pt.tree_unflatten_like(old, new_p))
+            if self.defense_history is not None:
+                self.defense_history = flatten_reference(new_global)[0] - flatten_reference(old)[0]
         self.cka_rounds += int(cka_ran)
         out = {k: v.to(torch.float32).mean() for k, v in metrics.items()}
         out["myavg_config_id"] = torch.tensor(float(cid), device=self.device)

@@ -1,1 +1,2 @@
-"""Trust: secure aggregation and differential privacy."""
+"""Trust: secure aggregation, differential privacy, attacks, defenses, the
+simulator's trust pipeline and contribution assessment."""

@@ -35,7 +35,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .core.pytree import tree_unflatten_like
+from .core.pytree import (KERNEL_TO_FLAX as _TO_FLAX, KERNEL_TO_TORCH as _TO_TORCH,
+                          named_leaves as _named_leaves, tree_unflatten_like)
 
 
 def _convert(tree, leaf_fn):
@@ -43,11 +44,6 @@ def _convert(tree, leaf_fn):
         return {k: (leaf_fn(k, v) if not isinstance(v, dict) else _convert(v, leaf_fn))
                 for k, v in tree.items()}
     raise TypeError(f"expected a dict of variables, got {type(tree).__name__}")
-
-
-# kernel rank -> axis order: conv HWIO -> OIHW, dense (in, out) -> (out, in)
-_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
-_TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
 
 
 def _relayout(axes: dict):
@@ -89,15 +85,6 @@ def tensors_to_flax(variables: dict) -> dict:
 def tensors_from_flax(variables: dict) -> dict:
     """Inverse of :func:`tensors_to_flax`."""
     return _convert(variables, _permute_kernels(_TO_TORCH))
-
-
-def _named_leaves(tree, name=None):
-    """``(key, leaf)`` pairs in JAX leaf order (sorted keys at every level)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _named_leaves(tree[k], k)
-    else:
-        yield name, tree
 
 
 def flatten_reference(tree) -> tuple[torch.Tensor, Callable[[torch.Tensor], dict]]:

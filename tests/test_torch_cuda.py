@@ -1213,3 +1213,82 @@ def test_stream_fold_card_matches_numpy(cuda_device):
         t = t.numpy()
         want = ((want + np.float32(w_delta) * t) / np.float32(w_total)).astype(t.dtype)
         assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 64])
+def test_local_dp_one_launch_with_a_flat_draw(m, cuda_device):
+    """Local DP over an (m, 271,098) matrix (the flagship's 64 lanes at
+    most): one launch of the noise kernel on the flattened matrix with the
+    flat draw, bitwise the plain version on the card and on the CPU."""
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.ops import noise as nz
+    from fedml_tpu_torch.trust.dp.dp import FedMLDifferentialPrivacy
+
+    d = 271098
+    dp = FedMLDifferentialPrivacy(Config(enable_dp=True, dp_solution_type="ldp", epsilon=50.0,
+                                         delta=1e-5, sensitivity=0.01))
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m)
+    mat = torch.randn(m, d, generator=g, device=cuda_device)
+    draw = torch.randn(m * d, generator=g, device=cuda_device)
+    before = nz.variant_counts()[nz.NOISE.name]["vector"]
+    out = dp.add_local_noise(mat, draw)
+    assert nz.variant_counts()[nz.NOISE.name]["vector"] == before + 1
+    want = nz.apply_gaussian_noise_reference(mat.reshape(-1), draw, dp.sigma()).view(m, d)
+    assert out.shape == (m, d) and torch.equal(out, want)
+    assert torch.equal(out.cpu(), dp.add_local_noise(mat.cpu(), draw.cpu()))
+
+
+@pytest.mark.cuda
+def test_trust_hooks_card_match_cpu(cuda_device):
+    """One defense-hook round, card against CPU, on 16 lane-stacked
+    ResNet-20 trees with the same draws: byzantine_random, multikrum, local
+    and central DP.  Krum's selection bitwise; contributions and the global
+    within 1e-5 of their scale (norms and the Gram matrix sum in another
+    order); the noise kernel launched for both DP sites."""
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.models import resnet
+    from fedml_tpu_torch.ops import noise as nz
+    from fedml_tpu_torch.trust.dp.dp import NoiseSampler
+    from fedml_tpu_torch.trust.pipeline import build_trust_pipeline
+    from fedml_tpu_torch.weights import flatten_reference
+
+    class HostDraws(NoiseSampler):
+        """The default streams, drawn on the CPU and copied: the same
+        values on either device."""
+
+        def _draw(self, round_idx, tag, kind, shape, device):
+            return super()._draw(round_idx, tag, kind, shape, "cpu").to(device)
+
+    cfg = Config(enable_attack=True, attack_type="byzantine_random",
+                 poisoned_client_list=(1, 6, 11), enable_defense=True, defense_type="multikrum",
+                 byzantine_client_num=3, krum_param_m=8, enable_dp=True,
+                 dp_solution_type="nbafl", epsilon=50.0, delta=1e-5, sensitivity=0.01,
+                 clipping_norm=1.0)
+    glob = resnet.CifarResNet(3).init(rng.generator(rng.root_key(0)), "cpu")
+    gen = torch.Generator().manual_seed(5)
+    stacked = pt.tree_map(lambda t: t.unsqueeze(0) + 0.01 * torch.randn(
+        (16,) + tuple(t.shape), generator=gen), glob)
+    sampled = np.arange(16)
+    weights = torch.arange(1.0, 17.0)
+    outs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tp = build_trust_pipeline(cfg, sampler=HostDraws(0))
+        g = pt.tree_map(lambda t: t.to(dev), glob)
+        before = nz.launch_counts()[nz.NOISE.name]
+        c, w = tp.on_client_outputs(pt.tree_map(lambda t: t.to(dev), stacked),
+                                    weights.to(dev), sampled, g, 2)
+        c, w, agg = tp.on_aggregation(c, w, g, 2)
+        assert agg is None
+        new = tp.on_after_aggregation(pt.tree_weighted_mean(c, w), g, 2)
+        outs[dev.type] = (pt.stacked_tree_to_matrix(c).cpu(), w.cpu(),
+                          flatten_reference(new)[0].cpu())
+        launched = nz.launch_counts()[nz.NOISE.name] - before
+        assert launched == (2 if dev.type == "cuda" else 0)
+    (mc, wc, nc), (mh, wh, nh) = outs["cuda"], outs["cpu"]
+    assert torch.equal(wc, wh) and int((wh > 0).sum()) == 8
+    for a, b in ((mc, mh), (nc, nh)):
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))

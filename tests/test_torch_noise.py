@@ -1,9 +1,10 @@
-"""Port parity: the central-DP noise op (``fedml_tpu_torch/ops/noise.py``)
+"""Port parity: the Gaussian noise op (``fedml_tpu_torch/ops/noise.py``)
 against ``fedml_tpu/ops/pallas/noise.py``, and the thread safety of the
 kernels' bookkeeping (``ops/build.py``).
 
 The same vector (numpy, seeded) and the reference's own N(0, 1) draw
-(``jax.random.normal(key, (blocks, 8, 128))``) go through both packages.
+(``jax.random.normal(key, (blocks, 8, 128))``, or its first n values flat)
+go through both packages.
 
 Tolerances: the port's plain version is bitwise equal to the reference's
 eager oracle ``apply_gaussian_noise_reference`` (both round the multiply,
@@ -98,6 +99,28 @@ def test_sigma_zero_is_identity_and_wrong_inputs_raise():
         nz.apply_gaussian_noise(xt.reshape(50, 50), nt, 0.1)
     assert nz.noise_shape(1) == (1, 8, 128) and nz.noise_shape(1025) == (2, 8, 128)
     assert nz.launch_counts() == {"gaussian_noise": 0}  # CPU: the plain version
+
+
+@pytest.mark.parametrize("n", [1, 1025, 2500, 8 * 271])
+def test_flat_draw_equals_padded_draw(n):
+    """The op takes the N(0, 1) draw flat ``(n,)`` too (local DP's m client
+    draws laid end to end): bitwise the padded draw's result when the first
+    ``n`` values agree, and the reference's eager oracle; a flat draw of
+    another length or a strided one raises."""
+    from fedml_tpu.ops.pallas import noise as ref
+    from fedml_tpu_torch.ops import noise as nz
+
+    x, key, draw = _inputs(n, seed=1)
+    flat = torch.from_numpy(draw.reshape(-1)[:n].copy())
+    padded = nz.apply_gaussian_noise(torch.from_numpy(x), torch.from_numpy(draw), _dp_sigma())
+    got = nz.apply_gaussian_noise(torch.from_numpy(x), flat, _dp_sigma())
+    assert torch.equal(got, padded)
+    want = np.asarray(ref.apply_gaussian_noise_reference(jnp.asarray(x), key, _dp_sigma()))
+    np.testing.assert_array_equal(got.numpy(), want)
+    strided = [torch.zeros(n, 2)[:, 0]] if n > 1 else []  # one element is contiguous
+    for bad in [torch.zeros(n + 1)] + strided:
+        with pytest.raises(ValueError, match="noise must be"):
+            nz.apply_gaussian_noise(torch.from_numpy(x), bad, 0.5)
 
 
 def test_launch_counts_exact_under_threads():

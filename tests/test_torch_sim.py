@@ -141,7 +141,8 @@ def test_unported_features_raise(tmp_path):
                dict(federated_optimizer="HierarchicalFL", enable_dp=True),
                dict(training_type="cross_device"),
                dict(training_type="cross_silo", role="client"),
-               dict(enable_dp=True), dict(extra={"population_store": "/nonexistent"}),
+               dict(enable_secagg=True), dict(enable_fhe=True),
+               dict(extra={"population_store": "/nonexistent"}),
                dict(extra={"aot_programs": True})):
         _, cfg = _cfgs(tmp_path, **kw)
         with pytest.raises(NotImplementedError):
