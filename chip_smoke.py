@@ -82,8 +82,8 @@ Phases (any failure exits non-zero; no phase is caught):
    client's residual must be non-zero.
 5. The cross-silo path: the flagship recipe through ``fedml_tpu_torch.init``
    and ``FedMLRunner(cfg).run()`` with ``training_type: cross_silo``,
-   ``role: server``, ``backend: INPROC``, 4 silos all in every round, 3
-   rounds, Shamir SecAgg with the streaming field fold
+   ``role: server``, ``backend: INPROC``, 4 silos all in every round, 2
+   rounds (cut from 3 for the script's budget), Shamir SecAgg with the streaming field fold
    (``extra.secagg_method: shamir``, ``extra.secagg_stream: true``),
    central DP (Gaussian, epsilon 50, delta 1e-5, sensitivity 0.01, clip 1.0)
    and ``extra.fused_blocks``: the server and 4 clients are threads of this
@@ -157,8 +157,9 @@ Phases (any failure exits non-zero; no phase is caught):
    with fused blocks 1 + 1 rounds against 2 with cuDNN deterministic: both
    bitwise.
 9. Compressed cross-silo uploads (run right after phase 5, on its data):
-   phase 5's recipe, 4 silos, fused blocks, in three forms, 2 rounds each
-   after one warm-up round: (a) ``extra.comm_compression: qsgd8``, (b)
+   phase 5's recipe, 4 silos, fused blocks, in three forms ((a) 2 rounds,
+   (b) and (c) 1 round each; phase 5 warms the same shapes): (a)
+   ``extra.comm_compression: qsgd8``, (b)
    ``topk`` (ratio 0.01), (c) Shamir SecAgg with ``secagg_stream``, central
    DP and ``qsgd8`` (the quantize-then-mask ring).  Each round prints its
    time, upload bytes a silo and the ratio, the aggregate time (the
@@ -193,7 +194,7 @@ Phases (any failure exits non-zero; no phase is caught):
    reweighting within 1e-4 relative), ``weak_dp`` and ``crfl`` one launch
    of the noise kernel each, the others none.  (e) ``label_flipping`` and
    ``backdoor``, one round each: the attackers' shards on the card bitwise
-   the host's poisoned stack.  (f) contribution with 8 clients a round
+   the host's poisoned stack.  (f) contribution with 4 clients a round
    (leave-one-out, GTG-Shapley): the replayed round's global bitwise the
    run's (cuDNN deterministic), the scores finite.  (g)
    ``myavg_condshift_mlp`` with ``norm_diff_clipping`` and local DP, 3
@@ -204,6 +205,41 @@ Phases (any failure exits non-zero; no phase is caught):
    prints its peak memory raw and as its own (less what was allocated when
    it started).
 
+11. The rest of the model zoo, losses and loaders (run last), on the
+   synthetic fallbacks at the published widths; every kernel's launches
+   counted over the phase.  (a) FedAvg Shakespeare with the character LSTM
+   (``model: rnn``, 820,522 parameters): ``dataset: shakespeare`` (20,000 /
+   4,000 sequences of 80 characters), f32, 100 clients with 10 a round,
+   batch 10, one epoch of SGD, 2 MESH rounds each with a test evaluation
+   (round time, trained sequences/s, peak memory), a profiled batched
+   step (device busy share, ``cudaLaunchKernel``), one f32
+   batched step of the 10 lanes against each lane alone (rtol 2e-4 / atol
+   2e-5), and one MESH round against one sp round from the same weights at
+   that tolerance.  (b) StackOverflow next-word prediction with the word
+   LSTM (``model: word_lstm``, vocab 10,004, sequences of 20; 4,000 / 1,024
+   synthetic sequences, cut from 20,000 / 4,000: the stand-in's Markov
+   generator is linear in the count and takes ~15 s at 4,000), 50 clients
+   with 10 a round, batch 16: one MESH round and its evaluation.  (c) The
+   CIFAR-10 zoo in bf16 (the synthetic 50,000 / 10,000 images; 32 clients,
+   8 a round, batch 64): ``mobilenet``, ``mobilenet_v3``, ``efficientnet``,
+   ``vgg11``, ``vgg16`` with BatchNorm, ``mobilenet`` with GroupNorm and
+   ``resnet18_gn``, one MESH round each (the first: cuDNN's set-up of each
+   conv shape included) with a test evaluation, and one batched step
+   against each lane alone (rtol 2e-4 / atol 2e-5): in f32, and in f64 for
+   the BatchNorm models (their f32 gradient is ill-conditioned: a ReLU
+   after a BN flips where two f32 forwards differ in the last bits, so an
+   ulp of another summation order grows to 1e-3), and for MobileNet a
+   profiled batched step (busy share, launches, top device and host ops);
+   then ``resnet20`` with ``norm: group`` and ``fused_blocks``: none of
+   kernels 1-4 may launch (nor on any other model of (c)).  (d) The FedSGD
+   recipe with ``compression: qsgd_int8`` on ``femnist`` with ``model:
+   cnn`` (62 classes, 1,690,046 parameters, dropout in the full-gradient
+   pass): one MESH round (rows 5-6 once each in their lanes variants, for
+   16 x 1,690,046 elements), one sp round (16 single-lane launches each),
+   one Mime round (no quantize launch); then rows 5-6 lanes at that length
+   bitwise per lane and against the plain versions, with device times and
+   bounds (as phase 2).
+
 The script's wall time, then the ``{"kernels": [...]}`` JSON (each kernel's
 launches from its own path's run: the lane-batched kernels from the MESH
 rounds of phases 3-4, the single-lane fused kernels from phase 5, the
@@ -211,7 +247,10 @@ single-lane quantize kernels from phase 4's sp round; ``wire_launches``:
 each kernel's launches on phase 9's form (a), the noise kernel's on form
 (c); ``trust_launches``: each kernel's launches on phase 10's forms
 (a)-(c); the noise kernel's line also has its times at local DP's length,
-``ldp_length``), then the card's name and power limit; the last line is ``{"ok": true,
+``ldp_length``; ``zoo_launches``: each kernel's launches over phase 11, and
+for the lane-batched quantize and dequantize ``zoo_length``, ``zoo_ms``,
+``zoo_plain_ms``, ``zoo_bound_ms``, ``zoo_library_ms``, ``zoo_max_abs_err``
+at FEMNIST's CNN's length), then the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  ``--kernels-only`` stops after phase 2 and prints
 neither.
 """
@@ -248,11 +287,16 @@ NOISE_LENGTHS = [SECAGG_LENGTH, 2**24, LDP_LENGTH]
 DP = dict(enable_dp=True, dp_solution_type="cdp", mechanism_type="gaussian", epsilon=50.0,
           delta=1e-5, sensitivity=0.01, clipping_norm=1.0)
 SILOS = 4
-WIRE_ROUNDS = 2  # each form of phase 9, after one warm-up round
+# phase 9's rounds a form: (a) needs two (check (ii) folds its last
+# round's frames onto the first round's global); (b) and (c) were cut from
+# two to one, and the warm-up round before them dropped, to keep the script
+# within its budget
+WIRE_FORM_ROUNDS = {"a": 2, "b": 1, "c": 1}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6
 ROUNDS = 3
+SILO_ROUNDS = 2  # phase 5's rounds, cut from ROUNDS for the script's budget
 NOISE_RUNS = 7  # alternating timings of the noise kernel and torch.add
 FEDSGD_LANES = 16  # the FedSGD recipe's clients a round
 # ResNet-20's fused sites a local step: the stem and each block's first
@@ -767,10 +811,11 @@ def phase_quantize(qz):
     return results
 
 
-def phase_lane_quantize(qz):
+def phase_lane_quantize(qz, n=GRAD_LENGTH):
     """Rows 5-6 lane-batched (``*_lanes``: the L lanes padded to whole
     blocks and laid end to end, one launch each) at the FedSGD round's 16
-    lanes of 269,722: every lane's values, scales and dequantized vector
+    lanes of ``n`` (ResNet-20's 269,722; FEMNIST's CNN's 1,690,046 in
+    phase 11): every lane's values, scales and dequantized vector
     bitwise the single-lane kernels' on that lane and the plain versions';
     device time of each kernel from CUDA-graph replays on the laid-out
     operands (and of the wrapper, the pad's copy included), eager time and
@@ -778,7 +823,7 @@ def phase_lane_quantize(qz):
     import torch
 
     dev = torch.device("cuda")
-    n, lanes = GRAD_LENGTH, FEDSGD_LANES
+    lanes = FEDSGD_LANES
     shape = (lanes,) + qz.noise_shape(n)
     q_bytes, dq_bytes = (lanes * b for b in _quant_bytes(n))
     sets = []
@@ -1412,7 +1457,7 @@ def phase_cross_silo(mods, nz):
     cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
     cfg.training_type, cfg.role, cfg.backend = "cross_silo", "server", "INPROC"
     cfg.client_num_in_total = cfg.client_num_per_round = SILOS
-    cfg.comm_round = ROUNDS
+    cfg.comm_round = SILO_ROUNDS
     cfg.frequency_of_the_test = 1
     cfg.enable_secagg = True
     for k, v in DP.items():
@@ -1464,8 +1509,8 @@ def phase_cross_silo(mods, nz):
                                  f"launches ({variants}), expected 1 of the vector variant")
         prev_vector = variants["vector"]
     print(f"payload counters: {codecs.payload_counters()}")
-    if len(history) != ROUNDS or counts[nz.NOISE.name] != ROUNDS:
-        raise AssertionError(f"expected {ROUNDS} rounds and noise launches, got "
+    if len(history) != SILO_ROUNDS or counts[nz.NOISE.name] != SILO_ROUNDS:
+        raise AssertionError(f"expected {SILO_ROUNDS} rounds and noise launches, got "
                              f"{len(history)} and {counts[nz.NOISE.name]}")
     bad = [k.name for k in mods[0].KERNELS if counts[k.name] == 0]
     if bad:
@@ -1493,7 +1538,7 @@ def phase_cross_silo(mods, nz):
 
 # -- phase 9: compressed cross-silo uploads ------------------------------------
 
-def _wire_cfg(codec, secagg=False, rounds=None):
+def _wire_cfg(codec, secagg=False, rounds=1):
     """The flagship recipe as phase 5 runs it (4 silos, all in every round,
     fused blocks), with ``extra.comm_compression`` set; ``secagg`` adds
     phase 5's Shamir SecAgg with the streaming fold and central DP."""
@@ -1502,7 +1547,7 @@ def _wire_cfg(codec, secagg=False, rounds=None):
     cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
     cfg.training_type, cfg.role, cfg.backend = "cross_silo", "server", "INPROC"
     cfg.client_num_in_total = cfg.client_num_per_round = SILOS
-    cfg.comm_round = WIRE_ROUNDS if rounds is None else rounds
+    cfg.comm_round = rounds
     cfg.frequency_of_the_test = 1
     cfg.extra.update(fused_blocks=True, comm_compression=codec)
     if secagg:
@@ -1566,9 +1611,9 @@ def _host_fold(frames, base, total_w, w_delta):
 
 
 def phase_wire(mods, qz, nz, dataset):
-    """Phase 9: the compressed cross-silo path, three forms, 2 rounds each
-    after a warm-up round, then the card-against-CPU checks of the upload
-    frame and of the fold."""
+    """Phase 9: the compressed cross-silo path, three forms ((a) 2 rounds, (b)
+    and (c) 1 each), then the card-against-CPU checks of the upload frame
+    and of the fold."""
     import numpy as np
     import torch
 
@@ -1579,16 +1624,12 @@ def phase_wire(mods, qz, nz, dataset):
     from fedml_tpu_torch.runner import FedMLRunner
 
     all_mods = mods + (nz,)
-    t0 = time.perf_counter()
-    FedMLRunner(_wire_cfg("qsgd8", rounds=1), dataset=dataset).run()
-    torch.cuda.synchronize()
-    print(f"wire path: warm-up round (qsgd8) {time.perf_counter() - t0:.1f} s with set-up")
     forms = (("a", "qsgd8", False), ("b", "topk", False), ("c", "qsgd8", True))
     results, counts_by_form, captured = {}, {}, {}
     for form, codec, secagg in forms:
         runner = group = server = clients = agg = probe = None  # free the last form's
         _phase_start()
-        runner = FedMLRunner(_wire_cfg(codec, secagg), dataset=dataset)
+        runner = FedMLRunner(_wire_cfg(codec, secagg, WIRE_FORM_ROUNDS[form]), dataset=dataset)
         group = runner.runner
         t1 = time.perf_counter()
         group.setup()
@@ -1680,7 +1721,7 @@ def phase_wire(mods, qz, nz, dataset):
             if secagg and delta.get(nz.NOISE.name, 0) != 1:
                 raise AssertionError(f"round {r} ({form}): {delta.get(nz.NOISE.name, 0)} noise "
                                      "launches, expected 1")
-        if len(history) != WIRE_ROUNDS or agg.peak_buffered_updates > 2:
+        if len(history) != WIRE_FORM_ROUNDS[form] or agg.peak_buffered_updates > 2:
             raise AssertionError(f"form ({form}): {len(history)} rounds, peak buffered "
                                  f"{agg.peak_buffered_updates}")
         for metrics in history:
@@ -2592,7 +2633,9 @@ TRUST_DEFENSE = dict(enable_defense=True, defense_type="multikrum", krum_param_m
 LDP = dict(enable_dp=True, dp_solution_type="ldp", mechanism_type="gaussian", epsilon=50.0,
            delta=1e-5, sensitivity=0.01)
 TRUST_ROUNDS = 2
-CONTRIBUTION_CLIENTS = 8  # form (f): GTG-Shapley evaluates up to 20 x m coalitions
+# form (f): GTG-Shapley evaluates up to 20 x m coalitions (cut from 8 to 4
+# clients to keep the script within its budget)
+CONTRIBUTION_CLIENTS = 4
 # form (d): selections (0/1 weights) bitwise card against CPU; every other
 # result within this times the CPU result's largest magnitude (sums of up to
 # 271,098 f32 terms, or of 64 rows, in another order)
@@ -2886,7 +2929,7 @@ def phase_trust(mods, nz, flagship):
                                  "poisoned")
         del r, sim, host
 
-    # (f) contribution, 8 clients a round: the replay bitwise under cuDNN
+    # (f) contribution, 4 clients a round: the replay bitwise under cuDNN
     # deterministic, then leave-one-out and GTG-Shapley
     torch.backends.cudnn.deterministic = True
     try:
@@ -2972,6 +3015,346 @@ def phase_trust(mods, nz, flagship):
     return totals
 
 
+# phase 11: the rest of the model zoo, losses and loaders, on
+# the synthetic fallbacks at the published widths
+ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_BATCH = 32, 8, 64  # the CIFAR-10 zoo's rounds
+ZOO_PROFILED = (("mobilenet", "batch"),)  # a profiled step with its top ops
+ZOO_MODELS = (("mobilenet", "batch"), ("mobilenet_v3", "batch"), ("efficientnet", "batch"),
+              ("vgg11", "batch"), ("vgg16", "batch"), ("mobilenet", "group"),
+              ("resnet18_gn", "batch"))
+SHAKESPEARE = dict(dataset="shakespeare", model="rnn", client_num_in_total=100,
+                   client_num_per_round=10, batch_size=10, epochs=1, learning_rate=1.0,
+                   compute_dtype="float32", synthetic_test_size=4000)
+SHAKESPEARE_ROUNDS = 2
+STACKOVERFLOW = dict(dataset="stackoverflow_nwp", model="word_lstm", client_num_in_total=50,
+                     partition_method="homo",
+                     client_num_per_round=10, batch_size=16, epochs=1, learning_rate=0.3,
+                     compute_dtype="float32", synthetic_train_size=4000,
+                     synthetic_test_size=1024)
+# FedSGD's flat gradient of FEMNIST's FedAvg CNN (62 classes): its parameters
+FEMNIST_GRAD_LENGTH = 1690046
+
+
+def _config_runner(data=None, **kw):
+    """``fedml_tpu_torch.init`` of a ``Config`` built from ``kw`` (the
+    reference's defaults otherwise), then ``FedMLRunner`` on the card;
+    ``data`` reuses an earlier run's dataset."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    return FedMLRunner(fedml_tpu_torch.init(Config(**kw)), dataset=data)
+
+
+def _profiled_step(sim, n_lanes, what, top=0):
+    """One batched local step of ``n_lanes`` lanes (a budget of one step
+    each, after one unprofiled step) under torch.profiler: wall, device
+    busy share and ``cudaLaunchKernel``; with ``top`` the ops that take the
+    most device time and the most host (self CPU) time.  A step, not a
+    round: the profiler's post-processing of a whole LSTM round (124k
+    launches) takes over a minute."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.local_sgd import make_batched_local_train_fn, to_device
+    from fedml_tpu_torch.obs.profile_round import busy_us
+
+    lanes = np.arange(n_lanes)
+    perms = torch.stack([sim.sampler.perms(0, int(c), sim.hp.epochs, sim.capacity)
+                         for c in lanes])
+    start = pt.tree_map(lambda t: t.unsqueeze(0).repeat((n_lanes,) + (1,) * t.ndim),
+                        sim.global_vars)
+    step = make_batched_local_train_fn(sim.model, sim.hp)
+    args = (start, *sim._data, to_device(lanes, sim.device, torch.long),
+            np.full(n_lanes, sim.cfg.batch_size), perms)
+    step(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_us([e for e in prof.events() if e.device_type.name == "CUDA"]) / 1e6
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"{what} profiled batched step ({n_lanes} lanes): wall {1e3 * wall:.1f} ms (profiler "
+          f"on), device busy {1e3 * busy:.1f} ms = {100 * busy / wall:.1f}%, {launches} "
+          "cudaLaunchKernel")
+    for side, attr in (("device", "self_device_time_total"), ("host", "self_cpu_time_total")):
+        ops = sorted(prof.key_averages(), key=lambda e: -getattr(e, attr))[:top]
+        if ops:
+            print(f"{what} top {side} ops: " + "; ".join(
+                f"{e.key[:48]} {getattr(e, attr) / 1e3:.1f} ms ({e.count})" for e in ops))
+
+
+def _lane_step_check(sim, n_lanes, what):
+    """One batched local step of ``n_lanes`` lanes from the global
+    variables (a budget of one step each, the sampler's permutations)
+    against each lane trained alone, within rtol 2e-4 / atol 2e-5, in the
+    model's dtype; a lane must also be ten times closer to its own step
+    than to its neighbour's (the check is not vacuous)."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.local_sgd import (make_batched_local_train_fn, make_local_train_fn,
+                                              to_device)
+
+    lanes = np.arange(n_lanes)
+    bsz = sim.cfg.batch_size
+    perms = torch.stack([sim.sampler.perms(0, int(c), sim.hp.epochs, sim.capacity)
+                         for c in lanes])
+    start = pt.tree_map(lambda t: t.unsqueeze(0).repeat((n_lanes,) + (1,) * t.ndim),
+                        sim.global_vars)
+    x, y = sim._data
+    batched, _ = make_batched_local_train_fn(sim.model, sim.hp)(
+        start, x, y, to_device(lanes, sim.device, torch.long), np.full(n_lanes, bsz), perms)
+    single = make_local_train_fn(sim.model, sim.hp)
+    own = [single(sim.global_vars, x[i], y[i], bsz, (0,), perms=perms[i])[0]
+           for i in range(n_lanes)]
+    worst, nearest = 0.0, math.inf
+    for i in range(n_lanes):
+        lane = pt.tree_map(lambda t: t[i], batched)
+        diff, excess = _excess(lane, own[i])
+        neighbour, _ = _excess(lane, own[(i + 1) % n_lanes])
+        worst, nearest = max(worst, diff), min(nearest, neighbour)
+        if excess > 0:
+            raise AssertionError(f"{what}: lane {i}'s batched step is off its step alone by "
+                                 f"{diff:.3g}, beyond rtol {MESH_SP_RTOL} / atol {MESH_SP_ATOL}")
+        if neighbour < 10 * max(diff, MESH_SP_ATOL):
+            raise AssertionError(f"{what}: lane {i} is {neighbour:.3g} from its neighbour's step, "
+                                 f"not ten times its {max(diff, MESH_SP_ATOL):.3g}")
+    dtype = str(getattr(sim.model, "dtype", torch.float32)).replace("torch.float", "f")
+    print(f"{what} {dtype} check: one batched step of {n_lanes} lanes vs each lane alone, largest "
+          f"difference {worst:.3g} (rtol {MESH_SP_RTOL}, atol {MESH_SP_ATOL}), a neighbour's step "
+          f"at least {nearest:.3g} away")
+
+
+def _zoo_round_lines(what, sim, probe, unit, note=""):
+    for metrics, cum, mem in probe.rows:
+        own = _own_steps(sim, metrics["round"])
+        print(f"{what} round {metrics['round']}{note}: {metrics['round_time_s']:.3f} s, "
+              f"{int(own.sum()) * sim.cfg.batch_size / metrics['round_time_s']:.0f} trained "
+              f"{unit}/s ({int(own.max())} batched steps of up to {len(own)} lanes), train_loss "
+              f"{metrics['train_loss']:.4f}, test_loss {metrics.get('test_loss', float('nan')):.4f}"
+              f", test_acc {metrics.get('test_acc', float('nan')):.4f}, {_mem(mem)}")
+
+
+def phase_zoo_text(mods, add):
+    """11 (a) FedAvg Shakespeare with the character LSTM, (b) StackOverflow
+    next-word prediction with the word LSTM."""
+    import torch
+
+    t0 = time.perf_counter()
+    runner = _config_runner(comm_round=SHAKESPEARE_ROUNDS, frequency_of_the_test=1,
+                            **SHAKESPEARE)
+    sim, cfg = runner.runner, runner.cfg
+    print(f"zoo (a) shakespeare: set-up {time.perf_counter() - t0:.1f} s (data "
+          f"{sim.dataset.train_num}/{sim.dataset.test_num} sequences of "
+          f"{sim.dataset.train_x.shape[1]}, vocab {sim.dataset.class_num}, "
+          f"{sim.dataset.n_clients} clients, {cfg.client_num_per_round}/round, capacity "
+          f"{sim.capacity}, batch {cfg.batch_size}, {cfg.compute_dtype}, model "
+          f"{type(sim.model).__name__}, backend {sim.backend})")
+    if sim.backend != "MESH" or sim._data[0].dtype != torch.int32:
+        raise AssertionError(f"shakespeare: backend {sim.backend}, tokens {sim._data[0].dtype}")
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    _reset_counts(mods)
+    history = runner.run()
+    torch.cuda.synchronize()
+    add(_all_counts(mods))
+    _zoo_round_lines("zoo (a) shakespeare", sim, probe, "sequences")
+    _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+    _profiled_step(sim, cfg.client_num_per_round, "zoo (a) shakespeare")
+    _lane_step_check(sim, cfg.client_num_per_round, "zoo (a) shakespeare")
+    pair = {}
+    for backend in ("MESH", "sp"):
+        r = _config_runner(runner.dataset, comm_round=1, frequency_of_the_test=0,
+                           backend_sim=backend, **SHAKESPEARE).runner
+        _reset_counts(mods)
+        t0 = time.perf_counter()
+        r.run_round()
+        torch.cuda.synchronize()
+        add(_all_counts(mods))
+        pair[backend] = (r.global_vars, time.perf_counter() - t0)
+    worst, excess = _excess(pair["MESH"][0], pair["sp"][0])
+    print(f"zoo (a) MESH vs sp: one round from the same weights, MESH {pair['MESH'][1]:.3f} s, "
+          f"sp {pair['sp'][1]:.3f} s, largest global difference {worst:.3g} (rtol "
+          f"{MESH_SP_RTOL}, atol {MESH_SP_ATOL})")
+    if excess > 0:
+        raise AssertionError(f"shakespeare: MESH and sp rounds differ by {worst:.3g}")
+    del runner, sim, pair
+
+    t0 = time.perf_counter()
+    runner = _config_runner(comm_round=1, frequency_of_the_test=1, **STACKOVERFLOW)
+    sim, cfg = runner.runner, runner.cfg
+    print(f"zoo (b) stackoverflow_nwp: set-up {time.perf_counter() - t0:.1f} s (data "
+          f"{sim.dataset.train_num}/{sim.dataset.test_num} sequences of "
+          f"{sim.dataset.train_x.shape[1]}, vocab {sim.dataset.class_num}, "
+          f"{sim.dataset.n_clients} clients, {cfg.client_num_per_round}/round, batch "
+          f"{cfg.batch_size}, model {type(sim.model).__name__}, backend {sim.backend})")
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    _reset_counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    history = runner.run()
+    torch.cuda.synchronize()
+    add(_all_counts(mods))
+    _zoo_round_lines("zoo (b) stackoverflow_nwp", sim, probe, "sequences")
+    _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+
+
+def phase_zoo_cifar(mods, add):
+    """11 (c): the CIFAR-10 zoo, one MESH round each with a test evaluation
+    and a batched step against each lane alone (f32; f64 under BatchNorm);
+    ``resnet20`` with GroupNorm and ``fused_blocks`` launches none of
+    kernels 1-4."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+
+    fb = mods[0]
+    data = None
+    base = dict(dataset="cifar10", client_num_in_total=ZOO_CLIENTS,
+                client_num_per_round=ZOO_PER_ROUND, batch_size=ZOO_BATCH, comm_round=1,
+                frequency_of_the_test=1)
+    for name, norm in ZOO_MODELS + (("resnet20", "group"),):
+        extra = {"fused_blocks": True} if name == "resnet20" else {}
+        t0 = time.perf_counter()
+        runner = _config_runner(data, model=name, norm=norm, compute_dtype="bfloat16",
+                                extra=extra, **base)
+        data, sim = runner.dataset, runner.runner
+        n_params = sum(t.numel() for t in pt.tree_leaves(sim.global_vars["params"]))
+        what = f"zoo (c) {name} {norm}"
+        probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+        sim.logger = probe
+        _reset_counts(mods)
+        torch.cuda.reset_peak_memory_stats()
+        history = runner.run()
+        torch.cuda.synchronize()
+        counts = _all_counts(mods)
+        add(counts)
+        print(f"{what}: set-up {time.perf_counter() - t0 - history[0]['round_time_s']:.1f} s, "
+              f"{type(sim.model).__name__}, {n_params} parameters, bf16, "
+              f"{'no batch_stats' if 'batch_stats' not in sim.global_vars else 'batch_stats'}")
+        _zoo_round_lines(what, sim, probe, "samples", " (the first: cuDNN's set-up included)")
+        _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+        if (name, norm) in ZOO_PROFILED:
+            _profiled_step(sim, ZOO_PER_ROUND, what, top=6)
+        fused = [k.name for k in fb.KERNELS + fb.LANE_KERNELS if counts[k.name]]
+        if fused:
+            raise AssertionError(f"{what}: kernels 1-4 launched ({fused}); GroupNorm and the "
+                                 "zoo have no fused epilogue")
+        if name != "resnet20":
+            check = _config_runner(data, model=name, norm=norm, compute_dtype="float32",
+                                   **base).runner
+            check.global_vars = pt.tree_map(torch.clone, sim.global_vars)
+            if "batch_stats" in check.global_vars:  # f64 (module docstring, 11 (c))
+                check.model = dataclasses.replace(check.model, dtype=torch.float64)
+                check.global_vars = pt.tree_map(lambda t: t.double() if t.is_floating_point() else t,
+                                                 check.global_vars)
+            _lane_step_check(check, ZOO_PER_ROUND, what)
+            del check
+        del runner, sim
+
+
+def phase_zoo_fedsgd(mods, qz, add):
+    """11 (d): FedSGD ``qsgd_int8`` on ``femnist`` with ``model: cnn`` (the
+    dropout in the full-gradient pass): 16 clients, one MESH round (rows 5-6
+    once in their lanes variants at 16 x 1,690,046), one sp round (16 each
+    single-lane), one Mime round; then rows 5-6 at that length against
+    their plain versions, with device time and bound."""
+    import torch
+
+    from fedml_tpu_torch import weights as wl
+
+    rows = {}
+    for form, overrides in (("MESH", {}), ("sp", {"backend_sim": "sp"}),
+                            ("Mime", {"federated_optimizer": "Mime"})):
+        t0 = time.perf_counter()
+        runner = _zoo_fedsgd(rows.get("dataset"), comm_round=1, frequency_of_the_test=1,
+                             compression="qsgd_int8", **overrides)
+        sim, cfg = runner.runner, runner.cfg
+        rows["dataset"] = runner.dataset
+        n = int(wl.flatten_reference(sim.global_vars["params"])[0].numel())
+        if n != FEMNIST_GRAD_LENGTH or sim.model.dropout_shape(cfg.batch_size) is None:
+            raise AssertionError(f"femnist cnn: {n} parameters, dropout "
+                                 f"{sim.model.dropout_shape(cfg.batch_size)}")
+        setup = time.perf_counter() - t0
+        _reset_counts(mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_counts(mods)
+        add(counts)
+        batches = cfg.client_num_per_round * (sim.capacity // cfg.batch_size)
+        print(f"zoo (d) femnist cnn {cfg.federated_optimizer} {sim.backend}: set-up {setup:.1f} s "
+              f"({sim.dataset.train_num}/{sim.dataset.test_num} images, {sim.dataset.n_clients} "
+              f"clients all a round, capacity {sim.capacity}, batch {cfg.batch_size}, "
+              f"{cfg.compute_dtype}, dropout {1 - sim.model.keep_prob} in the full-gradient "
+              f"pass), 1 round in {history[0]['round_time_s']:.3f} s ({wall:.3f} s with the "
+              f"evaluation), {batches * cfg.batch_size / history[0]['round_time_s']:.0f} gradient "
+              f"samples/s, test_loss {history[0]['test_loss']:.4f}, test_acc "
+              f"{history[0]['test_acc']:.4f}, {_mem()}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        _check_finite(sim, history, ("test_loss", "test_acc"))
+        clients = cfg.client_num_per_round
+        if form == "MESH":
+            want = {k.name: 1 for k in qz.LANE_KERNELS}
+            want.update({k.name: 0 for k in qz.KERNELS})
+        elif form == "sp":
+            want = {k.name: clients for k in qz.KERNELS}
+            want.update({k.name: 0 for k in qz.LANE_KERNELS})
+        else:  # Mime compresses nothing
+            want = {k.name: 0 for k in qz.KERNELS + qz.LANE_KERNELS}
+        for k, v in want.items():
+            if counts[k] != v:
+                raise AssertionError(f"zoo (d) {form}: {k} launched {counts[k]} times, expected "
+                                     f"{v}")
+        del runner, sim
+    return phase_lane_quantize(qz, FEMNIST_GRAD_LENGTH)
+
+
+def _zoo_fedsgd(dataset=None, **overrides):
+    """The FedSGD recipe on ``femnist`` with the FedAvg CNN."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", FEDSGD])
+    cfg.dataset, cfg.model = "femnist", "cnn"
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return FedMLRunner(cfg, dataset=dataset)
+
+
+def phase_zoo(mods, qz):
+    """Phase 11 (module docstring).  Returns each kernel's launches over its
+    paths and rows 5-6 lanes at the FEMNIST CNN's length."""
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    phase_zoo_text(mods, add)
+    t1 = time.perf_counter()
+    phase_zoo_cifar(mods, add)
+    t2 = time.perf_counter()
+    femnist_rows = phase_zoo_fedsgd(mods, qz, add)
+    t3 = time.perf_counter()
+    print(f"zoo: phase 11 {t3 - t0:.1f} s ((a)-(b) {t1 - t0:.1f} s, (c) {t2 - t1:.1f} s, (d) "
+          f"{t3 - t2:.1f} s), launches over its paths {totals}")
+    return totals, femnist_rows
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3052,6 +3435,8 @@ def main(argv=None) -> int:
     _phase_start()
     trust_counts = phase_trust(mods, nz, flagship)
     del flagship
+    _phase_start()
+    zoo_counts, femnist_rows = phase_zoo(mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
     # each kernel's launches on its own path: the lane-batched kernels on
@@ -3072,6 +3457,7 @@ def main(argv=None) -> int:
         {"name": k.name, "route": "cuda", "source": m.SOURCE, "replaces": k.replaces,
          "launches": counts[k.name], "wire_launches": wire[k.name],
          "trust_launches": trust_counts.get(k.name, 0),
+         "zoo_launches": zoo_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],
@@ -3079,7 +3465,11 @@ def main(argv=None) -> int:
          **({"stream_ms": kernel_rows[k.name]["stream_ms"]}
             if "stream_ms" in kernel_rows[k.name] else {}),
          **({"ldp_length": kernel_rows[k.name]["ldp_length"]}
-            if "ldp_length" in kernel_rows[k.name] else {})}
+            if "ldp_length" in kernel_rows[k.name] else {}),
+         **({"zoo_length": FEMNIST_GRAD_LENGTH,
+             **{f"zoo_{key}": femnist_rows[k.name][key]
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}}
+            if k.name in femnist_rows else {})}
         for m in (fb, qz, nz) for k in m.KERNELS + getattr(m, "LANE_KERNELS", ())]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,7 +24,8 @@ def init(args: Optional[Config] = None, argv=None) -> Config:
 
     cfg = args if args is not None else add_args(argv)
     if getattr(cfg, "backend_sim", "") in ("MULTIPROCESS", constants.SIMULATION_BACKEND_MPI):
-        raise NotImplementedError("multi-process simulation is not ported yet (first port slice)")
+        raise NotImplementedError("multi-process simulation is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 8)")
     rng.seed_everything(cfg.random_seed)
     logging.basicConfig(level=logging.INFO,
                         format="[fedml_tpu_torch] %(asctime)s %(levelname)s %(message)s")

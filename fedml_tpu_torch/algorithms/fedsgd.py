@@ -13,6 +13,9 @@ per-client state.  The server takes one step of the server optimizer
 client a lane (``fl/local_sgd.make_batched_full_grad_fn``), and compresses
 their flat gradients as the rows of one ``(L, n)`` tensor.
 
+A model with dropout takes its keep-masks a batch of the shard
+(``grad_dropout``, from the simulator's sampler).
+
 As in the reference: ``learning_rate`` plays no part (the step size is
 ``server_lr``, 1.0 by default), ``train_loss`` is reported as 0 and the
 batch statistics are never updated.
@@ -33,6 +36,7 @@ from ..ops import compression as comp
 
 class FedSGD(FedAlgorithm):
     name = "FedSGD"
+    dropout_tables = ("grad",)
 
     def __init__(self, hp, cfg=None):
         super().__init__(hp, cfg)
@@ -56,8 +60,8 @@ class FedSGD(FedAlgorithm):
         return None
 
     def client_update(self, global_variables, client_state, server_state, x, y, count, key,
-                      perms=None, draw=None, dropout=None):
-        grad = self._full_grad(global_variables, x, y)
+                      perms=None, draw=None, dropout=None, grad_dropout=None):
+        grad = self._full_grad(global_variables, x, y, grad_dropout)
         new_state = client_state
         if self.compression != "no":
             flat, unravel = weights.flatten_reference(grad)
@@ -71,8 +75,8 @@ class FedSGD(FedAlgorithm):
         return ClientOutput(contribution=grad, client_state=new_state, metrics=metrics)
 
     def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
-                            counts, perms=None, draw=None, dropout=None):
-        grad = self._batched_full_grad(global_variables, x, y, clients)
+                            counts, perms=None, draw=None, dropout=None, grad_dropout=None):
+        grad = self._batched_full_grad(global_variables, x, y, clients, grad_dropout)
         new_states = client_states
         if self.compression != "no":
             flat, unravel = flatten_reference_lanes(grad)

@@ -6,7 +6,9 @@ et al.; the port of ``fedml_tpu/algorithms/mime.py``)::
   server:     x <- mean_S(y_i);  m <- (1 - beta) * mean_S(grad f_i(x)) + beta * m
 
 Server state is ``m``.  The full gradient is ``make_full_grad_fn`` on sp
-and ``make_batched_full_grad_fn`` for the lanes of a MESH round.
+and ``make_batched_full_grad_fn`` for the lanes of a MESH round; a model
+with dropout takes two keep-mask tables, the local steps' (``dropout``) and
+the full gradient's (``grad_dropout``, one mask a batch of the shard).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..fl.types import ClientOutput
 
 class Mime(FedAlgorithm):
     name = "Mime"
+    dropout_tables = ("train", "grad")
 
     def build(self, model):
         super().build(model)
@@ -42,18 +45,20 @@ class Mime(FedAlgorithm):
         return server_state, None
 
     def client_update(self, global_variables, client_state, server_state, x, y, count, key,
-                      perms=None, draw=None, dropout=None):
+                      perms=None, draw=None, dropout=None, grad_dropout=None):
         new_vars, metrics = self._train_one(global_variables, client_state, server_state, x, y,
                                             count, key, perms, dropout)
-        contribution = {"variables": new_vars, "full_grad": self._full_grad(global_variables, x, y)}
+        contribution = {"variables": new_vars,
+                        "full_grad": self._full_grad(global_variables, x, y, grad_dropout)}
         return ClientOutput(contribution=contribution, client_state=client_state, metrics=metrics)
 
     def client_update_lanes(self, global_variables, client_states, server_state, x, y, clients,
-                            counts, perms=None, draw=None, dropout=None):
+                            counts, perms=None, draw=None, dropout=None, grad_dropout=None):
         new_vars, metrics = self._train_lanes(global_variables, client_states, server_state, x,
                                               y, clients, counts, perms, dropout)
         contribution = {"variables": new_vars,
-                        "full_grad": self._batched_full_grad(global_variables, x, y, clients)}
+                        "full_grad": self._batched_full_grad(global_variables, x, y, clients,
+                                                             grad_dropout)}
         return ClientOutput(contribution=contribution, client_state=client_states, metrics=metrics)
 
     def aggregate(self, stacked, weights):

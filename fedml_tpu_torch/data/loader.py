@@ -1,16 +1,20 @@
-"""Dataset loading: CIFAR images, the ``synthetic`` feature vectors, the
-``synthetic_condshift`` benchmark and the token-sequence datasets.
+"""Dataset loading (the port of ``fedml_tpu/data/loader.py``).
 
-The ported subset of ``fedml_tpu/data/loader.py``: ``load`` ->
-``_load_image_like`` -> the real CIFAR python batches under
-``data_cache_dir`` when present, else the deterministic class-structured
-synthetic stand-in with the real shapes; ``synthetic_condshift`` ->
-``_load_condshift`` (per-client train and test shards); the text datasets
-(``shakespeare``, ``fed_shakespeare``, ``stackoverflow_nwp``, ``reddit``)
--> ``_load_text_like`` -> a LEAF json under ``data_cache_dir/<name>/`` when
+``load`` -> ``_load_image_like`` for the dense datasets of
+``_DATASET_SPECS`` (images, feature vectors, tables): the real files under
+``data_cache_dir`` when present (CIFAR python batches, MNIST /
+Fashion-MNIST idx files, the ILSVRC2012 class-per-directory layout, SUSY,
+room occupancy, NUS-WIDE; ``data/extra_loaders.py``), else the
+deterministic class-structured synthetic stand-in with the real shapes
+(``synthetic_hard``: the low-SNR cluster mixture), capped at ~2e8
+elements; ``synthetic_condshift`` -> ``_load_condshift`` (per-client train
+and test shards); the text datasets (``shakespeare``,
+``fed_shakespeare``, ``stackoverflow_nwp``, ``reddit``) ->
+``_load_text_like`` -> a LEAF json under ``data_cache_dir/<name>/`` when
 present, else a Markov-chain token stream.  Arrays are numpy and bitwise
-equal to the reference's for the same config.  Every other dataset belongs
-to a later slice and raises ``NotImplementedError``.
+equal to the reference's for the same config.  ``fets2021`` (FedSeg's
+volumes) waits for the segmentation slice and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,10 +37,36 @@ log = logging.getLogger("fedml_tpu_torch.data.loader")
 
 _DATASET_SPECS = {
     # name: (feat shape, classes, default train size, default test size)
+    "mnist": ((28, 28, 1), 10, 60000, 10000),
+    "fashionmnist": ((28, 28, 1), 10, 60000, 10000),
+    "femnist": ((28, 28, 1), 62, 60000, 10000),
     "cifar10": ((32, 32, 3), 10, 50000, 10000),
     "cifar100": ((32, 32, 3), 100, 50000, 10000),
+    "cinic10": ((32, 32, 3), 10, 90000, 90000),
     "synthetic": ((60,), 10, 20000, 4000),
+    # the low-SNR gaussian cluster mixture (_synthetic_hard)
+    "synthetic_hard": ((32, 32, 3), 10, 20000, 4000),
+    # federated Google Landmarks, resized 96x96
+    "gld23k": ((96, 96, 3), 203, 23080, 2316),
+    "gld160k": ((96, 96, 3), 2028, 164172, 14663),
+    # StackOverflow tag prediction as bag-of-words logistic regression
+    "stackoverflow_lr": ((10000,), 500, 50000, 10000),
+    "lending_club": ((200,), 2, 50000, 10000),
+    # ImageNet class-per-directory layout (real sizes come from disk)
+    "ilsvrc2012": ((224, 224, 3), 1000, 1281167, 50000),
+    # UCI tables
+    "susy": ((18,), 2, 100000, 20000),
+    "room_occupancy": ((5,), 2, 8143, 2665),
+    # NUS-WIDE 634-dim low-level features, top-5 single-label selection
+    "nus_wide": ((634,), 5, 60000, 40000),
 }
+
+# the synthetic stand-in's cap in f32 elements (~800 MB; reference L127):
+# gld160k's real-size default would not fit a host
+SYNTHETIC_CAP_ELEMENTS = int(2e8)
+
+# name normalization for the reference's spellings
+_DATASET_ALIASES = {"imagenet": "ilsvrc2012", "ilsvrc-2012": "ilsvrc2012"}
 
 _TEXT_SPECS = {
     # name: (seq len, vocab)
@@ -47,18 +77,28 @@ _TEXT_SPECS = {
 }
 
 
+def dataset_spec(name: str):
+    """A dense dataset's ``(feat_shape, classes, n_train, n_test)`` under
+    :func:`load`'s name normalization; None for text and unknown names
+    (reference L84; ``models/model_hub.py`` picks the zoo's stem from it)."""
+    n = name.lower()
+    return _DATASET_SPECS.get(_DATASET_ALIASES.get(n, n))
+
+
 def load(cfg: Config) -> FederatedDataset:
     name = cfg.dataset.lower()
+    name = _DATASET_ALIASES.get(name, name)
+    if name == "fets2021":
+        raise NotImplementedError(
+            "dataset 'fets2021' is not ported yet: its one consumer, FedSeg, and "
+            "models/segmentation.py come with ROADMAP.md Queue 1 item 6")
     if name == "synthetic_condshift":
         return _load_condshift(cfg)
+    if name in _DATASET_SPECS:
+        return _load_image_like(cfg, name)
     if name in _TEXT_SPECS:
         return _load_text_like(cfg, name)
-    if name not in _DATASET_SPECS:
-        ported = sorted(_DATASET_SPECS) + sorted(_TEXT_SPECS) + ["synthetic_condshift"]
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet: the first port slice loaded "
-            f"CIFAR, later ones the rest of {ported}")
-    return _load_image_like(cfg, name)
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
 def _load_image_like(cfg: Config, name: str) -> FederatedDataset:
@@ -72,7 +112,7 @@ def _load_image_like(cfg: Config, name: str) -> FederatedDataset:
         n_test = cfg.synthetic_test_size or n_test
         # the reference caps the stand-in at ~2e8 float32 elements
         feat_elems = int(np.prod(feat))
-        cap = max(1, int(2e8) // max(feat_elems, 1))
+        cap = max(1, SYNTHETIC_CAP_ELEMENTS // max(feat_elems, 1))
         if n_train > cap:
             log.warning("%s synthetic fallback capped at %d samples (was %d)", name, cap, n_train)
             n_train = cap
@@ -80,7 +120,11 @@ def _load_image_like(cfg: Config, name: str) -> FederatedDataset:
         if n_test > test_cap:
             log.warning("%s synthetic test set capped at %d samples (was %d)", name, test_cap, n_test)
             n_test = test_cap
-        arrays = _synthetic_classification(name, feat, classes, n_train, n_test, cfg.random_seed)
+        if name == "synthetic_hard":
+            arrays = _synthetic_hard(feat, classes, n_train, n_test, cfg.random_seed)
+        else:
+            arrays = _synthetic_classification(name, feat, classes, n_train, n_test,
+                                               cfg.random_seed)
     train_x, train_y, test_x, test_y = arrays
     idx_map = part.partition(
         cfg.partition_method, train_y, cfg.client_num_in_total, cfg.partition_alpha, cfg.random_seed
@@ -92,6 +136,10 @@ def _load_image_like(cfg: Config, name: str) -> FederatedDataset:
 
 
 def _try_load_real(name: str, cache: Path):
+    """The real dataset's ``(train_x, train_y, test_x, test_y)`` from
+    ``cache`` (reference L190), or None when its files are absent."""
+    from . import extra_loaders
+
     try:
         if name == "cifar10":
             d = cache / "cifar-10-batches-py"
@@ -101,7 +149,22 @@ def _try_load_real(name: str, cache: Path):
             d = cache / "cifar-100-python"
             if d.is_dir():
                 return _load_cifar_batches(d, ["train"], ["test"], "fine_labels")
-    except (OSError, pickle.UnpicklingError, KeyError, ValueError):
+        if name in ("mnist", "fashionmnist"):
+            d = cache / name.upper() / "raw" if (cache / name.upper()).is_dir() else cache / name
+            if (d / "train-images-idx3-ubyte").exists():
+                return _load_idx(d)
+        if name == "ilsvrc2012":
+            for sub in ("ILSVRC2012", "imagenet", "."):
+                root = cache / sub
+                if (root / "train").is_dir():
+                    return extra_loaders.load_image_folder(root)[:4]
+        if name == "susy" and (cache / "SUSY" / "SUSY.csv").exists():
+            return extra_loaders.load_susy(cache / "SUSY")
+        if name == "room_occupancy" and (cache / "room_occupancy" / "datatraining.txt").exists():
+            return extra_loaders.load_room_occupancy(cache / "room_occupancy")
+        if name == "nus_wide" and (cache / "NUS_WIDE").is_dir():
+            return extra_loaders.load_nus_wide(cache / "NUS_WIDE")
+    except (OSError, pickle.UnpicklingError, KeyError, IndexError, ValueError, MemoryError):
         # a present-but-unreadable real dataset must be loud: silently
         # flipping to the stand-in would train on fake data unnoticed
         log.exception(
@@ -127,6 +190,29 @@ def _load_cifar_batches(d: Path, train_files, test_files, label_key):
     train_x = (np.concatenate(xs) - mean) / std
     test_x = (np.concatenate(txs) - mean) / std
     return train_x, np.concatenate(ys), test_x, np.concatenate(tys)
+
+
+def _load_idx(d: Path):
+    """MNIST-format idx files (``train-images-idx3-ubyte`` and the rest):
+    ``(n, 28, 28, 1)`` images in [0, 1] and int32 labels."""
+    def read_images(p):
+        with open(p, "rb") as f:
+            data = f.read()
+        n = int.from_bytes(data[4:8], "big")
+        arr = np.frombuffer(data, np.uint8, offset=16).reshape(n, 28, 28, 1)
+        return arr.astype(np.float32) / 255.0
+
+    def read_labels(p):
+        with open(p, "rb") as f:
+            data = f.read()
+        return np.frombuffer(data, np.uint8, offset=8).astype(np.int32)
+
+    return (
+        read_images(d / "train-images-idx3-ubyte"),
+        read_labels(d / "train-labels-idx1-ubyte"),
+        read_images(d / "t10k-images-idx3-ubyte"),
+        read_labels(d / "t10k-labels-idx1-ubyte"),
+    )
 
 
 def _load_condshift(cfg: Config) -> FederatedDataset:
@@ -184,6 +270,34 @@ def _synthetic_classification(name, feat, classes, n_train, n_test, seed):
         y = rng.randint(0, classes, size=n).astype(np.int32)
         x = templates[y] + rng.normal(0, 1.2, size=(n,) + feat).astype(np.float32)
         return x.astype(np.float32), y
+
+    train_x, train_y = gen(n_train)
+    test_x, test_y = gen(n_test)
+    return train_x, train_y, test_x, test_y
+
+
+def _synthetic_hard(feat, classes, n_train, n_test, seed, modes_per_class: int = 4,
+                    center_scale: float = 0.1):
+    """The low-SNR benchmark (reference L339): each class a mixture of
+    ``modes_per_class`` gaussian clusters whose centers have per-coordinate
+    scale ``center_scale`` against unit noise, so accuracy is limited by
+    estimating the centers and grows with samples seen.  Image shapes get
+    low-frequency centers (low-resolution noise upsampled 4x)."""
+    rng = np.random.RandomState(0x5EED ^ (seed * 2654435761 % (2**31)))
+    d = int(np.prod(feat))
+    n_clusters = classes * modes_per_class
+    if len(feat) == 3 and feat[0] % 4 == 0 and feat[1] % 4 == 0:
+        low = rng.normal(0, center_scale,
+                         size=(n_clusters, feat[0] // 4, feat[1] // 4, feat[2]))
+        centers = np.kron(low, np.ones((1, 4, 4, 1))).reshape(n_clusters, d).astype(np.float32)
+    else:
+        centers = rng.normal(0, center_scale, size=(n_clusters, d)).astype(np.float32)
+    cluster_class = (np.arange(n_clusters) % classes).astype(np.int32)
+
+    def gen(n):
+        k = rng.randint(0, n_clusters, size=n)
+        x = centers[k] + rng.normal(0, 1.0, size=(n, d)).astype(np.float32)
+        return x.reshape((n,) + feat).astype(np.float32), cluster_class[k]
 
     train_x, train_y = gen(n_train)
     test_x, test_y = gen(n_test)

@@ -28,6 +28,10 @@ from .types import ClientOutput, HParams
 
 class FedAlgorithm:
     name = "FedAvg"
+    # the keep-mask tables the algorithm takes for a model with dropout:
+    # "train" for the local steps (``dropout=``), "grad" for a full-gradient
+    # pass (``grad_dropout=``, one mask a batch of the shard)
+    dropout_tables = ("train",)
 
     def __init__(self, hp: HParams, cfg=None):
         self.hp = hp

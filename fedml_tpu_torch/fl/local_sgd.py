@@ -29,7 +29,10 @@ the reference folds a dropout key into every step): ``dropout`` is the
 client's table of keep-masks, one a step, ``(steps, *dropout_shape(batch))``
 bool, drawn from the client key by :func:`dropout_masks` when not given.
 Each step passes its mask to ``model.apply(..., dropout=mask)``; a model
-without dropout takes none.
+without dropout takes none.  The full-gradient pass (FedSGD, Mime) takes its
+table the same way, one keep-mask a batch of the shard, ``(cap // batch,
+*dropout_shape(batch))`` (the reference folds the batch index into the
+client's key, L230).
 
 Lanes (the simulator's MESH round; the reference's ``jax.vmap`` of the
 client over the sampled clients): :func:`make_batched_local_train_fn` and
@@ -54,7 +57,7 @@ import torch.nn.functional as F
 
 from ..core import pytree as pt
 from ..core import rng
-from .losses import get_lane_loss_fn, get_loss_fn
+from .losses import get_lane_loss_fn, get_loss_fn, sigmoid_binary_cross_entropy
 from .optim import SGD, Adam
 from .types import HParams
 
@@ -262,7 +265,7 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
         perms = perms.to(device=device, dtype=torch.long).index_select(0, take)
         if drop_shape is not None:
             dropout = dropout.to(device).index_select(0, take)
-        x_rows, y_rows = x.reshape((-1,) + x.shape[2:]), y.reshape(-1)
+        x_rows, y_rows = x.reshape((-1,) + x.shape[2:]), y.reshape((-1,) + y.shape[2:])
         opt_state = opt.init(params, lanes=counts.shape[0])
         if ctx is not None:  # the per-lane half follows the lanes' running order
             shared, lane_ctx = ctx
@@ -274,7 +277,7 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
             start = min(step_in_epoch * bsz, cap - bsz)
             idx = (rows[:n] + perms[:n, epoch, start:start + bsz]).reshape(-1)
             bx = x_rows.index_select(0, idx).reshape((n, bsz) + x.shape[2:])
-            by = y_rows.index_select(0, idx).reshape(n, bsz)
+            by = y_rows.index_select(0, idx).reshape((n, bsz) + y.shape[2:])
             if bx.is_floating_point():
                 bx = bx.to(compute_dtype)
             leaves = [t[:n].detach().requires_grad_(True) for t in pt.tree_leaves(params)]
@@ -311,31 +314,46 @@ def make_batched_local_train_fn(model, hp: HParams, loss_extra: Optional[Callabl
     return batched_train
 
 
-def _refuse_dropout(model, what: str) -> None:
-    if getattr(model, "dropout_shape", None) is not None:
-        raise NotImplementedError(f"a model with dropout in {what} is not ported yet")
+def _grad_dropout(model, bsz: int, dropout, n_batches: int, what: str):
+    """The full-gradient pass's keep-mask table, checked: None for a model
+    without dropout; a model with dropout must be given one mask a batch."""
+    shape = dropout_spec(model, bsz)
+    if shape is None:
+        return None
+    if dropout is None:
+        raise ValueError(f"{what} of a model with dropout takes one keep-mask a batch of "
+                         "the shard (the simulator's sampler gives them)")
+    if dropout.shape[-len(shape) - 1] < n_batches:
+        raise ValueError(f"{what}: {dropout.shape[-len(shape) - 1]} keep-masks for "
+                         f"{n_batches} batches")
+    return dropout
 
 
 def make_full_grad_fn(model, hp: HParams):
-    """Build ``full_grad(variables, x, y) -> grads``: the gradient of the
-    mean loss over a client's whole cyclic-padded shard at fixed variables
-    (the FedSGD client step; reference L203).  The mean runs over the
-    ``cap // batch_size`` consecutive batches of the padded capacity, not
-    over the true count; each batch runs in train mode (batch statistics)
-    and its new running stats are thrown away.  ``x`` is used as given (no
-    cast: the simulator keeps it in the compute dtype)."""
-    _refuse_dropout(model, "the full-gradient pass (FedSGD, Mime)")
+    """Build ``full_grad(variables, x, y, dropout=None) -> grads``: the
+    gradient of the mean loss over a client's whole cyclic-padded shard at
+    fixed variables (the FedSGD client step and Mime's full gradient;
+    reference L203).  The mean runs over the ``cap // batch_size``
+    consecutive batches of the padded capacity, not over the true count;
+    each batch runs in train mode (batch statistics) and its new running
+    stats are thrown away.  ``x`` is used as given (no cast: the simulator
+    keeps it in the compute dtype).  A model with dropout takes
+    ``dropout``, one keep-mask a batch (module docstring)."""
     base_loss = get_loss_fn(hp.loss)
     bsz = hp.batch_size
 
-    def full_grad(variables: dict, x: torch.Tensor, y: torch.Tensor):
+    def full_grad(variables: dict, x: torch.Tensor, y: torch.Tensor,
+                  dropout: Optional[torch.Tensor] = None):
         params, rest = split_variables(variables)
         n_batches = x.shape[0] // bsz
+        dropout = _grad_dropout(model, bsz, dropout, n_batches, "the full gradient")
         leaves = [p.detach().requires_grad_(True) for p in pt.tree_leaves(params)]
         p = pt.tree_unflatten_like(params, leaves)
         acc = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
         for i in range(n_batches):
-            logits, _ = model.apply({"params": p, **rest}, x[i * bsz:(i + 1) * bsz], train=True)
+            drop = {} if dropout is None else {"dropout": dropout[i].to(x.device)}
+            logits, _ = model.apply({"params": p, **rest}, x[i * bsz:(i + 1) * bsz], train=True,
+                                    **drop)
             loss = base_loss(logits.to(torch.float32), y[i * bsz:(i + 1) * bsz])
             acc = [a + g for a, g in zip(acc, torch.autograd.grad(loss, leaves))]
         denom = acc[0].new_full((), float(max(n_batches, 1)))
@@ -345,22 +363,25 @@ def make_full_grad_fn(model, hp: HParams):
 
 
 def make_batched_full_grad_fn(model, hp: HParams):
-    """Build ``full_grad(variables, x, y, clients) -> grads``:
+    """Build ``full_grad(variables, x, y, clients, dropout=None) -> grads``:
     :func:`make_full_grad_fn` for ``L`` clients at once at the same global
     ``variables`` (reference ``make_full_grad_fn`` under ``jax.vmap``).
     ``x`` / ``y``: every client's padded shard stacked ``(clients, cap,
-    ...)`` on the device; ``clients``: the lanes' rows (``(L,)`` ints).  Each
-    of the ``cap // batch_size`` batches is one lane-batched forward and
-    backward of every lane's batch, with each lane's own BN statistics; the
-    parameters enter as an ``L``-wide expanded view, so each lane gets its
-    own gradient.  Returns the lane-stacked ``(L, ...)`` gradient tree."""
-    _refuse_dropout(model, "the full-gradient pass (FedSGD, Mime)")
+    ...)`` on the device; ``clients``: the lanes' rows (``(L,)`` ints);
+    ``dropout``: for a model with dropout the lanes' tables, ``(L, cap //
+    batch_size, ...)``.  Each of the ``cap // batch_size`` batches is one
+    lane-batched forward and backward of every lane's batch, with each
+    lane's own BN statistics; the parameters enter as an ``L``-wide
+    expanded view, so each lane gets its own gradient.  Returns the
+    lane-stacked ``(L, ...)`` gradient tree."""
     lane_loss = get_lane_loss_fn(hp.loss)
     bsz = hp.batch_size
 
-    def full_grad(variables: dict, x: torch.Tensor, y: torch.Tensor, clients: torch.Tensor):
+    def full_grad(variables: dict, x: torch.Tensor, y: torch.Tensor, clients: torch.Tensor,
+                  dropout: Optional[torch.Tensor] = None):
         params, rest = split_variables(variables)
         lanes, n_batches = clients.shape[0], x.shape[1] // bsz
+        dropout = _grad_dropout(model, bsz, dropout, n_batches, "the batched full gradient")
 
         def widen(t):
             return t.detach().expand((lanes,) + t.shape)
@@ -371,7 +392,8 @@ def make_batched_full_grad_fn(model, hp: HParams):
         acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in leaves]
         for i in range(n_batches):
             bx, by = x[clients, i * bsz:(i + 1) * bsz], y[clients, i * bsz:(i + 1) * bsz]
-            logits, _ = model.apply({"params": p, **rest}, bx, train=True)
+            drop = {} if dropout is None else {"dropout": dropout[:, i].to(x.device)}
+            logits, _ = model.apply({"params": p, **rest}, bx, train=True, **drop)
             losses = lane_loss(logits.to(torch.float32), by)
             acc = [a + g for a, g in zip(acc, torch.autograd.grad(losses.sum(), leaves))]
         denom = acc[0].new_full((), float(max(n_batches, 1)))
@@ -382,7 +404,11 @@ def make_batched_full_grad_fn(model, hp: HParams):
 
 def make_eval_fn(model, hp: HParams, batch_size: int = 256):
     """Global test eval over a (padded) test set with a validity mask;
-    returns ``{"test_loss", "test_acc"}`` as 0-d tensors."""
+    returns ``{"test_loss", "test_acc"}`` as 0-d tensors (reference L240).
+    Per sample: classification's cross-entropy and hit; a sequence's mean
+    over its positions of both; multi-hot targets' mean binary
+    cross-entropy and mean agreement of ``logit > 0`` with ``target >
+    0.5``."""
 
     @torch.no_grad()
     def eval_fn(variables: dict, x: torch.Tensor, y: torch.Tensor, n_valid: int):
@@ -392,15 +418,28 @@ def make_eval_fn(model, hp: HParams, batch_size: int = 256):
         pos = torch.arange(batch_size, device=x.device)
         for i in range(n_batches):
             bx = x[i * batch_size:(i + 1) * batch_size]
-            by = y[i * batch_size:(i + 1) * batch_size].long()
+            by = y[i * batch_size:(i + 1) * batch_size]
             mask = (pos + i * batch_size < n_valid).to(torch.float32)
             logits, _ = model.apply(variables, bx, train=False)
-            logits = logits.to(torch.float32)
-            per = F.cross_entropy(logits, by, reduction="none")
-            ok = (logits.argmax(-1) == by).to(torch.float32)
+            per, ok = _eval_terms(logits.to(torch.float32), by)
             loss_sum = loss_sum + (per * mask).sum()
             correct = correct + (ok * mask).sum()
         seen = float(max(min(n_valid, n_batches * batch_size), 1))
         return {"test_loss": loss_sum / seen, "test_acc": correct / seen}
 
     return eval_fn
+
+
+def _eval_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """Each sample's eval loss and hit (:func:`make_eval_fn`)."""
+    if logits.ndim == labels.ndim + 1:
+        labels = labels.long()
+        per = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                              reduction="none").reshape(labels.shape)
+        ok = (logits.argmax(-1) == labels).to(torch.float32)
+        if per.ndim == 2:  # a sequence: the mean over its positions
+            per, ok = per.mean(-1), ok.mean(-1)
+        return per, ok
+    per = sigmoid_binary_cross_entropy(logits, labels).mean(-1)
+    ok = ((logits > 0) == (labels > 0.5)).to(torch.float32).mean(-1)
+    return per, ok

@@ -1,6 +1,6 @@
-"""Model factory (the port of ``fedml_tpu/models/model_hub.py``): the CIFAR
-ResNet family, the logistic regression, the FedAvg and CIFAR CNNs and the
-MLP; other models belong to later slices."""
+"""Model factory (the port of ``fedml_tpu/models/model_hub.py``): every
+model of the reference's hub, keyed by ``cfg.model`` and ``cfg.dataset``.
+Unknown names raise ``ValueError``, as in the reference."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import torch
 
 from ..arguments import Config
 from ..core.flags import cfg_extra
-from . import resnet, simple
+from . import cnn_zoo, resnet, rnn, simple
 
 _RESNETS = {
     "resnet20": resnet.resnet20,
@@ -18,8 +18,6 @@ _RESNETS = {
     "resnet44": resnet.resnet44,
     "resnet56": resnet.resnet56,
 }
-_PORTED = sorted(_RESNETS) + ["lr", "cnn", "cnn_dropout", "simple-cnn", "cifar_cnn",
-                              "cnn_web", "mlp"]
 
 
 def create(cfg: Config, output_dim: int, in_features: int = 0, input_shape: tuple = ()):
@@ -28,6 +26,9 @@ def create(cfg: Config, output_dim: int, in_features: int = 0, input_shape: tupl
     (the CNNs need it), or ``in_features`` (its flattened size) for the
     regression and the MLP."""
     name = cfg.model.lower()
+    norm = getattr(cfg, "norm", "batch")
+    # compute dtype threads into the conv/dense path (params stay f32)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     in_features = in_features or math.prod(input_shape)
     if name in ("lr", "logistic_regression"):
         return simple.LogisticRegression(num_classes=output_dim, in_features=in_features)
@@ -41,13 +42,34 @@ def create(cfg: Config, output_dim: int, in_features: int = 0, input_shape: tupl
         # extra.mlp_hidden widens the hidden layer; the default is upstream's
         return simple.MLP(hidden=int(cfg_extra(cfg, "mlp_hidden")), num_classes=output_dim,
                           in_features=in_features)
-    if name not in _RESNETS:
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet: the first port "
-                                  f"slice built the ResNets, later ones the rest of {_PORTED}")
-    if getattr(cfg, "norm", "batch") != "batch":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} is not ported yet: the first port slice builds "
-            "BatchNorm ResNets only")
-    # compute dtype threads into the conv/dense path (params stay f32)
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    return _RESNETS[name](output_dim, dtype, fused=bool(cfg_extra(cfg, "fused_blocks")))
+    if name in _RESNETS:
+        # extra.fused_blocks routes the epilogues through the fused kernels;
+        # the GroupNorm variant ignores it, as the reference does
+        return _RESNETS[name](output_dim, dtype, fused=bool(cfg_extra(cfg, "fused_blocks")),
+                              norm=norm)
+    if name in ("resnet18_gn", "resnet_gn"):
+        # the BN-free variant (reference model/cv/resnet_gn.py)
+        return resnet.resnet20(output_dim, dtype, norm="group")
+    if name in ("rnn", "char_lstm", "rnn_originalfedavg"):
+        return rnn.CharLSTM(vocab_size=output_dim)
+    if name in ("rnn_stackoverflow", "word_lstm"):
+        return rnn.WordLSTM(vocab_size=output_dim)
+    # the zoo: small_input picks the CIFAR stride-1 stem for small images,
+    # from the dataset's spec shape (reference L59-65)
+    from ..data.loader import dataset_spec
+
+    spec = dataset_spec(cfg.dataset)
+    small = spec is not None and len(spec[0]) == 3 and spec[0][0] <= 36
+    zoo = dict(num_classes=output_dim, norm=norm, dtype=dtype,
+               in_channels=input_shape[-1] if len(input_shape) == 3 else 3)
+    if name == "mobilenet":
+        return cnn_zoo.MobileNetV1(**zoo, small_input=small)
+    if name in ("mobilenet_v3", "mobilenetv3"):
+        return cnn_zoo.MobileNetV3Small(**zoo, small_input=small)
+    if name in ("efficientnet", "efficientnet_b0"):
+        return cnn_zoo.EfficientNetB0(**zoo, small_input=small)
+    if name in ("vgg11", "vgg"):
+        return cnn_zoo.VGG(**zoo, depth=11)
+    if name == "vgg16":
+        return cnn_zoo.VGG(**zoo, depth=16)
+    raise ValueError(f"unknown model {cfg.model!r} (dataset {cfg.dataset!r})")

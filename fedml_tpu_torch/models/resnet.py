@@ -1,4 +1,5 @@
-"""CIFAR ResNets (resnet20/32/44/56) as plain functions over a variable dict.
+"""CIFAR ResNets (resnet20/32/44/56, BatchNorm or GroupNorm) as plain
+functions over a variable dict.
 
 The port of ``fedml_tpu/models/resnet.py``.  A model is a small frozen
 description with ``init(generator, device)`` and ``apply(variables, x,
@@ -30,6 +31,12 @@ Semantics kept from flax:
 epilogue and both epilogues of every block through ``ops/fused_block.py``;
 the variable tree is identical to the unfused model's.
 
+``norm="group"`` (``resnet18_gn``, or ``norm: group``) is the BN-free
+variant: flax ``GroupNorm(num_groups=2)`` (:func:`group_norm`: eps 1e-6,
+statistics in f32 per sample and group) named ``GroupNorm_k``, and no
+``batch_stats`` collection.  It ignores ``fused``, as the reference does.
+The norms compute in at least f32, as flax's (f64 stays f64).
+
 Lanes (the simulator's batched round; the reference's ``jax.vmap`` of
 ``apply`` written out): given lane-major ``(L, N, H, W, C)`` input and
 variables whose every leaf has a leading lane axis ``L``, ``apply`` runs
@@ -43,6 +50,7 @@ alone, up to the order of the sums.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -54,6 +62,8 @@ from ..ops.fused_block import fused_bn_relu, fused_bn_residual_relu
 
 _MOMENTUM = 0.9
 _EPS = 1e-5
+GN_EPS = 1e-6  # flax GroupNorm's default epsilon
+RESNET_GN_GROUPS = 2  # the GroupNorm ResNet's num_groups (reference L54)
 
 
 def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -78,12 +88,14 @@ def conv2d_nhwc(x: torch.Tensor, kernel: torch.Tensor, stride: int, dtype: torch
 
 
 def conv2d_lanes(x: torch.Tensor, kernel: torch.Tensor, stride: int,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """:func:`conv2d_nhwc` of each lane: lane-major ``x`` ``(L, N, H, W,
-    Cin)``, ``kernel`` ``(L, O, I, kh, kw)``.  One grouped conv: the lanes
-    side by side in the channels of a channels_last ``(N, L * Cin, H, W)``
-    view (group ``l`` reads lane ``l``'s channels with lane ``l``'s kernel),
-    then back to a contiguous lane-major ``(L, N, Ho, Wo, O)``."""
+                 dtype: torch.dtype, groups: int = 1) -> torch.Tensor:
+    """The conv of each lane (:func:`conv2d_nhwc` with ``groups`` feature
+    groups, flax's ``feature_group_count``): lane-major ``x`` ``(L, N, H, W,
+    Cin)``, ``kernel`` ``(L, O, I / groups, kh, kw)``.  One grouped conv: the
+    lanes side by side in the channels of a channels_last ``(N, L * Cin, H,
+    W)`` view, ``L * groups`` groups (lane ``l``'s channels read with lane
+    ``l``'s kernel, in its own ``groups`` feature groups), then back to a
+    contiguous lane-major ``(L, N, Ho, Wo, O)``."""
     lanes, n, _, _, cin = x.shape
     out_ch = kernel.shape[1]
     w = kernel.to(dtype).reshape((lanes * out_ch,) + kernel.shape[2:]).contiguous(
@@ -97,7 +109,7 @@ def conv2d_lanes(x: torch.Tensor, kernel: torch.Tensor, stride: int,
         padding = (0, 0)
     h, w_ = x.shape[2], x.shape[3]
     xg = x.permute(1, 2, 3, 0, 4).reshape(n, h, w_, lanes * cin).permute(0, 3, 1, 2)
-    y = F.conv2d(xg, w, stride=stride, padding=padding, groups=lanes)
+    y = F.conv2d(xg, w, stride=stride, padding=padding, groups=lanes * groups)
     ho, wo = y.shape[2], y.shape[3]
     return y.permute(0, 2, 3, 1).reshape(n, ho, wo, lanes, out_ch).permute(3, 0, 1, 2, 4).contiguous()
 
@@ -113,12 +125,18 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v if v.ndim == 1 else v.reshape(v.shape[:1] + (1,) * (x.ndim - 2) + v.shape[1:])
 
 
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """flax's norms compute in at least f32 (``promote_types(dtype,
+    float32)``): f64 stays f64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _batch_stats(x: torch.Tensor, stats: dict, train: bool):
     """(mean, var, new_stats) of flax BatchNorm with fast variance; per lane
     (``(L, C)``) for lane-major ``x``."""
     if not train:
         return stats["mean"], stats["var"], stats
-    xf = x.to(torch.float32)
+    xf = x.to(_stats_dtype(x))
     axes = tuple(range(1 if x.ndim == 5 else 0, x.ndim - 1))
     mean = xf.mean(axes)
     var = torch.clamp_min(xf.square().mean(axes) - mean.square(), 0.0)
@@ -135,9 +153,30 @@ def batch_norm(x, params: dict, stats: dict, train: bool):
     ``x``'s dtype."""
     mean, var, new = _batch_stats(x, stats, train)
     mul = torch.rsqrt(var + _EPS) * params["scale"]
-    y = ((x.to(torch.float32) - _per_channel(mean, x)) * _per_channel(mul, x)
+    y = ((x.to(_stats_dtype(x)) - _per_channel(mean, x)) * _per_channel(mul, x)
          + _per_channel(params["bias"], x))
     return y.to(x.dtype), new
+
+
+def group_norm(x: torch.Tensor, params: dict, groups: int, eps: float = GN_EPS) -> torch.Tensor:
+    """flax ``nn.GroupNorm(num_groups=groups)``: each sample's mean and
+    fast variance over its spatial positions and the channels of a group,
+    in f32, then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32,
+    cast back to ``x``'s dtype.  Lane-major ``x`` takes per-lane ``(L, C)``
+    scale and bias."""
+    c = x.shape[-1]
+    xf = x.to(_stats_dtype(x))
+    xg = xf.reshape(x.shape[:-1] + (groups, c // groups))
+    axes = tuple(range(2 if x.ndim == 5 else 1, x.ndim - 1)) + (x.ndim,)
+    mean = xg.mean(axes, keepdim=True)
+    var = torch.clamp_min(xg.square().mean(axes, keepdim=True) - mean.square(), 0.0)
+
+    def per_channel(v):  # (..., groups, 1) -> (..., C), each group's value repeated
+        return v.expand(v.shape[:-1] + (c // groups,)).reshape(v.shape[:-2] + (c,))
+
+    mul = torch.rsqrt(per_channel(var) + eps) * _per_channel(params["scale"], x)
+    y = (xf - per_channel(mean)) * mul + _per_channel(params["bias"], x)
+    return y.to(x.dtype)
 
 
 def bn_scale_shift(x, params: dict, stats: dict, train: bool):
@@ -156,18 +195,31 @@ def option_a_shortcut(residual: torch.Tensor, stride: int, filters: int) -> torc
     return F.pad(residual, (pad // 2, pad - pad // 2)).contiguous()
 
 
-def basic_block(p: dict, st: dict, x, stride: int, filters: int, train: bool, dtype):
-    """``BasicBlock`` (reference L29): conv-BN-ReLU-conv-BN, option-A
-    shortcut, ReLU.  Returns ``(out, new_batch_stats)``."""
+def norm_layer(norm: str, x, p: dict, st: dict, k: int, train: bool, groups: int):
+    """The ``k``-th norm of a module: ``BatchNorm_k`` (updating
+    ``st["BatchNorm_k"]`` in place of the returned stats dict) or
+    ``GroupNorm_k`` with ``groups`` groups (no statistics)."""
+    if norm == "group":
+        return group_norm(x, p[f"GroupNorm_{k}"], groups)
+    name = f"BatchNorm_{k}"
+    y, st[name] = batch_norm(x, p[name], st[name], train)
+    return y
+
+
+def basic_block(p: dict, st: dict, x, stride: int, filters: int, train: bool, dtype,
+                norm: str = "batch"):
+    """``BasicBlock`` (reference L29): conv-norm-ReLU-conv-norm, option-A
+    shortcut, ReLU.  Returns ``(out, new_batch_stats)`` (``{}`` under
+    GroupNorm)."""
     residual = x
+    st = dict(st)
     y = _conv(x, p["Conv_0"]["kernel"], stride, dtype)
-    y, s0 = batch_norm(y, p["BatchNorm_0"], st["BatchNorm_0"], train)
-    y = torch.relu(y)
+    y = torch.relu(norm_layer(norm, y, p, st, 0, train, RESNET_GN_GROUPS))
     y = _conv(y, p["Conv_1"]["kernel"], 1, dtype)
-    y, s1 = batch_norm(y, p["BatchNorm_1"], st["BatchNorm_1"], train)
+    y = norm_layer(norm, y, p, st, 1, train, RESNET_GN_GROUPS)
     if residual.shape != y.shape:
         residual = option_a_shortcut(residual, stride, filters)
-    return torch.relu(y + residual), {"BatchNorm_0": s0, "BatchNorm_1": s1}
+    return torch.relu(y + residual), st
 
 
 def fused_basic_block(p: dict, st: dict, x, stride: int, filters: int, train: bool, dtype):
@@ -199,15 +251,32 @@ def _bn_init(c: int):
             {"mean": torch.zeros(c), "var": torch.ones(c)})
 
 
+def norm_init(norm: str, p: dict, st: dict, k: int, c: int) -> None:
+    """Fresh variables of a module's ``k``-th norm over ``c`` channels
+    (:func:`norm_layer`): scale 1 and bias 0, and under BatchNorm mean 0
+    and var 1."""
+    if norm == "group":
+        p[f"GroupNorm_{k}"] = {"scale": torch.ones(c), "bias": torch.zeros(c)}
+    else:
+        p[f"BatchNorm_{k}"], st[f"BatchNorm_{k}"] = _bn_init(c)
+
+
 @dataclass(frozen=True)
 class CifarResNet:
     """``CifarResNet`` (reference L132): 3-stage CIFAR ResNet, depth 6n+2,
-    widths 16/32/64."""
+    widths 16/32/64.  ``norm="group"`` is the BN-free variant (reference
+    ``_norm_layer`` L52: ``GroupNorm(num_groups=2)``, no ``batch_stats``),
+    which ignores ``fused`` as the reference does."""
 
     num_blocks: int  # n per stage
     num_classes: int = 10
     dtype: torch.dtype = torch.float32
     fused: bool = False
+    norm: str = "batch"
+
+    @property
+    def fused_path(self) -> bool:
+        return self.fused and self.norm == "batch"
 
     def _blocks(self):
         in_ch = 16
@@ -221,36 +290,43 @@ class CifarResNet:
         to ``device`` (the same draw on every device)."""
         params, stats = {}, {}
         params["Conv_0"] = {"kernel": _lecun_normal((16, 3, 3, 3), 27, generator)}
-        params["BatchNorm_0"], stats["BatchNorm_0"] = _bn_init(16)
+        norm_init(self.norm, params, stats, 0, 16)
         for idx, (filters, _, in_ch) in enumerate(self._blocks()):
             p, s = {}, {}
             p["Conv_0"] = {"kernel": _lecun_normal((filters, in_ch, 3, 3), 9 * in_ch, generator)}
-            p["BatchNorm_0"], s["BatchNorm_0"] = _bn_init(filters)
+            norm_init(self.norm, p, s, 0, filters)
             p["Conv_1"] = {"kernel": _lecun_normal((filters, filters, 3, 3), 9 * filters, generator)}
-            p["BatchNorm_1"], s["BatchNorm_1"] = _bn_init(filters)
-            params[f"BasicBlock_{idx}"], stats[f"BasicBlock_{idx}"] = p, s
+            norm_init(self.norm, p, s, 1, filters)
+            params[f"BasicBlock_{idx}"] = p
+            if s:
+                stats[f"BasicBlock_{idx}"] = s
         params["Dense_0"] = {"kernel": _lecun_normal((self.num_classes, 64), 64, generator),
                              "bias": torch.zeros(self.num_classes)}
-        return tree_map(lambda t: t.to(device), {"params": params, "batch_stats": stats})
+        variables = {"params": params, **({"batch_stats": stats} if stats else {})}
+        return tree_map(lambda t: t.to(device), variables)
 
     def apply(self, variables: dict, x: torch.Tensor, train: bool = True):
         """NHWC ``x`` -> ``(logits, new_batch_stats)``; logits in ``dtype``.
         In eval mode the batch stats come back unchanged.  Lane-major ``(L,
         N, H, W, C)`` ``x`` with lane-stacked variables: ``(L, N, classes)``
         logits and lane-stacked batch stats."""
-        p, st = variables["params"], variables["batch_stats"]
+        p, st = variables["params"], variables.get("batch_stats", {})
         new_stats = {}
         x = _conv(x.to(self.dtype), p["Conv_0"]["kernel"], 1, self.dtype)
-        if self.fused:
+        if self.fused_path:
             sc, sh, new_stats["BatchNorm_0"] = bn_scale_shift(x, p["BatchNorm_0"], st["BatchNorm_0"], train)
             x = fused_bn_relu(x, sc, sh)
         else:
-            x, new_stats["BatchNorm_0"] = batch_norm(x, p["BatchNorm_0"], st["BatchNorm_0"], train)
-            x = torch.relu(x)
-        block_fn = fused_basic_block if self.fused else basic_block
+            new_stats = dict(st)
+            x = torch.relu(norm_layer(self.norm, x, p, new_stats, 0, train, RESNET_GN_GROUPS))
+        block_fn = (fused_basic_block if self.fused_path
+                    else functools.partial(basic_block, norm=self.norm))
         for idx, (filters, stride, _) in enumerate(self._blocks()):
             name = f"BasicBlock_{idx}"
-            x, new_stats[name] = block_fn(p[name], st[name], x, stride, filters, train, self.dtype)
+            x, block_stats = block_fn(p[name], st.get(name, {}), x, stride, filters, train,
+                                      self.dtype)
+            if block_stats:
+                new_stats[name] = block_stats
         x = x.mean(dim=(-3, -2))
         dense = p["Dense_0"]
         kernel, bias = dense["kernel"].to(self.dtype), dense["bias"].to(self.dtype)
@@ -259,17 +335,21 @@ class CifarResNet:
         return F.linear(x, kernel) + bias, new_stats
 
 
-def resnet20(num_classes: int = 10, dtype=torch.float32, fused: bool = False) -> CifarResNet:
-    return CifarResNet(num_blocks=3, num_classes=num_classes, dtype=dtype, fused=fused)
+def resnet20(num_classes: int = 10, dtype=torch.float32, fused: bool = False,
+             norm: str = "batch") -> CifarResNet:
+    return CifarResNet(num_blocks=3, num_classes=num_classes, dtype=dtype, fused=fused, norm=norm)
 
 
-def resnet32(num_classes: int = 10, dtype=torch.float32, fused: bool = False) -> CifarResNet:
-    return CifarResNet(num_blocks=5, num_classes=num_classes, dtype=dtype, fused=fused)
+def resnet32(num_classes: int = 10, dtype=torch.float32, fused: bool = False,
+             norm: str = "batch") -> CifarResNet:
+    return CifarResNet(num_blocks=5, num_classes=num_classes, dtype=dtype, fused=fused, norm=norm)
 
 
-def resnet44(num_classes: int = 10, dtype=torch.float32, fused: bool = False) -> CifarResNet:
-    return CifarResNet(num_blocks=7, num_classes=num_classes, dtype=dtype, fused=fused)
+def resnet44(num_classes: int = 10, dtype=torch.float32, fused: bool = False,
+             norm: str = "batch") -> CifarResNet:
+    return CifarResNet(num_blocks=7, num_classes=num_classes, dtype=dtype, fused=fused, norm=norm)
 
 
-def resnet56(num_classes: int = 10, dtype=torch.float32, fused: bool = False) -> CifarResNet:
-    return CifarResNet(num_blocks=9, num_classes=num_classes, dtype=dtype, fused=fused)
+def resnet56(num_classes: int = 10, dtype=torch.float32, fused: bool = False,
+             norm: str = "batch") -> CifarResNet:
+    return CifarResNet(num_blocks=9, num_classes=num_classes, dtype=dtype, fused=fused, norm=norm)

@@ -77,12 +77,13 @@ def _conv_relu_pool(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).reshape(lanes, n, h // 2, w // 2, c)
 
 
-def _single(model, variables: dict, x: torch.Tensor, train: bool, **kw):
-    """One model as the lane form with one lane."""
+def single_lane(model, variables: dict, x: torch.Tensor, train: bool, **kw):
+    """One model as the lane form with one lane: ``(logits, new stats)``
+    of the lane (``kw``: per-lane inputs such as a dropout mask)."""
     lane_vars = tree_map(lambda t: t[None], variables)
     extra = {k: (None if v is None else v[None]) for k, v in kw.items()}
-    logits, _ = model.apply(lane_vars, x[None], train, **extra)
-    return logits[0], {}
+    logits, stats = model.apply(lane_vars, x[None], train, **extra)
+    return logits[0], tree_map(lambda t: t[0], stats)
 
 
 @dataclass(frozen=True)
@@ -101,7 +102,7 @@ class LogisticRegression:
         """``x`` -> ``(logits, {})``: f32 ``(N, classes)``, or ``(L, N,
         classes)`` for lane-stacked variables."""
         if variables["params"]["Dense_0"]["kernel"].ndim == 2:
-            return _single(self, variables, x, train)
+            return single_lane(self, variables, x, train)
         return _dense(variables["params"]["Dense_0"], x.reshape(x.shape[0], x.shape[1], -1)), {}
 
 
@@ -122,7 +123,7 @@ class MLP:
     def apply(self, variables: dict, x: torch.Tensor, train: bool = True):
         p = variables["params"]
         if p["Dense_0"]["kernel"].ndim == 2:
-            return _single(self, variables, x, train)
+            return single_lane(self, variables, x, train)
         h = torch.relu(_dense(p["Dense_0"], x.reshape(x.shape[0], x.shape[1], -1)))
         return _dense(p["Dense_1"], h), {}
 
@@ -169,7 +170,7 @@ class FedAvgCNN:
         step's keep-mask (module docstring); the model draws none."""
         p = variables["params"]
         if p["Dense_0"]["kernel"].ndim == 2:
-            return _single(self, variables, x, train, dropout=dropout)
+            return single_lane(self, variables, x, train, dropout=dropout)
         y = _image_lanes(x)
         y = _conv_relu_pool(p["Conv_1"], _conv_relu_pool(p["Conv_0"], y))
         h = torch.relu(_dense(p["Dense_0"], y.reshape(y.shape[0], y.shape[1], -1)))
@@ -200,7 +201,7 @@ class CifarCNN:
     def apply(self, variables: dict, x: torch.Tensor, train: bool = True):
         p = variables["params"]
         if p["Dense_0"]["kernel"].ndim == 2:
-            return _single(self, variables, x, train)
+            return single_lane(self, variables, x, train)
         y = _conv_relu_pool(p["Conv_1"], _conv_relu_pool(p["Conv_0"], x))
         h = torch.relu(_dense(p["Dense_0"], y.reshape(y.shape[0], y.shape[1], -1)))
         return _dense(p["Dense_1"], h), {}

@@ -68,7 +68,10 @@ device="cpu").run()`` with ``cfg.backend_sim`` unset / ``"MESH"`` or
 
 Randomness goes through a sampler object (``sample(r)``, ``perms(r, client,
 epochs, cap)``, ``uniform(r, client, shape, device)`` and, for a model with
-dropout, ``dropout(r, client, n_steps, shape, keep_prob, device)``):
+dropout, ``dropout(r, client, n_steps, shape, keep_prob, device)`` for the
+local steps and ``grad_dropout(r, client, n_batches, shape, keep_prob,
+device)`` for the full-gradient pass of FedSGD and Mime; an algorithm's
+``dropout_tables`` names which of the two it takes):
 :class:`ClientSampler` derives them all from the port's generators; a test
 can hand in one built from the JAX package's keys.  Both backends take each
 client's draws from it, a MESH lane those of its client.
@@ -100,10 +103,13 @@ from ..trust.dp.dp import NoiseSampler
 from ..trust.pipeline import build_trust_pipeline
 from ..weights import flatten_reference
 
-# flags whose subsystems later slices port; setting one must not be a no-op
-_UNPORTED_FLAGS = ("aot_programs", "profile_rounds", "otlp_endpoint", "population_store",
-                   "cost_model_gauges")
+# flags whose subsystems later slices port (the ROADMAP.md Queue 1 item
+# that ports each); setting one must not be a no-op
+_UNPORTED_FLAGS = {"aot_programs": 10, "profile_rounds": 10, "otlp_endpoint": 10,
+                   "population_store": 6, "cost_model_gauges": 10}
 _MULTI_PROCESS = ("MULTIPROCESS", C.SIMULATION_BACKEND_MPI)
+# tag of the full-gradient pass's dropout stream in a client key ("grad")
+_GRAD_DROPOUT_TAG = 0x67726164
 
 
 def refuse_protocol_flags(cfg: Config) -> None:
@@ -121,10 +127,18 @@ def _refuse_unported(cfg: Config) -> None:
     if cfg.backend_sim in _MULTI_PROCESS:
         raise NotImplementedError(f"backend_sim {cfg.backend_sim!r}: multi-process simulation "
                                   "is not ported yet")
-    for flag in _UNPORTED_FLAGS:
+    for flag, item in _UNPORTED_FLAGS.items():
         if cfg_extra(cfg, flag):
-            raise NotImplementedError(f"extra.{flag} is not ported yet (first port slice)")
+            raise NotImplementedError(f"extra.{flag} is not ported yet (ROADMAP.md Queue 1 "
+                                      f"item {item})")
     refuse_protocol_flags(cfg)
+
+
+def _labels(y: np.ndarray, device) -> torch.Tensor:
+    """Labels on the device: class or token ids as int64, multi-hot
+    targets as they are."""
+    y = torch.from_numpy(y)
+    return y.to(device) if y.is_floating_point() else y.to(device, torch.long)
 
 
 def _mean(values: list) -> float:
@@ -165,6 +179,28 @@ class ClientSampler:
         reference folds a dropout key into every step)."""
         key = rng.client_key(rng.round_key(self.root, round_idx), client)
         return dropout_masks(key, n_steps, shape, keep_prob, device)
+
+    def grad_dropout(self, round_idx: int, client: int, n_batches: int, shape: tuple,
+                     keep_prob: float, device) -> torch.Tensor:
+        """The client's keep-masks of this round's full-gradient pass, one
+        a batch of its shard, ``(n_batches, *shape)`` bool: a stream of its
+        own in the client key (the reference folds the batch index into the
+        client's key, or Mime's full-gradient key)."""
+        key = rng.client_key(rng.round_key(self.root, round_idx), client)
+        return dropout_masks(rng.fold_in(key, _GRAD_DROPOUT_TAG), n_batches, shape, keep_prob,
+                             device)
+
+
+def client_grad_dropout(sampler, model, hp, capacity: int, r: int, clients,
+                        device) -> Optional[list]:
+    """Each client's keep-mask table of round ``r``'s full-gradient pass
+    from ``sampler``, one row a batch of the padded shard; None for a model
+    without dropout."""
+    shape = dropout_spec(model, hp.batch_size)
+    if shape is None:
+        return None
+    return [sampler.grad_dropout(r, int(ci), capacity // hp.batch_size, shape, model.keep_prob,
+                                 device) for ci in clients]
 
 
 def client_dropout(sampler, model, hp, r: int, clients, counts, device) -> Optional[list]:
@@ -228,7 +264,7 @@ class MeshSimulator(RoundCheckpointMixin):
         self._eval_bs = eval_bs = min(256, max(32, cfg.test_batch_size))
         tx, ty, n_test = pad_eval_set(dataset.test_x, dataset.test_y, eval_bs)
         self._test = (torch.from_numpy(np.ascontiguousarray(tx)).to(self.device),
-                      torch.from_numpy(np.ascontiguousarray(ty)).to(self.device, torch.long),
+                      _labels(np.ascontiguousarray(ty), self.device),
                       int(n_test))
         self._eval_fn = make_eval_fn(model, self.hp, batch_size=eval_bs)
         self.round_idx = 0
@@ -245,7 +281,7 @@ class MeshSimulator(RoundCheckpointMixin):
             # device-resident shards in the compute dtype: half the memory and
             # half the per-step gather traffic
             x = x.to(torch.bfloat16)
-        return x.to(self.device), torch.from_numpy(stacked.y).to(self.device, torch.long)
+        return x.to(self.device), _labels(stacked.y, self.device)
 
     def _server_path(self, contribs, weights, sampled, round_idx: int):
         """Trust hooks, aggregation and the server update, shared by both
@@ -316,9 +352,18 @@ class MeshSimulator(RoundCheckpointMixin):
             return torch.stack([self.sampler.uniform(r, int(ci), shape, self.device)
                                 for ci in sampled])
 
-        drops = client_dropout(self.sampler, self.model, self.hp, r, sampled, counts, self.device)
+        drop = {}
+        if "train" in self.algorithm.dropout_tables:
+            drops = client_dropout(self.sampler, self.model, self.hp, r, sampled, counts,
+                                   self.device)
+            if drops is not None:
+                drop["dropout"] = lane_dropout_table(drops)
+        if "grad" in self.algorithm.dropout_tables:
+            drops = client_grad_dropout(self.sampler, self.model, self.hp, self.capacity, r,
+                                        sampled, self.device)
+            if drops is not None:
+                drop["grad_dropout"] = torch.stack(drops)
         # a model without dropout is trained through the same call as before
-        drop = {} if drops is None else {"dropout": lane_dropout_table(drops)}
         return self.algorithm.client_update_lanes(
             global_vars, states, server_state, self._data[0], self._data[1], lanes, counts,
             perms=perms, draw=draw, **drop)
@@ -345,16 +390,24 @@ class MeshSimulator(RoundCheckpointMixin):
         contributions, each client's new state and its metrics."""
         rkey = rng.round_key(self.root_key, r)
         contribs, new_states, metrics_list = [], [], []
-        drops = client_dropout(self.sampler, self.model, self.hp, r, sampled,
-                               self.counts[sampled], self.device)
+        tables = self.algorithm.dropout_tables
+        drops = (client_dropout(self.sampler, self.model, self.hp, r, sampled,
+                                self.counts[sampled], self.device)
+                 if "train" in tables else None)
+        gdrops = (client_grad_dropout(self.sampler, self.model, self.hp, self.capacity, r,
+                                      sampled, self.device)
+                  if "grad" in tables else None)
         for lane, ci in enumerate(int(c) for c in sampled):
+            drop = {} if drops is None else {"dropout": drops[lane]}
+            if gdrops is not None:
+                drop["grad_dropout"] = gdrops[lane]
             perms = self.sampler.perms(r, ci, self.hp.epochs, self.capacity)
             cs = pt.tree_map(lambda s: s[lane], states) if states is not None else None
             out = self.algorithm.client_update(
                 global_vars, cs, server_state, self._data[0][ci], self._data[1][ci],
                 int(self.counts[ci]), rng.client_key(rkey, ci), perms=perms,
                 draw=lambda shape, ci=ci: self.sampler.uniform(r, ci, shape, self.device),
-                **({} if drops is None else {"dropout": drops[lane]}))
+                **drop)
             contribs.append(out.contribution)
             new_states.append(out.client_state)
             metrics_list.append(out.metrics)

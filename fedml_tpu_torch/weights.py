@@ -8,8 +8,12 @@ with the same keys; only layouts differ:
 - BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` and the Dense and
   Conv ``bias`` as they are.
 
-So every model of the port (the ResNets and the small models of
-``models/simple.py``) carries its flax weights across leaf by leaf.  The
+So every model of the port carries its flax weights across leaf by leaf:
+the ResNets, the small models of ``models/simple.py``, the zoo of
+``models/cnn_zoo.py`` (a depthwise kernel is flax ``(kh, kw, 1, C)``, torch
+``(C, 1, kh, kw)``; GroupNorm's ``scale`` / ``bias`` as they are) and the
+LSTMs of ``models/rnn.py`` (each gate kernel a Dense kernel, transposed;
+``Embed_0/embedding`` is not a kernel and stays as it is).  The
 transformer (``models/transformer.py``) keeps flax's layouts, and so do
 LoRA adapter trees: :func:`tree_from_flax` and :func:`to_numpy` copy them
 leaf for leaf and transpose nothing (:func:`flax_to_torch` would

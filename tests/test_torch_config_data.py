@@ -215,11 +215,15 @@ def test_real_cifar_batches_read_equal(tmp_path):
 
 
 def test_other_datasets_raise_not_implemented():
+    """Only ``fets2021`` waits for a later slice (FedSeg's, ROADMAP Queue 1
+    item 6); an unknown name is a ``ValueError``, as in the reference."""
     import fedml_tpu_torch.arguments as args
     from fedml_tpu_torch.data import loader
 
-    with pytest.raises(NotImplementedError, match="first port slice"):
-        loader.load(args.Config(dataset="mnist"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        loader.load(args.Config(dataset="fets2021"))
+    with pytest.raises(ValueError, match="unknown dataset"):
+        loader.load(args.Config(dataset="no_such_set"))
 
 
 def test_stack_clients_and_pad_eval_bitwise(tmp_path):

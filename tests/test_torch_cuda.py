@@ -1292,3 +1292,136 @@ def test_trust_hooks_card_match_cpu(cuda_device):
     assert torch.equal(wc, wh) and int((wh > 0).sum()) == 8
     for a, b in ((mc, mh), (nc, nh)):
         assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_lane_quantize_bitwise_per_lane_at_the_femnist_cnn_length(cuda_device):
+    """FedSGD ``qsgd_int8`` on FEMNIST's FedAvg CNN: 16 lanes of 1,690,046
+    elements (1,651 blocks a lane), one quantize and one dequantize launch,
+    every lane bitwise its own single-lane calls and the plain versions."""
+    from fedml_tpu_torch.ops import quantize as qz
+
+    lanes, n = 16, 1690046
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(5)
+    x = torch.randn((lanes, n), generator=g, device=cuda_device) * torch.exp(
+        3 * torch.randn((lanes, n), generator=g, device=cuda_device))
+    u = torch.rand((lanes,) + qz.noise_shape(n), generator=g, device=cuda_device)
+    assert qz.noise_shape(n)[0] == 1651
+    before = qz.launch_counts()
+    values, scales, length = qz.quantize_int8_lanes(x, u)
+    deq = qz.dequantize_int8_lanes(values, scales, length)
+    after = qz.launch_counts()
+    assert all(after[k.name] == before[k.name] + 1 for k in qz.LANE_KERNELS)
+    want = qz.quantize_int8_lanes_reference(x, u)
+    assert torch.equal(values, want[0]) and torch.equal(scales, want[1])
+    assert torch.equal(deq, qz.dequantize_int8_lanes_reference(values, scales, length))
+    for lane in range(lanes):
+        v1, s1, _ = qz.quantize_int8_stochastic(x[lane], u[lane])
+        assert torch.equal(v1, values[lane]) and torch.equal(s1, scales[lane])
+        assert torch.equal(qz.dequantize_int8(v1, s1, n), deq[lane])
+
+
+def _lanes_of(variables, n, seed):
+    from fedml_tpu_torch.core import pytree as pt
+
+    g = torch.Generator().manual_seed(seed)
+    return pt.tree_map(lambda t: torch.stack([t + 0.05 * torch.randn(t.shape, generator=g)
+                                              for _ in range(n)]), variables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["char", "word"])
+def test_lstm_lanes_on_card_match_each_lane_alone(model, cuda_device):
+    """The LSTMs' lane form (one gather, one ``torch.bmm`` a gate product)
+    on the card: 4 lanes against each model alone, f32 with TF32 off, the
+    logits within rtol 1e-5 / atol 1e-6 and each gradient leaf within 1e-5
+    of its largest entry (cuBLAS may sum a batch of 4 in another order than
+    a batch of 1: measured 5.7e-6 absolute, rel 3.1e-5, on one element of
+    the word LSTM's), and the card against the CPU."""
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.models import rnn
+
+    m = rnn.CharLSTM(90, 8, 64) if model == "char" else rnn.WordLSTM(500, 16, 48)
+    lanes = _lanes_of(m.init(torch.Generator().manual_seed(0)), 4, 1)
+    tokens = torch.randint(0, m.vocab_size, (4, 6, 20), generator=torch.Generator().manual_seed(2))
+    dev = pt.tree_map(lambda t: t.to(cuda_device).requires_grad_(True), lanes)
+    both, _ = m.apply(dev, tokens.to(cuda_device), True)
+    grads = torch.autograd.grad(both.square().sum(), pt.tree_leaves(dev))
+    for lane in range(4):
+        one = pt.tree_map(lambda t: t[lane].detach().clone().requires_grad_(True), dev)
+        alone, _ = m.apply(one, tokens[lane].to(cuda_device), True)
+        torch.testing.assert_close(both[lane], alone, rtol=1e-5, atol=1e-6)
+        for a, b in zip(grads, torch.autograd.grad(alone.square().sum(), pt.tree_leaves(one))):
+            torch.testing.assert_close(a[lane], b, rtol=0, atol=1e-5 * float(b.abs().max()))
+    cpu, _ = m.apply(lanes, tokens, True)
+    torch.testing.assert_close(both.detach().cpu(), cpu, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_conv_lanes_on_card_match_each_lane_alone(dtype, cuda_device):
+    """``conv2d_lanes`` with ``L * C`` groups (the zoo's depthwise convs) on
+    the card, channels_last, 8 lanes of 5x5 stride-2 over 72 channels:
+    each lane against the conv of that lane alone (one lane, 72 groups)
+    within rtol 1e-5 / atol 1e-6 in
+    f32 (in bf16 within one bf16 ulp of the larger magnitude: the two
+    convs may sum their 25 taps in other orders before the one rounding),
+    and against the CPU's f32 conv of the same operands (in bf16 one ulp,
+    or two at the output's RMS where the sum cancels)."""
+    from fedml_tpu_torch.models.resnet import conv2d_lanes
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 16, 15, 15, 72, generator=g)
+    k = torch.randn(8, 72, 1, 5, 5, generator=g)
+    got = conv2d_lanes(x.to(cuda_device), k.to(cuda_device), 2, dtype, groups=72)
+    assert got.shape == (8, 16, 8, 8, 72) and got.dtype == dtype
+    for lane in range(8):
+        alone = conv2d_lanes(x[lane:lane + 1].to(cuda_device), k[lane:lane + 1].to(cuda_device), 2,
+                             dtype, groups=72)[0]
+        if dtype == torch.float32:
+            torch.testing.assert_close(got[lane], alone, rtol=1e-5, atol=1e-6)
+        else:
+            assert _bf16_ulps(got[lane], alone).max() <= 1
+    # the CPU in f32 from the same (bf16-rounded) operands
+    cpu = conv2d_lanes(x.to(dtype).float(), k.to(dtype).float(), 2, torch.float32, groups=72)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-5)
+    else:  # one rounding of the f32 sum: within one ulp, or two at the RMS where it cancels
+        rms_ulp = 2.0 ** (torch.floor(torch.log2(cpu.square().mean().sqrt())) - 7)
+        near = (got.float().cpu() - cpu).abs() <= 2 * rms_ulp
+        assert bool(((_bf16_ulps(got.cpu(), cpu) <= 1) | near).all())
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 ulps of the larger magnitude (2^(e - 7))."""
+    a, b = a.float().cpu(), b.float().cpu()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [2, 8])
+def test_group_norm_lanes_on_card_match_each_lane_alone(groups, cuda_device):
+    """``group_norm`` of 6 lanes (per-lane scale and bias) on the card
+    against each lane alone, within 1e-6 in f32 (a lane's statistics reduce
+    over its own slice, maybe in another order), and against the CPU
+    within 1e-5; bf16 to one ulp."""
+    from fedml_tpu_torch.models.resnet import group_norm
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(6, 16, 8, 8, 64, generator=g) * 3 + 1
+    p = {"scale": torch.randn(6, 64, generator=g), "bias": torch.randn(6, 64, generator=g)}
+    dev = {k: v.to(cuda_device) for k, v in p.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(cuda_device, dtype)
+        got = group_norm(xd, dev, groups)
+        for lane in range(6):
+            alone = group_norm(xd[lane], {k: v[lane] for k, v in dev.items()}, groups)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got[lane], alone, rtol=1e-6, atol=1e-6)
+            else:
+                assert _bf16_ulps(got[lane], alone).max() <= 1
+    cpu = group_norm(x, p, groups)
+    torch.testing.assert_close(group_norm(x.to(cuda_device), dev, groups).cpu(), cpu, rtol=1e-5,
+                               atol=1e-5)

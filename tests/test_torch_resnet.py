@@ -185,7 +185,8 @@ def test_model_hub_creates_resnets_and_refuses_others():
                                 extra={"fused_blocks": True}), 10)
     assert (m.num_blocks, m.dtype, m.fused) == (9, torch.bfloat16, True)
     assert model_hub.create(Config(model="resnet32", compute_dtype="float32"), 100).num_classes == 100
-    with pytest.raises(NotImplementedError, match="first port slice"):
-        model_hub.create(Config(model="mobilenet"), 10)
-    with pytest.raises(NotImplementedError, match="first port slice"):
-        model_hub.create(Config(model="resnet20", norm="group"), 10)
+    gn = model_hub.create(Config(model="resnet20", norm="group",
+                                 extra={"fused_blocks": True}), 10)
+    assert (gn.norm, gn.fused_path) == ("group", False)  # GroupNorm ignores fused_blocks
+    with pytest.raises(ValueError, match="unknown model"):
+        model_hub.create(Config(model="no_such_model"), 10)
