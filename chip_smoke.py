@@ -30,8 +30,9 @@ Phases (any failure exits non-zero; no phase is caught):
    one element off a 16-byte line (the scalar variant, checked), bitwise.
    Hold the noise kernel against its plain version at the SecAgg vector's
    length (271,098: ResNet-20's parameters and BN statistics), at 2^24 and
-   at local DP's 64 x 271,098 = 17,350,272 with a flat draw (phase 10),
-   bitwise, at the slice's DP sigma, at
+   at local DP's 64 x 271,098 = 17,350,272 with a flat draw (phase 10) and
+   at Turbo-Aggregate's group, 16 x 271,098 = 4,337,568, with a flat draw
+   (phase 12; also at its sigma, 10), bitwise, at the slice's DP sigma, at
    0.25 and at 0 (the identity); each line names the variant that ran;
    then at 271,098 with x one element off a 16-byte line (the scalar
    variant, checked).  Time each kernel and its plain version
@@ -83,7 +84,9 @@ Phases (any failure exits non-zero; no phase is caught):
 5. The cross-silo path: the flagship recipe through ``fedml_tpu_torch.init``
    and ``FedMLRunner(cfg).run()`` with ``training_type: cross_silo``,
    ``role: server``, ``backend: INPROC``, 4 silos all in every round, 2
-   rounds (cut from 3 for the script's budget), Shamir SecAgg with the streaming field fold
+   rounds (cut from 3 for the script's budget) on a quarter of the
+   stand-in's training images (12,500, ~100 local steps a silo round; cut
+   from 50,000 in slice 15), Shamir SecAgg with the streaming field fold
    (``extra.secagg_method: shamir``, ``extra.secagg_stream: true``),
    central DP (Gaussian, epsilon 50, delta 1e-5, sensitivity 0.01, clip 1.0)
    and ``extra.fused_blocks``: the server and 4 clients are threads of this
@@ -194,7 +197,7 @@ Phases (any failure exits non-zero; no phase is caught):
    reweighting within 1e-4 relative), ``weak_dp`` and ``crfl`` one launch
    of the noise kernel each, the others none.  (e) ``label_flipping`` and
    ``backdoor``, one round each: the attackers' shards on the card bitwise
-   the host's poisoned stack.  (f) contribution with 4 clients a round
+   the host's poisoned stack.  (f) contribution with 3 clients a round
    (leave-one-out, GTG-Shapley): the replayed round's global bitwise the
    run's (cuDNN deterministic), the scores finite.  (g)
    ``myavg_condshift_mlp`` with ``norm_diff_clipping`` and local DP, 3
@@ -207,23 +210,25 @@ Phases (any failure exits non-zero; no phase is caught):
 
 11. The rest of the model zoo, losses and loaders (run last), on the
    synthetic fallbacks at the published widths; every kernel's launches
-   counted over the phase.  (a) FedAvg Shakespeare with the character LSTM
-   (``model: rnn``, 820,522 parameters): ``dataset: shakespeare`` (20,000 /
-   4,000 sequences of 80 characters), f32, 100 clients with 10 a round,
-   batch 10, one epoch of SGD, 2 MESH rounds each with a test evaluation
-   (round time, trained sequences/s, peak memory), a profiled batched
-   step (device busy share, ``cudaLaunchKernel``), one f32
-   batched step of the 10 lanes against each lane alone (rtol 2e-4 / atol
-   2e-5), and one MESH round against one sp round from the same weights at
-   that tolerance.  (b) StackOverflow next-word prediction with the word
-   LSTM (``model: word_lstm``, vocab 10,004, sequences of 20; 4,000 / 1,024
-   synthetic sequences, cut from 20,000 / 4,000: the stand-in's Markov
-   generator is linear in the count and takes ~15 s at 4,000), 50 clients
-   with 10 a round, batch 16: one MESH round and its evaluation.  (c) The
-   CIFAR-10 zoo in bf16 (the synthetic 50,000 / 10,000 images; 32 clients,
-   8 a round, batch 64): ``mobilenet``, ``mobilenet_v3``, ``efficientnet``,
-   ``vgg11``, ``vgg16`` with BatchNorm, ``mobilenet`` with GroupNorm and
-   ``resnet18_gn``, one MESH round each (the first: cuDNN's set-up of each
+   counted over the phase. (a) FedAvg Shakespeare with the character LSTM
+   (``model: rnn``, 820,522 parameters): ``dataset: shakespeare`` (20,000
+   / 4,000 sequences of 80 characters), f32, 100 clients with 10 a round,
+   batch 10, one epoch of SGD, 1 MESH round (2 before slice 15) with a
+   test evaluation (round time, trained sequences/s, peak memory), a
+   profiled batched step (device busy share, ``cudaLaunchKernel``), one
+   f32 batched step of the 10 lanes against each lane alone (rtol 2e-4 /
+   atol 2e-5), and one MESH round against one sp round of 5 clients (10
+   before slice 15) from the same weights at that tolerance. (b)
+   StackOverflow next-word prediction with the word LSTM (``model:
+   word_lstm``, vocab 10,004, sequences of 20; 4,000 / 1,024 synthetic
+   sequences, cut from 20,000 / 4,000: the stand-in's Markov generator is
+   linear in the count and takes ~15 s at 4,000), 50 clients with 10 a
+   round, batch 16: one MESH round and its evaluation. (c) The
+   CIFAR-10 zoo in bf16 (12,800 / 2,000 synthetic images, cut from 50,000
+   / 10,000 in slice 15; 32 clients, 8 a round, batch 64): ``mobilenet``,
+   ``mobilenet_v3``, ``efficientnet``, ``vgg11``, ``vgg16`` with
+   BatchNorm, ``mobilenet`` with GroupNorm and ``resnet18_gn``, one MESH
+   round each (the first: cuDNN's set-up of each
    conv shape included) with a test evaluation, and one batched step
    against each lane alone (rtol 2e-4 / atol 2e-5): in f32, and in f64 for
    the BatchNorm models (their f32 gradient is ill-conditioned: a ReLU
@@ -240,19 +245,54 @@ Phases (any failure exits non-zero; no phase is caught):
    bitwise per lane and against the plain versions, with device times and
    bounds (as phase 2).
 
-The script's wall time, then the ``{"kernels": [...]}`` JSON (each kernel's
-launches from its own path's run: the lane-batched kernels from the MESH
-rounds of phases 3-4, the single-lane fused kernels from phase 5, the
-single-lane quantize kernels from phase 4's sp round; ``wire_launches``:
-each kernel's launches on phase 9's form (a), the noise kernel's on form
-(c); ``trust_launches``: each kernel's launches on phase 10's forms
-(a)-(c); the noise kernel's line also has its times at local DP's length,
-``ldp_length``; ``zoo_launches``: each kernel's launches over phase 11, and
-for the lane-batched quantize and dequantize ``zoo_length``, ``zoo_ms``,
-``zoo_plain_ms``, ``zoo_bound_ms``, ``zoo_library_ms``, ``zoo_max_abs_err``
-at FEMNIST's CNN's length), then the card's name and power limit; the last line is ``{"ok": true,
-"device": {...}}``.  ``--kernels-only`` stops after phase 2 and prints
-neither.
+12. The hub-model simulators and the population engine (run after phase
+   10, on phase 3's and phase 6's data: the flagship's synthetic CIFAR-10,
+   50,000 / 10,000 images, full-width ResNet-20 in bf16, fused, batch 128);
+   every kernel's launches zeroed before each form and read after it.
+   (a) ``decentralized_fl``: DSGD on the flagship recipe with
+   ``client_num_in_total: 64``, every client a lane of every round, 2
+   rounds; the ring 1 round; PushSum 1 round.  Each round prints its time,
+   trained samples/s, batched steps, launches, ``consensus_dist`` and peak
+   memory; rows 1-4 in their lane variants once a site a batched step;
+   every mix on the card held against the same product in f64 on the CPU
+   (the ring against ``ring_topology(n) @ P``) within 1e-6 relative L2;
+   PushSum's weights sum to n within 1e-5.  (b) ``Async_FedAvg``, 32
+   arrivals: the time a step and the staleness drawn; rows 1-4 single-lane,
+   10 / 9 / 10 / 9 a local step.  (c) ``TA``: 64 of 128 clients a round as
+   lanes, ``ta_group_num`` 4, ``ta_dropout_prob`` 0.1, 2 rounds: row 7
+   once a non-empty group at ``members x 271,098`` (lengths printed), each
+   group's masked rows bitwise the plain ``x + noise * 10``, the aggregate
+   within 5e-4 relative L2 of the plain weighted mean of the survivors
+   (f32 rounding of sums at the masks' scale of 10), every masked row of
+   norm above 10.  (d) ``training_type: centralized``: the 50,000 images
+   as one client, one epoch (391 single-lane steps) and an evaluation:
+   samples/s and rows 1-4's launches.  (e) population mode: the flagship
+   recipe over ``population_size`` 1,000,000 ids in shards of 16 (4 a
+   cohort, 4 resident) in a temporary directory, 2 FedAvg rounds and 1
+   SCAFFOLD round (client state through the store): the store's bytes on
+   disk, shard lookups, gather and scatter seconds, the prefetch overlap,
+   the round time against phase 3's; then the FedOpt recipe's 64 clients,
+   all a round, store-backed against in-memory for one round under cuDNN
+   deterministic: the globals within rtol 2e-5 / atol 2e-6 (the
+   reference's population tolerance).
+
+Each phase's wall time on one line, then the script's wall time, then the
+``{"kernels": [...]}`` JSON (each kernel's launches from its own path's
+run: the lane-batched kernels from the MESH rounds of phases 3-4, the
+single-lane fused kernels from phase 5, the single-lane quantize kernels
+from phase 4's sp round; ``wire_launches``: each kernel's launches on
+phase 9's form (a), the noise kernel's on form (c); ``trust_launches``:
+each kernel's launches on phase 10's forms (a)-(c); the noise kernel's
+line also has its times at local DP's length, ``ldp_length``;
+``zoo_launches``: each kernel's launches over phase 11, and for the
+lane-batched quantize and dequantize ``zoo_length``, ``zoo_ms``,
+``zoo_plain_ms``, ``zoo_bound_ms``, ``zoo_library_ms``,
+``zoo_max_abs_err`` at FEMNIST's CNN's length; ``slice15_launches``: each
+kernel's launches over phase 12, and for the noise kernel ``ta_length``:
+its times at Turbo-Aggregate's group length, 16 x 271,098, with sigma 10,
+and ``path_max``, the longest group of the run), then the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.
+``--kernels-only`` stops after phase 2 and prints neither.
 """
 
 from __future__ import annotations
@@ -264,6 +304,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 FLAGSHIP = "examples/sp_fedavg_cifar10_resnet20/fedml_config.yaml"
 FEDSGD = "examples/sp_fedsgd_eftopk_cifar10_resnet20/fedml_config.yaml"
@@ -282,7 +323,9 @@ LANES = 64  # the flagship's clients a round: the lanes of its MESH round
 # local DP's one launch a round: the flagship's 64 client updates laid end to
 # end, with a flat draw (phase 10)
 LDP_LENGTH = LANES * SECAGG_LENGTH
-NOISE_LENGTHS = [SECAGG_LENGTH, 2**24, LDP_LENGTH]
+# Turbo-Aggregate's masked group (phase 12 (c)): 16 members' rows end to end
+TA_LENGTH = 16 * SECAGG_LENGTH
+NOISE_LENGTHS = [SECAGG_LENGTH, 2**24, LDP_LENGTH, TA_LENGTH]
 # the cross-silo path's central DP (the reference's own CDP test values)
 DP = dict(enable_dp=True, dp_solution_type="cdp", mechanism_type="gaussian", epsilon=50.0,
           delta=1e-5, sensitivity=0.01, clipping_norm=1.0)
@@ -297,6 +340,9 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6
 ROUNDS = 3
 SILO_ROUNDS = 2  # phase 5's rounds, cut from ROUNDS for the script's budget
+# phases 5 and 9: a quarter of the stand-in's 50,000 training images over the
+# 4 silos (~100 local steps a silo round instead of 393), for the budget
+SILO_TRAIN_SIZE = 12500
 NOISE_RUNS = 7  # alternating timings of the noise kernel and torch.add
 FEDSGD_LANES = 16  # the FedSGD recipe's clients a round
 # ResNet-20's fused sites a local step: the stem and each block's first
@@ -924,17 +970,20 @@ def phase_noise(nz):
     sigma = gaussian_sigma(DP["epsilon"], DP["delta"], DP["sensitivity"])
     results = {nz.NOISE.name: {"max_abs_err": 0.0}}
     for n in NOISE_LENGTHS:
-        # the trust pipeline's draws are flat; the SecAgg path's padded
-        shape = (n,) if n == LDP_LENGTH else nz.noise_shape(n)
+        # the trust pipeline's and Turbo-Aggregate's draws are flat; the
+        # SecAgg path's padded
+        shape = (n,) if n in (LDP_LENGTH, TA_LENGTH) else nz.noise_shape(n)
+        s_n = 10.0 if n == TA_LENGTH else sigma
         nbytes = 12 * n  # read x, read the first n noise values, write out
         sets = []
         for k in range(max(2, int(3 * L2_BYTES // nbytes) + 1)):
             g = torch.Generator(device=dev)
             g.manual_seed(200 + k)
             sets.append((torch.randn(n, generator=g, device=dev),
-                         torch.randn(shape, generator=g, device=dev), sigma))
+                         torch.randn(shape, generator=g, device=dev), s_n))
         x, noise, _ = sets[0]
-        ran = _check_noise(nz, x, noise, (sigma, 0.25, 0.0), f"n={n}", "vector")
+        sigmas = tuple(dict.fromkeys((s_n, sigma, 0.25, 0.0)))
+        ran = _check_noise(nz, x, noise, sigmas, f"n={n}", "vector")
         if not torch.equal(nz.apply_gaussian_noise(x, noise, 0.0), x):
             raise AssertionError(f"noise kernel at n={n}: sigma 0 is not the identity")
 
@@ -948,8 +997,8 @@ def phase_noise(nz):
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * n / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         print(f"kernel {nz.NOISE.name} n={n} (draw {shape}): ok (bitwise at sigma "
-              f"{sigma:.6g}, 0.25, 0), device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
-              f"torch.add {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
+              f"{', '.join(f'{v:.6g}' for v in sigmas)}), device {ms * 1e3:.2f} us (plain "
+              f"{plain_ms * 1e3:.2f} us, torch.add {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
               f"{100 * bound_ms / ms:.1f}% of bound), eager call {eager_ms * 1e3:.2f} us, "
               f"{ran} variant")
         # the kernel against torch.add in alternating runs: a median and its
@@ -967,6 +1016,8 @@ def phase_noise(nz):
             results[nz.NOISE.name].update(row)
         if n == LDP_LENGTH:
             results[nz.NOISE.name]["ldp_length"] = {"n": n, **row}
+        if n == TA_LENGTH:
+            results[nz.NOISE.name]["ta_length"] = {"n": n, "sigma": s_n, **row}
     g = torch.Generator(device=dev)
     g.manual_seed(250)
     x = torch.randn(SECAGG_LENGTH, generator=g, device=dev)
@@ -1197,6 +1248,7 @@ def phase_main_path(mods):
     if len(history) != ROUNDS:
         raise AssertionError(f"expected {ROUNDS} rounds, got {len(history)}")
     _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+    _MAIN_ROUNDS[:] = [m["round_time_s"] for m in history]
     return counts, runner.dataset
 
 
@@ -1457,6 +1509,7 @@ def phase_cross_silo(mods, nz):
     cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
     cfg.training_type, cfg.role, cfg.backend = "cross_silo", "server", "INPROC"
     cfg.client_num_in_total = cfg.client_num_per_round = SILOS
+    cfg.synthetic_train_size = SILO_TRAIN_SIZE
     cfg.comm_round = SILO_ROUNDS
     cfg.frequency_of_the_test = 1
     cfg.enable_secagg = True
@@ -2634,8 +2687,8 @@ LDP = dict(enable_dp=True, dp_solution_type="ldp", mechanism_type="gaussian", ep
            delta=1e-5, sensitivity=0.01)
 TRUST_ROUNDS = 2
 # form (f): GTG-Shapley evaluates up to 20 x m coalitions (cut from 8 to 4
-# clients to keep the script within its budget)
-CONTRIBUTION_CLIENTS = 4
+# clients, then to 3, to keep the script within its budget)
+CONTRIBUTION_CLIENTS = 3
 # form (d): selections (0/1 weights) bitwise card against CPU; every other
 # result within this times the CPU result's largest magnitude (sums of up to
 # 271,098 f32 terms, or of 64 rows, in another order)
@@ -2929,7 +2982,7 @@ def phase_trust(mods, nz, flagship):
                                  "poisoned")
         del r, sim, host
 
-    # (f) contribution, 4 clients a round: the replay bitwise under cuDNN
+    # (f) contribution, 3 clients a round: the replay bitwise under cuDNN
     # deterministic, then leave-one-out and GTG-Shapley
     torch.backends.cudnn.deterministic = True
     try:
@@ -3018,6 +3071,8 @@ def phase_trust(mods, nz, flagship):
 # phase 11: the rest of the model zoo, losses and loaders, on
 # the synthetic fallbacks at the published widths
 ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_BATCH = 32, 8, 64  # the CIFAR-10 zoo's rounds
+# the zoo's CIFAR-10 stand-in, cut from 50,000 / 10,000 images for the budget
+ZOO_TRAIN, ZOO_TEST = 12800, 2000
 ZOO_PROFILED = (("mobilenet", "batch"),)  # a profiled step with its top ops
 ZOO_MODELS = (("mobilenet", "batch"), ("mobilenet_v3", "batch"), ("efficientnet", "batch"),
               ("vgg11", "batch"), ("vgg16", "batch"), ("mobilenet", "group"),
@@ -3025,7 +3080,8 @@ ZOO_MODELS = (("mobilenet", "batch"), ("mobilenet_v3", "batch"), ("efficientnet"
 SHAKESPEARE = dict(dataset="shakespeare", model="rnn", client_num_in_total=100,
                    client_num_per_round=10, batch_size=10, epochs=1, learning_rate=1.0,
                    compute_dtype="float32", synthetic_test_size=4000)
-SHAKESPEARE_ROUNDS = 2
+SHAKESPEARE_ROUNDS = 1  # one MESH round before the MESH-against-sp check
+SHAKESPEARE_PAIR = 5  # that check's clients, cut from the recipe's 10 (sp runs them in turn)
 STACKOVERFLOW = dict(dataset="stackoverflow_nwp", model="word_lstm", client_num_in_total=50,
                      partition_method="homo",
                      client_num_per_round=10, batch_size=16, epochs=1, learning_rate=0.3,
@@ -3172,7 +3228,8 @@ def phase_zoo_text(mods, add):
     pair = {}
     for backend in ("MESH", "sp"):
         r = _config_runner(runner.dataset, comm_round=1, frequency_of_the_test=0,
-                           backend_sim=backend, **SHAKESPEARE).runner
+                           backend_sim=backend,
+                           **{**SHAKESPEARE, "client_num_per_round": SHAKESPEARE_PAIR}).runner
         _reset_counts(mods)
         t0 = time.perf_counter()
         r.run_round()
@@ -3180,7 +3237,8 @@ def phase_zoo_text(mods, add):
         add(_all_counts(mods))
         pair[backend] = (r.global_vars, time.perf_counter() - t0)
     worst, excess = _excess(pair["MESH"][0], pair["sp"][0])
-    print(f"zoo (a) MESH vs sp: one round from the same weights, MESH {pair['MESH'][1]:.3f} s, "
+    print(f"zoo (a) MESH vs sp: one round of {SHAKESPEARE_PAIR} clients from the same weights, "
+          f"MESH {pair['MESH'][1]:.3f} s, "
           f"sp {pair['sp'][1]:.3f} s, largest global difference {worst:.3g} (rtol "
           f"{MESH_SP_RTOL}, atol {MESH_SP_ATOL})")
     if excess > 0:
@@ -3221,7 +3279,8 @@ def phase_zoo_cifar(mods, add):
     data = None
     base = dict(dataset="cifar10", client_num_in_total=ZOO_CLIENTS,
                 client_num_per_round=ZOO_PER_ROUND, batch_size=ZOO_BATCH, comm_round=1,
-                frequency_of_the_test=1)
+                frequency_of_the_test=1, synthetic_train_size=ZOO_TRAIN,
+                synthetic_test_size=ZOO_TEST)
     for name, norm in ZOO_MODELS + (("resnet20", "group"),):
         extra = {"fused_blocks": True} if name == "resnet20" else {}
         t0 = time.perf_counter()
@@ -3355,6 +3414,446 @@ def phase_zoo(mods, qz):
 
 
 
+# phase 12: the hub-model simulators and the population engine
+DSGD_CLIENTS = 64  # decentralized: every client a lane, every round
+DSGD_ROUNDS = 2
+GOSSIP_ROUNDS = {"dsgd": DSGD_ROUNDS, "ring": 1, "pushsum": 1}
+ASYNC_ARRIVALS = 32
+TA_ROUNDS = 2
+TA_FLAGS = {"ta_group_num": 4, "ta_dropout_prob": 0.1}
+TA_SIGMA = 10.0  # the masks' scale (reference turboaggregate.py L91)
+# the masked ring's aggregate against the plain weighted mean of the
+# survivors, relative L2: the masks of scale 10 cancel to within f32
+# rounding of sums of that scale, not of the weights' (measured 1.06e-4 on
+# the CPU for 58 rows of ResNet-20's 271,098 elements in 4 groups)
+TA_AGG_REL = 5e-4
+MIX_REL = 1e-6  # a gossip mix on the card against the same product in f64
+PUSHSUM_MASS_REL = 1e-5
+POPULATION = {"population_size": 1_000_000, "population_shard_size": 16,
+              "population_shards_per_cohort": 4, "population_max_resident_shards": 4}
+POP_RTOL, POP_ATOL = 2e-5, 2e-6  # the reference's own (tests/test_population.py)
+# phase 3's in-memory flagship round times, for the population rounds
+_MAIN_ROUNDS = []
+
+
+def _slice15(path, dataset, extra=None, **overrides):
+    """``_recipe`` with ``extra`` entries added to the config's."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", path])
+    cfg.extra["fused_blocks"] = True
+    cfg.extra.update(extra or {})
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return FedMLRunner(cfg, dataset=dataset)
+
+
+def _single_lane_sites(fb, delta, steps, evals, what):
+    """Rows 1-4 single-lane: 10 / 9 / 10 / 9 launches a local step, the
+    forwards also once a site a test batch; no lane variant."""
+    want = {fb.FWD.name: 10 * (steps + evals), fb.FWD_RES.name: 9 * (steps + evals),
+            fb.BWD.name: 10 * steps, fb.BWD_RES.name: 9 * steps,
+            **{k.name: 0 for k in fb.LANE_KERNELS}}
+    for name, n in want.items():
+        if delta[name] != n:
+            raise AssertionError(f"{what}: {name} launched {delta[name]} times, expected {n}")
+
+
+def phase_gossip(mods, dataset):
+    """12 (a): DSGD on the flagship recipe with 64 clients, every one a lane
+    of every round; then the ring and PushSum.  Each mix held against the
+    same product in f64 on the CPU."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.parallel import topology as topo
+
+    fb = mods[0]
+    counts_all = {}
+    for mode, rounds in GOSSIP_ROUNDS.items():
+        t0 = time.perf_counter()
+        runner = _slice15(FLAGSHIP, dataset, {"decentralized_mode": mode},
+                          federated_optimizer="decentralized_fl", client_num_in_total=DSGD_CLIENTS,
+                          client_num_per_round=DSGD_CLIENTS, comm_round=rounds,
+                          frequency_of_the_test=1)
+        sim, cfg = runner.runner, runner.cfg
+        own = np.minimum(sim.hp.epochs * -(-sim.counts // cfg.batch_size), sim.hp.local_steps)
+        steps = int(own.max())
+        mixes = []
+        mix = sim.mix
+
+        def kept_mix(tree, mix=mix, mixes=mixes):
+            # copies on the card (each a few tens of microseconds); they
+            # cross to the host after the run, outside the rounds' times
+            out = mix(tree)
+            mixes.append((pt.stacked_tree_to_matrix(tree), pt.stacked_tree_to_matrix(out)))
+            return out
+
+        sim.mix = kept_mix
+        probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+        sim.logger = probe
+        print(f"gossip (a) {mode}: set-up {time.perf_counter() - t0:.1f} s ({sim.n} clients all "
+              f"a round, capacity {sim.capacity}, batch {cfg.batch_size}, {cfg.compute_dtype}, "
+              f"{steps} batched steps a round, {int(own.sum())} lane-steps; W "
+              f"{'never built' if mode == 'ring' else f'{int((sim.W_host > 0).sum())} non-zeros'})")
+        _reset_counts(mods)
+        torch.cuda.reset_peak_memory_stats()
+        history = runner.run()
+        torch.cuda.synchronize()
+        prev = {k: 0 for k in _all_counts(mods)}
+        for metrics, cum, mem in probe.rows:
+            delta = {k: cum[k] - prev[k] for k in cum}
+            prev = cum
+            print(f"gossip (a) {mode} round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+                  f"{int(own.sum()) * cfg.batch_size / metrics['round_time_s']:.0f} trained "
+                  f"samples/s, {steps} batched steps of {sim.n} lanes, train_loss "
+                  f"{metrics['train_loss']:.4f}, consensus_dist {metrics['consensus_dist']:.6g}, "
+                  f"test_acc {metrics['test_acc']:.4f}, {_mem(mem)}, launches "
+                  f"{ {k: v for k, v in delta.items() if v} }")
+            _check_lane_sites(fb, delta, steps, f"gossip (a) {mode} round {metrics['round']}")
+            for k in (fb.BWD, fb.BWD_RES):
+                if delta[k.name]:
+                    raise AssertionError(f"gossip (a) {mode}: {k.name} launched: a client "
+                                         "trained alone")
+        _check_finite(types.SimpleNamespace(global_vars=sim.client_vars), history,
+                      ("train_loss", "test_loss", "test_acc", "consensus_dist"))
+        W = topo.ring_topology(sim.n) if mode == "ring" else sim.W_host
+        worst = 0.0
+        for before, after in mixes:
+            before, after = before.cpu(), after.cpu()
+            want = torch.from_numpy(W.astype(np.float64)) @ before.double()
+            worst = max(worst, float((after.double() - want).norm() / want.norm()))
+        print(f"gossip (a) {mode}: {len(mixes)} mixes of {tuple(mixes[0][0].shape)} on the card "
+              f"against {'ring_topology(n) @ P' if mode == 'ring' else 'W @ P'} in f64 on the "
+              f"CPU: largest relative L2 {worst:.3g} (limit {MIX_REL})")
+        if worst > MIX_REL:
+            raise AssertionError(f"gossip (a) {mode}: a mix is {worst:.3g} from f64")
+        if mode == "pushsum":
+            mass = float(sim.push_weights.double().sum())
+            print(f"gossip (a) pushsum: push weights sum {mass:.9g} over {sim.n} clients, "
+                  f"range [{float(sim.push_weights.min()):.6g}, "
+                  f"{float(sim.push_weights.max()):.6g}]")
+            if abs(mass - sim.n) > PUSHSUM_MASS_REL * sim.n:
+                raise AssertionError(f"gossip (a) pushsum: weights sum to {mass}")
+        counts_all = {k: counts_all.get(k, 0) + v for k, v in _all_counts(mods).items()}
+        del runner, sim, mixes
+    return counts_all
+
+
+def phase_async(mods, flagship):
+    """12 (b): asynchronous FedAvg on the flagship recipe, 32 arrivals: each
+    a client trained alone from a stale global (rows 1-4 single-lane)."""
+    import torch
+
+    fb = mods[0]
+    t0 = time.perf_counter()
+    runner = _slice15(FLAGSHIP, flagship, federated_optimizer="Async_FedAvg",
+                      comm_round=ASYNC_ARRIVALS, frequency_of_the_test=ASYNC_ARRIVALS)
+    sim, cfg = runner.runner, runner.cfg
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    print(f"async (b): set-up {time.perf_counter() - t0:.1f} s ({sim.dataset.n_clients} clients, "
+          f"{ASYNC_ARRIVALS} arrivals, staleness {cfg.async_staleness_func} alpha "
+          f"{cfg.async_staleness_alpha}, batch {cfg.batch_size}, {cfg.compute_dtype})")
+    _reset_counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prev = {k: 0 for k in _all_counts(mods)}
+    steps_all, stale, samples = 0, [], 0
+    for metrics, cum, mem in probe.rows:
+        delta = {k: cum[k] - prev[k] for k in cum}
+        prev = cum
+        steps = int(metrics["num_steps"])
+        evals = _eval_batches(sim) if "test_acc" in metrics else 0
+        _single_lane_sites(fb, delta, steps, evals, f"async (b) step {metrics['round']}")
+        steps_all += steps
+        samples += steps * cfg.batch_size
+        stale.append(int(metrics["staleness"]))
+    times = [m["round_time_s"] for m, _, _ in probe.rows]
+    print(f"async (b): {len(history)} arrivals in {wall:.3f} s (evaluation included), a step "
+          f"{1e3 * min(times):.1f}-{1e3 * max(times):.1f} ms (median "
+          f"{1e3 * statistics.median(times):.1f}), {steps_all} local steps, "
+          f"{samples / sum(times):.0f} trained samples/s; clients "
+          f"{[int(m['client']) for m, _, _ in probe.rows]}, staleness "
+          f"{stale}; test_acc {history[-1]['test_acc']:.4f}, {_mem()}")
+    _check_finite(sim, history, ("train_loss",))
+    _check_finite(sim, history[-1:], ("test_loss", "test_acc"))
+    if len(set(stale)) < 2:
+        raise AssertionError(f"async (b): staleness drawn {stale}")
+    return _all_counts(mods)
+
+
+class _TAProbe(_RoundProbe):
+    """At each logged Turbo-Aggregate round: row 7's launches and lengths,
+    each group's masked rows (the audit's host copies) against the plain
+    version, the aggregate against the survivors' weighted mean, the audit.
+    The round's trained lanes and mask draws are kept by reference as the
+    round makes them; the checks run after the round's time is taken."""
+
+    def __init__(self, inner, counts, sim, nz):
+        super().__init__(inner, counts)
+        self.sim, self.nz, self.checks = sim, nz, []
+        self.trained, self.noise = None, {}
+        train, masks = sim._train, sim.sampler.ta_masks
+
+        def kept_train(*args):
+            out = train(*args)
+            self.trained = out[0]
+            return out
+
+        def kept_masks(r, g, shape, device):
+            self.noise[g] = masks(r, g, shape, device)
+            return self.noise[g]
+
+        sim._train, sim.sampler.ta_masks = kept_train, kept_masks
+
+    def log(self, metrics, step=None):
+        import numpy as np
+        import torch
+
+        from fedml_tpu_torch.core import pytree as pt
+        from fedml_tpu_torch.weights import flatten_reference
+
+        sim, last = self.sim, self.sim.last_round
+        matrix, w = pt.stacked_tree_to_matrix(self.trained), last["weights"]
+        sigma = matrix.new_full((), TA_SIGMA)
+        bitwise = True
+        for g, members in enumerate(last["groups"]):
+            if not len(members):
+                continue
+            rows = torch.from_numpy(np.asarray(members, np.int64)).to(matrix.device)
+            x = matrix.index_select(0, rows) * w.index_select(0, rows)[:, None]
+            plain = (x.reshape(-1) + self.noise[g].reshape(-1) * sigma).cpu()
+            seen = torch.from_numpy(np.stack(sim.observed_by_group[g][:-1]))
+            bitwise = bitwise and torch.equal(seen.reshape(-1), plain)
+        wd = w.double()
+        mean = (matrix.double() * wd[:, None]).sum(0) / wd.sum()
+        agg = flatten_reference(sim.global_vars)[0].double()
+        rel = float((agg - mean).norm() / mean.norm())
+        norms = [float(np.linalg.norm(row)) for seen in sim.observed_by_group
+                 for row in seen[:-1]]
+        self.checks.append({"bitwise": bitwise, "rel": rel, "alive": int(last["alive"].sum()),
+                            "groups": [len(g) for g in last["groups"]],
+                            "lengths": list(last["lengths"]), "min_norm": min(norms)})
+        self.trained, self.noise = None, {}
+        super().log(metrics, step)
+
+
+def phase_turboaggregate(mods, nz, flagship):
+    """12 (c): Turbo-Aggregate on the flagship recipe (64 of 128 clients a
+    round as lanes), 4 groups, dropout 0.1: row 7 once a non-empty group."""
+    import torch
+
+    fb = mods[0]
+    t0 = time.perf_counter()
+    runner = _slice15(FLAGSHIP, flagship, TA_FLAGS, federated_optimizer="TA",
+                      comm_round=TA_ROUNDS, frequency_of_the_test=1)
+    sim, cfg = runner.runner, runner.cfg
+    probe = _TAProbe(sim.logger, lambda: _all_counts(mods + (nz,)), sim, nz)
+    sim.logger = probe
+    print(f"turboaggregate (c): set-up {time.perf_counter() - t0:.1f} s "
+          f"({cfg.client_num_per_round} of {sim.dataset.n_clients} clients a round as lanes, "
+          f"{sim.n_groups} groups, dropout {sim.dropout_prob}, masks sigma {TA_SIGMA})")
+    _reset_counts(mods + (nz,))
+    torch.cuda.reset_peak_memory_stats()
+    history = runner.run()
+    torch.cuda.synchronize()
+    prev = {k: 0 for k in _all_counts(mods + (nz,))}
+    lengths = []
+    for (metrics, cum, mem), check in zip(probe.rows, probe.checks):
+        delta = {k: cum[k] - prev[k] for k in cum}
+        prev = cum
+        r = metrics["round"]
+        own = _own_steps(sim, r)
+        lengths.extend(check["lengths"])
+        print(f"turboaggregate (c) round {r}: {metrics['round_time_s']:.3f} s, "
+              f"{int(own.sum()) * cfg.batch_size / metrics['round_time_s']:.0f} trained samples/s, "
+              f"{int(own.max())} batched steps, {check['alive']} of {len(own)} alive in groups "
+              f"{check['groups']}, row 7 lengths {check['lengths']}, masked rows "
+              f"{'bitwise' if check['bitwise'] else 'NOT bitwise'} the plain x + noise * 10, "
+              f"aggregate against the survivors' weighted mean {check['rel']:.3g} relative L2 "
+              f"(limit {TA_AGG_REL}), smallest masked row norm {check['min_norm']:.1f}, "
+              f"test_acc {metrics['test_acc']:.4f}, {_mem(mem)}, launches "
+              f"{ {k: v for k, v in delta.items() if v} }")
+        _check_lane_sites(fb, delta, int(own.max()), f"turboaggregate (c) round {r}")
+        if delta[nz.NOISE.name] != len(check["lengths"]) or not check["bitwise"]:
+            raise AssertionError(f"turboaggregate (c) round {r}: {delta[nz.NOISE.name]} noise "
+                                 f"launches for {len(check['lengths'])} groups, bitwise "
+                                 f"{check['bitwise']}")
+        if check["rel"] > TA_AGG_REL or check["min_norm"] <= TA_SIGMA:
+            raise AssertionError(f"turboaggregate (c) round {r}: aggregate {check['rel']:.3g} "
+                                 f"from the mean, a masked row of norm {check['min_norm']}")
+    _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+    return _all_counts(mods + (nz,)), max(lengths)
+
+
+def phase_centralized(mods, flagship):
+    """12 (d): the flagship's data as one client, one epoch (391 single-lane
+    steps) and an evaluation."""
+    import torch
+
+    fb = mods[0]
+    t0 = time.perf_counter()
+    runner = _slice15(FLAGSHIP, flagship, training_type="centralized", comm_round=1)
+    sim, cfg = runner.runner, runner.cfg
+    print(f"centralized (d): set-up {time.perf_counter() - t0:.1f} s ({sim.n_real} images as "
+          f"one client, tiled to {sim.capacity}, batch {cfg.batch_size}, {cfg.compute_dtype})")
+    _reset_counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts(mods)
+    m = history[0]
+    steps = int(m["num_steps"])
+    print(f"centralized (d): {steps} steps in {m['round_time_s']:.3f} s "
+          f"({steps * cfg.batch_size / m['round_time_s']:.0f} trained samples/s; {wall:.3f} s "
+          f"with the evaluation), train_loss {m['train_loss']:.4f}, test_loss "
+          f"{m['test_loss']:.4f}, test_acc {m['test_acc']:.4f}, {_mem()}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if steps != sim.hp.steps_per_epoch:
+        raise AssertionError(f"centralized (d): {steps} steps, expected {sim.hp.steps_per_epoch}")
+    _single_lane_sites(fb, counts, steps, _eval_batches(sim), "centralized (d)")
+    _check_finite(types.SimpleNamespace(global_vars=sim.variables), history,
+                  ("train_loss", "test_loss", "test_acc"))
+    return counts
+
+
+def _population_run(path, dataset, root, extra, mods, **overrides):
+    """A population-store run through the runner; its history, simulator
+    and the round lines' launches."""
+    import torch
+
+    runner = _slice15(path, dataset, {"population_store": root, **extra}, **overrides)
+    sim = runner.runner
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    _reset_counts(mods)
+    history = runner.run()
+    torch.cuda.synchronize()
+    return history, sim, probe
+
+
+def phase_population(mods, flagship, fedopt_data):
+    """12 (e): the flagship recipe over a million-id population store (2
+    FedAvg rounds, 1 SCAFFOLD round: client state through the store); then
+    the FedOpt recipe's full cohort from a store of its own 64 clients
+    against the in-memory round."""
+    import tempfile
+
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+
+    fb = mods[0]
+    counts_all = {}
+    with tempfile.TemporaryDirectory(prefix="fedml_pop_") as tmp:
+        for name, rounds, opt in (("FedAvg", 2, "FedAvg"), ("SCAFFOLD", 1, "SCAFFOLD")):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            history, sim, probe = _population_run(
+                FLAGSHIP, flagship, f"{tmp}/{name}", POPULATION, mods, comm_round=rounds,
+                frequency_of_the_test=1, federated_optimizer=opt)
+            wall = time.perf_counter() - t0
+            pop = sim._population
+            store = pop.store
+            prev = {k: 0 for k in _all_counts(mods)}
+            for metrics, cum, mem in probe.rows:
+                delta = {k: cum[k] - prev[k] for k in cum}
+                prev = cum
+                print(f"population (e) {name} round {metrics['round']}: "
+                      f"{metrics['round_time_s']:.3f} s (phase 3's in-memory rounds "
+                      f"{', '.join(f'{t:.3f}' for t in _MAIN_ROUNDS)} s), train_loss "
+                      f"{metrics['train_loss']:.4f}, test_acc "
+                      f"{metrics.get('test_acc', float('nan')):.4f}, {_mem(mem)}, launches "
+                      f"{ {k: v for k, v in delta.items() if v} }")
+                if not all(delta[k.name] for k in fb.LANE_KERNELS):
+                    raise AssertionError(f"population (e) {name}: a lane kernel never launched")
+            print(f"population (e) {name}: {rounds} rounds in {wall:.1f} s with set-up, "
+                  f"{store.spec.n_clients} ids in {store.spec.n_shards} shards of "
+                  f"{store.spec.shard_size}, cohort {pop.m}; {store.disk_bytes()} bytes on disk "
+                  f"in {len(list(store.root.glob('shard_*.npz')))} shard files, lookups "
+                  f"{store.hits} hits / {store.misses} misses, resident {store.resident}, "
+                  f"gather {store.gather_s:.3f} s, scatter {store.scatter_s:.3f} s, prefetch "
+                  f"overlap mean {pop.pipeline.overlap_mean():.3f} (last "
+                  f"{pop.pipeline.last_overlap:.3f})")
+            _check_finite(sim, history, ("train_loss", "test_loss", "test_acc"))
+            if name == "SCAFFOLD" and store.scatter_s <= 0:
+                raise AssertionError("population (e): SCAFFOLD scattered no client state")
+            counts_all = {k: counts_all.get(k, 0) + v for k, v in _all_counts(mods).items()}
+            pop.pipeline.close()
+            del sim, history, probe
+        # the check: the FedOpt recipe's 64 clients, all a round, store-backed
+        # against in-memory from the same weights, cuDNN deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            over = dict(comm_round=1, frequency_of_the_test=0, client_num_per_round=64)
+            t0 = time.perf_counter()
+            mem = _slice15(FEDOPT, fedopt_data, **over)
+            mem.run()
+            mem_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, sim, _ = _population_run(FEDOPT, fedopt_data, f"{tmp}/check",
+                                        {"population_shard_size": 16,
+                                         "population_max_resident_shards": 4}, mods, **over)
+            pop_s = time.perf_counter() - t0
+            worst, excess = 0.0, 0.0
+            for a, b in zip(pt.tree_leaves(sim.global_vars),
+                            pt.tree_leaves(mem.runner.global_vars)):
+                diff = (a.double() - b.double()).abs()
+                worst = max(worst, float(diff.max()))
+                excess = max(excess, float((diff - POP_ATOL - POP_RTOL * b.double().abs()).max()))
+            print(f"population (e) check: the FedOpt recipe's {sim.dataset.n_clients} clients all "
+                  f"a round, store-backed ({sim._population.store.spec.n_shards} shards, "
+                  f"{pop_s:.1f} s) against in-memory ({mem_s:.1f} s), one round: largest global "
+                  f"difference {worst:.3g} (rtol {POP_RTOL}, atol {POP_ATOL}: "
+                  f"{'within' if excess <= 0 else 'BEYOND'})")
+            if excess > 0:
+                raise AssertionError(f"population (e): store-backed global {worst:.3g} from the "
+                                     "in-memory one")
+            sim._population.pipeline.close()
+        finally:
+            torch.backends.cudnn.deterministic = False
+    return counts_all
+
+
+def phase_slice15(mods, nz, flagship, fedopt_data):
+    """Phase 12 (module docstring).  Returns each kernel's launches over its
+    forms and row 7's largest Turbo-Aggregate length."""
+    import torch
+
+    totals, walls, peaks = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    for form, fn in (("a", lambda: phase_gossip(mods, fedopt_data)),
+                     ("b", lambda: phase_async(mods, flagship)),
+                     ("c", lambda: phase_turboaggregate(mods, nz, flagship)),
+                     ("d", lambda: phase_centralized(mods, flagship)),
+                     ("e", lambda: phase_population(mods, flagship, fedopt_data))):
+        _phase_start()
+        t0 = time.perf_counter()
+        out = fn()
+        if form == "c":
+            out, ta_length = out
+        add(out)
+        walls[form] = time.perf_counter() - t0
+        peaks[form] = torch.cuda.max_memory_allocated() - _PHASE_BASE["bytes"]
+    print(f"slice 15: phase 12 {sum(walls.values()):.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items())
+          + f"), its own peak {max(peaks.values()) / 2**30:.3f} GiB ("
+          + ", ".join(f"({k}) {v / 2**30:.3f}" for k, v in peaks.items())
+          + f" GiB), launches over its forms {totals}")
+    return totals, ta_length
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3389,54 +3888,49 @@ def main(argv=None) -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     mods = (fb, qz)
+    walls = {}
+
+    def timed(name, fn, *a):
+        """Run a phase from a freed allocator; keep its wall time."""
+        _phase_start()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
     kernel_rows = {**phase_kernels(fb), **phase_lane_kernels(fb), **phase_quantize(qz),
                    **phase_lane_quantize(qz), **phase_noise(nz)}
     phase_fedopt_shapes(fb)
     phase_model_check(fb)
     phase_fedsgd_check()
+    walls["1-2"] = time.perf_counter() - t_start
     if args.kernels_only:
         return 0
-    _phase_start()
-    fedavg_counts, flagship = phase_main_path(mods)
-    _phase_start()
-    phase_fused_ab(flagship)
-    _phase_start()
-    phase_mesh_vs_sp(flagship)
-    _phase_start()
-    fedsgd_counts, fedsgd_sp_counts = phase_fedsgd(mods, qz)
-    _phase_start()
-    silo_counts, silo_data = phase_cross_silo(mods, nz)
-    _phase_start()
-    wire_counts = phase_wire(mods, qz, nz, silo_data)
+    fedavg_counts, flagship = timed("3", phase_main_path, mods)
+    timed("3", phase_fused_ab, flagship)
+    timed("3", phase_mesh_vs_sp, flagship)
+    fedsgd_counts, fedsgd_sp_counts = timed("4", phase_fedsgd, mods, qz)
+    silo_counts, silo_data = timed("5", phase_cross_silo, mods, nz)
+    wire_counts = timed("9", phase_wire, mods, qz, nz, silo_data)
     del silo_data
-    _phase_start()
-    dataset = phase_fedopt(mods)
-    _phase_start()
-    phase_family(mods, dataset)
-    phase_scaffold_step(dataset)
-    phase_client_adam(mods, dataset)
+    fedopt_data = timed("6", phase_fedopt, mods)
+    timed("6", phase_family, mods, fedopt_data)
+    timed("6", phase_scaffold_step, fedopt_data)
+    timed("6", phase_client_adam, mods, fedopt_data)
+    timed("6", phase_lr_recipes)
+    hier_counts, dataset = timed("7", phase_hierarchical, mods)
     del dataset
-    phase_lr_recipes()
-    _phase_start()
-    hier_counts, dataset = phase_hierarchical(mods)
-    del dataset
-    _phase_start()
-    myavg_counts = phase_myavg(mods)
-    _phase_start()
-    lsa_counts = phase_lightsecagg(mods + (nz,))
+    myavg_counts = timed("7", phase_myavg, mods)
+    lsa_counts = timed("7", phase_lightsecagg, mods + (nz,))
     print(f"launches on slice 10's paths (none of the seven kernels runs there): "
           f"hierarchical {hier_counts}, myavg {myavg_counts}, lightsecagg {lsa_counts}")
-    _phase_start()
-    fedllm_counts = phase_fedllm(mods + (nz,))
-    _phase_start()
-    full_counts = phase_fedllm_full(mods + (nz,))
-    _phase_start()
-    resume_counts = phase_resume(mods + (nz,), flagship)
-    _phase_start()
-    trust_counts = phase_trust(mods, nz, flagship)
-    del flagship
-    _phase_start()
-    zoo_counts, femnist_rows = phase_zoo(mods + (nz,), qz)
+    fedllm_counts = timed("8", phase_fedllm, mods + (nz,))
+    full_counts = timed("8", phase_fedllm_full, mods + (nz,))
+    resume_counts = timed("8", phase_resume, mods + (nz,), flagship)
+    trust_counts = timed("10", phase_trust, mods, nz, flagship)
+    slice15_counts, ta_length = timed("12", phase_slice15, mods, nz, flagship, fedopt_data)
+    del flagship, fedopt_data
+    zoo_counts, femnist_rows = timed("11", phase_zoo, mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
     # each kernel's launches on its own path: the lane-batched kernels on
@@ -3452,12 +3946,14 @@ def main(argv=None) -> int:
     # (rows 5-6 and the fused silo kernels), (c) SecAgg qsgd8 (row 7)
     wire = {k: wire_counts["a"][k] + (wire_counts["c"][k] if k == nz.NOISE.name else 0)
             for k in wire_counts["a"]}
+    print("chip_smoke phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, kernels' build included")
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": m.SOURCE, "replaces": k.replaces,
          "launches": counts[k.name], "wire_launches": wire[k.name],
          "trust_launches": trust_counts.get(k.name, 0),
          "zoo_launches": zoo_counts.get(k.name, 0),
+         "slice15_launches": slice15_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],
@@ -3466,6 +3962,8 @@ def main(argv=None) -> int:
             if "stream_ms" in kernel_rows[k.name] else {}),
          **({"ldp_length": kernel_rows[k.name]["ldp_length"]}
             if "ldp_length" in kernel_rows[k.name] else {}),
+         **({"ta_length": {**kernel_rows[k.name]["ta_length"], "path_max": ta_length}}
+            if "ta_length" in kernel_rows[k.name] else {}),
          **({"zoo_length": FEMNIST_GRAD_LENGTH,
              **{f"zoo_{key}": femnist_rows[k.name][key]
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}}

@@ -79,7 +79,7 @@ FLAGS: dict[str, FlagSpec] = _specs(
     FlagSpec("seg_base", "int", 8, "UNet base channel width for FedSeg."),
     FlagSpec("gan_z_dim", "int", 64, "FedGAN generator latent dimension."),
     FlagSpec("decentralized_mode", "str", "dsgd",
-             "Decentralized topology/algorithm: dsgd | ring."),
+             "Decentralized topology/algorithm: dsgd | pushsum | ring."),
     FlagSpec("topology_neighbor_num", "int", 2,
              "Neighbors per node in the decentralized mixing topology."),
     FlagSpec("ta_group_num", "int", 4, "TurboAggregate group count."),

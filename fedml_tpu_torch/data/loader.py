@@ -91,7 +91,7 @@ def load(cfg: Config) -> FederatedDataset:
     if name == "fets2021":
         raise NotImplementedError(
             "dataset 'fets2021' is not ported yet: its one consumer, FedSeg, and "
-            "models/segmentation.py come with ROADMAP.md Queue 1 item 6")
+            "models/segmentation.py come with ROADMAP.md Queue 1 item 6b")
     if name == "synthetic_condshift":
         return _load_condshift(cfg)
     if name in _DATASET_SPECS:

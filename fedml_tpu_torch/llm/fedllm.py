@@ -58,15 +58,9 @@ _BASE_TAG, _LORA_TAG = 1, 2
 def refuse_unported_fedllm(cfg: Config) -> None:
     """Raise for flags this simulator does not serve (the reference wires
     no trust feature into it either)."""
-    from ..sim.engine import _UNPORTED_FLAGS
+    from ..sim.engine import refuse_special_simulator
 
-    active = [f for f in C.TRUST_FLAGS if getattr(cfg, f, False)]
-    if active:
-        raise NotImplementedError(f"trust features {active} are not wired into the 'FedLLM' "
-                                  "simulator; refusing to run without them")
-    for flag in _UNPORTED_FLAGS:
-        if cfg_extra(cfg, flag):
-            raise NotImplementedError(f"extra.{flag} is not ported yet")
+    refuse_special_simulator(cfg, C.FEDERATED_OPTIMIZER_FEDLLM)
 
 
 class LLMSampler:
@@ -204,6 +198,8 @@ class FedLLMSimulator(RoundCheckpointMixin):
             self.sampler.root = self.root_key
 
     def run(self) -> list[dict]:
+        from ..sim.engine import test_due
+
         history = []
         self.try_resume()
         while self.round_idx < self.cfg.comm_round:
@@ -211,8 +207,7 @@ class FedLLMSimulator(RoundCheckpointMixin):
             t0 = time.perf_counter()
             metrics = self.run_round()
             metrics.update(round=r, round_time_s=time.perf_counter() - t0)
-            f = self.cfg.frequency_of_the_test
-            if f and ((r + 1) % f == 0 or r == self.cfg.comm_round - 1):
+            if test_due(self.cfg, r):
                 metrics.update(self.evaluate())
             self.logger.log(metrics)
             history.append(metrics)

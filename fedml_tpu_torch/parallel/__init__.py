@@ -1,1 +1,2 @@
-"""The cross-silo server's streaming fold (``stream_fold.py``)."""
+"""The cross-silo server's streaming fold (``stream_fold.py``) and the
+decentralized mixing topologies (``topology.py``)."""

@@ -1,20 +1,27 @@
 """FedMLRunner — platform dispatch (the port of ``fedml_tpu/runner.py``).
 
 Ported so far: the simulation platform with the algorithms of the registry
-(``algorithms/__init__.py``: the FedAvg family and FedSGD) and the
-hierarchical, MyAvg and FedLLM simulators (``HierarchicalFL``, ``MyAvg`` /
-``MyAgg-7``, ``FedLLM``: ``sim/hierarchical.py``, ``sim/myavg.py``,
-``llm/fedllm.py``; FedLLM builds its own transformer, not a ``model_hub``
-model), and the
-cross-silo platform (``cross_silo/``: the plain synchronous server, Shamir
-SecAgg and LightSecAgg, in one process); every other platform and optimizer
-raises ``NotImplementedError``.
+(``algorithms/__init__.py``: the FedAvg family and FedSGD, the engine's
+population mode under ``extra.population_store`` too) and the simulators
+of their own: ``HierarchicalFL``, ``MyAvg`` / ``MyAgg-7``, ``FedLLM``,
+``decentralized_fl``, ``Async_FedAvg`` and ``TA`` (``sim/hierarchical.py``,
+``sim/myavg.py``, ``llm/fedllm.py``, ``sim/decentralized.py``,
+``sim/async_fl.py``, ``sim/turboaggregate.py``; FedLLM builds its own
+transformer, the rest a ``model_hub`` model); the cross-silo platform
+(``cross_silo/``: the plain synchronous server, Shamir SecAgg and
+LightSecAgg, in one process); and the centralized baseline
+(``training_type: centralized``, ``sim/centralized.py``, reference
+L307-311).  Every other platform and optimizer raises
+``NotImplementedError``.
 
-Trust flags as the reference routes them (L17-41, L113-140): attack,
+Trust flags as the reference routes them (L17-41, L113-150): attack,
 defense, DP and contribution run on the engine's FedAvg family (MESH and
 sp); MyAvg takes attack, defense and DP and refuses the rest itself; every
-other special simulator refuses them all; SecAgg and FHE are cross-silo
-protocols, refused in simulation.
+other special simulator refuses them all, and so does the centralized
+trainer (the reference ignores them there; a flag is never a silent no-op
+in the port: these also refuse the engine's unported flags and population
+mode, ``sim/engine.refuse_special_simulator``); SecAgg and FHE are cross-silo protocols, refused in
+simulation.
 """
 
 from __future__ import annotations
@@ -37,10 +44,14 @@ def _check_unimplemented_flags(cfg: Config) -> None:
         raise NotImplementedError(f"trust features {pending} are enabled in the config but not "
                                   "yet implemented; refusing to run without them")
 
-_PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO)
-# simulators of their own (reference runner.py L158, L194), beside the
+_PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO,
+                     C.TRAINING_PLATFORM_CENTRALIZED)
+# simulators of their own (reference runner.py L87-194), beside the
 # registry's algorithms on the engine
-_SPECIAL_SIMULATORS = ((C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL, C.FEDERATED_OPTIMIZER_FEDLLM)
+_SPECIAL_SIMULATORS = ((C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL, C.FEDERATED_OPTIMIZER_FEDLLM,
+                        C.FEDERATED_OPTIMIZER_DECENTRALIZED_FL,
+                        C.FEDERATED_OPTIMIZER_ASYNC_FEDAVG,
+                        C.FEDERATED_OPTIMIZER_TURBO_AGGREGATE)
                        + C.FEDERATED_OPTIMIZER_MYAVG_ALIASES)
 _PORTED_OPTIMIZERS = tuple(algorithms.names()) + _SPECIAL_SIMULATORS
 
@@ -59,12 +70,15 @@ class FedMLRunner:
         if cfg.training_type not in _PORTED_PLATFORMS:
             raise NotImplementedError(f"training_type {cfg.training_type!r} is not ported "
                                       f"yet (ported: {_PORTED_PLATFORMS})")
-        if cfg.federated_optimizer not in _PORTED_OPTIMIZERS:
-            raise NotImplementedError(f"federated_optimizer {cfg.federated_optimizer!r} is "
-                                      f"not ported yet (ported: {_PORTED_OPTIMIZERS})")
         if server_aggregator is not None:
             raise NotImplementedError("custom server_aggregator is not ported yet")
         _check_unimplemented_flags(cfg)
+        if cfg.training_type == C.TRAINING_PLATFORM_CENTRALIZED:
+            self.runner = self._init_centralized_runner(client_trainer)
+            return
+        if cfg.federated_optimizer not in _PORTED_OPTIMIZERS:
+            raise NotImplementedError(f"federated_optimizer {cfg.federated_optimizer!r} is "
+                                      f"not ported yet (ported: {_PORTED_OPTIMIZERS})")
         if cfg.training_type == C.TRAINING_PLATFORM_CROSS_SILO:
             if client_trainer is not None:
                 raise NotImplementedError("custom client_trainer is not ported to cross-silo yet")
@@ -86,6 +100,19 @@ class FedMLRunner:
 
             self.model = model_hub.create(self.cfg, self.dataset.class_num,
                                           input_shape=self.dataset.train_x.shape[1:])
+
+    def _init_centralized_runner(self, client_trainer):
+        """The centralized baseline (reference L307): the whole training set
+        as one client."""
+        from .sim.centralized import CentralizedTrainer
+        from .sim.engine import refuse_special_simulator
+
+        refuse_special_simulator(self.cfg, C.TRAINING_PLATFORM_CENTRALIZED)
+        if client_trainer is not None:
+            raise ValueError("a custom client_trainer is not used by centralized training")
+
+        self._load_dataset_and_model()
+        return CentralizedTrainer(self.cfg, self.dataset, self.model, device=self.device)
 
     def _init_simulation_runner(self, client_trainer):
         from .sim.engine import refuse_protocol_flags
@@ -118,6 +145,19 @@ class FedMLRunner:
 
                 self.dataset = loader.load(self.cfg)
             return FedLLMSimulator(self.cfg, self.dataset, device=self.device)
+        if opt in (C.FEDERATED_OPTIMIZER_DECENTRALIZED_FL, C.FEDERATED_OPTIMIZER_ASYNC_FEDAVG,
+                   C.FEDERATED_OPTIMIZER_TURBO_AGGREGATE):
+            from .sim.engine import refuse_special_simulator
+
+            refuse_special_simulator(self.cfg, opt)  # before the data is loaded
+            self._load_dataset_and_model()
+            if opt == C.FEDERATED_OPTIMIZER_DECENTRALIZED_FL:
+                from .sim.decentralized import DecentralizedSimulator as Sim
+            elif opt == C.FEDERATED_OPTIMIZER_ASYNC_FEDAVG:
+                from .sim.async_fl import AsyncSimulator as Sim
+            else:
+                from .sim.turboaggregate import TurboAggregateSimulator as Sim
+            return Sim(self.cfg, self.dataset, self.model, device=self.device)
         if opt in C.FEDERATED_OPTIMIZER_MYAVG_ALIASES:
             from .sim.myavg import MyAvgSimulator, refuse_unported_myavg
 

@@ -35,8 +35,27 @@ Server state (an optimizer's moments, SCAFFOLD's ``c``, FedDyn's ``h``,
 Mime's momentum) is whatever tree ``server_update`` returns.  ``run_rounds(n)`` on MESH keeps the
 rounds' metrics on the device and syncs once, at the end of the chunk (the
 reference's ``jit(scan(round))`` chunk has one host sync too); CUDA-graph
-capture of rounds is a later slice.  The AOT program store, the profiler,
-OTLP export and population mode raise ``NotImplementedError``.
+capture of rounds is a later slice.  The AOT program store, the profiler
+and OTLP export raise ``NotImplementedError``.
+
+Population mode (``extra.population_store``, reference L275-288 and
+L431-600): a sharded on-disk store (``population/``) is the authority for
+the clients' data rows and state, ``population_size`` ids replicating the
+dataset's clients cyclically.  Each MESH round samples its cohort with the
+two-level sampler, gathers the cohort's ``(m, cap, ...)`` rows on the host
+(the next round's on a prefetch thread), moves them to the card once
+(pinned, then cast to the compute dtype there) and runs the same lane round
+and ``_server_path`` (trust hooks included) as the in-memory round, each
+lane keyed by its population id.  Client state is gathered before the
+round and scattered back after it, in the reference's layout (flax
+kernels), so the shard files hold the reference's arrays; the store
+flushes at every chunk's end, before evaluation or a checkpoint.  ``sp``
+refuses population mode, as the reference does; so does contribution (its
+replay reads the in-memory stack), and so does
+``extra.health_aware_selection`` (the sampler's health mask needs a device
+registry and a health ledger: ``ROADMAP.md`` Queue 1 item 10).  The
+reference's ``round_gate`` (the multi-tenant control plane's device-slot
+grant, ``ROADMAP.md`` Queue 1 item 9) is left out.
 
 Trust (``trust/pipeline.py``, reference L145-158 and L402-425): with
 ``enable_attack``, ``enable_defense`` or ``enable_dp`` the round's
@@ -106,7 +125,7 @@ from ..weights import flatten_reference
 # flags whose subsystems later slices port (the ROADMAP.md Queue 1 item
 # that ports each); setting one must not be a no-op
 _UNPORTED_FLAGS = {"aot_programs": 10, "profile_rounds": 10, "otlp_endpoint": 10,
-                   "population_store": 6, "cost_model_gauges": 10}
+                   "cost_model_gauges": 10}
 _MULTI_PROCESS = ("MULTIPROCESS", C.SIMULATION_BACKEND_MPI)
 # tag of the full-gradient pass's dropout stream in a client key ("grad")
 _GRAD_DROPOUT_TAG = 0x67726164
@@ -134,6 +153,40 @@ def _refuse_unported(cfg: Config) -> None:
     refuse_protocol_flags(cfg)
 
 
+def refuse_population(cfg: Config, what: str) -> None:
+    """Population mode is the engine's FedAvg round's; a simulator of its
+    own refuses it (the reference's ignore the flag)."""
+    if cfg_extra(cfg, "population_store"):
+        raise NotImplementedError(f"extra.population_store is served by the engine's FedAvg "
+                                  f"family on MESH, not by the {what!r} simulator")
+
+
+def refuse_special_simulator(cfg: Config, what: str) -> None:
+    """Raise for what a simulator of its own does not serve: the trust
+    features (the reference's runner refuses them there), the engine's
+    unported flags (each naming its ``ROADMAP.md`` Queue 1 item) and
+    population mode."""
+    active = [f for f in C.TRUST_FLAGS if getattr(cfg, f, False)]
+    if active:
+        raise NotImplementedError(f"trust features {active} are not wired into the {what!r} "
+                                  "simulator; refusing to run without them")
+    for flag, item in _UNPORTED_FLAGS.items():
+        if cfg_extra(cfg, flag):
+            raise NotImplementedError(f"extra.{flag} is not ported yet (ROADMAP.md Queue 1 "
+                                      f"item {item})")
+    refuse_population(cfg, what)
+
+
+def _lanes_relayout(tree, axes_map: dict, name=None):
+    """A lane-stacked tree (or a lone tensor) with every ``kernel`` leaf
+    permuted behind its lane axis by ``axes_map`` (the port's layout <->
+    flax's)."""
+    if isinstance(tree, dict):
+        return {k: _lanes_relayout(v, axes_map, k) for k, v in tree.items()}
+    axes = axes_map.get(tree.ndim - 1) if name == "kernel" else None
+    return tree.permute((0,) + tuple(a + 1 for a in axes)).contiguous() if axes else tree
+
+
 def _labels(y: np.ndarray, device) -> torch.Tensor:
     """Labels on the device: class or token ids as int64, multi-hot
     targets as they are."""
@@ -146,6 +199,61 @@ def _mean(values: list) -> float:
     if torch.is_tensor(values[0]):
         return float(torch.stack(values).mean())
     return float(np.mean(values))
+
+
+def place_clients(cfg: Config, dataset: FederatedDataset, device):
+    """``(stacked, hp, (x, y))``: the clients' rows padded to a batch
+    multiple (``stack_clients``, numpy), the local train's hyperparameters
+    (an epoch ``ceil(capacity / batch)`` steps) and the rows on ``device``,
+    floating ones in the compute dtype (half the memory and half a step's
+    gather traffic in bf16; local training casts its batches to it
+    anyway)."""
+    stacked = stack_clients(dataset, multiple_of=cfg.batch_size)
+    hp = hparams_from_config(cfg,
+                             steps_per_epoch=max(1, math.ceil(stacked.capacity / cfg.batch_size)))
+    x = torch.from_numpy(stacked.x)
+    if hp.compute_dtype == "bfloat16" and x.is_floating_point():
+        x = x.to(torch.bfloat16)
+    return stacked, hp, (x.to(device), _labels(stacked.y, device))
+
+
+def eval_batch_size(cfg: Config) -> int:
+    """The test evaluation's batch: ``test_batch_size`` within [32, 256]."""
+    return min(256, max(32, cfg.test_batch_size))
+
+
+def place_test_set(cfg: Config, dataset: FederatedDataset, model, hp, device):
+    """``((x, y, n_test), eval_fn)``: the test set padded to the eval batch
+    on ``device`` and the eval function over it."""
+    eval_bs = eval_batch_size(cfg)
+    tx, ty, n_test = pad_eval_set(dataset.test_x, dataset.test_y, eval_bs)
+    test = (torch.from_numpy(np.ascontiguousarray(tx)).to(device),
+            _labels(np.ascontiguousarray(ty), device), int(n_test))
+    return test, make_eval_fn(model, hp, batch_size=eval_bs)
+
+
+def test_due(cfg: Config, r: int) -> bool:
+    """Whether round ``r`` ends with a test evaluation: at the cadence
+    ``frequency_of_the_test`` (0: never) and at the last round."""
+    every = cfg.frequency_of_the_test
+    return bool(every) and ((r + 1) % every == 0 or r == cfg.comm_round - 1)
+
+
+def fit_loop(run_round, evaluate, cfg: Config, logger, every_round: bool = False) -> list[dict]:
+    """The simulators' fit loop (the reference's ``run``): ``comm_round``
+    calls of ``run_round()`` (host metrics), each timed on the host, then
+    ``evaluate()`` merged in when :func:`test_due` (every round with
+    ``every_round``), then logged."""
+    history = []
+    for r in range(cfg.comm_round):
+        t0 = time.perf_counter()
+        metrics = run_round()
+        metrics.update(round=r, round_time_s=time.perf_counter() - t0)
+        if every_round or test_due(cfg, r):
+            metrics.update(evaluate())
+        logger.log(metrics)
+        history.append(metrics)
+    return history
 
 
 class ClientSampler:
@@ -243,12 +351,9 @@ class MeshSimulator(RoundCheckpointMixin):
         self.model = model
         self.logger = logger or MetricsLogger(cfg.metrics_jsonl_path or None)
 
-        stacked = stack_clients(dataset, multiple_of=cfg.batch_size)
+        stacked, self.hp, self._data = place_clients(cfg, dataset, self.device)
         self.capacity = stacked.capacity
-        steps_per_epoch = max(1, math.ceil(self.capacity / cfg.batch_size))
-        self.hp = hparams_from_config(cfg, steps_per_epoch=steps_per_epoch)
         self.algorithm = (algorithm or create_algorithm(cfg, self.hp)).build(model)
-        self._data = self._place_data(stacked)
         self.counts = stacked.counts
         n_total = dataset.n_clients
         self.sampler = sampler or ClientSampler(
@@ -261,12 +366,8 @@ class MeshSimulator(RoundCheckpointMixin):
         self.client_states = None if template is None else pt.tree_map(
             lambda t: t.unsqueeze(0).repeat((n_total,) + (1,) * t.ndim), template)
 
-        self._eval_bs = eval_bs = min(256, max(32, cfg.test_batch_size))
-        tx, ty, n_test = pad_eval_set(dataset.test_x, dataset.test_y, eval_bs)
-        self._test = (torch.from_numpy(np.ascontiguousarray(tx)).to(self.device),
-                      _labels(np.ascontiguousarray(ty), self.device),
-                      int(n_test))
-        self._eval_fn = make_eval_fn(model, self.hp, batch_size=eval_bs)
+        self._eval_bs = eval_batch_size(cfg)
+        self._test, self._eval_fn = place_test_set(cfg, dataset, model, self.hp, self.device)
         self.round_idx = 0
         # the previous round's global delta (the reference's flat layout) for
         # a defense that reads it; zeros before the first round
@@ -274,14 +375,21 @@ class MeshSimulator(RoundCheckpointMixin):
             torch.zeros_like(flatten_reference(self.global_vars)[0])
             if self.trust is not None and self.trust.needs_history else None)
         self._contribution_snapshot = None
-
-    def _place_data(self, stacked):
-        x = torch.from_numpy(stacked.x)
-        if self.hp.compute_dtype == "bfloat16" and x.is_floating_point():
-            # device-resident shards in the compute dtype: half the memory and
-            # half the per-step gather traffic
-            x = x.to(torch.bfloat16)
-        return x.to(self.device), _labels(stacked.y, self.device)
+        self._population = None
+        pop_root = cfg_extra(cfg, "population_store")
+        if pop_root:
+            if self.backend == C.SIMULATION_BACKEND_SP:
+                raise ValueError("population_store streams cohorts into the batched MESH round; "
+                                 "it has no meaning on the sp host loop")
+            if getattr(cfg, "enable_contribution", False):
+                raise NotImplementedError("contribution replays the last round from the "
+                                          "in-memory client stack; population mode has none")
+            if cfg_extra(cfg, "health_aware_selection"):
+                # the sampler's health mask reads a device registry and a
+                # health ledger, which the port does not have yet
+                raise NotImplementedError("extra.health_aware_selection in population mode is "
+                                          "not ported yet (ROADMAP.md Queue 1 item 10)")
+            self._init_population(str(pop_root), stacked)
 
     def _server_path(self, contribs, weights, sampled, round_idx: int):
         """Trust hooks, aggregation and the server update, shared by both
@@ -308,8 +416,12 @@ class MeshSimulator(RoundCheckpointMixin):
         """One round on the backend; its metrics as 0-d tensors (MESH, on
         the device) or floats (sp)."""
         r = self.round_idx
-        metrics = (self._run_round_sp(r) if self.backend == C.SIMULATION_BACKEND_SP
-                   else self._run_round_mesh(r))
+        if self._population is not None:
+            metrics = self._run_round_population(r)
+        elif self.backend == C.SIMULATION_BACKEND_SP:
+            metrics = self._run_round_sp(r)
+        else:
+            metrics = self._run_round_mesh(r)
         self.round_idx += 1
         return metrics
 
@@ -318,7 +430,10 @@ class MeshSimulator(RoundCheckpointMixin):
         (MESH: as the lanes of one batched round; sp: in turn), then the
         weighted mean replaces them.  Returns the round's host metrics (one
         device sync)."""
-        return {k: float(v) for k, v in self._round().items()}
+        out = {k: float(v) for k, v in self._round().items()}
+        if self._population is not None:
+            self._population.store.flush()
+        return out
 
     def _run_round_mesh(self, r: int) -> dict:
         """The sampled clients as the lanes of one batched round (reference
@@ -339,12 +454,15 @@ class MeshSimulator(RoundCheckpointMixin):
             pt.tree_scatter_(self.client_states, lanes, out.client_state)
         return {k: v.to(torch.float32).mean() for k, v in out.metrics.items()}
 
-    def _client_outputs_mesh(self, r: int, sampled, lanes, global_vars, server_state, states):
+    def _client_outputs_mesh(self, r: int, sampled, lanes, global_vars, server_state, states,
+                             data=None, counts=None):
         """Round ``r``'s client work on MESH: the sampled clients (``lanes``
-        their ids on the device) trained in one batched call from
-        ``global_vars`` / ``server_state`` and their gathered client
-        ``states``."""
-        counts = self.counts[sampled]
+        their rows of ``data``, the in-memory stack unless given, on the
+        device; ``counts`` their sample counts) trained in one batched call
+        from ``global_vars`` / ``server_state`` and their gathered client
+        ``states``; each lane's draws those of its id in ``sampled``."""
+        data = self._data if data is None else data
+        counts = self.counts[sampled] if counts is None else counts
         perms = [self.sampler.perms(r, int(ci), self.hp.epochs, self.capacity) for ci in sampled]
         perms = None if perms[0] is None else to_device(torch.stack(perms), self.device, torch.long)
 
@@ -365,7 +483,7 @@ class MeshSimulator(RoundCheckpointMixin):
                 drop["grad_dropout"] = torch.stack(drops)
         # a model without dropout is trained through the same call as before
         return self.algorithm.client_update_lanes(
-            global_vars, states, server_state, self._data[0], self._data[1], lanes, counts,
+            global_vars, states, server_state, data[0], data[1], lanes, counts,
             perms=perms, draw=draw, **drop)
 
     def _run_round_sp(self, r: int) -> dict:
@@ -413,6 +531,65 @@ class MeshSimulator(RoundCheckpointMixin):
             metrics_list.append(out.metrics)
         return pt.tree_stack(contribs), new_states, metrics_list
 
+    # -- population mode (extra.population_store) ----------------------------
+    def _init_population(self, root: str, stacked) -> None:
+        """The store, the two-level sampler and the prefetch pipeline
+        (``population/``, reference ``_init_population`` L432); the store
+        replaces the device stack of client state."""
+        from types import SimpleNamespace
+
+        from ..population import build_population_components
+
+        template = self.algorithm.init_client_state(self.global_vars)
+        state_template = None
+        if template is not None:  # one client's state, the reference's layout
+            one = _lanes_relayout(pt.tree_map(lambda t: t.unsqueeze(0), template),
+                                  pt.KERNEL_TO_FLAX)
+            state_template = pt.tree_map(lambda t: t[0].detach().cpu().numpy(), one)
+        store, sampler, pipeline = build_population_components(
+            self.cfg, root, stacked.x, stacked.y, stacked.counts, self.capacity,
+            state_template=state_template)
+        self._population = SimpleNamespace(store=store, sampler=sampler, pipeline=pipeline,
+                                           m=sampler.cohort_size)
+        self.client_states = None  # the store holds every client's state
+
+    def _cohort_rows(self, rows: np.ndarray, cast: bool = True) -> torch.Tensor:
+        """A cohort's host rows on the device, crossing once (pinned, on the
+        current stream); with ``cast`` floating rows are cast to the compute
+        dtype there."""
+        t = torch.from_numpy(rows)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        if cast and self.hp.compute_dtype == "bfloat16" and t.is_floating_point():
+            t = t.to(torch.bfloat16)  # round to nearest even, as ml_dtypes casts
+        return t.to(self.device)
+
+    def _run_round_population(self, r: int) -> dict:
+        """One cohort round (reference ``_run_one_population_round`` L548):
+        the cohort's data from the pipeline (the next round's prefetched),
+        its state from the store, the MESH lane round and the shared server
+        path, the new state scattered back.  Metrics stay on the device."""
+        pop = self._population
+        pop.pipeline.prefetch_round(r)
+        ids, batch = pop.pipeline.obtain(r)
+        if r + 1 < self.cfg.comm_round:
+            pop.pipeline.prefetch_round(r + 1)
+        data = (self._cohort_rows(batch.x), _labels(batch.y, self.device))
+        states = pop.store.gather_state(ids)
+        if states is not None:
+            states = pt.tree_map(lambda a: self._cohort_rows(a, cast=False), states)
+            states = _lanes_relayout(states, pt.KERNEL_TO_TORCH)
+        sampled = np.asarray(ids, np.int64)
+        lanes = to_device(np.arange(len(sampled)), self.device, torch.long)
+        out = self._client_outputs_mesh(r, sampled, lanes, self.global_vars, self.server_state,
+                                        states, data=data, counts=batch.counts)
+        weights = to_device(batch.counts, self.device, torch.float32)
+        self.global_vars, self.server_state = self._server_path(out.contribution, weights,
+                                                                sampled, r)
+        if states is not None and out.client_state is not None:
+            pop.store.scatter_state(ids, _lanes_relayout(out.client_state, pt.KERNEL_TO_FLAX))
+        return {k: v.to(torch.float32).mean() for k, v in out.metrics.items()}
+
     def run_rounds(self, n: int) -> list[dict]:
         """``n`` rounds; one dict of host metrics a round.  sp: each round
         syncs and is timed alone.  MESH (reference L733): the rounds'
@@ -432,6 +609,10 @@ class MeshSimulator(RoundCheckpointMixin):
         rounds = [self._round() for _ in range(n)]
         keys = list(rounds[0])
         host = torch.stack([torch.stack([m[k] for k in keys]) for m in rounds]).cpu()
+        if self._population is not None:
+            # the shards are this mode's client state: consistent on disk
+            # before an evaluation or a checkpoint reads the boundary
+            self._population.store.flush()
         per_round = (time.perf_counter() - t0) / n
         return [dict(zip(keys, map(float, row)), round_time_s=per_round) for row in host]
 
@@ -501,9 +682,7 @@ class MeshSimulator(RoundCheckpointMixin):
                 metrics["chunk_rounds"] = len(chunk)
                 metrics["round"] = r0 + i
             r_last = r0 + len(chunk) - 1
-            if cfg.frequency_of_the_test and (
-                (r_last + 1) % cfg.frequency_of_the_test == 0 or r_last == cfg.comm_round - 1
-            ):
+            if test_due(cfg, r_last):
                 chunk[-1].update(self.evaluate())
             for metrics in chunk:
                 self.logger.log(metrics)

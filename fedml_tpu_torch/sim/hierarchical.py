@@ -39,42 +39,33 @@ reference's hierarchical simulator does not have (it ignores the keys).
 
 from __future__ import annotations
 
-import math
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import constants as C
-from ..algorithms import hparams_from_config
 from ..arguments import Config
 from ..core import pytree as pt
 from ..core import rng
 from ..core.device import resolve_device
 from ..core.flags import cfg_extra
-from ..data.dataset import FederatedDataset, pad_eval_set, stack_clients
+from ..data.dataset import FederatedDataset
 from ..fl.local_sgd import (dropout_masks, dropout_spec, epoch_permutations, lane_dropout_table,
-                            make_batched_local_train_fn, make_eval_fn, step_budgets, to_device)
+                            make_batched_local_train_fn, step_budgets, to_device)
 from ..obs.metrics import MetricsLogger
 from ..sched.seq_scheduler import SeqTrainScheduler, round_robin_groups
-from .engine import _UNPORTED_FLAGS
+from .engine import fit_loop, place_clients, place_test_set, refuse_special_simulator
 
 
 def refuse_unported_hierarchical(cfg: Config) -> None:
     """Raise for what this simulator does not serve."""
-    active = [f for f in C.TRUST_FLAGS if getattr(cfg, f, False)]
-    if active:
-        raise NotImplementedError(f"trust features {active} are not wired into the "
-                                  "'HierarchicalFL' simulator; refusing to run without them")
+    refuse_special_simulator(cfg, C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL)
     if cfg.checkpoint_dir or cfg.checkpoint_every_rounds or cfg.resume:
         # the reference's hierarchical simulator has no round checkpoint (it
         # ignores these keys); the port refuses them rather than add one
         raise NotImplementedError("checkpointing is not served by the 'HierarchicalFL' "
                                   "simulator (the reference has none there)")
-    for flag in _UNPORTED_FLAGS:
-        if cfg_extra(cfg, flag):
-            raise NotImplementedError(f"extra.{flag} is not ported yet")
 
 
 def segment_group_sums(leaf: torch.Tensor, w_sel: torch.Tensor, g_sel: torch.Tensor,
@@ -128,8 +119,9 @@ class HierarchicalSimulator:
         self.group_num = max(1, int(cfg.group_num))
         self.group_comm_round = max(1, int(cfg.group_comm_round))
 
-        stacked = stack_clients(dataset, multiple_of=cfg.batch_size)
+        stacked, self.hp, self._data = place_clients(cfg, dataset, self.device)
         self.capacity = stacked.capacity
+        self.counts = stacked.counts
         if cfg_extra(cfg, "group_assignment") == "balanced":
             # equal sample mass per group: with ragged Dirichlet shards,
             # round-robin groups can differ by 10x in total work
@@ -141,14 +133,7 @@ class HierarchicalSimulator:
         else:
             group_of = round_robin_groups(n, self.group_num)
         self.group_of = group_of
-        self.hp = hparams_from_config(
-            cfg, steps_per_epoch=max(1, math.ceil(stacked.capacity / cfg.batch_size)))
         self._train = make_batched_local_train_fn(model, self.hp)
-        x = torch.from_numpy(stacked.x)
-        if self.hp.compute_dtype == "bfloat16" and x.is_floating_point():
-            x = x.to(torch.bfloat16)  # local training casts its batches to it anyway
-        self._data = (x.to(self.device), torch.from_numpy(stacked.y).to(self.device, torch.long))
-        self.counts = stacked.counts
         self.per_round = min(max(1, int(cfg.client_num_per_round)), n)
         self.sampler = sampler or SubRoundSampler(cfg.random_seed, n, self.per_round)
         self.root_key = rng.root_key(cfg.random_seed)
@@ -158,13 +143,7 @@ class HierarchicalSimulator:
         self._group_mass = to_device(
             np.bincount(group_of, weights=stacked.counts, minlength=self.group_num),
             self.device, torch.float32)
-
-        eval_bs = min(256, max(32, cfg.test_batch_size))
-        tx, ty, n_test = pad_eval_set(dataset.test_x, dataset.test_y, eval_bs)
-        self._test = (torch.from_numpy(np.ascontiguousarray(tx)).to(self.device),
-                      torch.from_numpy(np.ascontiguousarray(ty)).to(self.device, torch.long),
-                      int(n_test))
-        self._eval_fn = make_eval_fn(model, self.hp, batch_size=eval_bs)
+        self._test, self._eval_fn = place_test_set(cfg, dataset, model, self.hp, self.device)
         self.logger = logger or MetricsLogger(cfg.metrics_jsonl_path or None)
         self.round_idx = 0
 
@@ -229,16 +208,4 @@ class HierarchicalSimulator:
     def run(self) -> list[dict]:
         """The fit loop (reference ``run``): every round timed on the host,
         evaluation at the test cadence and at the last round."""
-        history = []
-        cfg = self.cfg
-        for r in range(cfg.comm_round):
-            t0 = time.perf_counter()
-            metrics = self.run_round()
-            metrics.update(round=r, round_time_s=time.perf_counter() - t0)
-            if cfg.frequency_of_the_test and (
-                (r + 1) % cfg.frequency_of_the_test == 0 or r == cfg.comm_round - 1
-            ):
-                metrics.update(self.evaluate())
-            self.logger.log(metrics)
-            history.append(metrics)
-        return history
+        return fit_loop(self.run_round, self.evaluate, self.cfg, self.logger)

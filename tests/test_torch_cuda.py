@@ -34,6 +34,10 @@ delta's largest element (two ulps after the noise).  Compressed uploads: a
 ResNet-20 delta's qsgd8 and topk frames built on the card byte-identical to
 the CPU's (the same draws; ties at topk's k-th place), and the server's
 device fold of qsgd8 / topk / raw frames bitwise numpy's host fold.
+Slice 15: the noise kernel at Turbo-Aggregate's group length (16 x
+271,098) bitwise, a masked group ring through it (one launch a non-empty
+group, each group's rows bitwise the plain version), and a DSGD lane step
+from per-lane variables against each lane alone at rtol 2e-4 / atol 2e-5.
 """
 
 import numpy as np
@@ -1425,3 +1429,101 @@ def test_group_norm_lanes_on_card_match_each_lane_alone(groups, cuda_device):
     cpu = group_norm(x, p, groups)
     torch.testing.assert_close(group_norm(x.to(cuda_device), dev, groups).cpu(), cpu, rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_noise_at_a_turboaggregate_group_length(cuda_device):
+    """Kernel 7 at Turbo-Aggregate's group length, 16 x 271,098 =
+    4,337,568 elements with a flat draw and sigma 10: one launch, bitwise
+    the plain version on the card and on the CPU."""
+    from fedml_tpu_torch.ops import noise as nz
+
+    n = 16 * 271098
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(15)
+    x = torch.randn(n, generator=g, device=cuda_device) * 1e-2
+    draw = torch.randn(n, generator=g, device=cuda_device)
+    before = nz.launch_counts()[nz.NOISE.name]
+    out = nz.apply_gaussian_noise(x, draw, 10.0)
+    assert nz.launch_counts()[nz.NOISE.name] == before + 1
+    assert torch.equal(out, nz.apply_gaussian_noise_reference(x, draw, 10.0))
+    assert torch.equal(out.cpu(), nz.apply_gaussian_noise(x.cpu(), draw.cpu(), 10.0))
+
+
+@pytest.mark.cuda
+def test_turboaggregate_group_masks_through_the_kernel(cuda_device):
+    """The masked group ring on the card (``sim/turboaggregate.py``) over 10
+    survivors of ResNet-20's 271,098-element rows in 4 groups (one left
+    empty by the split of 3): one kernel launch a non-empty group, each
+    group's masked rows bitwise the plain ``x * w + noise * 10``, and the
+    aggregate within f32 rounding of the mask sums of the weighted mean."""
+    from fedml_tpu_torch.ops import noise as nz
+    from fedml_tpu_torch.sim.turboaggregate import TASampler, TurboAggregateSimulator
+
+    d, m = 271098, 10
+    sim = TurboAggregateSimulator.__new__(TurboAggregateSimulator)
+    sim.sampler = TASampler(0, m, m)
+    sim.last_round = {}
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    flat = torch.randn(m, d, generator=g, device=cuda_device) * 0.1
+    w = torch.rand(m, generator=g, device=cuda_device) + 0.5
+    w = w / w.sum()
+    groups = [np.arange(0, 4), np.arange(4, 7), np.array([], np.int64), np.arange(7, 10)]
+    before = nz.launch_counts()[nz.NOISE.name]
+    agg = sim._ring_aggregate(flat, w, groups, 0)
+    assert nz.launch_counts()[nz.NOISE.name] == before + 3
+    assert sim.last_round["lengths"] == [4 * d, 3 * d, 3 * d]
+    for g, members in enumerate(groups):
+        if not len(members):
+            continue
+        rows = torch.from_numpy(members).to(cuda_device)
+        x = flat.index_select(0, rows) * w.index_select(0, rows)[:, None]
+        noise = sim.sampler.ta_masks(0, g, tuple(x.shape), cuda_device)  # the same draw again
+        want = x + noise * x.new_full((), 10.0)
+        masked = torch.from_numpy(np.stack(sim.observed_by_group[g][:-1]))
+        assert torch.equal(masked, want.cpu())
+    mean = (flat.double() * w.double()[:, None]).sum(0)
+    assert float((agg.double() - mean).norm() / mean.norm()) < 5e-4
+    assert [len(o) for o in sim.observed_by_group] == [5, 4, 0, 4]
+
+
+@pytest.mark.cuda
+def test_dsgd_lane_step_on_card_matches_each_lane_alone(cuda_device):
+    """One DSGD local step on the card: 4 lanes of a fused f32 ResNet, each
+    from its own variables (a gossip round's starting point), one batched
+    step against each lane trained alone (the single-lane kernels) within
+    rtol 2e-4 / atol 2e-5; each fused site launched once in its lanes
+    variant."""
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.fl.local_sgd import make_batched_local_train_fn, make_local_train_fn
+    from fedml_tpu_torch.fl.types import HParams
+    from fedml_tpu_torch.models import resnet
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    hp = HParams(batch_size=8, steps_per_epoch=1, epochs=1, learning_rate=0.05)
+    model = resnet.CifarResNet(1, fused=True)
+    base = model.init(torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(1)
+
+    def dev(a):
+        return torch.from_numpy(a).to(cuda_device)
+
+    lanes = pt.tree_map(lambda t: dev((t.numpy()[None] + 0.01 * rs.randn(4, *t.shape))
+                                      .astype(t.numpy().dtype)), base)
+    x = dev(rs.randn(4, 8, 8, 8, 3).astype(np.float32))
+    y = dev(rs.randint(0, 10, (4, 8))).long()
+    perms = dev(np.stack([rs.permutation(8)[None] for _ in range(4)]))
+    counts = np.array([8, 5, 8, 3])
+    batched = make_batched_local_train_fn(model, hp)
+    alone = make_local_train_fn(model, hp)
+    fb.reset_launch_counts()
+    got, _ = batched(lanes, x, y, torch.arange(4, device=cuda_device), counts, perms)
+    launched = fb.launch_counts()
+    assert launched[fb.FWD_LANES.name] == launched[fb.BWD_LANES.name] == 4
+    assert launched[fb.FWD_RES_LANES.name] == launched[fb.BWD_RES_LANES.name] == 3
+    for lane in range(4):
+        own = pt.tree_map(lambda t, lane=lane: t[lane], lanes)
+        want, _ = alone(own, x[lane], y[lane], int(counts[lane]), None, perms=perms[lane])
+        for a, b in zip(pt.tree_leaves(want), pt.tree_leaves(got)):
+            torch.testing.assert_close(b[lane], a, rtol=2e-4, atol=2e-5)

@@ -142,7 +142,7 @@ def test_unported_features_raise(tmp_path):
                dict(training_type="cross_device"),
                dict(training_type="cross_silo", role="client"),
                dict(enable_secagg=True), dict(enable_fhe=True),
-               dict(extra={"population_store": "/nonexistent"}),
+               dict(extra={"otlp_endpoint": "http://localhost:4318"}),
                dict(extra={"aot_programs": True})):
         _, cfg = _cfgs(tmp_path, **kw)
         with pytest.raises(NotImplementedError):
