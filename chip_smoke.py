@@ -275,6 +275,39 @@ Phases (any failure exits non-zero; no phase is caught):
    all a round, store-backed against in-memory for one round under cuDNN
    deterministic: the globals within rtol 2e-5 / atol 2e-6 (the
    reference's population tolerance).
+13. The simulators that build their own networks (run after phase 12), no
+   kernel: the seven kernels' counts are zeroed before and must all read 0
+   after.  Each form goes through ``fedml_tpu_torch.init`` and
+   ``FedMLRunner(cfg).run()`` in f32 (TF32 off) with ``homo`` shards and
+   prints its rounds' time, trained samples/s, losses, test metrics and
+   peak memory; a non-finite metric fails.  (a) ``split_nn``: the CIFAR-10
+   stand-in at 12,800 / 2,000 images, the GroupNorm ResNet-56 halves at
+   full width, 8 clients in relay, batch 128, 1 round (8 x 13 = 104
+   single-lane steps) and an evaluation; client 0's first 2 relay steps on
+   the card against the CPU from the same start and draws within
+   ``SPLIT_CARD_CPU_REL`` relative L2 of the CPU's movement, which the
+   card's first step alone must exceed; ``norm: batch`` refused.  (b) ``FedGKT`` on the same data,
+   the 8 clients as 8 lanes, 2 rounds (round 1 with distillation): the
+   client and server phases timed apart, the server's steps and the probe
+   features' bytes; one lane-batched client step against each lane alone
+   within rtol 2e-4 / atol 2e-5.  (c) ``vertical_fl`` on the full
+   lending-club stand-in (50,000 / 10,000 rows, 200 features), batch 128,
+   391 joint steps a round, 2 rounds of 2 parties and 1 of 4; the parties'
+   ``bmm`` against each party's bottom alone within rtol 2e-4 / atol 2e-5.
+   (d) ``FedGan`` on the full MNIST stand-in, 10 of 100 clients a round as
+   lanes, batch 64, ``gan_z_dim`` 64, 2 rounds; a lane step against the
+   client alone within 1e-3 relative L2 of its movement (Adam); ``sample(16)``
+   shaped ``(16, 28, 28, 1)`` within [-1, 1].  (e) ``FedNAS`` on the
+   CIFAR-10 stand-in at 12,800 / 2,000, 8 of 16 clients a round as lanes,
+   batch 64, 2 cells of 16 features, 2 rounds: the genotype and the
+   largest |alpha|; the weights and alphas moved; a lane step against the
+   client alone within rtol 2e-4 / atol 2e-5.  (f) ``FedSeg`` on the full
+   FeTS2021 stand-in (2,000 / 400 slices of 64 x 64 x 4, 4 classes),
+   ``seg_base`` 8, 4 of 8 clients a round as lanes, batch 16, lr 0.1, 4
+   local epochs (64 steps a round), 2 rounds with evaluation: the training
+   loss falls, at least half the foreground test pixels are predicted as
+   foreground, and the test confusion matrix on the card equals numpy's on
+   the model's predictions and on uniform draws of every class.
 
 Each phase's wall time on one line, then the script's wall time, then the
 ``{"kernels": [...]}`` JSON (each kernel's launches from its own path's
@@ -290,7 +323,8 @@ lane-batched quantize and dequantize ``zoo_length``, ``zoo_ms``,
 ``zoo_max_abs_err`` at FEMNIST's CNN's length; ``slice15_launches``: each
 kernel's launches over phase 12, and for the noise kernel ``ta_length``:
 its times at Turbo-Aggregate's group length, 16 x 271,098, with sigma 10,
-and ``path_max``, the longest group of the run), then the card's name and
+and ``path_max``, the longest group of the run; ``slice16_launches``: each
+kernel's launches over phase 13, all 0), then the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2 and prints neither.
 """
@@ -3102,20 +3136,44 @@ def _config_runner(data=None, **kw):
     return FedMLRunner(fedml_tpu_torch.init(Config(**kw)), dataset=data)
 
 
-def _profiled_step(sim, n_lanes, what, top=0):
-    """One batched local step of ``n_lanes`` lanes (a budget of one step
-    each, after one unprofiled step) under torch.profiler: wall, device
-    busy share and ``cudaLaunchKernel``; with ``top`` the ops that take the
-    most device time and the most host (self CPU) time.  A step, not a
-    round: the profiler's post-processing of a whole LSTM round (124k
-    launches) takes over a minute."""
-    import numpy as np
+def _profile_once(call, what, top=0):
+    """``call()`` once more under torch.profiler after one unprofiled call:
+    wall, device busy share and ``cudaLaunchKernel``; with ``top`` the ops
+    that take the most device time and the most host (self CPU) time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from fedml_tpu_torch.obs.profile_round import busy_us
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_us([e for e in prof.events() if e.device_type.name == "CUDA"]) / 1e6
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"{what}: wall {1e3 * wall:.1f} ms (profiler on), device busy {1e3 * busy:.1f} ms = "
+          f"{100 * busy / wall:.1f}%, {launches} cudaLaunchKernel")
+    for side, attr in (("device", "self_device_time_total"), ("host", "self_cpu_time_total")):
+        ops = sorted(prof.key_averages(), key=lambda e: -getattr(e, attr))[:top]
+        if ops:
+            print(f"{what} top {side} ops: " + "; ".join(
+                f"{e.key[:48]} {getattr(e, attr) / 1e3:.1f} ms ({e.count})" for e in ops))
+
+
+def _profiled_step(sim, n_lanes, what, top=0):
+    """One batched local step of ``n_lanes`` lanes (a budget of one step
+    each) under :func:`_profile_once`.  A step, not a round: the profiler's
+    post-processing of a whole LSTM round (124k launches) takes over a
+    minute."""
+    import numpy as np
+    import torch
+
     from fedml_tpu_torch.core import pytree as pt
     from fedml_tpu_torch.fl.local_sgd import make_batched_local_train_fn, to_device
-    from fedml_tpu_torch.obs.profile_round import busy_us
 
     lanes = np.arange(n_lanes)
     perms = torch.stack([sim.sampler.perms(0, int(c), sim.hp.epochs, sim.capacity)
@@ -3125,24 +3183,7 @@ def _profiled_step(sim, n_lanes, what, top=0):
     step = make_batched_local_train_fn(sim.model, sim.hp)
     args = (start, *sim._data, to_device(lanes, sim.device, torch.long),
             np.full(n_lanes, sim.cfg.batch_size), perms)
-    step(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(*args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = busy_us([e for e in prof.events() if e.device_type.name == "CUDA"]) / 1e6
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
-    print(f"{what} profiled batched step ({n_lanes} lanes): wall {1e3 * wall:.1f} ms (profiler "
-          f"on), device busy {1e3 * busy:.1f} ms = {100 * busy / wall:.1f}%, {launches} "
-          "cudaLaunchKernel")
-    for side, attr in (("device", "self_device_time_total"), ("host", "self_cpu_time_total")):
-        ops = sorted(prof.key_averages(), key=lambda e: -getattr(e, attr))[:top]
-        if ops:
-            print(f"{what} top {side} ops: " + "; ".join(
-                f"{e.key[:48]} {getattr(e, attr) / 1e3:.1f} ms ({e.count})" for e in ops))
+    _profile_once(lambda: step(*args), f"{what} profiled batched step ({n_lanes} lanes)", top)
 
 
 def _lane_step_check(sim, n_lanes, what):
@@ -3854,6 +3895,430 @@ def phase_slice15(mods, nz, flagship, fedopt_data):
           + f" GiB), launches over its forms {totals}")
     return totals, ta_length
 
+# phase 13 (slice 16): the simulators that build their own networks.  None
+# of the seven kernels runs there (the split halves are unfused, the GAN,
+# DARTS, UNet and VFL nets plain); every form is f32 with TF32 off.
+OWN_CIFAR = dict(dataset="cifar10", synthetic_train_size=12800, synthetic_test_size=2000)
+SPLIT_CLIENTS = 8
+# SplitNN's and FedGKT's rate: plain SGD at which the GroupNorm ResNet-56
+# halves' losses stay finite (the reference's FedGKT at 0.1 reached 847.1;
+# the port's FedGKT at 0.1 diverged on the CPU, at 0.01 its first round's
+# loss was near 20 before it settled)
+SPLIT_LR = 0.003
+SPLIT_BATCH = 128
+VFL_SIZE = dict(dataset="lending_club", synthetic_train_size=50000, synthetic_test_size=10000)
+GAN_SIZE = dict(dataset="mnist", synthetic_train_size=60000, synthetic_test_size=10000,
+                client_num_in_total=100, client_num_per_round=10, batch_size=64)
+NAS_SIZE = dict(client_num_in_total=16, client_num_per_round=8, batch_size=64)
+SEG_SIZE = dict(dataset="fets2021", synthetic_train_size=2000, synthetic_test_size=400,
+                client_num_in_total=8, client_num_per_round=4, batch_size=16)
+# FedSeg's rate and local epochs (64 steps a round): with 16 or 32 steps a
+# round the UNet may still predict background on every test pixel after 2
+# rounds, as it did on an NVIDIA H100 80GB HBM3 at 700 W
+SEG_LR, SEG_EPOCHS = 0.1, 4
+# the share of the foreground test pixels that FedSeg's model must predict
+# as some foreground class after its 2 rounds
+SEG_FG_RECALL = 0.5
+# card against CPU after two relay steps of the ResNet-56 halves (cuDNN and
+# CPU convolutions, f32, TF32 off): the relative L2 of the difference over
+# the CPU's movement from the shared start, about ten times the 2.1e-4 read
+# on an NVIDIA H100 80GB HBM3 at 700 W (the card's first step alone read
+# 0.785 there)
+SPLIT_CARD_CPU_REL = 2e-3
+# FedGAN's lane check: Adam's first step moves an element by about lr
+# whatever the rounding of a gradient near zero, so a lane is held to its
+# run alone by the relative L2 of the difference over its movement
+GAN_MOVE_REL = 1e-3
+
+
+def _own_net(opt, data=None, extra=None, **overrides):
+    """A simulator of its own through ``fedml_tpu_torch.init`` and
+    ``FedMLRunner`` (``data``: an earlier form's dataset): 2 rounds, a test
+    evaluation every round, ``homo`` shards, f32."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    base = dict(federated_optimizer=opt, partition_method="homo", comm_round=2,
+                frequency_of_the_test=1, compute_dtype="float32", random_seed=0)
+    base.update(overrides)
+    cfg = fedml_tpu_torch.init(Config(**base, extra=dict(extra or {})))
+    return FedMLRunner(cfg, dataset=data)
+
+
+def _own_rounds(what, sim, probe, samples, unit="trained samples/s"):
+    """Each round's line: its time, ``samples`` a round over it, its
+    metrics and peak memory; fails on a non-finite metric."""
+    for metrics, _, mem in (row for row in probe.rows if "round" in row[0]):
+        shown = {k: v for k, v in metrics.items() if k not in ("round", "round_time_s")}
+        for k, v in shown.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"{what} round {metrics['round']}: {k} = {v}")
+        print(f"{what} round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"{samples / metrics['round_time_s']:.0f} {unit}, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in shown.items()) + f", {_mem(mem)}")
+
+
+def _move_rel(got, want, start):
+    """The relative L2 of ``got - want`` over ``want``'s movement from
+    ``start`` (f64 sums over the leaves of the three trees)."""
+    from fedml_tpu_torch.core import pytree as pt
+
+    d = sum(float((a - b).double().square().sum())
+            for a, b in zip(pt.tree_leaves(got), pt.tree_leaves(want)))
+    m = sum(float((b - c).double().square().sum())
+            for b, c in zip(pt.tree_leaves(want), pt.tree_leaves(start)))
+    return math.sqrt(d / max(m, 1e-300))
+
+
+def _lanes_vs_alone(what, batched, alone, lanes, start=None):
+    """Each lane of ``batched`` (a tuple of lane-stacked trees) against
+    ``alone(lane)`` (the same trees of that lane run as a one-lane batch):
+    within rtol 2e-4 / atol 2e-5, or, given the lanes' ``start``, within
+    ``GAN_MOVE_REL`` relative L2 of the lane's movement."""
+    from fedml_tpu_torch.core import pytree as pt
+
+    worst = 0.0
+    for lane in range(lanes):
+        for k, (got, want) in enumerate(zip(batched, alone(lane))):
+            got = pt.tree_map(lambda t: t[lane], got)
+            want = pt.tree_map(lambda t: t[0], want)
+            if start is None:
+                diff, excess = _excess(got, want)
+                worst = max(worst, diff)
+                if excess > 0:
+                    raise AssertionError(f"{what}: lane {lane} is {diff:.3g} off its step alone, "
+                                         f"beyond rtol {MESH_SP_RTOL} / atol {MESH_SP_ATOL}")
+                continue
+            rel = _move_rel(got, want, pt.tree_map(lambda t: t[lane], start[k]))
+            worst = max(worst, rel)
+            if rel > GAN_MOVE_REL:
+                raise AssertionError(f"{what}: lane {lane} is {rel:.3g} of its movement off its "
+                                     f"step alone (limit {GAN_MOVE_REL})")
+    limit = (f"rtol {MESH_SP_RTOL} / atol {MESH_SP_ATOL}" if start is None
+             else f"relative L2 over the movement, limit {GAN_MOVE_REL}")
+    print(f"{what} check: one lane-batched step of {lanes} lanes vs each lane alone, largest "
+          f"difference {worst:.3g} ({limit})")
+
+
+def _probe(sim, mods):
+    probe = _RoundProbe(sim.logger, lambda: _all_counts(mods))
+    sim.logger = probe
+    return probe
+
+
+def phase_splitnn(mods):
+    """13 (a): SplitNN, the relay through 8 clients' GroupNorm ResNet-56
+    bottoms and the shared top; card against CPU on client 0's first two
+    relay steps; the ``norm: batch`` refusal.  Returns the data, which (b)
+    reuses."""
+    import torch
+
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.sim.split_learning import create_split_model
+
+    t0 = time.perf_counter()
+    runner = _own_net("split_nn", None, norm="group", client_num_in_total=SPLIT_CLIENTS,
+                      client_num_per_round=SPLIT_CLIENTS, batch_size=SPLIT_BATCH,
+                      learning_rate=SPLIT_LR, comm_round=1, **OWN_CIFAR)
+    sim, cfg = runner.runner, runner.cfg
+    steps, bs = sim.hp.local_steps, cfg.batch_size
+    print(f"splitnn (a): set-up {time.perf_counter() - t0:.1f} s ({sim.n} clients in relay, "
+          f"capacity {sim.capacity}, batch {bs}, {steps} single-lane steps a client, "
+          f"{sim.n * steps} a round, lr {cfg.learning_rate})")
+    b0 = pt.tree_map(lambda t: t[0].clone(), sim.client_bottoms)
+    t0v = pt.tree_map(torch.clone, sim.top_vars)
+    perms = sim.sampler.relay_perms(0, 0, 2, sim.capacity)[:, :bs]
+    host = lambda tree: pt.tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    card = sim.client_pass(b0, t0v, sim._x[0], sim._y[0], perms.to(sim.device))
+    cpu = sim.client_pass(host(b0), host(t0v), sim._x[0].cpu(), sim._y[0].cpu(), perms)
+    # what the check reads when the card's second step is missing
+    one = sim.client_pass(b0, t0v, sim._x[0], sim._y[0], perms[:1].to(sim.device))
+    start = {"bottom": host(b0), "top": host(t0v)}
+    want = {"bottom": cpu[0], "top": cpu[1]}
+    rel = _move_rel(host({"bottom": card[0], "top": card[1]}), want, start)
+    rel_one = _move_rel(host({"bottom": one[0], "top": one[1]}), want, start)
+    print(f"splitnn (a) check: client 0's first 2 relay steps on the card vs the CPU from the "
+          f"same start and draws, relative L2 over the movement {rel:.3g} (limit "
+          f"{SPLIT_CARD_CPU_REL}; the card's first step alone reads {rel_one:.3g}), losses "
+          f"{float(card[2]):.5f} / {float(cpu[2]):.5f}")
+    if not rel <= SPLIT_CARD_CPU_REL:
+        raise AssertionError(f"splitnn (a): card and CPU relay steps differ by {rel:.3g} of "
+                             f"their movement (limit {SPLIT_CARD_CPU_REL})")
+    if not rel_one > SPLIT_CARD_CPU_REL:
+        raise AssertionError(f"splitnn (a): one relay step reads {rel_one:.3g}, within the "
+                             f"limit {SPLIT_CARD_CPU_REL} that two steps are held to")
+    _profile_once(lambda: sim.client_pass(b0, t0v, sim._x[0], sim._y[0],
+                                          perms[:1].to(sim.device)),
+                  "splitnn (a) profiled relay step (single lane)", top=3)
+    try:
+        create_split_model(Config(dataset="cifar10", norm="batch"), 10, (32, 32, 3))
+    except ValueError as e:
+        print(f"splitnn (a) check: norm: batch refused: {e}")
+    else:
+        raise AssertionError("splitnn (a): the BatchNorm ResNet-56 halves were not refused")
+    probe = _probe(sim, mods)
+    torch.cuda.reset_peak_memory_stats()
+    runner.run()
+    _own_rounds("splitnn (a)", sim, probe, sim.n * steps * bs)
+    return runner.dataset
+
+
+def phase_fedgkt(mods, dataset):
+    """13 (b): FedGKT, 8 clients as 8 lanes through the GroupNorm
+    ResNet-56 bottoms and heads, the server top on the pooled probe
+    features; one lane-batched client step against each lane alone."""
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+
+    t0 = time.perf_counter()
+    runner = _own_net("FedGKT", dataset, norm="group", client_num_in_total=SPLIT_CLIENTS,
+                      client_num_per_round=SPLIT_CLIENTS, batch_size=SPLIT_BATCH,
+                      learning_rate=SPLIT_LR, **OWN_CIFAR)
+    sim, cfg = runner.runner, runner.cfg
+    steps, bs = sim.hp.local_steps, cfg.batch_size
+    server_steps = max(1, sim.n * sim.probe // bs)
+    phases = []
+
+    def timed_phase(fn, name):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            phases.append((name, time.perf_counter() - t))
+            return out
+        return wrapped
+
+    client_phase = sim.client_phase
+    sim.client_phase = timed_phase(client_phase, "client")
+    sim.server_phase = timed_phase(sim.server_phase, "server")
+    probe = _probe(sim, mods)
+    print(f"fedgkt (b): set-up {time.perf_counter() - t0:.1f} s ({sim.n} clients as {sim.n} "
+          f"lanes, capacity {sim.capacity}, batch {bs}, {steps} batched client steps a round, "
+          f"probe {sim.probe} rows a client, {server_steps} server steps a round, lr "
+          f"{cfg.learning_rate})")
+    torch.cuda.reset_peak_memory_stats()
+    runner.run()
+    _own_rounds("fedgkt (b)", sim, probe, sim.n * steps * bs + server_steps * bs)
+    feats, _ = sim.probe_outputs()
+    for r in range(len(phases) // 2):
+        (_, tc), (_, ts) = phases[2 * r], phases[2 * r + 1]
+        print(f"fedgkt (b) round {r}: client phase {tc:.3f} s ({sim.n * steps * bs / tc:.0f} "
+              f"trained samples/s), server phase {ts:.3f} s ({server_steps} steps, "
+              f"{server_steps * bs / ts:.0f} samples/s), probe features {tuple(feats.shape)} "
+              f"= {feats.numel() * feats.element_size() / 2**20:.1f} MiB")
+    params = {"bottom": sim.client_bottoms["params"], "head": sim.client_heads["params"]}
+    perms = torch.stack([sim.sampler.client_perms(0, c, 1, sim.capacity)[:, :bs]
+                         for c in range(sim.n)]).to(sim.device)
+    teacher = sim.server_logits
+    _profile_once(lambda: client_phase(params, sim._lanes, perms, teacher),
+                  f"fedgkt (b) profiled client step ({sim.n} lanes)", top=3)
+    got, _ = client_phase(params, sim._lanes, perms, teacher)
+    _lanes_vs_alone("fedgkt (b)", (got,), lambda lane: (client_phase(
+        pt.tree_map(lambda t: t[lane:lane + 1], params), sim._lanes[lane:lane + 1],
+        perms[lane:lane + 1], teacher[lane:lane + 1])[0],), sim.n)
+
+
+def phase_vfl(mods):
+    """13 (c): vertical FL on the full lending-club stand-in, 2 rounds of 2
+    parties and 1 of 4; the parties' ``bmm`` against each party alone."""
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+
+    dataset = None
+    for parties, rounds in ((2, 2), (4, 1)):
+        t0 = time.perf_counter()
+        runner = _own_net("vertical_fl", dataset, {"vfl_party_num": parties}, batch_size=128,
+                          learning_rate=0.05, comm_round=rounds, **VFL_SIZE)
+        sim, cfg = runner.runner, runner.cfg
+        dataset = runner.dataset
+        steps = sim.hp.local_steps
+        print(f"vfl (c) {parties} parties: set-up {time.perf_counter() - t0:.1f} s "
+              f"({sim.n_rows} rows of {parties} x {sim.slice_w} features, batch "
+              f"{cfg.batch_size}, {steps} joint steps a round)")
+        probe = _probe(sim, mods)
+        torch.cuda.reset_peak_memory_stats()
+        runner.run()
+        _own_rounds(f"vfl (c) {parties} parties", sim, probe, steps * cfg.batch_size)
+        with torch.no_grad():
+            xb = sim.test_x[:, :1024]
+            together, _ = sim.bottom.apply(sim.party_vars, xb)
+            alone = [sim.bottom.apply(pt.tree_map(lambda t: t[p], sim.party_vars), xb[p])[0]
+                     for p in range(parties)]
+        worst, excess = _excess(together, torch.stack(alone))
+        print(f"vfl (c) {parties} parties check: the parties' bmm vs each party's bottom alone "
+              f"on 1,024 test rows, largest difference {worst:.3g} (rtol {MESH_SP_RTOL}, atol "
+              f"{MESH_SP_ATOL})")
+        if excess > 0:
+            raise AssertionError(f"vfl (c): the party bmm is {worst:.3g} off the parties alone")
+
+
+def phase_fedgan(mods):
+    """13 (d): FedGAN on the full MNIST stand-in, 10 of 100 clients a round
+    as lanes; a lane step against the client alone; ``sample(16)``."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.sim.own_nets import lane_copies
+
+    t0 = time.perf_counter()
+    runner = _own_net("FedGan", None, {"gan_z_dim": 64}, learning_rate=2e-4, **GAN_SIZE)
+    sim, cfg = runner.runner, runner.cfg
+    lanes = cfg.client_num_per_round
+    print(f"fedgan (d): set-up {time.perf_counter() - t0:.1f} s ({lanes} of "
+          f"{sim.dataset.n_clients} clients a round as lanes, capacity {sim.capacity}, batch "
+          f"{cfg.batch_size}, {sim.steps} batched steps a round, z_dim {sim.z_dim})")
+    probe = _probe(sim, mods)
+    torch.cuda.reset_peak_memory_stats()
+    runner.run()
+    _own_rounds("fedgan (d)", sim, probe, lanes * sim.steps * cfg.batch_size)
+    sampled = np.array(sim.sampler.sample(0))
+    idx, z1, z2 = (torch.stack(t).to(sim.device) for t in zip(*[
+        sim.sampler.gan_draws(0, int(c), 1, sim.capacity, cfg.batch_size, sim.z_dim)
+        for c in sampled]))
+    start = (lane_copies(sim.g_vars, lanes), lane_copies(sim.d_vars, lanes))
+    got = sim.local_train(sampled, idx, z1, z2)[:2]
+    _lanes_vs_alone("fedgan (d)", got, lambda lane: sim.local_train(
+        sampled[lane:lane + 1], idx[lane:lane + 1], z1[lane:lane + 1], z2[lane:lane + 1])[:2],
+        lanes, start)
+    images = sim.sample(16)
+    lo, hi = float(images.min()), float(images.max())
+    print(f"fedgan (d) check: sample(16) {tuple(images.shape)} in [{lo:.4f}, {hi:.4f}]")
+    if tuple(images.shape) != (16, 28, 28, 1) or lo < -1.0 or hi > 1.0:
+        raise AssertionError(f"fedgan (d): sample(16) is {tuple(images.shape)} in [{lo}, {hi}]")
+
+
+def phase_fednas(mods):
+    """13 (e): FedNAS, 8 of 16 clients a round as lanes; the genotype; the
+    weights and alphas moved off their start; a lane step against the
+    client alone.  Its losses stay near ln 10 over these 12 steps: the
+    stand-in's classes are white-noise templates, which a conv net that
+    ends in a spatial mean sees only through small fluctuations."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.models.darts import split_arch_params
+
+    t0 = time.perf_counter()
+    runner = _own_net("FedNAS", None, {"nas_cells": 2, "nas_features": 16},
+                      learning_rate=0.05, **NAS_SIZE, **OWN_CIFAR)
+    sim, cfg = runner.runner, runner.cfg
+    lanes = cfg.client_num_per_round
+    print(f"fednas (e): set-up {time.perf_counter() - t0:.1f} s ({lanes} of "
+          f"{sim.dataset.n_clients} clients a round as lanes, capacity {sim.capacity} (train "
+          f"half {sim.half}), batch {cfg.batch_size}, {sim.steps} batched weight + alpha steps "
+          f"a round)")
+    w0, a0 = split_arch_params(pt.tree_map(torch.clone, sim.variables["params"]))
+    probe = _probe(sim, mods)
+    torch.cuda.reset_peak_memory_stats()
+    runner.run()
+    _own_rounds("fednas (e)", sim, probe, 2 * lanes * sim.steps * cfg.batch_size)
+    weights, alphas = split_arch_params(sim.variables["params"])
+    w_move = math.sqrt(sum(float((a - b).double().square().sum()) for a, b in
+                           zip(pt.tree_leaves(weights), pt.tree_leaves(w0)))
+                       / sum(float(b.double().square().sum()) for b in pt.tree_leaves(w0)))
+    a_move = float((alphas - a0).abs().max())
+    print(f"fednas (e): genotype {sim.genotype()}, largest |alpha| "
+          f"{float(alphas.abs().max()):.5f}; over 2 rounds the weights moved {w_move:.4g} of "
+          f"their norm, the alphas at most {a_move:.4g} off their start")
+    if not (w_move > 0 and a_move > 0):
+        raise AssertionError(f"fednas (e): the weights moved {w_move}, the alphas {a_move}")
+    sampled = np.array(sim.sampler.sample(0))
+    iw, ia = (torch.stack(t).to(sim.device) for t in zip(*[
+        sim.sampler.nas_indices(0, int(c), 1, sim.half, sim.capacity, cfg.batch_size)
+        for c in sampled]))
+    got = sim.local_search(sampled, iw, ia)[:2]
+    _lanes_vs_alone("fednas (e)", got, lambda lane: sim.local_search(
+        sampled[lane:lane + 1], iw[lane:lane + 1], ia[lane:lane + 1])[:2], lanes)
+
+
+def phase_fedseg(mods):
+    """13 (f): FedSeg on the full FeTS2021 stand-in, 4 of 8 clients a round
+    as lanes; its training loss falls and its model predicts foreground;
+    the confusion matrix against numpy's on its predictions and on draws
+    that span every class."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.models.segmentation import confusion_matrix
+
+    t0 = time.perf_counter()
+    runner = _own_net("FedSeg", None, {"seg_base": 8}, learning_rate=SEG_LR, momentum=0.9,
+                      epochs=SEG_EPOCHS, **SEG_SIZE)
+    sim, cfg = runner.runner, runner.cfg
+    lanes = cfg.client_num_per_round
+    print(f"fedseg (f): set-up {time.perf_counter() - t0:.1f} s ({lanes} of "
+          f"{sim.dataset.n_clients} clients a round as lanes, {tuple(sim._x.shape[2:])} images, "
+          f"{sim.num_classes} classes, capacity {sim.capacity}, batch {cfg.batch_size}, "
+          f"{sim.steps} batched steps a round)")
+    probe = _probe(sim, mods)
+    torch.cuda.reset_peak_memory_stats()
+    history = runner.run()
+    _own_rounds("fedseg (f)", sim, probe, lanes * sim.steps * cfg.batch_size)
+    losses = [h["train_loss"] for h in history]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fedseg (f): the training loss did not fall: {losses}")
+    tx, tm = sim._test
+    with torch.no_grad():
+        preds = sim.model.apply(sim.variables, tx, train=False)[0].argmax(-1)
+    k = sim.num_classes
+    fg = tm != 0
+    recall = float((preds[fg] != 0).double().mean())
+    print(f"fedseg (f) check: training loss {' -> '.join(f'{v:.4f}' for v in losses)}; "
+          f"predicted pixels per class {torch.bincount(preds.ravel(), minlength=k).tolist()} "
+          f"(true {torch.bincount(tm.ravel(), minlength=k).tolist()}); {recall:.4f} of the "
+          f"foreground pixels predicted as foreground (at least {SEG_FG_RECALL})")
+    if not recall >= SEG_FG_RECALL:
+        raise AssertionError(f"fedseg (f): {recall:.4f} of the foreground predicted as such")
+    gen = torch.Generator(device=sim.device).manual_seed(0)
+    spread = torch.randint(0, k, tm.shape, generator=gen, device=sim.device)
+    for name, p in (("the model's predictions", preds), ("uniform draws of every class", spread)):
+        conf = confusion_matrix(p, tm, k).cpu().numpy()
+        want = np.zeros((k, k), np.float32)
+        np.add.at(want, (tm.cpu().numpy().ravel(), p.cpu().numpy().ravel()), 1.0)
+        same = np.array_equal(conf, want)
+        print(f"fedseg (f) check: the confusion matrix of {int(want.sum())} test pixels on the "
+              f"card against {name} ({int((want.sum(0) > 0).sum())} of {k} classes predicted) "
+              f"{'equals' if same else 'differs from'} numpy's")
+        if not same:
+            raise AssertionError(f"fedseg (f): the confusion matrix on {name} differs from numpy's")
+
+
+def phase_slice16(mods):
+    """Phase 13 (module docstring).  Returns each kernel's launches over
+    its forms (all zero)."""
+    import torch
+
+    walls, peaks, cifar = {}, {}, {}
+    _reset_counts(mods)
+
+    def splitnn():
+        cifar["data"] = phase_splitnn(mods)
+
+    for form, fn in (("a", splitnn), ("b", lambda: phase_fedgkt(mods, cifar.pop("data"))),
+                     ("c", lambda: phase_vfl(mods)), ("d", lambda: phase_fedgan(mods)),
+                     ("e", lambda: phase_fednas(mods)), ("f", lambda: phase_fedseg(mods))):
+        _phase_start()
+        t0 = time.perf_counter()
+        fn()
+        walls[form] = time.perf_counter() - t0
+        peaks[form] = torch.cuda.max_memory_allocated() - _PHASE_BASE["bytes"]
+    counts = _all_counts(mods)
+    print(f"slice 16: phase 13 {sum(walls.values()):.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items())
+          + f"), its own peak {max(peaks.values()) / 2**30:.3f} GiB ("
+          + ", ".join(f"({k}) {v / 2**30:.3f}" for k, v in peaks.items())
+          + f" GiB); launches on slice 16's paths (none of the seven kernels runs there): "
+          f"{counts}")
+    _zero_counts(counts, "phase 13")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3930,6 +4395,7 @@ def main(argv=None) -> int:
     trust_counts = timed("10", phase_trust, mods, nz, flagship)
     slice15_counts, ta_length = timed("12", phase_slice15, mods, nz, flagship, fedopt_data)
     del flagship, fedopt_data
+    slice16_counts = timed("13", phase_slice16, mods + (nz,))
     zoo_counts, femnist_rows = timed("11", phase_zoo, mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
@@ -3954,6 +4420,7 @@ def main(argv=None) -> int:
          "trust_launches": trust_counts.get(k.name, 0),
          "zoo_launches": zoo_counts.get(k.name, 0),
          "slice15_launches": slice15_counts.get(k.name, 0),
+         "slice16_launches": slice16_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],

@@ -4,7 +4,8 @@ The port's copy of ``fedml_tpu/data/dataset.py``'s main-path pieces:
 :class:`FederatedDataset` (global arrays + per-client index lists, and
 per-client test index lists where a loader splits its test set by client),
 :func:`stack_clients` (cyclic-padded ``(n_clients, capacity, ...)`` arrays +
-true sample counts) and :func:`pad_eval_set`.  Bitwise equal to the
+true sample counts) and :func:`pad_eval_set`; a segmentation dataset also
+carries its per-pixel ``masks`` / ``test_masks``.  Bitwise equal to the
 reference for the same inputs (``tests/test_torch_config_data.py``).
 """
 
@@ -26,6 +27,10 @@ class FederatedDataset:
     class_num: int
     test_client_idx: Optional[list] = None  # per-client test split (LEAF-style)
     name: str = ""
+    # segmentation datasets (FeTS2021): per-sample integer masks; train_y
+    # then holds each sample's dominant class (the partition's labels)
+    masks: Optional[np.ndarray] = None
+    test_masks: Optional[np.ndarray] = None
 
     @property
     def n_clients(self) -> int:

@@ -2,9 +2,9 @@
 ``fedml_tpu/data/extra_loaders.py``): the ImageNet class-per-directory
 reader, the UCI SUSY and room-occupancy tables, NUS-WIDE, and the edge-case
 poisoned sets that ``trust/attack/attacks.py``'s ``edge_case_backdoor``
-reads when they are on disk.  Host numpy, a copy of the reference's (the
-port imports nothing of the JAX package); FeTS2021's volumes wait for the
-segmentation slice.
+reads when they are on disk, and FeTS2021's prepared volumes with their
+deterministic stand-in.  Host numpy, a copy of the reference's (the port
+imports nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -210,3 +210,39 @@ def load_edge_case_sets(cache: Path, poison_type: str = "southwest"):
         log.exception("failed to read edge-case set %r under %s", poison_type, d)
         return None
     return None
+
+
+def load_fets2021(d: Path):
+    """Prepared FeTS2021 volumes: ``fets2021_prepared.npz`` holding
+    ``train_x`` / ``test_x`` ``(N, H, W, modalities)`` and ``train_m`` /
+    ``test_m`` ``(N, H, W)`` tissue masks (reference L217).  Returns
+    ``(x, masks, tx, tmasks)`` as f32 and int32."""
+    z = np.load(d / "fets2021_prepared.npz")
+    return (z["train_x"].astype(np.float32), z["train_m"].astype(np.int32),
+            z["test_x"].astype(np.float32), z["test_m"].astype(np.int32))
+
+
+def synthesize_fets_like(n_train: int, n_test: int, seed: int, hw: int = 64,
+                         modalities: int = 4, classes: int = 4):
+    """The FeTS-shaped stand-in (reference L228), bitwise: normal
+    "anatomy" and one disc a sample painted into its mask with a class in
+    ``[1, classes)``, its pixels brightened by ``2 c / classes``, all from
+    ``RandomState(0xFE75 ^ seed)``."""
+    rs = np.random.RandomState(0xFE75 ^ seed)
+
+    def gen(n):
+        base = rs.normal(0, 1, (n, hw, hw, modalities)).astype(np.float32)
+        masks = np.zeros((n, hw, hw), np.int32)
+        yy, xx = np.mgrid[:hw, :hw]
+        for i in range(n):
+            c = rs.randint(1, classes)
+            cx, cy = rs.randint(hw // 4, 3 * hw // 4, size=2)
+            r = rs.randint(hw // 10, hw // 5)
+            blob = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            masks[i][blob] = c
+            base[i][blob] += 2.0 * c / classes
+        return base, masks
+
+    x, m = gen(n_train)
+    tx, tm = gen(n_test)
+    return x, m, tx, tm

@@ -11,10 +11,10 @@ elements; ``synthetic_condshift`` -> ``_load_condshift`` (per-client train
 and test shards); the text datasets (``shakespeare``,
 ``fed_shakespeare``, ``stackoverflow_nwp``, ``reddit``) ->
 ``_load_text_like`` -> a LEAF json under ``data_cache_dir/<name>/`` when
-present, else a Markov-chain token stream.  Arrays are numpy and bitwise
-equal to the reference's for the same config.  ``fets2021`` (FedSeg's
-volumes) waits for the segmentation slice and raises
-``NotImplementedError``.
+present, else a Markov-chain token stream; ``fets2021`` -> ``_load_fets``
+(FedSeg's volumes and per-pixel masks: ``FeTS2021/fets2021_prepared.npz``
+when present, else the deterministic stand-in).  Arrays are numpy and
+bitwise equal to the reference's for the same config.
 """
 
 from __future__ import annotations
@@ -59,6 +59,8 @@ _DATASET_SPECS = {
     "room_occupancy": ((5,), 2, 8143, 2665),
     # NUS-WIDE 634-dim low-level features, top-5 single-label selection
     "nus_wide": ((634,), 5, 60000, 40000),
+    # FeTS2021 brain-tumour segmentation: 64x64 slices of 4 MRI modalities
+    "fets2021": ((64, 64, 4), 4, 2000, 400),
 }
 
 # the synthetic stand-in's cap in f32 elements (~800 MB; reference L127):
@@ -89,9 +91,7 @@ def load(cfg: Config) -> FederatedDataset:
     name = cfg.dataset.lower()
     name = _DATASET_ALIASES.get(name, name)
     if name == "fets2021":
-        raise NotImplementedError(
-            "dataset 'fets2021' is not ported yet: its one consumer, FedSeg, and "
-            "models/segmentation.py come with ROADMAP.md Queue 1 item 6b")
+        return _load_fets(cfg)
     if name == "synthetic_condshift":
         return _load_condshift(cfg)
     if name in _DATASET_SPECS:
@@ -132,6 +132,44 @@ def _load_image_like(cfg: Config, name: str) -> FederatedDataset:
     return FederatedDataset(
         train_x=train_x, train_y=train_y, test_x=test_x, test_y=test_y,
         client_idx=idx_map, class_num=classes, name=name,
+    )
+
+
+def _dominant_class(masks: np.ndarray) -> np.ndarray:
+    """Each mask's most frequent foreground class (0 for an empty one;
+    ties to the smaller class, as ``bincount().argmax()``)."""
+    out = np.zeros(len(masks), np.int32)
+    for i, mk in enumerate(masks):
+        fg = mk[mk > 0]
+        out[i] = np.bincount(fg).argmax() if fg.size else 0
+    return out
+
+
+def _load_fets(cfg: Config) -> FederatedDataset:
+    """FeTS2021 (reference L149): volumes and per-pixel masks; ``train_y``
+    holds each sample's dominant tissue class, which the partition reads,
+    and the masks ride ``masks`` / ``test_masks`` for FedSeg."""
+    from . import extra_loaders
+
+    feat, classes, n_train, n_test = _DATASET_SPECS["fets2021"]
+    cache = Path(os.path.expanduser(cfg.data_cache_dir))
+    try:
+        x, m, tx, tm = extra_loaders.load_fets2021(cache / "FeTS2021")
+    except (FileNotFoundError, OSError):
+        if not cfg.synthetic_fallback:
+            raise FileNotFoundError(f"fets2021_prepared.npz not found under {cache}/FeTS2021 "
+                                    "and synthetic_fallback=False")
+        n_train = cfg.synthetic_train_size or n_train
+        n_test = cfg.synthetic_test_size or n_test
+        x, m, tx, tm = extra_loaders.synthesize_fets_like(
+            n_train, n_test, cfg.random_seed, hw=feat[0], modalities=feat[2], classes=classes)
+    y, ty = _dominant_class(m), _dominant_class(tm)
+    idx_map = part.partition(
+        cfg.partition_method, y, cfg.client_num_in_total, cfg.partition_alpha, cfg.random_seed
+    )
+    return FederatedDataset(
+        train_x=x, train_y=y, test_x=tx, test_y=ty, client_idx=idx_map,
+        class_num=int(max(m.max(), tm.max())) + 1, name="fets2021", masks=m, test_masks=tm,
     )
 
 

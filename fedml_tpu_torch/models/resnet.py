@@ -353,3 +353,100 @@ def resnet44(num_classes: int = 10, dtype=torch.float32, fused: bool = False,
 def resnet56(num_classes: int = 10, dtype=torch.float32, fused: bool = False,
              norm: str = "batch") -> CifarResNet:
     return CifarResNet(num_blocks=9, num_classes=num_classes, dtype=dtype, fused=fused, norm=norm)
+
+
+def _split_blocks(stages):
+    """``(filters, stride, in_ch)`` of each block of a split half: the
+    first block of a stage strides 2 where ``stages`` says so."""
+    for filters, in_ch, stride in stages:
+        for block in range(9):
+            yield filters, (stride if block == 0 else 1), (in_ch if block == 0 else filters)
+
+
+def _init_blocks(params: dict, stats: dict, blocks, norm: str, generator) -> None:
+    for idx, (filters, _, in_ch) in enumerate(blocks):
+        p, s = {}, {}
+        p["Conv_0"] = {"kernel": _lecun_normal((filters, in_ch, 3, 3), 9 * in_ch, generator)}
+        norm_init(norm, p, s, 0, filters)
+        p["Conv_1"] = {"kernel": _lecun_normal((filters, filters, 3, 3), 9 * filters, generator)}
+        norm_init(norm, p, s, 1, filters)
+        params[f"BasicBlock_{idx}"] = p
+        if s:
+            stats[f"BasicBlock_{idx}"] = s
+
+
+def _apply_blocks(p: dict, st: dict, new_stats: dict, x, blocks, train: bool, norm: str):
+    for idx, (filters, stride, _) in enumerate(blocks):
+        name = f"BasicBlock_{idx}"
+        x, block_stats = basic_block(p[name], st.get(name, {}), x, stride, filters, train,
+                                     torch.float32, norm)
+        if block_stats:
+            new_stats[name] = block_stats
+    return x
+
+
+@dataclass(frozen=True)
+class SplitResNet56Client:
+    """``SplitResNet56Client`` (reference L192), the client half of the
+    split ResNet-56 that SplitNN and FedGKT train: the stem conv, a norm,
+    ReLU, then 9 ``BasicBlock(16, 1)``; NHWC images in, the ``(..., H, W,
+    16)`` feature map out.  f32 and unfused, as the reference; BatchNorm
+    or GroupNorm (``norm``).  Lane-major ``(L, N, H, W, C)`` input with
+    lane-stacked variables runs ``L`` halves at once."""
+
+    norm: str = "batch"
+    in_channels: int = 3
+
+    def _blocks(self):
+        return _split_blocks(((16, 16, 1),))
+
+    def init(self, generator: torch.Generator, device="cpu") -> dict:
+        params, stats = {}, {}
+        params["Conv_0"] = {"kernel": _lecun_normal((16, self.in_channels, 3, 3),
+                                                    9 * self.in_channels, generator)}
+        norm_init(self.norm, params, stats, 0, 16)
+        _init_blocks(params, stats, self._blocks(), self.norm, generator)
+        variables = {"params": params, **({"batch_stats": stats} if stats else {})}
+        return tree_map(lambda t: t.to(device), variables)
+
+    def apply(self, variables: dict, x: torch.Tensor, train: bool = True):
+        """``(features, new_batch_stats)``."""
+        p, st = variables["params"], variables.get("batch_stats", {})
+        new_stats = dict(st)
+        x = _conv(x.to(torch.float32), p["Conv_0"]["kernel"], 1, torch.float32)
+        x = torch.relu(norm_layer(self.norm, x, p, new_stats, 0, train, RESNET_GN_GROUPS))
+        return _apply_blocks(p, st, new_stats, x, self._blocks(), train, self.norm), new_stats
+
+
+@dataclass(frozen=True)
+class SplitResNet56Server:
+    """``SplitResNet56Server`` (reference L209), the server half: 9 blocks
+    at 32 channels and 9 at 64, the first of each with stride 2, the
+    spatial mean and ``Dense(num_classes)``; takes the client half's
+    feature map.  Single-lane or lanes, as the client half."""
+
+    num_classes: int = 10
+    norm: str = "batch"
+
+    def _blocks(self):
+        return _split_blocks(((32, 16, 2), (64, 32, 2)))
+
+    def init(self, generator: torch.Generator, device="cpu") -> dict:
+        params, stats = {}, {}
+        _init_blocks(params, stats, self._blocks(), self.norm, generator)
+        params["Dense_0"] = {"kernel": _lecun_normal((self.num_classes, 64), 64, generator),
+                             "bias": torch.zeros(self.num_classes)}
+        variables = {"params": params, **({"batch_stats": stats} if stats else {})}
+        return tree_map(lambda t: t.to(device), variables)
+
+    def apply(self, variables: dict, x: torch.Tensor, train: bool = True):
+        """``(logits, new_batch_stats)``: ``(N, classes)``, or ``(L, N,
+        classes)`` for lanes."""
+        p, st = variables["params"], variables.get("batch_stats", {})
+        new_stats = {}
+        x = _apply_blocks(p, st, new_stats, x.to(torch.float32), self._blocks(), train, self.norm)
+        x = x.mean(dim=(-3, -2))
+        dense = p["Dense_0"]
+        if x.ndim == 3:  # lanes
+            return torch.bmm(x, dense["kernel"].transpose(1, 2)) + dense["bias"][:, None, :], new_stats
+        return F.linear(x, dense["kernel"]) + dense["bias"], new_stats

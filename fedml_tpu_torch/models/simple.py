@@ -1,6 +1,8 @@
 """Small models (the port of ``fedml_tpu/models/simple.py``): the logistic
 regression of the ``lr`` recipes, the FedAvg CNN (``cnn``), the CIFAR CNN
-(``simple-cnn``) and the MLP (``mlp``).
+(``simple-cnn``), the MLP (``mlp``) and the hub's MNIST GAN pair
+(``MnistGanGenerator`` / ``MnistGanDiscriminator``, which no simulator of
+the reference trains).
 
 A model here follows the port's model interface (``models/resnet.py``): a
 frozen description with ``init(generator, device)`` and ``apply(variables,
@@ -66,15 +68,25 @@ def _dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x.to(kernel.dtype), kernel.transpose(1, 2)) + p["bias"][:, None, :]
 
 
+def conv_bias_lanes(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """flax ``Conv(padding="SAME")`` with its bias, of the lanes: lane-major
+    NHWC ``(L, N, H, W, C)`` in the kernel's dtype."""
+    kernel = p["kernel"]
+    return conv2d_lanes(x, kernel, 1, kernel.dtype) + p["bias"][:, None, None, None, :]
+
+
+def max_pool_lanes(y: torch.Tensor) -> torch.Tensor:
+    """flax ``max_pool((2, 2), strides=(2, 2))`` of lane-major NHWC ``y``
+    (no padding: an odd edge is dropped)."""
+    lanes, n, h, w, c = y.shape
+    y = F.max_pool2d(y.reshape(lanes * n, h, w, c).permute(0, 3, 1, 2), kernel_size=2, stride=2)
+    return y.permute(0, 2, 3, 1).reshape(lanes, n, h // 2, w // 2, c)
+
+
 def _conv_relu_pool(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``max_pool(relu(Conv(x)))`` of the lanes: lane-major NHWC ``(L, N, H,
     W, C)`` in, ``(L, N, H // 2, W // 2, O)`` out, in f32."""
-    kernel = p["kernel"]
-    y = conv2d_lanes(x, kernel, 1, kernel.dtype) + p["bias"][:, None, None, None, :]
-    lanes, n, h, w, c = y.shape
-    y = torch.relu(y).reshape(lanes * n, h, w, c).permute(0, 3, 1, 2)
-    y = F.max_pool2d(y, kernel_size=2, stride=2)
-    return y.permute(0, 2, 3, 1).reshape(lanes, n, h // 2, w // 2, c)
+    return max_pool_lanes(torch.relu(conv_bias_lanes(p, x)))
 
 
 def single_lane(model, variables: dict, x: torch.Tensor, train: bool, **kw):
@@ -205,3 +217,62 @@ class CifarCNN:
         y = _conv_relu_pool(p["Conv_1"], _conv_relu_pool(p["Conv_0"], x))
         h = torch.relu(_dense(p["Dense_0"], y.reshape(y.shape[0], y.shape[1], -1)))
         return _dense(p["Dense_1"], h), {}
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """flax ``leaky_relu``: ``where(x >= 0, x, slope * x)``."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _dense_stack(p: dict, x: torch.Tensor, names, act) -> torch.Tensor:
+    """``Dense`` layers ``names`` of the lanes in turn, ``act`` after every
+    one but the last."""
+    for i, name in enumerate(names):
+        x = _dense(p[name], x)
+        if i < len(names) - 1:
+            x = act(x)
+    return x
+
+
+@dataclass(frozen=True)
+class MnistGanGenerator:
+    """``MnistGanGenerator`` (reference L83): ``Dense(256)``, ``Dense(512)``
+    with ``leaky_relu(0.2)``, ``Dense(784)``, tanh, as ``(N, 28, 28, 1)``
+    images."""
+
+    latent_dim: int = 100
+
+    def init(self, generator: torch.Generator, device="cpu") -> dict:
+        params = {"Dense_0": _dense_init(self.latent_dim, 256, generator),
+                  "Dense_1": _dense_init(256, 512, generator),
+                  "Dense_2": _dense_init(512, 784, generator)}
+        return tree_map(lambda t: t.to(device), {"params": params})
+
+    def apply(self, variables: dict, z: torch.Tensor, train: bool = True):
+        p = variables["params"]
+        if p["Dense_0"]["kernel"].ndim == 2:
+            return single_lane(self, variables, z, train)
+        x = _dense_stack(p, z, ("Dense_0", "Dense_1", "Dense_2"), leaky_relu)
+        return torch.tanh(x).reshape(x.shape[:2] + (28, 28, 1)), {}
+
+
+@dataclass(frozen=True)
+class MnistGanDiscriminator:
+    """``MnistGanDiscriminator`` (reference L98): the flattened image
+    through ``Dense(512)``, ``Dense(256)`` with ``leaky_relu(0.2)``, then
+    ``Dense(1)``: ``(N, 1)`` logits."""
+
+    in_features: int = 784
+
+    def init(self, generator: torch.Generator, device="cpu") -> dict:
+        params = {"Dense_0": _dense_init(self.in_features, 512, generator),
+                  "Dense_1": _dense_init(512, 256, generator),
+                  "Dense_2": _dense_init(256, 1, generator)}
+        return tree_map(lambda t: t.to(device), {"params": params})
+
+    def apply(self, variables: dict, x: torch.Tensor, train: bool = True):
+        p = variables["params"]
+        if p["Dense_0"]["kernel"].ndim == 2:
+            return single_lane(self, variables, x, train)
+        x = x.reshape(x.shape[0], x.shape[1], -1)
+        return _dense_stack(p, x, ("Dense_0", "Dense_1", "Dense_2"), leaky_relu), {}

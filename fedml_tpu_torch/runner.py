@@ -6,12 +6,15 @@ population mode under ``extra.population_store`` too) and the simulators
 of their own: ``HierarchicalFL``, ``MyAvg`` / ``MyAgg-7``, ``FedLLM``,
 ``decentralized_fl``, ``Async_FedAvg`` and ``TA`` (``sim/hierarchical.py``,
 ``sim/myavg.py``, ``llm/fedllm.py``, ``sim/decentralized.py``,
-``sim/async_fl.py``, ``sim/turboaggregate.py``; FedLLM builds its own
-transformer, the rest a ``model_hub`` model); the cross-silo platform
-(``cross_silo/``: the plain synchronous server, Shamir SecAgg and
-LightSecAgg, in one process); and the centralized baseline
-(``training_type: centralized``, ``sim/centralized.py``, reference
-L307-311).  Every other platform and optimizer raises
+``sim/async_fl.py``, ``sim/turboaggregate.py``), and those that build
+their own networks, ``split_nn``, ``FedGKT``, ``vertical_fl``, ``FedGan``,
+``FedNAS`` and ``FedSeg`` (``sim/split_learning.py``, ``sim/vertical.py``,
+``sim/fedgan.py``, ``sim/fednas.py``, ``sim/fedseg.py``); FedLLM and these
+six build no ``model_hub`` model (reference L101-110, L150), the rest do;
+the cross-silo platform (``cross_silo/``: the plain synchronous server,
+Shamir SecAgg and LightSecAgg, in one process); and the centralized
+baseline (``training_type: centralized``, ``sim/centralized.py``,
+reference L307-311).  Every other platform and optimizer raises
 ``NotImplementedError``.
 
 Trust flags as the reference routes them (L17-41, L113-150): attack,
@@ -20,11 +23,21 @@ sp); MyAvg takes attack, defense and DP and refuses the rest itself; every
 other special simulator refuses them all, and so does the centralized
 trainer (the reference ignores them there; a flag is never a silent no-op
 in the port: these also refuse the engine's unported flags and population
-mode, ``sim/engine.refuse_special_simulator``); SecAgg and FHE are cross-silo protocols, refused in
-simulation.
+mode, ``sim/engine.refuse_special_simulator``); SecAgg and FHE are
+cross-silo protocols, refused in simulation.
+
+Custom trainers and aggregators (reference L140-144, L207-217, L307): a
+simulator of its own raises the reference's ``ValueError`` for either; the
+engine takes ``client_trainer`` as its algorithm.  Where the reference
+stores one and never reads it (``server_aggregator`` on the engine, either
+under cross-silo or centralized) the port raises a ``ValueError`` that
+says so, as HierarchicalFL refuses the checkpoint keys the reference
+ignores: a setting is never dropped unseen.
 """
 
 from __future__ import annotations
+
+import importlib
 
 from . import algorithms, constants as C
 from .arguments import Config
@@ -48,12 +61,30 @@ _PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_S
                      C.TRAINING_PLATFORM_CENTRALIZED)
 # simulators of their own (reference runner.py L87-194), beside the
 # registry's algorithms on the engine
+# the simulators that build their own networks (reference L101-110, but
+# FedLLM, which has its own branch): no model_hub model; module and class
+# under sim/
+_OWN_NET_SIMULATORS = {
+    C.FEDERATED_OPTIMIZER_SPLIT_NN: ("split_learning", "SplitNNSimulator"),
+    C.FEDERATED_OPTIMIZER_FEDGKT: ("split_learning", "FedGKTSimulator"),
+    C.FEDERATED_OPTIMIZER_VERTICAL_FL: ("vertical", "VFLSimulator"),
+    C.FEDERATED_OPTIMIZER_FEDGAN: ("fedgan", "FedGANSimulator"),
+    C.FEDERATED_OPTIMIZER_FEDNAS: ("fednas", "FedNASSimulator"),
+    C.FEDERATED_OPTIMIZER_FEDSEG: ("fedseg", "FedSegSimulator"),
+}
 _SPECIAL_SIMULATORS = ((C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL, C.FEDERATED_OPTIMIZER_FEDLLM,
                         C.FEDERATED_OPTIMIZER_DECENTRALIZED_FL,
                         C.FEDERATED_OPTIMIZER_ASYNC_FEDAVG,
                         C.FEDERATED_OPTIMIZER_TURBO_AGGREGATE)
-                       + C.FEDERATED_OPTIMIZER_MYAVG_ALIASES)
+                       + C.FEDERATED_OPTIMIZER_MYAVG_ALIASES + tuple(_OWN_NET_SIMULATORS))
 _PORTED_OPTIMIZERS = tuple(algorithms.names()) + _SPECIAL_SIMULATORS
+
+
+def _not_used(what: str, where: str) -> ValueError:
+    """The refusal of a custom object the reference stores but never reads
+    on this path."""
+    return ValueError(f"a custom {what} is not used by {where} (the reference ignores it "
+                      "there); remove it")
 
 
 class FedMLRunner:
@@ -70,25 +101,25 @@ class FedMLRunner:
         if cfg.training_type not in _PORTED_PLATFORMS:
             raise NotImplementedError(f"training_type {cfg.training_type!r} is not ported "
                                       f"yet (ported: {_PORTED_PLATFORMS})")
-        if server_aggregator is not None:
-            raise NotImplementedError("custom server_aggregator is not ported yet")
         _check_unimplemented_flags(cfg)
         if cfg.training_type == C.TRAINING_PLATFORM_CENTRALIZED:
-            self.runner = self._init_centralized_runner(client_trainer)
+            self.runner = self._init_centralized_runner(client_trainer, server_aggregator)
             return
         if cfg.federated_optimizer not in _PORTED_OPTIMIZERS:
             raise NotImplementedError(f"federated_optimizer {cfg.federated_optimizer!r} is "
                                       f"not ported yet (ported: {_PORTED_OPTIMIZERS})")
         if cfg.training_type == C.TRAINING_PLATFORM_CROSS_SILO:
-            if client_trainer is not None:
-                raise NotImplementedError("custom client_trainer is not ported to cross-silo yet")
+            for what, obj in (("client_trainer", client_trainer),
+                              ("server_aggregator", server_aggregator)):
+                if obj is not None:
+                    raise _not_used(what, "the cross-silo platform")
             from .cross_silo import create_cross_silo_runner, refuse_unported_cross_silo
 
             refuse_unported_cross_silo(cfg)  # before the data is loaded
             self._load_dataset_and_model()
             self.runner = create_cross_silo_runner(cfg, self.dataset, self.model, self.device)
         else:
-            self.runner = self._init_simulation_runner(client_trainer)
+            self.runner = self._init_simulation_runner(client_trainer, server_aggregator)
 
     def _load_dataset_and_model(self) -> None:
         if self.dataset is None:
@@ -101,20 +132,22 @@ class FedMLRunner:
             self.model = model_hub.create(self.cfg, self.dataset.class_num,
                                           input_shape=self.dataset.train_x.shape[1:])
 
-    def _init_centralized_runner(self, client_trainer):
+    def _init_centralized_runner(self, client_trainer, server_aggregator):
         """The centralized baseline (reference L307): the whole training set
         as one client."""
         from .sim.centralized import CentralizedTrainer
         from .sim.engine import refuse_special_simulator
 
         refuse_special_simulator(self.cfg, C.TRAINING_PLATFORM_CENTRALIZED)
-        if client_trainer is not None:
-            raise ValueError("a custom client_trainer is not used by centralized training")
+        for what, obj in (("client_trainer", client_trainer),
+                          ("server_aggregator", server_aggregator)):
+            if obj is not None:
+                raise _not_used(what, "centralized training")
 
         self._load_dataset_and_model()
         return CentralizedTrainer(self.cfg, self.dataset, self.model, device=self.device)
 
-    def _init_simulation_runner(self, client_trainer):
+    def _init_simulation_runner(self, client_trainer, server_aggregator):
         from .sim.engine import refuse_protocol_flags
 
         refuse_protocol_flags(self.cfg)
@@ -127,9 +160,12 @@ class FedMLRunner:
                 raise NotImplementedError(
                     f"trust features {active} are not yet wired into the {opt!r} simulator "
                     "(supported on the FedAvg-family mesh engine); refusing to run without them")
-            if client_trainer is not None:
-                raise ValueError(f"a custom client_trainer is not used by the {opt!r} "
-                                 "simulator; remove it or use a FedAvg-family optimizer")
+            if client_trainer is not None or server_aggregator is not None:
+                raise ValueError(
+                    f"custom client_trainer/server_aggregator are not used by the {opt!r} "
+                    "simulator; remove them or use a FedAvg-family optimizer")
+        elif server_aggregator is not None:
+            raise _not_used("server_aggregator", "the simulation engine")
         if opt == C.FEDERATED_OPTIMIZER_HIERARCHICAL_FL:
             from .sim.hierarchical import HierarchicalSimulator, refuse_unported_hierarchical
 
@@ -158,6 +194,15 @@ class FedMLRunner:
             else:
                 from .sim.turboaggregate import TurboAggregateSimulator as Sim
             return Sim(self.cfg, self.dataset, self.model, device=self.device)
+        if opt in _OWN_NET_SIMULATORS:
+            from .sim.engine import refuse_special_simulator
+
+            refuse_special_simulator(self.cfg, opt)  # before the data is loaded
+            if self.dataset is None:
+                from .data import loader
+
+                self.dataset = loader.load(self.cfg)
+            return _own_net_simulator(opt)(self.cfg, self.dataset, device=self.device)
         if opt in C.FEDERATED_OPTIMIZER_MYAVG_ALIASES:
             from .sim.myavg import MyAvgSimulator, refuse_unported_myavg
 
@@ -172,3 +217,10 @@ class FedMLRunner:
 
     def run(self):
         return self.runner.run()
+
+
+def _own_net_simulator(opt: str):
+    """The simulator class of one of the six that build their own
+    networks."""
+    module, name = _OWN_NET_SIMULATORS[opt]
+    return getattr(importlib.import_module(f".sim.{module}", __package__), name)

@@ -13,7 +13,12 @@ the ResNets, the small models of ``models/simple.py``, the zoo of
 ``models/cnn_zoo.py`` (a depthwise kernel is flax ``(kh, kw, 1, C)``, torch
 ``(C, 1, kh, kw)``; GroupNorm's ``scale`` / ``bias`` as they are) and the
 LSTMs of ``models/rnn.py`` (each gate kernel a Dense kernel, transposed;
-``Embed_0/embedding`` is not a kernel and stays as it is).  The
+``Embed_0/embedding`` is not a kernel and stays as it is), the GAN pair,
+the DARTS supernet (its ``alphas`` are not a kernel and stay as they are)
+and the UNet (a ``ConvTranspose`` kernel takes the generic relayout of a
+conv kernel, flax ``(kh, kw, I, O)`` to ``(O, I, kh, kw)``; the model flips
+it where it applies it).  Stacked trees (``lanes=True``: per-client
+bottoms and heads, per-party towers) keep their leading axis.  The
 transformer (``models/transformer.py``) keeps flax's layouts, and so do
 LoRA adapter trees: :func:`tree_from_flax` and :func:`to_numpy` copy them
 leaf for leaf and transpose nothing (:func:`flax_to_torch` would
@@ -50,24 +55,28 @@ def _convert(tree, leaf_fn):
     raise TypeError(f"expected a dict of variables, got {type(tree).__name__}")
 
 
-def _relayout(axes: dict):
+def _relayout(axes: dict, lanes: bool):
     def leaf(name: str, a) -> np.ndarray:
         a = np.asarray(a)
-        if name == "kernel" and a.ndim in axes:
-            return np.ascontiguousarray(a.transpose(axes[a.ndim]))
+        rank = a.ndim - int(lanes)
+        if name == "kernel" and rank in axes:
+            perm = (0,) + tuple(i + 1 for i in axes[rank]) if lanes else axes[rank]
+            return np.ascontiguousarray(a.transpose(perm))
         return a.copy()
 
     return leaf
 
 
-def flax_to_torch(variables: dict) -> dict:
-    """flax variables (numpy leaves) -> the port's layout (numpy leaves)."""
-    return _convert(variables, _relayout(_TO_TORCH))
+def flax_to_torch(variables: dict, lanes: bool = False) -> dict:
+    """flax variables (numpy leaves) -> the port's layout (numpy leaves).
+    ``lanes``: every leaf has a leading stack axis (per-client bottoms and
+    heads, per-party towers) that each kernel keeps in front."""
+    return _convert(variables, _relayout(_TO_TORCH, lanes))
 
 
 def torch_to_flax(variables: dict) -> dict:
     """The port's layout (numpy leaves) -> flax variables (numpy leaves)."""
-    return _convert(variables, _relayout(_TO_FLAX))
+    return _convert(variables, _relayout(_TO_FLAX, False))
 
 
 def _permute_kernels(axes: dict):

@@ -214,14 +214,37 @@ def test_real_cifar_batches_read_equal(tmp_path):
         np.testing.assert_array_equal(getattr(ref, f), getattr(got, f))
 
 
-def test_other_datasets_raise_not_implemented():
-    """Only ``fets2021`` waits for a later slice (FedSeg's, ROADMAP Queue 1
-    item 6); an unknown name is a ``ValueError``, as in the reference."""
+def _assert_fets_equal(got, want):
+    """Every array of two ``fets2021`` loads equal, masks and partition
+    included."""
+    for f in ("train_x", "train_y", "test_x", "test_y", "masks", "test_masks"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert got.class_num == want.class_num and got.name == want.name == "fets2021"
+    assert len(got.client_idx) == len(want.client_idx)
+    for a, b in zip(got.client_idx, want.client_idx):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_other_datasets_raise_not_implemented(tmp_path):
+    """``fets2021``, the last dataset to be ported (FedSeg's), loads its
+    stand-in bitwise the reference's: the volumes, the per-pixel masks, the
+    dominant-class labels and their Dirichlet partition.  No dataset name
+    raises ``NotImplementedError`` any more; an unknown name is a
+    ``ValueError``, as in the reference."""
+    import fedml_tpu.arguments as ref_args
     import fedml_tpu_torch.arguments as args
+    from fedml_tpu.data import loader as ref_loader
     from fedml_tpu_torch.data import loader
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        loader.load(args.Config(dataset="fets2021"))
+    kw = dict(dataset="fets2021", data_cache_dir=str(tmp_path), client_num_in_total=3,
+              synthetic_train_size=60, synthetic_test_size=6, partition_alpha=1.0)
+    got = loader.load(_cfg(args, **kw))
+    _assert_fets_equal(got, ref_loader.load(_cfg(ref_args, **kw)))
+    assert got.train_x.shape == (60, 64, 64, 4) and got.masks.shape == (60, 64, 64)
+    dominant = [np.bincount(m[m > 0]).argmax() if (m > 0).any() else 0 for m in got.masks]
+    np.testing.assert_array_equal(got.train_y, dominant)
     with pytest.raises(ValueError, match="unknown dataset"):
         loader.load(args.Config(dataset="no_such_set"))
 

@@ -38,6 +38,12 @@ Slice 15: the noise kernel at Turbo-Aggregate's group length (16 x
 271,098) bitwise, a masked group ring through it (one launch a non-empty
 group, each group's rows bitwise the plain version), and a DSGD lane step
 from per-lane variables against each lane alone at rtol 2e-4 / atol 2e-5.
+Slice 16 (no kernel): one lane-batched step of FedGKT's clients (the
+GroupNorm ResNet-56 halves), FedNAS and FedSeg against each lane alone at
+rtol 2e-4 / atol 2e-5, FedGAN's (Adam) within 1e-3 relative L2 of each
+lane's movement, and the UNet's ConvTranspose (kernel
+flipped) on the card against ``out[2m + a, 2p + b] = x[m, p] k[1 - a, 1 -
+b] + bias`` in f64 within 1e-5.
 """
 
 import numpy as np
@@ -1527,3 +1533,120 @@ def test_dsgd_lane_step_on_card_matches_each_lane_alone(cuda_device):
         want, _ = alone(own, x[lane], y[lane], int(counts[lane]), None, perms=perms[lane])
         for a, b in zip(pt.tree_leaves(want), pt.tree_leaves(got)):
             torch.testing.assert_close(b[lane], a, rtol=2e-4, atol=2e-5)
+
+
+def _own_net_sim(device, opt, dataset, **kw):
+    """One of the simulators that build their own networks on ``device``,
+    built through the runner at a tiny size."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    extra = kw.pop("extra", {})
+    base = dict(federated_optimizer=opt, dataset=dataset, client_num_in_total=4,
+                client_num_per_round=4, comm_round=1, batch_size=4, synthetic_train_size=32,
+                synthetic_test_size=8, partition_method="homo", learning_rate=0.05,
+                momentum=0.9, random_seed=0, norm="group")
+    base.update(kw)
+    cfg = Config(**base, extra=extra)
+    fedml_tpu_torch.init(cfg)
+    return FedMLRunner(cfg, device=device).runner
+
+
+def _lanes_match_alone(batched, alone_fn, lanes, start=None):
+    """Each lane of a lane-batched result's trees against the same lane run
+    alone, within rtol 2e-4 / atol 2e-5; given the lanes' ``start`` trees,
+    within 1e-3 relative L2 of the lane's movement from it instead (Adam's
+    first step moves an element by ``lr * g / (|g| + eps)``, about ``lr``
+    for any gradient near zero, whatever its rounding)."""
+    from fedml_tpu_torch.core import pytree as pt
+
+    for lane in range(lanes):
+        for k, (got, want) in enumerate(zip(batched, alone_fn(lane))):
+            pairs = list(zip(pt.tree_leaves(want), pt.tree_leaves(got)))
+            if start is None:
+                for a, b in pairs:
+                    torch.testing.assert_close(b[lane], a[0], rtol=2e-4, atol=2e-5)
+                continue
+            s0 = pt.tree_leaves(start[k])
+            diff = sum(float((b[lane] - a[0]).double().square().sum()) for a, b in pairs)
+            moved = sum(float((a[0] - s[lane]).double().square().sum())
+                        for (a, _), s in zip(pairs, s0))
+            assert diff <= 1e-6 * moved, (lane, k, diff, moved)
+
+
+@pytest.mark.cuda
+def test_fedgkt_client_lanes_on_card_match_each_lane_alone(cuda_device):
+    from fedml_tpu_torch.core import pytree as pt
+
+    sim = _own_net_sim(cuda_device, "FedGKT", "cifar10")
+    params = {"bottom": sim.client_bottoms["params"], "head": sim.client_heads["params"]}
+    rs = np.random.RandomState(2)
+    params = pt.tree_map(lambda t: t + 0.01 * torch.from_numpy(
+        rs.randn(*t.shape).astype(np.float32)).to(t.device), params)
+    perms = torch.from_numpy(rs.randint(0, sim.capacity, (4, 1, 4))).to(cuda_device)
+    teacher = torch.randn(4, sim.probe, sim.n_classes, device=cuda_device)
+    got, _ = sim.client_phase(params, sim._lanes, perms, teacher)
+    _lanes_match_alone((got,), lambda lane: (sim.client_phase(
+        pt.tree_map(lambda t: t[lane:lane + 1], params), sim._lanes[lane:lane + 1],
+        perms[lane:lane + 1], teacher[lane:lane + 1])[0],), 4)
+
+
+@pytest.mark.cuda
+def test_fedgan_lanes_on_card_match_each_lane_alone(cuda_device):
+    sim = _own_net_sim(cuda_device, "FedGan", "mnist", learning_rate=1e-3,
+                       extra={"gan_z_dim": 16})
+    sampled = np.arange(4)
+    idx, z1, z2 = (torch.stack(t).to(cuda_device) for t in zip(*[
+        sim.sampler.gan_draws(0, c, 1, sim.capacity, 4, sim.z_dim) for c in sampled]))
+    got = sim.local_train(sampled, idx, z1, z2)[:2]
+    from fedml_tpu_torch.sim.own_nets import lane_copies
+
+    start = (lane_copies(sim.g_vars, 4), lane_copies(sim.d_vars, 4))
+    _lanes_match_alone(got, lambda lane: sim.local_train(
+        sampled[lane:lane + 1], idx[lane:lane + 1], z1[lane:lane + 1], z2[lane:lane + 1])[:2], 4,
+        start)
+
+
+@pytest.mark.cuda
+def test_fednas_lanes_on_card_match_each_lane_alone(cuda_device):
+    sim = _own_net_sim(cuda_device, "FedNAS", "cifar10", extra={"nas_features": 4})
+    sampled = np.arange(4)
+    iw, ia = (torch.stack(t).to(cuda_device) for t in zip(*[
+        sim.sampler.nas_indices(0, c, 1, sim.half, sim.capacity, 4) for c in sampled]))
+    got = sim.local_search(sampled, iw, ia)[:2]
+    _lanes_match_alone(got, lambda lane: sim.local_search(
+        sampled[lane:lane + 1], iw[lane:lane + 1], ia[lane:lane + 1])[:2], 4)
+
+
+@pytest.mark.cuda
+def test_fedseg_lanes_on_card_match_each_lane_alone(cuda_device):
+    sim = _own_net_sim(cuda_device, "FedSeg", "fets2021", extra={"seg_base": 4})
+    sampled = np.arange(4)
+    idx = torch.stack([sim.sampler.seg_indices(0, c, 1, sim.capacity, 4)
+                       for c in sampled]).to(cuda_device)
+    got = sim.local_train(sampled, idx)[:1]
+    _lanes_match_alone(got, lambda lane: sim.local_train(sampled[lane:lane + 1],
+                                                         idx[lane:lane + 1])[:1], 4)
+
+
+@pytest.mark.cuda
+def test_conv_transpose_flip_on_card(cuda_device):
+    """flax's unflipped 2x2 stride-2 ConvTranspose as the port applies it,
+    2 lanes with asymmetric kernels, against the formula in f64."""
+    from fedml_tpu_torch.models.segmentation import conv_transpose_lanes
+
+    rs = np.random.RandomState(3)
+    x = rs.randn(2, 3, 4, 5, 6)
+    k = rs.randn(2, 2, 2, 6, 7)  # flax (kh, kw, I, O) a lane
+    k[:, 0, 1] += 2.0
+    bias = rs.randn(2, 7)
+    want = np.zeros((2, 3, 8, 10, 7))
+    for a in range(2):
+        for b in range(2):
+            want[:, :, a::2, b::2] = np.einsum("lnhwi,lio->lnhwo", x, k[:, 1 - a, 1 - b])
+    want += bias[:, None, None, None, :]
+    p = {"kernel": torch.from_numpy(k.transpose(0, 4, 3, 1, 2).astype(np.float32)).to(cuda_device),
+         "bias": torch.from_numpy(bias.astype(np.float32)).to(cuda_device)}
+    got = conv_transpose_lanes(p, torch.from_numpy(x.astype(np.float32)).to(cuda_device))
+    np.testing.assert_allclose(got.cpu().double().numpy(), want, rtol=1e-5, atol=1e-5)

@@ -1,5 +1,5 @@
-"""Port parity: every dataset of ``fedml_tpu/data/loader.py`` but
-``fets2021`` (``fedml_tpu_torch/data/loader.py``) and the readers of
+"""Port parity: every dataset of ``fedml_tpu/data/loader.py``
+(``fedml_tpu_torch/data/loader.py``) and the readers of
 ``fedml_tpu/data/extra_loaders.py`` (``data/extra_loaders.py``), bitwise.
 
 The spec tables equal; the synthetic fallbacks at small sizes through both
@@ -9,8 +9,9 @@ port's cap lowered, against the reference at the capped sizes), and the
 real-file readers on files the tests write to ``tmp_path``: MNIST /
 Fashion-MNIST idx files, an ILSVRC class-per-directory tree of ``.npy`` and
 PNG images, SUSY's CSV, the room-occupancy tables, NUS-WIDE's prepared npz
-and its raw layout (pandas), and a corrupt file's loud fallback.
-``fets2021`` is refused, naming the slice that will port it.
+and its raw layout (pandas), FeTS2021's prepared npz (volumes and masks,
+their dominant-class labels and partition), and a corrupt file's loud
+fallback.
 """
 
 import logging
@@ -61,8 +62,7 @@ def test_spec_tables_are_the_reference_s():
     from fedml_tpu.data import loader as ref_loader
     from fedml_tpu_torch.data import loader
 
-    want = {k: v for k, v in ref_loader._DATASET_SPECS.items() if k != "fets2021"}
-    assert loader._DATASET_SPECS == want
+    assert loader._DATASET_SPECS == ref_loader._DATASET_SPECS
     assert loader._TEXT_SPECS == ref_loader._TEXT_SPECS
     assert loader._DATASET_ALIASES == ref_loader._DATASET_ALIASES
 
@@ -86,11 +86,30 @@ def test_dataset_spec_and_refusals(tmp_path):
     from fedml_tpu.data import loader as ref_loader
     from fedml_tpu_torch.data import loader
 
-    for name in DENSE + TEXT + ["FEMNIST", "ImageNet", "unknown"]:
+    for name in DENSE + TEXT + ["FEMNIST", "ImageNet", "unknown", "fets2021"]:
         assert loader.dataset_spec(name) == ref_loader.dataset_spec(name)
-    _, cfg = _cfgs(tmp_path, dataset="fets2021")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        loader.load(cfg)
+    # FeTS2021's prepared volumes (reference extra_loaders L213), then with
+    # the file absent and no fallback: FileNotFoundError in both packages
+    rs = np.random.RandomState(7)
+    d = tmp_path / "FeTS2021"
+    d.mkdir()
+    masks = rs.randint(0, 4, (40, 6, 6)).astype(np.int16)
+    masks[3] = 0  # no foreground: dominant class 0
+    masks[4] = [[1, 2, 2, 0, 1, 0]] * 6  # a tie between 1 and 2 goes to 1
+    np.savez(d / "fets2021_prepared.npz", train_x=rs.randn(40, 6, 6, 4), train_m=masks,
+             test_x=rs.randn(5, 6, 6, 4), test_m=rs.randint(0, 3, (5, 6, 6)))
+    ref_cfg, cfg = _cfgs(tmp_path, dataset="fets2021", client_num_in_total=2)
+    got, want = loader.load(cfg), ref_loader.load(ref_cfg)
+    _assert_same(got, want)
+    for f in ("masks", "test_masks"):
+        assert getattr(got, f).dtype == np.int32
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.train_x.dtype == np.float32 and got.train_y[3] == 0 and got.train_y[4] == 1
+    (d / "fets2021_prepared.npz").unlink()
+    for pkg_loader, c in ((loader, cfg), (ref_loader, ref_cfg)):
+        c.synthetic_fallback = False
+        with pytest.raises(FileNotFoundError, match="fets2021_prepared.npz"):
+            pkg_loader.load(c)
     _, cfg = _cfgs(tmp_path, dataset="no_such_set")
     with pytest.raises(ValueError, match="unknown dataset"):
         loader.load(cfg)
