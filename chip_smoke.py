@@ -308,6 +308,44 @@ Phases (any failure exits non-zero; no phase is caught):
    loss falls, at least half the foreground test pixels are predicted as
    foreground, and the test confusion matrix on the card equals numpy's on
    the model's predictions and on uniform draws of every class.
+14. Cross-silo trust and fault tolerance (run after phase 13): the
+   flagship recipe through ``FedMLRunner(cfg).run()`` with
+   ``training_type: cross_silo``, ``backend: TCP`` (the server and 4 silos
+   as threads over loopback, ports the system picks), 3 rounds on 3,200 of
+   the stand-in's images (the data count cut, not the widths), fused
+   blocks, ``comm_chunk_bytes`` 65,536, ``comm_compression: qsgd8`` with
+   ``streaming_aggregation``, central DP, both journals and a fixed chaos
+   schedule (``chaos_seed`` 2870: in round 1 one silo's upload dropped and
+   another's held back behind its next upload, so the round closes on its
+   15 s straggler timer with 2 of 4; duplicated uploads in every round;
+   delays).  (a) Each round's time, fold and finalize host times, upload
+   bytes, the silos folded and launches: kernels 1-4 launch, 5 18 an upload
+   sent, 6 exactly 18 an upload folded, 7 once a round; every
+   upload not lost to chaos is folded in its round; the fold keeps at most
+   2 updates; finite metrics and weights, the test loss lower after the
+   last round than after the first; the last round's global equals
+   the plain numpy fold of the uploads the server took (decoded by numpy,
+   then the server step and central DP on the same draw) within
+   ``REFOLD_ATOL``, and leaving any one upload out moves it by more than ten
+   times that.
+   (b) Every duplicated upload the server read before it shut down is
+   deduped by its key, and nothing else is (a duplicate of the final
+   round's last upload may arrive after the server finished); the chunk
+   frames
+   received and the injections by fault are printed.  (c) Two raw uploads
+   of weight 64 folded on the card on the streaming path and buffered on
+   the exact path, both with central DP: the same global, bitwise.  (d)
+   Under cuDNN deterministic, 2 rounds of the buffer-all CDP run over TCP
+   (chunk frames, journals; its round 1 profiled for the device busy share)
+   against the same run whose server is hard-killed at round 1's first
+   dispatch and rebuilt over its journal and whose silo 2 is killed before
+   the rebuilt server's round-1 dispatch reaches it and rebuilt over its
+   journal (``cross_silo/crash_drill.py``): the final globals bitwise.  (e) The inversion attack on the LR at 60 features (400 Adam
+   steps, lr 0.05) beats its random start by the reference's 0.6 factor; on
+   a fused ResNet-20 at batch 1 the victim's first-order gradient runs
+   through kernels 1-4 and the attack's second order raises the port's
+   refusal; Soteria's mask on the card prunes exactly its percentile (10
+   of 100 features).  The phase prints its seconds by form.
 
 Each phase's wall time on one line, then the script's wall time, then the
 ``{"kernels": [...]}`` JSON (each kernel's launches from its own path's
@@ -324,8 +362,9 @@ lane-batched quantize and dequantize ``zoo_length``, ``zoo_ms``,
 kernel's launches over phase 12, and for the noise kernel ``ta_length``:
 its times at Turbo-Aggregate's group length, 16 x 271,098, with sigma 10,
 and ``path_max``, the longest group of the run; ``slice16_launches``: each
-kernel's launches over phase 13, all 0), then the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``.
+kernel's launches over phase 13, all 0; ``slice17_launches``: each
+kernel's launches over phase 14 (a)), then the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2 and prints neither.
 """
 
@@ -4319,6 +4358,504 @@ def phase_slice16(mods):
     return counts
 
 
+# -- phase 14: cross-silo trust and fault tolerance (slice 17) -------------------
+
+SLICE17_TRAIN = 3200  # the stand-in's training images, cut from 50,000 (800 a silo)
+SLICE17_ROUNDS = 3
+SLICE17_CRASH_ROUNDS = 2  # (d): the kills land on round 1
+SLICE17_CHUNK = 65536  # transport chunk frames: a ~1.08 MB f32 upload in ~17
+# a fixed chaos schedule (its seed and probabilities), a pure function of
+# (seed, sender, receiver, message ordinal): in round 1 silo 3's upload is
+# dropped and silo 2's held back behind its round-2 upload (then ignored as
+# stale), so round 1 closes on the straggler timer with silos 1 and 4;
+# uploads duplicated in rounds 0, 1 and 2; delays on every kind of frame.
+# The server's own sends get delays only: a dropped FINISH would leave its
+# silo waiting (ROADMAP Queue 3); a dropped dispatch is driven on the CPU
+# (tests/test_torch_transport.py)
+SLICE17_CHAOS = dict(chaos_seed=2870, chaos_drop_prob=0.05, chaos_duplicate_prob=0.1,
+                     chaos_reorder_prob=0.05, chaos_delay_prob=0.3, chaos_delay_max_s=0.02)
+# a round that lost an upload closes on its quorum (2 of 4) after this; a
+# whole round takes ~3 s on the card, 7.7-10.3 s cold
+SLICE17_STRAGGLER_S = 15.0
+# the last round's global against the plain refold of its uploads: the
+# fold's f32 sums against numpy's f64, through the same clip and noise
+REFOLD_ATOL = 1e-5
+# the qsgd8 upload's compressed leaves: ResNet-20's 18 conv kernels
+QSGD8_LEAVES = 18
+DLG_STEPS, DLG_LR = 400, 0.05  # the inversion as tests/test_obs.py runs it
+SOTERIA_PERCENTILE = 10.0
+
+
+def _card():
+    import torch
+
+    return torch.device("cuda")
+
+
+def _slice17_cfg(root, tag, **extra):
+    """The flagship recipe as a cross-silo run over loopback TCP: 4 silos,
+    all in every round, fused blocks, central DP, 3,200 images, ports the
+    system picks, chunk frames of 64 KiB, both journals under ``root``
+    (none without it)."""
+    import fedml_tpu_torch
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.training_type, cfg.role, cfg.backend = "cross_silo", "server", "TCP"
+    cfg.client_num_in_total = cfg.client_num_per_round = SILOS
+    cfg.synthetic_train_size = SLICE17_TRAIN
+    cfg.comm_round = SLICE17_ROUNDS
+    cfg.frequency_of_the_test = 1
+    cfg.run_id = f"slice17_{tag}"
+    for k, v in DP.items():
+        setattr(cfg, k, v)
+    cfg.extra.update(fused_blocks=True, tcp_base_port=0, comm_chunk_bytes=SLICE17_CHUNK, **extra)
+    if root:
+        cfg.extra.update(server_journal_dir=f"{root}/{tag}/server",
+                         client_journal_dir=f"{root}/{tag}/clients")
+    return cfg
+
+
+def _upload_key_round(key: str) -> int:
+    return int(key.split(":")[1])  # "rank:round:epoch:attempt"
+
+
+def _tap_chaos(clients, server) -> tuple:
+    """Record, as the run goes, each silo's injected faults with the
+    message's type and round, and the upload keys the server deduped."""
+    from fedml_tpu_torch.cross_silo import message_define as md
+
+    faults, deduped = [], []
+    for c in clients:
+        def note(fault, rid, nonce, msg, inner=c.com_manager._note, rank=c.rank):
+            faults.append((fault, rank, msg.get_type(), msg.get_control(md.MSG_ARG_KEY_ROUND_INDEX),
+                           msg.get_control(md.MSG_ARG_KEY_UPLOAD_KEY)))
+            inner(fault, rid, nonce, msg)
+
+        c.com_manager._note = note
+    is_dup = server._is_duplicate_upload
+
+    def check(sender, key):
+        hit = is_dup(sender, key)
+        if hit:
+            deduped.append(key)
+        return hit
+
+    server._is_duplicate_upload = check
+    return faults, deduped
+
+
+class _FoldTap:
+    """Wraps the aggregator's ``fold`` and ``aggregate``: keeps each round's
+    folded senders, and the last round's uploads (undecoded messages and
+    weights) with the global, server state and flax-layout base they were
+    folded onto."""
+
+    def __init__(self, agg):
+        self.agg, self.rounds, self._folds = agg, [], []
+        self.last = None
+        fold, aggregate = agg.fold, agg.aggregate
+
+        def clone(tree):
+            from fedml_tpu_torch.core import pytree as pt
+
+            return pt.tree_map(lambda t: t.clone(), tree)
+
+        def tapped_fold(client_idx, msg, sample_num, is_delta, scale=1.0):
+            done = fold(client_idx, msg, sample_num, is_delta, scale)
+            if done:
+                self._folds.append((client_idx, msg, float(sample_num) * float(scale),
+                                    bool(is_delta)))
+            return done
+
+        def tapped_aggregate(round_idx):
+            tmpl, skel = agg._stream_template()
+            self.last = dict(round=round_idx, folds=self._folds, skel=skel,
+                             base=[t.float().cpu().numpy() for t in tmpl],
+                             old=clone(agg.global_vars), state=agg.server_state)
+            self.rounds.append(sorted(c for c, *_ in self._folds))
+            self._folds = []
+            return aggregate(round_idx)
+
+        agg.fold, agg.aggregate = tapped_fold, tapped_aggregate
+
+    def refold(self, leave_out=None):
+        """The last round's global from its uploads by numpy's decode (the
+        plain dequantize) and an f64 weighted sum, then the server step and
+        central DP on the card (the round's draw again), flattened in the
+        reference's order; ``leave_out`` drops one sender's upload."""
+        import numpy as np
+        import torch
+
+        from fedml_tpu_torch import weights
+        from fedml_tpu_torch.comm import wire
+        from fedml_tpu_torch.cross_silo import message_define as md
+
+        last, agg = self.last, self.agg
+        folds = [f for f in last["folds"] if f[0] != leave_out]
+        total = sum(w for _, _, w, _ in folds)
+        w_delta = sum(w for _, _, w, d in folds if d)
+        acc = [w_delta * b.astype(np.float64) for b in last["base"]]
+        for _, msg, w, _ in folds:
+            for i, _, arr in msg.tensor_frame()[1]:
+                acc[i] += w * np.asarray(arr, np.float64)
+        dev = _card()
+        out = [torch.from_numpy((a / total).astype(np.float32)).to(dev) for a in acc]
+        plain = weights.tensors_from_flax(
+            wire.restore_skeleton(last["skel"], out)[md.MSG_ARG_KEY_MODEL_PARAMS])
+        new, _ = agg.algorithm.server_update(last["old"], last["state"], plain, last["round"])
+        new = agg.trust.on_after_aggregation(new, last["old"], last["round"])
+        return weights.flatten_reference(new)[0]
+
+
+def phase_slice17_main(mods, nz, root):
+    """(a) + (b): qsgd8 uploads folded as they land, central DP at the
+    finalize, TCP, chunk frames, chaos and both journals, through
+    ``FedMLRunner(cfg).run()``."""
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.comm.tcp_backend import TCPCommManager
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo import message_define as md
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    cfg = _slice17_cfg(root, "main", comm_compression="qsgd8", streaming_aggregation=True,
+                       straggler_timeout_s=SLICE17_STRAGGLER_S, **SLICE17_CHAOS)
+    t0 = time.perf_counter()
+    runner = FedMLRunner(cfg)
+    group = runner.runner
+    group.setup()
+    server, clients = group.server, group.clients
+    if not isinstance(server.com_manager.inner, TCPCommManager):
+        raise AssertionError(f"phase 14: server transport {type(server.com_manager.inner)}")
+    steps = sum(c.trainer.trained_samples for c in clients) // cfg.batch_size
+    print(f"phase 14 (a): set-up {time.perf_counter() - t0:.1f} s (data {runner.dataset.train_num}"
+          f"/{runner.dataset.test_num}, {steps} local steps a round over {SILOS} silos, batch "
+          f"{cfg.batch_size}, {cfg.compute_dtype}; TCP ports {server.com_manager.port_map}, "
+          f"chunks of {SLICE17_CHUNK} bytes, chaos {SLICE17_CHAOS}, straggler timer "
+          f"{SLICE17_STRAGGLER_S} s)")
+    all_mods = mods + (nz,)
+    probe = _RoundProbe(server.logger, lambda: _all_counts(all_mods))
+    server.logger = probe
+    faults, deduped = _tap_chaos(clients, server)
+    agg = server.aggregator
+    tap = _FoldTap(agg)
+    _reset_counts(all_mods)
+    history = runner.run()
+    torch.cuda.synchronize()
+    counts = _all_counts(all_mods)
+    prev = {k: 0 for k in counts}
+    samples = sum(c.trainer.trained_samples for c in clients)
+    for (metrics, cum, mem), folded in zip(probe.rows, tap.rounds):
+        delta = {k: cum[k] - prev[k] for k in cum if cum[k] - prev[k]}
+        prev = cum
+        print(f"phase 14 (a) round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"{samples / metrics['round_time_s']:.0f} trained samples/s, silos folded "
+              f"{folded}, fold {1e3 * metrics['fold_time_s']:.1f} ms, finalize (divide + clip "
+              f"+ noise) {1e3 * metrics['finalize_time_s']:.1f} ms, uploads "
+              f"{metrics['upload_bytes']} bytes, test_acc {metrics['test_acc']:.4f}, "
+              f"{_mem(mem)}, launches {delta}")
+        if delta.get(nz.NOISE.name) != 1:
+            raise AssertionError(f"phase 14 round {metrics['round']}: noise launches "
+                                 f"{delta.get(nz.NOISE.name)}, expected 1")
+    uploads = SLICE17_ROUNDS * SILOS
+    up = md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER
+    lost = sorted((r, rank, f) for f, rank, t, r, _ in faults
+                  if t == up and f in ("drop", "reorder"))
+    want_rounds = [sorted(set(range(1, SILOS + 1)) - {k for r, k, _ in lost if r == i})
+                   for i in range(SLICE17_ROUNDS)]
+    folded = sum(len(r) for r in tap.rounds)
+    print(f"phase 14 (a): uploads lost to chaos inside their round (round, silo, fault): {lost}; "
+          f"silos folded by round {tap.rounds}")
+    if not lost or tap.rounds != want_rounds:
+        raise AssertionError(f"phase 14 (a): folded {tap.rounds}, want {want_rounds} (uploads "
+                             f"lost inside a round: {lost})")
+    want = {k.name: None for k in mods[0].KERNELS}
+    bad = [k for k in want if counts[k] == 0]
+    q, dq = counts[mods[1].QUANTIZE.name], counts[mods[1].DEQUANTIZE.name]
+    if bad or q < QSGD8_LEAVES * uploads or q % QSGD8_LEAVES:
+        raise AssertionError(f"phase 14: fused kernels not launched {bad} or quantize {q}")
+    if dq != QSGD8_LEAVES * folded or counts[nz.NOISE.name] != SLICE17_ROUNDS:
+        raise AssertionError(f"phase 14: dequantize {dq} (want {QSGD8_LEAVES * folded}), "
+                             f"noise {counts[nz.NOISE.name]} (want {SLICE17_ROUNDS})")
+    if not agg.stream_mode or agg.peak_buffered_updates > 2 or len(history) != SLICE17_ROUNDS:
+        raise AssertionError(f"phase 14: stream {agg.stream_mode}, peak buffered "
+                             f"{agg.peak_buffered_updates}, rounds {len(history)}")
+    for metrics in history:
+        for key in ("test_loss", "test_acc"):
+            if not math.isfinite(metrics[key]):
+                raise AssertionError(f"phase 14 round {metrics['round']}: {key} {metrics[key]}")
+    if not all(bool(torch.isfinite(t).all()) for t in pt.tree_leaves(agg.global_vars)):
+        raise AssertionError("phase 14: non-finite global")
+    if not history[-1]["test_loss"] < history[0]["test_loss"]:
+        raise AssertionError(f"phase 14: the test loss did not fall: "
+                             f"{[m['test_loss'] for m in history]}")
+    # the last round against the plain fold of what the server took (these
+    # noise launches come after the path's counts were read)
+    got = weights.flatten_reference(agg.global_vars)[0]
+    old = weights.flatten_reference(tap.last["old"])[0]
+    err = float((got - tap.refold()).abs().max())
+    step = float((got - old).norm())
+    without = {c: float((got - tap.refold(leave_out=c)).abs().max())
+               for c, *_ in tap.last["folds"]}
+    print(f"phase 14 (a): round {tap.last['round']}'s global against the plain refold of its "
+          f"{len(tap.last['folds'])} uploads: max abs {err:.3g} (limit {REFOLD_ATOL:g}); the "
+          f"round moved the global by an L2 of {step:.4f} (clip {DP['clipping_norm']} plus the "
+          f"noise); leaving one silo's upload out of the refold: max abs "
+          + ", ".join(f"silo {c} {v:.3g}" for c, v in sorted(without.items())))
+    if not (err <= REFOLD_ATOL and min(without.values()) > 10 * REFOLD_ATOL):
+        raise AssertionError(f"phase 14 (a): the global is {err:.3g} from the plain refold "
+                             f"(limit {REFOLD_ATOL:g}); without one upload {without}")
+    dup_keys = [k for f, _, t, _, k in faults if f == "duplicate" and t == up]
+    taken = {k for dq_ in server._folded_keys.values() for k in dq_}
+    must = {k for k in dup_keys if k in taken and _upload_key_round(k) < SLICE17_ROUNDS - 1}
+    may = {k for k in dup_keys if k in taken}
+    chaos = {"server": server.com_manager.injected,
+             **{f"silo {c.rank}": c.com_manager.injected for c in clients}}
+    frames = server.com_manager.chunk_frames
+    print(f"phase 14 (b): chaos injected {chaos}; upload duplicates {sorted(dup_keys)}, the "
+          f"server deduped {sorted(deduped)} ({server.deduped_uploads}), stale "
+          f"{server.rejected_stale}; chunk frames received by the server {frames} "
+          f"({server.com_manager.dropped or 'none'} dropped); journal snapshots "
+          f"{server.journal.snapshots}")
+    if not (must <= set(deduped) <= may and len(deduped) == len(set(deduped))
+            == server.deduped_uploads and must):
+        raise AssertionError(f"phase 14 (b): deduped {sorted(deduped)}, must {sorted(must)}, "
+                             f"may {sorted(may)}")
+    if frames < folded * 2:
+        raise AssertionError(f"phase 14: chunk frames {frames} for {folded} uploads")
+    return counts, runner.dataset, runner.model
+
+
+def phase_slice17_stream_cdp(dataset, model):
+    """(c): two raw uploads of weight 64 (the round's global plus seeded
+    normal noise), folded on the card on the streaming path and buffered
+    on the exact path, both with central DP: the same global, bitwise."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo import build_aggregator
+
+    out = {}
+    for stream in (True, False):
+        cfg = _slice17_cfg("", "c", streaming_aggregation=stream)
+        agg = build_aggregator(cfg, dataset, model, _card())
+        if agg.stream_mode != stream:
+            raise AssertionError(f"phase 14 (c): stream_mode {agg.stream_mode}")
+        base = agg.host_global_flax()
+        for cid in (1, 2):
+            rs = np.random.RandomState(cid)
+            params = pt.tree_map(lambda x: np.asarray(x, np.float32)
+                                 + rs.randn(*np.shape(x)).astype(np.float32), base)
+            if stream:
+                m = Message(3, cid, 0)
+                m.add_params("model_params", params)
+                if not agg.ingest_streaming(cid, Message.decode(m.encode()), 64.0, False):
+                    raise AssertionError("phase 14 (c): the fold refused a raw upload")
+            else:
+                agg.add_local_trained_result(cid, params, 64.0)
+        out[stream] = weights.to_numpy(agg.aggregate(0))
+    a, b = pt.tree_leaves(out[True]), pt.tree_leaves(out[False])
+    same = all(np.array_equal(x, y) for x, y in zip(a, b))
+    print(f"phase 14 (c): streaming CDP global bitwise the buffer-all one: {same} "
+          f"({sum(x.size for x in a)} elements)")
+    if not same:
+        raise AssertionError("phase 14 (c): streaming and buffer-all CDP globals differ")
+
+
+class _BusyWindow:
+    """A server logger that profiles one whole round: the profiler starts at
+    round 0's log (before round 1's broadcast) and stops at round 1's log
+    (after its evaluation), both on the server's thread; ``busy`` and
+    ``wall`` are that round's device busy and wall seconds."""
+
+    def __init__(self, inner):
+        self.inner, self.prof, self.t0 = inner, None, 0.0
+        self.busy = self.wall = None
+
+    def log(self, metrics, step=None):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from fedml_tpu_torch.obs.profile_round import busy_us
+
+        if metrics["round"] == 0:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif metrics["round"] == 1:
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+            self.busy = busy_us([e for e in self.prof.events()
+                                 if e.device_type.name == "CUDA"]) / 1e6
+        self.inner.log(metrics, step)
+
+
+def phase_slice17_crash(root, dataset, model):
+    """(d): the uninterrupted run (round 1 profiled for the device busy
+    share) against one whose server is hard-killed at round 1's first
+    dispatch and rebuilt over its journal, and whose silo 2 is killed
+    before the rebuilt server's round-1 dispatch reaches it and rebuilt
+    over its journal; buffer-all with central DP, TCP, chunk frames,
+    ``SLICE17_CRASH_ROUNDS`` rounds, cuDNN deterministic."""
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo.crash_drill import run_with_crashes
+    from fedml_tpu_torch.obs.metrics import MetricsLogger
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    window = _BusyWindow(MetricsLogger(None))
+    try:
+        runs, walls = {}, {}
+        for tag, kw in (("plain", dict(logger=window)),
+                        ("crash", dict(kill_server_before_round=1, kill_client=(2, 1)))):
+            cfg = _slice17_cfg(root, tag)
+            cfg.comm_round = SLICE17_CRASH_ROUNDS
+            t0 = time.perf_counter()
+            runs[tag] = run_with_crashes(cfg, dataset, model, _card(), backend="TCP",
+                                         timeout=300.0, **kw)
+            torch.cuda.synchronize()
+            walls[tag] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    plain, crash = runs["plain"], runs["crash"]
+    print(f"phase 14 (d): uninterrupted {walls['plain']:.1f} s with its set-up, rounds "
+          + ", ".join(f"{h['round_time_s']:.3f}" for h in plain["history"])
+          + f" s; round 1 profiled: {window.wall:.3f} s, device busy {window.busy:.3f} s = "
+          f"{100 * window.busy / window.wall:.1f}%; with the crashes {walls['crash']:.1f} s: "
+          f"server kills {crash['server_kills']}, client kills {crash['client_kills']}, "
+          f"recovered step {crash['server'].recovered_step}, session epoch "
+          f"{crash['server'].session_epoch}, silos resumed from their journal "
+          f"{[c.resumed_from_journal for c in crash['clients']]}, rounds "
+          f"{[h['round'] for h in crash['history']]}")
+    if (crash["server_kills"], crash["client_kills"]) != (1, 1) or \
+            [h["round"] for h in crash["history"]] != list(range(SLICE17_CRASH_ROUNDS)):
+        raise AssertionError(f"phase 14 (d): the drill did not run as set: {crash}")
+    a = pt.tree_leaves(plain["server"].aggregator.global_vars)
+    b = pt.tree_leaves(crash["server"].aggregator.global_vars)
+    diff = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"phase 14 (d): final global after the crashes bitwise the uninterrupted one: {same} "
+          f"(largest difference {diff:.3g})")
+    if not same:
+        raise AssertionError(f"phase 14 (d): the resumed global differs by up to {diff:.3g}")
+    return window.busy / window.wall
+
+
+def phase_slice17_attacks(fb):
+    """(e): the inversion on the LR model at 60 features on the card beats
+    its random start by the reference's 0.6 factor; through a fused
+    ResNet-20 at batch 1 the second-order pass raises; Soteria's mask on
+    the card prunes exactly its percentile."""
+    import numpy as np
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.models import model_hub
+    from fedml_tpu_torch.trust.attack.dlg import invert_gradient_attack
+    from fedml_tpu_torch.trust.defense import soteria_mask
+
+    dev = _card()
+
+    def grads(model, variables, create_graph=True):
+        def grad_fn(x, y_onehot):
+            p = pt.tree_map(lambda t: t.detach().requires_grad_(True), variables["params"])
+            logits, _ = model.apply({**variables, "params": p}, x, train=False)
+            loss = -torch.mean(torch.sum(torch.log_softmax(logits, -1) * y_onehot, dim=-1))
+            return list(torch.autograd.grad(loss, pt.tree_leaves(p), create_graph=create_graph))
+
+        return grad_fn
+
+    lr_cfg = fedml_tpu_torch.init(Config(model="lr", dataset="synthetic",
+                                         compute_dtype="float32"))
+    lr = model_hub.create(lr_cfg, 10, input_shape=(60,))
+    variables = lr.init(rng.generator(rng.root_key(1)), dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x_true = torch.randn((2, 60), generator=g, device=dev)
+    y = torch.tensor([3, 7], device=dev)
+    onehot = torch.nn.functional.one_hot(y, 10).float()
+    victim = [t.detach() for t in grads(lr, variables)(x_true, onehot)]
+    x0 = torch.randn((2, 60), generator=g, device=dev) * 0.1
+    t0 = time.perf_counter()
+    x_hat, final = invert_gradient_attack(grads(lr, variables), victim, (2, 60), y, x0=x0,
+                                          steps=DLG_STEPS, lr=DLG_LR)
+    torch.cuda.synchronize()
+    err = float((x_hat - x_true).abs().mean())
+    base = float((x0 - x_true).abs().mean())
+    print(f"phase 14 (e): inversion on the LR ({DLG_STEPS} steps, {time.perf_counter() - t0:.2f} "
+          f"s): mean error {err:.4f} against the start's {base:.4f} (ratio {err / base:.3f}, "
+          f"final loss {float(final):.4g})")
+    if not (math.isfinite(float(final)) and err < 0.6 * base):
+        raise AssertionError(f"phase 14 (e): the inversion did not beat its start ({err}, {base})")
+
+    rcfg = fedml_tpu_torch.init(Config(model="resnet20", dataset="cifar10",
+                                       compute_dtype="float32", extra={"fused_blocks": True}))
+    resnet = model_hub.create(rcfg, 10)
+    rvars = resnet.init(rng.generator(rng.root_key(2)), dev)
+    x1 = torch.randn((1, 32, 32, 3), generator=g, device=dev)
+    y1 = torch.nn.functional.one_hot(torch.tensor([3], device=dev), 10).float()
+    before = fb.launch_counts()
+    rvictim = grads(resnet, rvars, create_graph=False)(x1, y1)
+    launched = {k: v - before[k] for k, v in fb.launch_counts().items() if v != before[k]}
+    try:
+        invert_gradient_attack(grads(resnet, rvars), rvictim, (1, 32, 32, 3),
+                               torch.tensor([3], device=dev), steps=1)
+    except RuntimeError as e:
+        if str(e) != fb.SECOND_ORDER_REFUSAL:
+            raise
+        print(f"phase 14 (e): fused ResNet-20 at batch 1: the victim's gradient through the "
+              f"kernels ({launched}), the inversion's second order refused: {str(e)[:80]}...")
+    else:
+        raise AssertionError("phase 14 (e): second order through the fused blocks did not raise")
+
+    scfg = fedml_tpu_torch.init(Config(model="lr", dataset="synthetic", compute_dtype="float32"))
+    wide = model_hub.create(scfg, 100, input_shape=(60,))
+    svars = wide.init(rng.generator(rng.root_key(3)), dev)
+    mask, sens = soteria_mask(wide, svars, x_true[0], SOTERIA_PERCENTILE)
+    s = sens.detach().cpu().numpy()
+    pruned = int((mask == 0).sum())
+    want = int((s < np.percentile(s, SOTERIA_PERCENTILE)).sum())
+    print(f"phase 14 (e): Soteria on the card over {s.size} features at its "
+          f"{SOTERIA_PERCENTILE:g}th percentile: {pruned} pruned (numpy's percentile: {want})")
+    if pruned != want or pruned == 0:
+        raise AssertionError(f"phase 14 (e): Soteria pruned {pruned}, not {want}")
+
+
+def phase_slice17(mods, nz):
+    """Phase 14 (module docstring).  Returns each kernel's launches on (a)."""
+    import tempfile
+
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="fedml_slice17_") as root:
+        t0 = time.perf_counter()
+        counts, dataset, model = phase_slice17_main(mods, nz, root)
+        walls["a-b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_slice17_stream_cdp(dataset, model)
+        walls["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        busy = phase_slice17_crash(root, dataset, model)
+        walls["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_slice17_attacks(mods[0])
+    walls["e"] = time.perf_counter() - t0
+    print(f"slice 17: phase 14 {sum(walls.values()):.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items())
+          + f"); device busy {100 * busy:.1f}% of (d)'s profiled round; launches on (a): "
+          f"{counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4396,6 +4933,7 @@ def main(argv=None) -> int:
     slice15_counts, ta_length = timed("12", phase_slice15, mods, nz, flagship, fedopt_data)
     del flagship, fedopt_data
     slice16_counts = timed("13", phase_slice16, mods + (nz,))
+    slice17_counts = timed("14", phase_slice17, mods, nz)
     zoo_counts, femnist_rows = timed("11", phase_zoo, mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
@@ -4421,6 +4959,7 @@ def main(argv=None) -> int:
          "zoo_launches": zoo_counts.get(k.name, 0),
          "slice15_launches": slice15_counts.get(k.name, 0),
          "slice16_launches": slice16_counts.get(k.name, 0),
+         "slice17_launches": slice17_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],

@@ -2,9 +2,13 @@
 ``fedml_tpu/comm/comm_manager.py``).
 
 Server and client managers subclass this, register one handler per message
-type and run a blocking receive loop.  Ported backend: ``INPROC``.  Every
-other backend, chaos injection (``extra.chaos_*``) and transport chunking
-(``extra.comm_chunk_bytes``) raise ``NotImplementedError``.
+type and run a blocking receive loop.  Ported backends: ``INPROC`` and
+``TCP`` (both honour ``extra.comm_chunk_bytes``); any ``extra.chaos_*``
+fault wraps the backend in the seeded fault scheduler (``comm/chaos.py``),
+and ``extra.comm_chunk_idle_sweep_s`` reaches the receive loop before it
+starts.  ``GRPC`` and ``MQTT_S3`` need packages (``grpcio``, a broker) this
+port does not depend on, and ``WEB3`` / ``THETASTORE`` are not ported:
+they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,22 +21,19 @@ from ..core.flags import cfg_extra
 from .base import BaseCommunicationManager, Observer
 from .message import Message
 
-_CHAOS_FLAGS = ("chaos_seed", "chaos_drop_prob", "chaos_delay_prob", "chaos_duplicate_prob",
-                "chaos_reorder_prob", "chaos_corrupt_prob", "chaos_reset_prob",
-                "chaos_partition")
+PORTED_BACKENDS = (C.COMM_BACKEND_INPROC, C.COMM_BACKEND_TCP)
+_KNOWN_BACKENDS = (C.COMM_BACKEND_INPROC, C.COMM_BACKEND_GRPC, C.COMM_BACKEND_MQTT_S3,
+                   C.COMM_BACKEND_TCP, C.COMM_BACKEND_WEB3, C.COMM_BACKEND_THETA)
 
 
-def refuse_unported_transport(cfg, backend: str) -> None:
-    """Raise for a transport feature this slice does not serve."""
-    if backend != C.COMM_BACKEND_INPROC:
+def refuse_unported_transport(backend: str) -> None:
+    """Raise for a backend this port does not serve."""
+    if backend in PORTED_BACKENDS:
+        return
+    if backend in _KNOWN_BACKENDS:
         raise NotImplementedError(f"comm backend {backend!r} is not ported yet "
-                                  f"(ported: {C.COMM_BACKEND_INPROC!r})")
-    for flag in _CHAOS_FLAGS:
-        if cfg_extra(cfg, flag):
-            raise NotImplementedError(f"extra.{flag} (chaos injection) is not ported yet")
-    if cfg_extra(cfg, "comm_chunk_bytes"):
-        raise NotImplementedError("extra.comm_chunk_bytes (transport chunk frames) is not "
-                                  "ported yet")
+                                  f"(ported: {PORTED_BACKENDS})")
+    raise ValueError(f"unknown comm backend {backend!r}; known: {list(_KNOWN_BACKENDS)}")
 
 
 class FedMLCommManager(Observer):
@@ -41,9 +42,13 @@ class FedMLCommManager(Observer):
         self.rank = rank
         self.size = size
         self.backend = backend or getattr(cfg, "backend", C.COMM_BACKEND_INPROC)
-        refuse_unported_transport(cfg, self.backend)
+        refuse_unported_transport(self.backend)
         self.message_handler_dict: dict[int, Callable[[Message], None]] = {}
         self.com_manager: BaseCommunicationManager = self._init_manager()
+        from .chaos import wrap_with_chaos
+
+        self.com_manager = wrap_with_chaos(self.com_manager, cfg, rank)
+        self.com_manager.configure_chunk_sweep(float(cfg_extra(cfg, "comm_chunk_idle_sweep_s")))
         self.com_manager.add_observer(self)
 
     def register_message_receive_handler(self, msg_type: int, handler: Callable) -> None:
@@ -78,6 +83,14 @@ class FedMLCommManager(Observer):
         raise NotImplementedError
 
     def _init_manager(self) -> BaseCommunicationManager:
+        chunk = int(cfg_extra(self.cfg, "comm_chunk_bytes") or 0)
+        if self.backend == C.COMM_BACKEND_TCP:
+            from .tcp_backend import TCPCommManager
+
+            base_port = int(cfg_extra(self.cfg, "tcp_base_port"))
+            return TCPCommManager("0.0.0.0", base_port + self.rank if base_port else 0, self.rank,
+                                  ip_config=cfg_extra(self.cfg, "tcp_ip_config", {}),
+                                  base_port=base_port, chunk_bytes=chunk)
         from .inproc import InProcCommManager
 
-        return InProcCommManager(getattr(self.cfg, "run_id", "0"), self.rank)
+        return InProcCommManager(getattr(self.cfg, "run_id", "0"), self.rank, chunk_bytes=chunk)

@@ -10,11 +10,19 @@ a streaming consumer reads the tensor section leaf by leaf
 (:meth:`Message.tensor_frame`, decoded; :meth:`Message.tensor_segments`,
 the raw segments) and control keys (:meth:`Message.get_control`) without
 restoring it.
+
+A message larger than ``extra.comm_chunk_bytes`` crosses as transport chunk
+frames (``wire.encode_chunk_frames``); :class:`ChunkAssembler` reassembles
+them per ``(sender, stream)``, with a reorder buffer for out-of-order frames
+and an idle sweep; :class:`MessageStreamDecoder` joins a stream's payloads
+and decodes them as one whole frame, so the server's device fold takes a
+reassembled upload exactly as it takes a whole one.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from typing import Any
 
 import numpy as np
@@ -111,6 +119,116 @@ class Message:
                 if k not in (MSG_ARG_KEY_TYPE, MSG_ARG_KEY_SENDER, MSG_ARG_KEY_RECEIVER)]
         return (f"Message(type={self.get_type()}, {self.get_sender_id()}->"
                 f"{self.get_receiver_id()}, params={keys})")
+
+
+class MessageStreamDecoder:
+    """The payloads of one chunked message, in wire order.  Unlike the
+    reference's, it decodes nothing while frames land: :meth:`message` joins
+    them and decodes the whole frame (:meth:`Message.decode`, each leaf's
+    segments walked once), so a reassembled upload is the same lazy message
+    as one that crossed whole.  A corrupt control or tensor header is thus
+    found at the stream's last frame, where the reference's incremental
+    decoder finds it at the frame that completes that section; the drop
+    reason is the reference's."""
+
+    def __init__(self):
+        self._parts: list = []
+
+    def feed(self, chunk) -> None:
+        self._parts.append(bytes(chunk))
+
+    def message(self) -> tuple:
+        """``(message, None)``, or ``(None, "chunk_incomplete")`` where a
+        length field asks for bytes that never came, ``(None,
+        "chunk_decode")`` where the bytes came and do not parse."""
+        data = b"".join(self._parts)
+        try:
+            msg = Message.decode(data)
+            for _ in msg.tensor_segments()[1]:
+                pass
+            return msg, None
+        except (ValueError, KeyError):
+            return None, "chunk_incomplete" if _cut_short(data) else "chunk_decode"
+
+
+def _cut_short(data: bytes) -> bool:
+    """Whether the reference's incremental decoder would still be waiting on
+    ``data`` (a declared length runs past its end) rather than failing: each
+    section is parsed in wire order, as that decoder parses it."""
+    if len(data) < 4:
+        return True
+    clen = int.from_bytes(data[:4], "little")
+    if len(data) < 4 + clen:
+        return True
+    try:
+        json.loads(data[4:4 + clen].decode("utf-8"))
+    except ValueError:
+        return False
+    blob = data[4 + clen:]
+    hlen = int.from_bytes(blob[:4], "little")
+    if len(blob) < 4 or len(blob) < 4 + hlen:
+        return True
+    try:
+        header = json.loads(blob[4:4 + hlen].decode("utf-8"))
+        if header.get("version") not in (wire.WIRE_VERSION, wire.WIRE_VERSION_V2):
+            return False
+        need = sum(int(spec["nbytes"]) for spec in header["leaves"])
+    except (ValueError, KeyError):
+        return False
+    return len(blob) < 4 + hlen + need
+
+
+class ChunkAssembler:
+    """Per-peer reassembly of transport chunk frames (reference
+    ``ChunkAssembler``).  Streams are keyed ``(sender, stream_id)``, so
+    frames of concurrent uploads interleave freely; within a stream an
+    out-of-order frame waits in a reorder buffer and in-order frames feed
+    the stream's :class:`MessageStreamDecoder` at once.  A stream idle past
+    ``stream_timeout_s`` is evicted by :meth:`sweep`.  One assembler belongs
+    to one receive loop, which alone calls :meth:`feed` and :meth:`sweep`."""
+
+    def __init__(self, stream_timeout_s: float = 120.0):
+        self.stream_timeout_s = float(stream_timeout_s)
+        self._streams: dict[tuple, dict] = {}
+
+    def pending_streams(self) -> int:
+        return len(self._streams)
+
+    def feed(self, data) -> tuple:
+        """One chunk frame in; ``(message or None, drop reason or None,
+        sender or None)`` out."""
+        try:
+            sub, payload = wire.parse_chunk_frame(data)
+        except (ValueError, KeyError, TypeError):
+            return None, "chunk_corrupt", None
+        sender = int(sub["sender"])
+        key = (sender, str(sub["stream"]))
+        now = time.monotonic()
+        st = self._streams.get(key)
+        if st is None:
+            st = self._streams[key] = {"dec": MessageStreamDecoder(), "next": 0, "pending": {},
+                                       "last": now}
+        st["last"] = now
+        st["pending"][int(sub["seq"])] = bytes(payload)
+        while st["next"] in st["pending"]:
+            st["dec"].feed(st["pending"].pop(st["next"]))
+            st["next"] += 1
+        if st["next"] < int(sub["chunks"]) or st["pending"]:
+            return None, None, sender
+        # every declared frame is in: the stream ends here, whole or not
+        del self._streams[key]
+        msg, reason = st["dec"].message()
+        return msg, reason, sender
+
+    def sweep(self) -> list:
+        """Evict streams idle past the timeout; ``[(sender, stream_id)]``."""
+        now = time.monotonic()
+        evicted = []
+        for key, st in list(self._streams.items()):
+            if now - st["last"] > self.stream_timeout_s:
+                del self._streams[key]
+                evicted.append(key)
+        return evicted
 
 
 def _is_arraylike(v) -> bool:

@@ -26,7 +26,12 @@ keep their v1 bytes.  Decoding is numpy alone (no torch), as in the
 reference: it is the polyglot decoder and the tests' oracle.
 :func:`iter_leaf_segments` hands out a leaf's raw segments without decoding
 them, for a consumer that decodes elsewhere (the server's device fold).
-Transport chunk frames (``extra.comm_chunk_bytes``) are not ported.
+
+**Transport chunk frames** (``extra.comm_chunk_bytes``): a message larger
+than the bound ships as bounded frames of ``CHUNK_MAGIC + <4-byte LE
+subheader length> + subheader JSON + chunk bytes`` (the reference's bytes),
+so concurrent uploads interleave at the socket level;
+``message.ChunkAssembler`` takes them back.
 """
 
 from __future__ import annotations
@@ -42,6 +47,11 @@ WIRE_VERSION_V2 = 2
 
 #: bound on the buffer views :func:`encode_pytree_chunks` yields
 CHUNK_BYTES_DEFAULT = 1 << 20
+
+#: transport chunk-frame magic: a legacy payload starts with a 4-byte
+#: control length, which these bytes would make ~1.2 GB, so the two never
+#: collide
+CHUNK_MAGIC = b"FMLCHNK1"
 
 #: elements per qsgd8 block (the reference's (8, 128) f32 tile)
 QSGD8_BLOCK = 1024
@@ -285,6 +295,49 @@ def decode_pytree(data, header: Optional[dict] = None, offset: Optional[int] = N
         header, offset = decode_header(mv)
     leaves = [arr for _, _, arr in iter_leaf_arrays(mv, header=header, offset=offset)]
     return _restore_skeleton(header["treedef"], leaves)
+
+
+# -- transport chunk frames ---------------------------------------------------
+
+def is_chunk_frame(data) -> bool:
+    """True when ``data`` is a transport chunk frame (not a whole message)."""
+    mv = _as_bytes_view(data)
+    return len(mv) >= len(CHUNK_MAGIC) and bytes(mv[:len(CHUNK_MAGIC)]) == CHUNK_MAGIC
+
+
+def encode_chunk_frames(payload, *, stream_id: str, sender: int,
+                        chunk_bytes: int) -> Iterator[bytes]:
+    """One encoded message as bounded, self-describing frames, each with
+    ``{"stream", "sender", "seq", "chunks", "total"}``, so a receiver
+    reassembles interleaved streams and tolerates out-of-order frames."""
+    mv = _as_bytes_view(payload)
+    chunk_bytes = max(1, int(chunk_bytes))
+    total = len(mv)
+    n_chunks = max(1, -(-total // chunk_bytes))
+    for seq in range(n_chunks):
+        sub = json.dumps({"stream": str(stream_id), "sender": int(sender), "seq": seq,
+                          "chunks": n_chunks, "total": total},
+                         separators=(",", ":")).encode("utf-8")
+        chunk = mv[seq * chunk_bytes:(seq + 1) * chunk_bytes]
+        yield CHUNK_MAGIC + struct.pack("<I", len(sub)) + sub + bytes(chunk)
+
+
+def parse_chunk_frame(data) -> tuple:
+    """One chunk frame -> ``(subheader dict, chunk payload view)``."""
+    mv = _as_bytes_view(data)
+    if not is_chunk_frame(mv):
+        raise ValueError("not a chunk frame (bad magic)")
+    off = len(CHUNK_MAGIC)
+    if len(mv) < off + 4:
+        raise ValueError("chunk frame truncated before subheader length")
+    (slen,) = struct.unpack_from("<I", mv, off)
+    if len(mv) < off + 4 + slen:
+        raise ValueError("chunk frame subheader truncated")
+    sub = json.loads(bytes(mv[off + 4:off + 4 + slen]).decode("utf-8"))
+    for field in ("stream", "sender", "seq", "chunks", "total"):
+        if field not in sub:
+            raise ValueError(f"chunk subheader missing {field!r}")
+    return sub, mv[off + 4 + slen:]
 
 
 class PytreeStreamDecoder:

@@ -143,7 +143,10 @@ class RoundCheckpointMixin:
 
 
 def tree_to_device(tree, device):
-    """A restored tree's tensors on ``device`` (other leaves as they are)."""
+    """A restored tree's tensors on ``device`` (other leaves as they are;
+    dicts, lists and tuples walked)."""
     if isinstance(tree, dict):
         return {k: tree_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_device(v, device) for v in tree)
     return tree.to(device) if torch.is_tensor(tree) else tree

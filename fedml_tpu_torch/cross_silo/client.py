@@ -23,9 +23,19 @@ compute dtype, as the simulator does).  Its local SGD is keyed
 the per-epoch permutations can come from a ``perms(round_idx, client_idx,
 epochs, cap)`` hook instead, so tests hand in the reference's.
 
-Refused with ``NotImplementedError`` when flagged: the client journal,
-remote observability, the flight recorder, the AOT store and silo DP
-(``enable_dp`` with ``dp_solution_type`` ``ldp`` on a plain client).
+Recovery (``extra.client_journal_dir``, ``cross_silo/client_journal.py``):
+before each upload the client journals its state (residuals, round, epoch,
+attempt counts) and then sends under the idempotence key
+``<rank>:<round>:<epoch>:<attempt>``; a client built over an existing
+journal resumes from it.  A server dispatch's session epoch is echoed in
+the reply, and an epoch change counts a server restart.  An upload whose
+send fails is retried on a capped exponential backoff with deterministic
+jitter (``RECONNECT_TRIES``) before it is abandoned to the server's
+straggler handling.  :meth:`ClientMasterManager.hard_kill` simulates a
+crash.
+
+Refused with ``NotImplementedError`` when flagged: remote observability,
+the flight recorder, the AOT store, and the client journal under SecAgg.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from __future__ import annotations
 import logging
 import math
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -51,13 +62,18 @@ from . import message_define as md
 
 log = logging.getLogger("fedml_tpu_torch.cross_silo.client")
 
-_UNPORTED_CLIENT_FLAGS = ("client_journal_dir", "enable_remote_obs", "flight_recorder",
-                          "aot_programs")
+_UNPORTED_CLIENT_FLAGS = ("enable_remote_obs", "flight_recorder", "aot_programs")
 
 
 #: the fold of the client key that seeds the upload codec's draws (a stream
 #: apart from the training keys'; the reference's constant)
 UPLOAD_NOISE_TAG = 0x5157
+
+#: an upload whose send fails is retried this often, on a capped exponential
+#: backoff from RECONNECT_BASE_S (the reference's values)
+RECONNECT_TRIES = 5
+RECONNECT_BASE_S = 0.05
+RECONNECT_CAP_S = 2.0
 
 
 def refuse_unported_client(cfg) -> None:
@@ -67,6 +83,9 @@ def refuse_unported_client(cfg) -> None:
     for flag in _UNPORTED_CLIENT_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo client yet")
+    if cfg_extra(cfg, "client_journal_dir") and getattr(cfg, "enable_secagg", False):
+        raise NotImplementedError("extra.client_journal_dir is ported for the plain "
+                                  "synchronous protocol only, not yet under SecAgg")
 
 
 def _leaf_delta(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -137,6 +156,20 @@ class ClientMasterManager(FedMLCommManager):
         self.upload_noise: Optional[Callable] = None
         #: ``compress_pytree``'s stats of the last compressed upload
         self.last_upload_stats: Optional[dict] = None
+        # the server's session epoch of the last dispatch, and the restarts
+        # its changes revealed
+        self._last_epoch: Optional[int] = None
+        self.server_restarts_seen = 0
+        from .client_journal import client_journal_from_config
+
+        self.client_journal = client_journal_from_config(cfg, rank)
+        self.resumed_from_journal = False
+        #: "<round>:<epoch>" -> uploads sent for it (bounded, journaled)
+        self._upload_attempts: dict[str, int] = {}
+        #: crash-simulation latch: a killed client sends and journals nothing
+        self._killed = False
+        if self.client_journal is not None:
+            self._client_journal_recover()
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS,
@@ -151,6 +184,8 @@ class ClientMasterManager(FedMLCommManager):
     def receive_message(self, msg_type: int, msg: Message) -> None:
         try:
             super().receive_message(msg_type, msg)
+        except OSError:
+            raise  # a transport fault: the receive loop contains it
         except Exception as e:
             if self.on_error is not None:
                 self.on_error(f"client {self.rank}: handler of message type {msg_type} "
@@ -175,7 +210,18 @@ class ClientMasterManager(FedMLCommManager):
         return weights.to_torch(weights.flax_to_torch(params), self.device)
 
     def _train_and_send(self, msg: Message) -> None:
+        if self._killed:
+            return
         round_idx = int(msg.get(md.MSG_ARG_KEY_ROUND_INDEX))
+        # control-only read (absent without the server's journal), echoed
+        # back so the server's recovery fence can place the upload
+        epoch = msg.get_control(md.MSG_ARG_KEY_SESSION_EPOCH)
+        if epoch is not None:
+            if self._last_epoch is not None and int(epoch) != self._last_epoch:
+                self.server_restarts_seen += 1
+                log.info("client %d: server session epoch %s -> %s (server restarted; "
+                         "resuming)", self.rank, self._last_epoch, epoch)
+            self._last_epoch = int(epoch)
         params = msg.get(md.MSG_ARG_KEY_MODEL_PARAMS)
         client_idx = int(msg.get(md.MSG_ARG_KEY_CLIENT_INDEX, self.rank - 1))
         global_vars = self.to_device(params)
@@ -189,7 +235,103 @@ class ClientMasterManager(FedMLCommManager):
             reply.add_params(md.MSG_ARG_KEY_MODEL_IS_DELTA, True)
         reply.add_params(md.MSG_ARG_KEY_NUM_SAMPLES, n_samples)
         reply.add_params(md.MSG_ARG_KEY_ROUND_INDEX, round_idx)
-        self.send_message(reply)
+        if epoch is not None:
+            reply.add_params(md.MSG_ARG_KEY_SESSION_EPOCH, int(epoch))
+        if self.client_journal is not None:
+            # journal before the send: each distinct piece of work ships
+            # under its own key, every redelivery of it under the same
+            attempt = self._next_upload_attempt(round_idx, epoch)
+            self._client_journal_snapshot(round_idx)
+            reply.add_params(md.MSG_ARG_KEY_UPLOAD_KEY,
+                             f"{self.rank}:{round_idx}:{-1 if epoch is None else int(epoch)}:"
+                             f"{attempt}")
+        self._send_with_reconnect(reply, seed_extra=round_idx)
+
+    # -- crash-recovery journal -------------------------------------------------
+    def _next_upload_attempt(self, round_idx: int, epoch) -> int:
+        """The ordinal of this (round, epoch)'s upload; the oldest entries
+        go past ``MAX_ATTEMPT_ENTRIES``."""
+        from .client_journal import MAX_ATTEMPT_ENTRIES
+
+        k = f"{round_idx}:{-1 if epoch is None else int(epoch)}"
+        n = self._upload_attempts.get(k, 0)
+        self._upload_attempts[k] = n + 1
+        while len(self._upload_attempts) > MAX_ATTEMPT_ENTRIES:
+            self._upload_attempts.pop(next(iter(self._upload_attempts)))
+        return n
+
+    def _client_journal_snapshot(self, round_idx: int) -> None:
+        """Commit the state this upload depends on (the codec's residual
+        carry, round, epoch, attempt counts)."""
+        if self.client_journal is None or self._killed:
+            return
+        from .client_journal import pack_client_state
+
+        proto, arrays = pack_client_state(
+            rank=self.rank, round_idx=round_idx, session_epoch=self._last_epoch,
+            rounds_trained=self.rounds_trained, server_restarts_seen=self.server_restarts_seen,
+            upload_attempts=self._upload_attempts, residuals=self._comm_residuals)
+        try:
+            self.client_journal.snapshot_state(proto, arrays)
+        except OSError:
+            # durability lost (disk full): the client trains on, and would
+            # rejoin cold after a crash
+            log.warning("client %d: journal snapshot failed; continuing without durability",
+                        self.rank, exc_info=True)
+
+    def _client_journal_recover(self) -> None:
+        """Install the newest intact client snapshot: residuals (on the
+        device), epoch, attempt counts."""
+        from .client_journal import unpack_client_state
+
+        snap = self.client_journal.restore_state()
+        if snap is None:
+            return
+        state = unpack_client_state(snap)
+        res = state["residuals"]
+        self._comm_residuals = None if res is None else [
+            None if r is None else torch.from_numpy(np.array(r)).to(self.device) for r in res]
+        self._last_epoch = state["session_epoch"]
+        self.rounds_trained = state["rounds_trained"]
+        self.server_restarts_seen = state["server_restarts_seen"]
+        self._upload_attempts = state["upload_attempts"]
+        self.resumed_from_journal = True
+        log.info("client %d: resumed from journal step %d (round %s, epoch %s, %d rounds "
+                 "trained)", self.rank, snap["step"], state["round_idx"], state["session_epoch"],
+                 state["rounds_trained"])
+
+    def hard_kill(self) -> None:
+        """Crash simulation: stop the receive loop and go silent, with no
+        FINISH handshake and no journal write; a handler mid-train finishes
+        its step but sends and journals nothing."""
+        self._killed = True
+        self.com_manager.stop_receive_message()
+
+    def _send_with_reconnect(self, reply: Message, seed_extra: int = 0) -> None:
+        """Send an upload, retrying a failed send on a capped exponential
+        backoff with jitter seeded by the client and round; after
+        ``RECONNECT_TRIES`` the upload is abandoned to the server's
+        straggler handling."""
+        from ..comm.base import BACKOFF_PURPOSE_RECONNECT, backoff_delay
+
+        for attempt in range(RECONNECT_TRIES):
+            if self._killed:
+                return
+            try:
+                self.send_message(reply)
+                return
+            except OSError:
+                if attempt + 1 >= RECONNECT_TRIES:
+                    break
+                delay = backoff_delay(attempt, base=RECONNECT_BASE_S, cap=RECONNECT_CAP_S,
+                                      seed=self.rank * 1_000_003 + int(seed_extra),
+                                      purpose=BACKOFF_PURPOSE_RECONNECT)
+                log.warning("client %d: upload send failed (attempt %d/%d); reconnecting in "
+                            "%.3fs", self.rank, attempt + 1, RECONNECT_TRIES, delay,
+                            exc_info=True)
+                time.sleep(delay)
+        log.error("client %d: upload abandoned after %d reconnect attempts", self.rank,
+                  RECONNECT_TRIES)
 
     def upload_payload(self, new_vars: dict, global_vars: dict, round_idx: int) -> tuple:
         """``(payload, is_delta)`` of a model reply: without a codec the
@@ -212,6 +354,11 @@ class ClientMasterManager(FedMLCommManager):
         return payload, True
 
     def handle_message_finish(self, msg: Message) -> None:
-        self.send_message(Message(md.MSG_TYPE_C2S_FINISHED, self.rank, 0))
+        try:
+            self.send_message(Message(md.MSG_TYPE_C2S_FINISHED, self.rank, 0))
+        except OSError:
+            # the ack is bookkeeping; over sockets the server may already be
+            # gone
+            log.debug("client %d: FINISHED ack undeliverable", self.rank)
         self.done.set()
         self.finish()

@@ -30,14 +30,36 @@ round's model uploads): the reference records these in its metrics
 registry and trace spans, which the port has not ported yet; for the same
 reason a broadcast carries no trace-propagation header.  A handler that
 raises fails the run at once (``run_until_done`` raises), where the
-reference logs it and waits for its timeout.
+reference logs it and waits for its timeout; a transport error
+(``OSError``: a reset, a refused connection) is contained as the reference
+contains it.
 
-Refused with ``NotImplementedError`` when flagged: the recovery journal,
-the hierarchy, the async server, the flight recorder, SLOs, the timeline,
-OTLP, remote observability, model publication, health-aware selection,
-upload dedup keys, the AOT store, the sharded fold (it needs a device
-mesh), the metrics endpoint, and the trust pipeline (DP, attacks, defenses,
-contribution) on the plain server.
+The trust pipeline (``trust/pipeline.py``) runs as the reference runs it:
+on the buffer-all path its three hooks around the aggregate
+(``on_client_outputs``, ``on_aggregation`` with its override, then
+``on_after_aggregation``); a pipeline of central DP alone
+(``supports_streaming``) keeps the streaming fold and fires its finalize
+hook once on the folded aggregate, with the same round's draws, so the
+streaming CDP global is bitwise the buffer-all one.  Central DP's noise is
+one launch of the noise kernel a round on either path.  Attacks, defenses
+and LDP keep the buffer-all path.
+
+Recovery (``extra.server_journal_dir``, ``cross_silo/journal.py``): the
+plain server snapshots its protocol state at round boundaries (and every
+``server_journal_every_folds`` streaming folds), recovers the newest intact
+snapshot when it is built, and resumes under a bumped session epoch, which
+every dispatch carries: an upload stamped with an older epoch is rejected.
+Uploads keyed by a client journal are folded once per key (the last
+``DEDUP_KEYS_PER_CLIENT`` keys a client, journaled).  :meth:`hard_kill`
+simulates a crash.  The reference's health ledger is not ported: the
+journal's ``health`` entry is empty.
+
+Refused with ``NotImplementedError`` when flagged: the journal on a secure
+(SecAgg) server, the hierarchy, the async server, the flight recorder,
+SLOs, the timeline, OTLP, remote observability, model publication,
+health-aware selection, the AOT store, the sharded fold (it needs a device
+mesh), the metrics endpoint, and contribution assessment (the reference's
+cross-silo server computes none, so the flag would be a silent no-op).
 """
 
 from __future__ import annotations
@@ -46,6 +68,7 @@ import logging
 import math
 import threading
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -59,6 +82,7 @@ from ..comm.comm_manager import FedMLCommManager
 from ..comm.message import Message
 from ..core import pytree as pt
 from ..core import rng
+from ..core.checkpoint import tree_to_device
 from ..core.flags import cfg_extra
 from ..fl.local_sgd import make_eval_fn
 from ..obs.metrics import MetricsLogger
@@ -67,11 +91,16 @@ from . import message_define as md
 log = logging.getLogger("fedml_tpu_torch.cross_silo.server")
 
 _UNPORTED_SERVER_FLAGS = (
-    "server_journal_dir", "hier_fanout", "hier_topology", "hier_hop_codec",
+    "hier_fanout", "hier_topology", "hier_hop_codec",
     "async_aggregation", "flight_recorder", "slo_specs", "perf_timeline", "otlp_endpoint",
     "enable_remote_obs", "model_publish_dir", "health_aware_selection", "aot_programs",
     "server_shard_fold", "metrics_port")
-_UNPORTED_TRUST = ("enable_attack", "enable_defense", "enable_dp", "enable_contribution")
+# ported for the plain synchronous server alone
+_JOURNAL_FLAGS = ("server_journal_dir", "server_journal_every_folds")
+
+#: idempotence keys remembered per client for the exactly-once dedup (the
+#: reference's bound)
+DEDUP_KEYS_PER_CLIENT = 16
 
 
 def refuse_unported_server(cfg, secure: bool = False) -> None:
@@ -80,11 +109,15 @@ def refuse_unported_server(cfg, secure: bool = False) -> None:
     for flag in _UNPORTED_SERVER_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo server yet")
-    if not secure:
-        for flag in _UNPORTED_TRUST:
-            if getattr(cfg, flag, False):
-                raise NotImplementedError(f"{flag} (the trust pipeline) is not ported to the "
-                                          "cross-silo server yet")
+    if secure:
+        for flag in _JOURNAL_FLAGS:
+            if cfg_extra(cfg, flag):
+                raise NotImplementedError(f"extra.{flag} is ported for the plain synchronous "
+                                          "server only, not yet for the SecAgg servers")
+    elif getattr(cfg, "enable_contribution", False):
+        raise NotImplementedError("enable_contribution on the cross-silo server: the "
+                                  "reference's server computes no contribution, so the flag "
+                                  "would be a silent no-op; run contribution in the simulator")
 
 
 def _apply_delta(global_leaf, delta_leaf):
@@ -115,10 +148,11 @@ class FedMLAggregator:
     ``global_vars`` (the port's tree) is the initial global model; without
     it the model is initialised from the port's own init stream (the
     reference draws flax's init from ``root_key(seed)``: tests carry its
-    weights across)."""
+    weights across).  ``trust``: the round's trust pipeline, or None."""
 
-    def __init__(self, cfg, model, test_arrays, device, global_vars=None):
+    def __init__(self, cfg, model, test_arrays, device, global_vars=None, trust=None):
         self.cfg = cfg
+        self.trust = trust
         self.device = torch.device(device)
         self.hp = hparams_from_config(cfg, steps_per_epoch=provisional_steps_per_epoch(cfg))
         self.algorithm = create_algorithm(cfg, self.hp).build(model)
@@ -140,13 +174,14 @@ class FedMLAggregator:
     def _init_stream_mode(self, cfg) -> None:
         """The streaming fold is on under a codec or
         ``extra.streaming_aggregation`` when the algorithm's aggregate is a
-        weight-associative fold; otherwise the buffer-all path.  (The
-        reference also turns it on for its async server and keeps it off
-        under a trust pipeline other than central DP: the port's plain
-        server refuses both.)"""
+        weight-associative fold and the trust pipeline (if any) never needs
+        the stacked client models (central DP alone); otherwise the
+        buffer-all path.  (The reference also turns it on for its async
+        server, which the port refuses.)"""
+        trust_streams = self.trust is None or self.trust.supports_streaming()
         self.stream_mode = bool(
             (codecs.codec_from_config(cfg) or cfg_extra(cfg, "streaming_aggregation"))
-            and self.algorithm.supports_associative_fold())
+            and trust_streams and self.algorithm.supports_associative_fold())
         self._np_global = None      # host copy of the global (flax layout), per round
         self._stream_tmpl = None    # (base leaves on the device, wire skeleton), per round
         self._stream_acc = None     # the round's DeviceStreamAccumulator
@@ -183,6 +218,9 @@ class FedMLAggregator:
     def _note_buffered(self, inflight: int = 0) -> None:
         n = len(self.model_dict) + inflight + (1 if self._stream_acc is not None else 0)
         self.peak_buffered_updates = max(self.peak_buffered_updates, n)
+
+    def has_received(self, client_idx: int) -> bool:
+        return client_idx in self.flag_client_model_uploaded
 
     def add_local_trained_result(self, client_idx: int, params, sample_num: float,
                                  is_delta: bool = False) -> None:
@@ -261,11 +299,22 @@ class FedMLAggregator:
         ids = sorted(self.model_dict)
         trees = [weights.to_torch(weights.flax_to_torch(self.model_dict[i]), self.device)
                  for i in ids]
+        stacked = pt.tree_stack(trees)
         w = torch.tensor([self.sample_num_dict[i] for i in ids], dtype=torch.float32,
                          device=self.device)
-        agg = self.algorithm.aggregate(pt.tree_stack(trees), w)
-        self.global_vars, self.server_state = self.algorithm.server_update(
+        agg_override = None
+        if self.trust is not None:
+            sampled = np.asarray(ids, dtype=np.int32)  # host ids: no device sync
+            stacked, w = self.trust.on_client_outputs(stacked, w, sampled, self.global_vars,
+                                                      round_idx)
+            stacked, w, agg_override = self.trust.on_aggregation(stacked, w, self.global_vars,
+                                                                 round_idx)
+        agg = agg_override if agg_override is not None else self.algorithm.aggregate(stacked, w)
+        new_global, self.server_state = self.algorithm.server_update(
             self.global_vars, self.server_state, agg, round_idx)
+        if self.trust is not None:
+            new_global = self.trust.on_after_aggregation(new_global, self.global_vars, round_idx)
+        self.global_vars = new_global
         self._reset_round()
         return self.global_vars
 
@@ -288,8 +337,13 @@ class FedMLAggregator:
         out = self._stream_acc.finalize(tmpl, self._stream_w_delta, max(self._stream_w, 1e-12))
         agg = weights.tensors_from_flax(
             wire.restore_skeleton(skel, out)[md.MSG_ARG_KEY_MODEL_PARAMS])
-        self.global_vars, self.server_state = self.algorithm.server_update(
+        new_global, self.server_state = self.algorithm.server_update(
             self.global_vars, self.server_state, agg, round_idx)
+        if self.trust is not None:
+            # central DP alone streams: its finalize hook fires once here, on
+            # the aggregate the fold produced, with the round's draws
+            new_global = self.trust.on_after_aggregation(new_global, self.global_vars, round_idx)
+        self.global_vars = new_global
         self.finalize_time_s = time.perf_counter() - t0
         self._reset_round()
         return self.global_vars
@@ -304,6 +358,57 @@ class FedMLAggregator:
         # the global changed: its host copy and the fold's base are stale
         self._np_global = None
         self._stream_tmpl = None
+
+    # -- recovery-journal state (cross_silo/journal.py) ----------------------
+    def model_state(self) -> dict:
+        """The round-resumable model tree: the global variables and the
+        algorithm's server state."""
+        return {"global_vars": self.global_vars, "server_state": self.server_state}
+
+    def restore_model_state(self, state: dict) -> None:
+        """Install a journaled :meth:`model_state` on the server's device."""
+        self.global_vars = tree_to_device(state["global_vars"], self.device)
+        self.server_state = tree_to_device(state["server_state"], self.device)
+        self._np_global = None
+        self._stream_tmpl = None
+
+    def export_stream_state(self) -> tuple[dict, dict]:
+        """``(protocol JSON, named arrays)`` of the streaming fold for the
+        journal: empty at a round boundary, the partial sums (host f32,
+        flax layout) mid-round.  Dense-buffered fallbacks are not listed
+        among the folded clients: a resumed round collects them again."""
+        proto = {
+            "stream_w": float(self._stream_w),
+            "stream_w_delta": float(self._stream_w_delta),
+            "stream_folded": int(self._stream_folded),
+            "stream_samples": {str(k): float(v) for k, v in sorted(self.sample_num_dict.items())},
+            "stream_clients": sorted(set(self.flag_client_model_uploaded) - set(self.model_dict)),
+        }
+        sums = self._stream_acc.host_sums() if self._stream_acc is not None else []
+        return proto, {f"stream_sum_{i}": a for i, a in enumerate(sums)}
+
+    def restore_stream_state(self, proto: dict, arrays: dict) -> None:
+        """Inverse of :meth:`export_stream_state`, after
+        :meth:`restore_model_state`; the folded clients count as received,
+        so the resumed round neither asks them again nor folds a resend."""
+        if not proto.get("stream_folded"):
+            return
+        tmpl, _ = self._stream_template()
+        try:
+            sums = [np.asarray(arrays[f"stream_sum_{i}"], np.float32) for i in range(len(tmpl))]
+        except KeyError:
+            log.warning("journal: streaming partials incomplete; restarting the fold empty")
+            return
+        from ..parallel.stream_fold import DeviceStreamAccumulator
+
+        self._stream_acc = DeviceStreamAccumulator(tmpl, self.device, sums=sums)
+        self._stream_w = float(proto.get("stream_w", 0.0))
+        self._stream_w_delta = float(proto.get("stream_w_delta", 0.0))
+        self._stream_folded = int(proto.get("stream_folded", 0))
+        for k, v in (proto.get("stream_samples") or {}).items():
+            self.sample_num_dict[int(k)] = float(v)
+        for c in proto.get("stream_clients") or []:
+            self.flag_client_model_uploaded[int(c)] = True
 
     def round_metrics(self) -> dict:
         """Extra history fields of the round just aggregated: under the
@@ -331,6 +436,7 @@ class FedMLServerManager(FedMLCommManager):
                  logger: Optional[MetricsLogger] = None, secure: bool = False):
         refuse_unported_server(cfg, secure=secure)
         super().__init__(cfg, rank=0, size=cfg.client_num_in_total + 1, backend=backend)
+        from .journal import journal_from_config
         from .runtime import ServerRuntime
 
         self.aggregator = aggregator
@@ -353,6 +459,23 @@ class FedMLServerManager(FedMLCommManager):
         self._error: Optional[BaseException] = None
         self._round_t0 = 0.0
         self._round_payload_bytes = 0
+        # recovery journal (extra.server_journal_dir): None = the journal-free
+        # protocol, no epoch stamped
+        self.journal = journal_from_config(cfg)
+        self.session_epoch = 0
+        #: the journal step this server resumed from (None: a fresh start)
+        self.recovered_step: Optional[int] = None
+        self.rejected_stale = 0
+        self._journal_every = max(1, int(cfg_extra(cfg, "server_journal_every_rounds"))) \
+            if self.journal else 1
+        # exactly-once uploads: the recently folded idempotence keys per
+        # client (journaled) and the dedup count
+        self._folded_keys: dict[int, deque] = {}
+        self.deduped_uploads = 0
+        self._journal_every_folds = max(0, int(cfg_extra(cfg, "server_journal_every_folds"))) \
+            if self.journal else 0
+        self._last_model_step: Optional[int] = None
+        self._journal_recover()
 
     # -- protocol ------------------------------------------------------------
     def register_message_receive_handlers(self) -> None:
@@ -366,6 +489,8 @@ class FedMLServerManager(FedMLCommManager):
     def receive_message(self, msg_type: int, msg: Message) -> None:
         try:
             super().receive_message(msg_type, msg)
+        except OSError:
+            raise  # a transport fault: the receive loop contains it
         except Exception as e:
             self.abort(f"handler of message type {msg_type} raised {e!r}", e)
             raise
@@ -380,11 +505,21 @@ class FedMLServerManager(FedMLCommManager):
         self.failed, self._error = reason, error
         self.send_finish()
 
+    def _send_best_effort(self, msg: Message, what: str) -> None:
+        """A send whose transport failure is logged, not raised: one
+        unreachable peer must not stop the others' messages (status
+        re-probes and the straggler timer recover it)."""
+        try:
+            self.send_message(msg)
+        except OSError:
+            log.warning("%s to client %d failed", what, msg.get_receiver_id(), exc_info=True)
+
     def start(self) -> None:
         """Ask every client for status; a re-probe timer retries the ranks
         still missing."""
         for cid in self.client_ids:
-            self.send_message(Message(md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS, 0, cid))
+            self._send_best_effort(Message(md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS, 0, cid),
+                                   "status probe")
         self._arm_status_reprobe()
 
     def _arm_status_reprobe(self, attempt: int = 0) -> None:
@@ -399,7 +534,8 @@ class FedMLServerManager(FedMLCommManager):
                 return
             missing = [c for c in self.client_ids if c not in self.active_clients]
         for cid in missing:
-            self.send_message(Message(md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS, 0, cid))
+            self._send_best_effort(Message(md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS, 0, cid),
+                                   "status re-probe")
         self._arm_status_reprobe(attempt + 1)
 
     def handle_message_client_status(self, msg: Message) -> None:
@@ -411,19 +547,42 @@ class FedMLServerManager(FedMLCommManager):
             self.send_init_msg()
 
     def send_init_msg(self) -> None:
-        """Global model + per-client index to every selected client, once."""
+        """Global model + per-client index to every selected client, once.
+        A recovered server enters here at the interrupted round and issues
+        it again under its new epoch (or finishes, when the crash came after
+        the last round's snapshot)."""
         with self._agg_lock:
             if self._init_sent:
                 return
             self._init_sent = True
+            if self.round_idx >= self.comm_round:
+                self.send_finish()
+                return
             self._broadcast_model(md.MSG_TYPE_S2C_INIT_CONFIG)
 
     def handle_message_receive_model(self, msg: Message) -> None:
         with self._agg_lock:
+            sender = int(msg.get_sender_id())
+            # exactly-once: a key already folded is a redelivery (a chaos
+            # duplicate, a reconnect resend, a resend after a client crash),
+            # dropped before any other gate, since the journaled key table
+            # outlives the round and a server crash
+            upload_key = msg.get_control(md.MSG_ARG_KEY_UPLOAD_KEY)
+            if upload_key is not None and self._is_duplicate_upload(sender, upload_key):
+                self.deduped_uploads += 1
+                return
+            if self.journal is not None:
+                # the session-epoch fence: work of a pre-crash dispatch is
+                # redone under the new epoch, so its old reply is rejected
+                epoch = int(msg.get_control(md.MSG_ARG_KEY_SESSION_EPOCH, self.session_epoch))
+                if epoch != self.session_epoch:
+                    self.rejected_stale += 1
+                    log.info("rejecting stale-epoch upload from client %s (epoch %d, current "
+                             "%d)", sender, epoch, self.session_epoch)
+                    return
             if msg.get(md.MSG_ARG_KEY_ROUND_INDEX) != self.round_idx:
                 return  # stale round (post-timeout arrival)
             self._round_payload_bytes += int(msg.wire_nbytes)
-            sender = int(msg.get_sender_id())
             n_samples = float(msg.get(md.MSG_ARG_KEY_NUM_SAMPLES))
             # control-only read: a plain get() of the absent key would restore
             # the tensors and demote the streaming fold to the dense buffer
@@ -431,6 +590,10 @@ class FedMLServerManager(FedMLCommManager):
             if not self.aggregator.ingest_streaming(sender, msg, n_samples, is_delta):
                 self.aggregator.add_local_trained_result(
                     sender, msg.get(md.MSG_ARG_KEY_MODEL_PARAMS), n_samples, is_delta=is_delta)
+            self._note_upload_key(sender, upload_key)
+            folded = self.aggregator._stream_folded
+            if self._journal_every_folds and folded and folded % self._journal_every_folds == 0:
+                self._journal_midround_snapshot()
             if self.aggregator.check_whether_all_receive(len(self.selected)):
                 self._finish_round()
 
@@ -450,8 +613,8 @@ class FedMLServerManager(FedMLCommManager):
                 self._arm_straggler_timer()  # keep waiting for quorum
 
     def _finish_round(self) -> None:
-        """Aggregate, evaluate, then sync the next round or finish.  Caller
-        holds _agg_lock."""
+        """Aggregate, evaluate, journal, then sync the next round or finish.
+        Caller holds _agg_lock."""
         self._runtime.cancel(self, "straggler")
         t0 = time.perf_counter()
         self.aggregator.aggregate(self.round_idx)
@@ -469,6 +632,7 @@ class FedMLServerManager(FedMLCommManager):
         self.logger.log(metrics)
         self.history.append(metrics)
         self.round_idx += 1
+        self._journal_snapshot()
         if self.round_idx >= self.comm_round:
             self.send_finish()
             return
@@ -476,25 +640,122 @@ class FedMLServerManager(FedMLCommManager):
 
     def _broadcast_model(self, msg_type: int) -> None:
         """Select clients, send them the global model, arm the straggler
-        timer.  Caller holds _agg_lock."""
+        timer.  A client whose fold a mid-round journal kept stays selected
+        but is not asked again.  Caller holds _agg_lock."""
         self.selected = self.aggregator.client_selection(
             self.round_idx, self.client_ids, self.per_round)
         self._round_t0 = time.perf_counter()
         self._round_payload_bytes = 0
         params = self.aggregator.host_global_flax()
         for cid in self.selected:
+            if self.aggregator.has_received(cid):
+                continue
             msg = Message(msg_type, 0, cid)
             msg.add_params(md.MSG_ARG_KEY_MODEL_PARAMS, params)
             msg.add_params(md.MSG_ARG_KEY_CLIENT_INDEX, cid - 1)
             msg.add_params(md.MSG_ARG_KEY_ROUND_INDEX, self.round_idx)
-            self.send_message(msg)
+            if self.journal is not None:
+                # clients echo the epoch, so a restarted server can tell
+                # pre-crash work from current work
+                msg.add_params(md.MSG_ARG_KEY_SESSION_EPOCH, self.session_epoch)
+            self._send_best_effort(msg, "broadcast")
         self._arm_straggler_timer()
+
+    # -- exactly-once upload dedup ---------------------------------------------
+    def _is_duplicate_upload(self, sender: int, key: str) -> bool:
+        dq = self._folded_keys.get(sender)
+        return dq is not None and key in dq
+
+    def _note_upload_key(self, sender: int, key: Optional[str]) -> None:
+        if key is None:
+            return
+        dq = self._folded_keys.get(sender)
+        if dq is None:
+            dq = self._folded_keys[sender] = deque(maxlen=DEDUP_KEYS_PER_CLIENT)
+        dq.append(key)
+
+    # -- recovery journal -------------------------------------------------------
+    def _journal_recover(self) -> None:
+        """Install the newest intact snapshot at construction: round index,
+        model and server state, streaming partials (a mid-round snapshot
+        resumes its round), the dedup table; the session epoch goes up by
+        one."""
+        if self.journal is None:
+            return
+        snap = self.journal.restore()
+        if snap is None:
+            return
+        proto = snap["protocol"]
+        self.session_epoch = int(proto.get("session_epoch", 0)) + 1
+        self.round_idx = int(proto.get("round_idx", 0))
+        self.recovered_step = int(snap["step"])
+        self._last_model_step = snap.get("model_step")
+        if snap["model"] is not None:
+            self.aggregator.restore_model_state(snap["model"])
+        self.aggregator.restore_stream_state(proto, snap["arrays"])
+        for c, keys in (proto.get("folded_keys") or {}).items():
+            self._folded_keys[int(c)] = deque([str(k) for k in keys],
+                                              maxlen=DEDUP_KEYS_PER_CLIENT)
+        self.deduped_uploads = int(proto.get("deduped", 0))
+        log.info("recovered from journal step %d (round %d, session epoch %d, %d folds carried)",
+                 self.recovered_step, self.round_idx, self.session_epoch,
+                 self.aggregator._stream_folded)
+
+    def _journal_protocol_state(self) -> dict:
+        return {"kind": "sync", "session_epoch": self.session_epoch,
+                "round_idx": self.round_idx, "rejected_stale": self.rejected_stale,
+                "deduped": self.deduped_uploads,
+                "folded_keys": {str(c): list(dq) for c, dq in sorted(self._folded_keys.items())},
+                "health": {}}
+
+    def _journal_snapshot(self) -> None:
+        """Commit the protocol state at a round boundary (every
+        ``server_journal_every_rounds``, and the final round).  Caller
+        holds _agg_lock."""
+        if self.journal is None:
+            return
+        step = self.round_idx
+        if (step % self._journal_every) and step < self.comm_round:
+            return
+        stream_proto, arrays = self.aggregator.export_stream_state()
+        self.journal.snapshot(step, {**self._journal_protocol_state(), **stream_proto}, arrays,
+                              model_state=self.aggregator.model_state())
+        self._last_model_step = step
+
+    def _journal_midround_snapshot(self) -> None:
+        """Commit the round's partial streaming fold; the sidecar names the
+        boundary step whose model holds the round's starting global."""
+        stream_proto, arrays = self.aggregator.export_stream_state()
+        self.journal.snapshot(self.round_idx, {**self._journal_protocol_state(), **stream_proto},
+                              arrays, model_step=self._last_model_step)
+
+    def hard_kill(self) -> None:
+        """Crash simulation: stop the receive loop and the timers at once,
+        with no FINISH, no journal write, no teardown; what the journal does
+        not hold is lost, as under SIGKILL."""
+        self._runtime.cancel(self)
+        self.com_manager.stop_receive_message()
 
     def send_finish(self) -> None:
         for cid in self.client_ids:
-            self.send_message(Message(md.MSG_TYPE_S2C_FINISH, 0, cid))
+            self._send_best_effort(Message(md.MSG_TYPE_S2C_FINISH, 0, cid), "FINISH")
         self.done.set()
+        self._prune_retired_client_journals()
         self.finish()
+
+    def _prune_retired_client_journals(self) -> None:
+        """Reclaim the journal directories of clients no longer in the fleet
+        (``client_journal_keep_retired`` kept); a failure costs nothing."""
+        root = cfg_extra(self.cfg, "client_journal_dir")
+        if not root:
+            return
+        from .client_journal import prune_retired_client_dirs
+
+        try:
+            prune_retired_client_dirs(root, self.client_ids,
+                                      keep=int(cfg_extra(self.cfg, "client_journal_keep_retired")))
+        except Exception:
+            log.warning("retired-client journal prune failed", exc_info=True)
 
     def handle_message_client_finished(self, msg: Message) -> None:
         pass  # bookkeeping only

@@ -406,6 +406,26 @@ def fused_block_backward(g, y, scale, out, with_residual: bool):
     raise RuntimeError(f"fused block has no kernel for device {y.device}")
 
 
+#: why a gradient of a gradient through the fused blocks is refused: the
+#: reference's ``custom_vjp`` over ``pallas_call`` fails there (its
+#: ``invert_gradient_attack`` through a fused ResNet-20, interpret mode on
+#: the CPU), and this port keeps that decision rather than differentiate a
+#: backward the reference never defined
+SECOND_ORDER_REFUSAL = (
+    "second-order differentiation through the fused blocks (a gradient of a gradient, as "
+    "DLG and the gradient-inversion attack take) is not supported: the reference's "
+    "custom_vjp over pallas_call fails the same way (ValueError: Linearization failed to "
+    "produce known values for all output primals); build the model without fused_blocks "
+    "for such attacks")
+
+
+def _refuse_second_order() -> None:
+    """Called from a fused backward: autograd records the backward's ops
+    (``create_graph=True``) only when grad mode is on inside it."""
+    if torch.is_grad_enabled():
+        raise RuntimeError(SECOND_ORDER_REFUSAL)
+
+
 class _FusedBNReLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, scale, shift):
@@ -415,6 +435,7 @@ class _FusedBNReLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _refuse_second_order()
         y, scale, out = ctx.saved_tensors
         dy, d_scale, d_shift, _ = fused_block_backward(g, y, scale, out, False)
         return dy, d_scale, d_shift
@@ -429,6 +450,7 @@ class _FusedBNResidualReLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _refuse_second_order()
         y, scale, out = ctx.saved_tensors
         dy, d_scale, d_shift, dr = fused_block_backward(g, y, scale, out, True)
         return dy, d_scale, d_shift, dr

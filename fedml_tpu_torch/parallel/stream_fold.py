@@ -75,12 +75,16 @@ def decode_leaf(spec: dict, segments: tuple, device: torch.device) -> torch.Tens
 
 
 class DeviceStreamAccumulator:
-    """One f32 sum per wire leaf on ``device``."""
+    """One f32 sum per wire leaf on ``device``; ``sums`` (host arrays, a
+    journal's partial sums) starts it where a crashed fold left off."""
 
-    def __init__(self, templates: Sequence[torch.Tensor], device):
+    def __init__(self, templates: Sequence[torch.Tensor], device, sums=None):
         self.device = torch.device(device)
-        self._sums = [torch.zeros(tuple(t.shape), dtype=torch.float32, device=self.device)
-                      for t in templates]
+        if sums is not None:
+            self._sums = [host_to_device(np.asarray(s, np.float32), self.device) for s in sums]
+        else:
+            self._sums = [torch.zeros(tuple(t.shape), dtype=torch.float32, device=self.device)
+                          for t in templates]
 
     def scalar(self, v: float) -> torch.Tensor:
         """``f32(v)`` as a 0-d tensor on the device (a fold weight made once
@@ -95,6 +99,10 @@ class DeviceStreamAccumulator:
 
     def sums(self) -> list:
         return list(self._sums)
+
+    def host_sums(self) -> list:
+        """The per-leaf f32 sums as host arrays (a journal snapshot's form)."""
+        return [s.detach().cpu().numpy() for s in self._sums]
 
     def finalize(self, templates: Sequence[torch.Tensor], w_delta: float, total: float) -> list:
         """``((sum + f32(w_delta) * base) / f32(total)).to(base dtype)`` per

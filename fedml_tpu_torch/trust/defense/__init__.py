@@ -16,7 +16,7 @@ from .clipping import (CClipDefense, CRFLDefense, NormDiffClippingDefense,
                        RobustLearningRateDefense, SLSGDDefense, WeakDPDefense)
 from .robust_agg import (BulyanDefense, CoordinateWiseMedianDefense, GeometricMedianDefense,
                          KrumDefense, MultiKrumDefense, TrimmedMeanDefense)
-from .soteria import SoteriaDefense, WBCDefense
+from .soteria import SoteriaDefense, WBCDefense, soteria_mask, soteria_sensitivity
 
 _REGISTRY = {
     "krum": KrumDefense,
@@ -58,4 +58,4 @@ def create(cfg) -> Defense:
         raise ValueError(f"unknown defense_type {dt!r}; known: {names()}") from None
 
 
-__all__ = ["Defense", "create", "names", "weighted_mean"]
+__all__ = ["Defense", "create", "names", "soteria_mask", "soteria_sensitivity", "weighted_mean"]

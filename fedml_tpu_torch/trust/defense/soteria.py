@@ -1,9 +1,16 @@
-"""Soteria and WBC in the aggregation frame (the port of the aggregation-frame
-defenses of ``fedml_tpu/trust/defense/soteria.py``).
+"""Soteria and WBC (the port of ``fedml_tpu/trust/defense/soteria.py``).
 
-Soteria (reference ``core/security/defense/soteria_defense.py:28``, Sun et
-al. CVPR'21), as the JAX package adapts it to the aggregation frame: per
-client, zero the ``soteria_percentile`` percent smallest-magnitude
+Client-side Soteria (reference ``soteria_defense.py:28``): against gradient
+leakage, prune the representation coordinates with the smallest
+sensitivity ratio ``||d r_f / d x|| / |r_f|``.  :func:`soteria_sensitivity`
+takes the whole Jacobian of the flattened features at once
+(``torch.autograd.functional.jacobian``, first order, so it also runs
+through the fused blocks) and :func:`soteria_mask` prunes below the
+``percentile`` (``jnp.percentile``'s linear interpolation,
+``base.percentile_rows``).
+
+The aggregation-frame Soteria (:class:`SoteriaDefense`), as the JAX
+package adapts it: per client, zero the ``soteria_percentile`` percent smallest-magnitude
 coordinates of the update delta (magnitude stands in for the sensitivity
 ratio, which needs the client's model and data).  The percentile is
 ``jnp.percentile``'s linear interpolation over each row
@@ -14,10 +21,6 @@ WBC (reference ``wbc_defense.py:25``): perturb update coordinates with
 Laplace noise wherever the update changed less than the noise since the
 previous round, the previous round's global delta standing in for the
 history (the engine's defense-history slot).
-
-The client-side sensitivity functions (``soteria_sensitivity`` /
-``soteria_mask``) are not ported here: they need second-order autograd
-through a user's model and lie on no round path.
 """
 
 from __future__ import annotations
@@ -26,6 +29,35 @@ import torch
 
 from ...core.flags import cfg_extra
 from .base import Defense, DrawingDefense, percentile_rows
+
+
+def soteria_sensitivity(model, variables, x: torch.Tensor, feature_fn=None) -> torch.Tensor:
+    """``(features,)`` sensitivity ``||d r_f / d x|| / max(|r_f|, 1e-12)``
+    of one example ``x``.  ``feature_fn(variables, x) -> (batch,
+    features)`` defaults to the model's output (``model.apply(...,
+    train=False)``), for a model whose output is the representation (LR:
+    the logits)."""
+    if feature_fn is None:
+        def feature_fn(v, xx):
+            return model.apply(v, xx, train=False)[0]
+
+    def flat_features(xx):
+        return feature_fn(variables, xx[None])[0]
+
+    r = flat_features(x)
+    jac = torch.autograd.functional.jacobian(flat_features, x)  # (features, *x.shape)
+    grad_norms = torch.sqrt(torch.sum(jac.reshape(jac.shape[0], -1) ** 2, dim=1))
+    return grad_norms / torch.clamp(torch.abs(r), min=1e-12)
+
+
+def soteria_mask(model, variables, x: torch.Tensor, percentile: float = 1.0,
+                 feature_fn=None) -> tuple:
+    """``(0/1 mask, sensitivity)`` over the features, pruning those below
+    the ``percentile``-th percentile of the sensitivity (the reference
+    prunes at 1)."""
+    sens = soteria_sensitivity(model, variables, x, feature_fn)
+    thresh = percentile_rows(sens.detach()[None].to(torch.float32), percentile)[0, 0]
+    return (sens >= thresh).to(torch.float32), sens
 
 
 class SoteriaDefense(Defense):

@@ -44,6 +44,11 @@ rtol 2e-4 / atol 2e-5, FedGAN's (Adam) within 1e-3 relative L2 of each
 lane's movement, and the UNet's ConvTranspose (kernel
 flipped) on the card against ``out[2m + a, 2p + b] = x[m, p] k[1 - a, 1 -
 b] + bias`` in f64 within 1e-5.
+Slice 17: a chunk-reassembled qsgd8 upload folded on the card (the
+dequantize kernel) bitwise the whole frame's fold on the CPU; a second
+derivative through the fused kernels raises the port's refusal while the
+first-order gradient through them launches; Soteria's mask on the card
+against the CPU's (rtol 1e-5 on the sensitivity, the mask equal).
 """
 
 import numpy as np
@@ -1650,3 +1655,82 @@ def test_conv_transpose_flip_on_card(cuda_device):
          "bias": torch.from_numpy(bias.astype(np.float32)).to(cuda_device)}
     got = conv_transpose_lanes(p, torch.from_numpy(x.astype(np.float32)).to(cuda_device))
     np.testing.assert_allclose(got.cpu().double().numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_chunked_qsgd8_upload_folds_on_card_like_the_cpu(cuda_device):
+    from fedml_tpu_torch.comm import wire
+    from fedml_tpu_torch.comm.message import ChunkAssembler, Message
+    from fedml_tpu_torch.ops import quantize as qz
+    from fedml_tpu_torch.parallel.stream_fold import DeviceStreamAccumulator, decode_leaf
+
+    rs = np.random.RandomState(3)
+    leaves = {"a": rs.randn(9216).astype(np.float32), "b": rs.randn(300).astype(np.float32)}
+    tree = {}
+    for k, v in leaves.items():
+        vec = torch.from_numpy(v)
+        values, scales, n = qz.quantize_int8_reference(
+            vec, torch.from_numpy(rs.rand(*qz.noise_shape(v.size)).astype(np.float32)))
+        tree[k] = wire.CompressedLeaf("qsgd8", np.float32, v.shape,
+                                      {"blocks": int(scales.shape[0]), "length": int(n)},
+                                      (scales.numpy(), values.reshape(-1).numpy()))
+    m = Message(3, 1, 0)
+    m.add_params("model_params", tree)
+    data = m.encode()
+    asm = ChunkAssembler()
+    got = None
+    for frame in wire.encode_chunk_frames(data, stream_id="1.0", sender=1, chunk_bytes=4096):
+        got, err, _ = asm.feed(frame)
+        assert err is None
+    whole = Message.decode(data)
+    sums = {}
+    for msg, dev in ((got, cuda_device), (whole, torch.device("cpu"))):
+        header, segs = msg.tensor_segments()
+        segs = list(segs)
+        acc = DeviceStreamAccumulator([torch.zeros(s["shape"]) for _, s, _ in segs], dev)
+        before = qz.launch_counts()[qz.DEQUANTIZE.name]
+        for i, spec, parts in segs:
+            acc.fold_leaf(i, acc.scalar(64.0), decode_leaf(spec, parts, dev))
+        if dev.type == "cuda":
+            assert qz.launch_counts()[qz.DEQUANTIZE.name] - before == len(segs)
+        sums[dev.type] = [t.cpu() for t in acc.sums()]
+    for a, b in zip(sums["cuda"], sums["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_second_order_through_fused_kernels_refused_on_card(cuda_device):
+    from fedml_tpu_torch.ops import fused_block as fb
+
+    y, r, g, s, b = _inputs((2, 8, 8, 16), torch.float32, cuda_device)
+    y.requires_grad_(True)
+    before = fb.launch_counts()
+    out = fb.fused_bn_residual_relu(y, s, b, r)
+    (gy,) = torch.autograd.grad((out * g).sum(), y)
+    counts = fb.launch_counts()
+    assert counts[fb.FWD_RES.name] > before[fb.FWD_RES.name]
+    assert counts[fb.BWD_RES.name] > before[fb.BWD_RES.name]
+    out = fb.fused_bn_relu(y, s, b)
+    with pytest.raises(RuntimeError) as info:
+        torch.autograd.grad((out * g).sum(), y, create_graph=True)
+    assert str(info.value) == fb.SECOND_ORDER_REFUSAL
+
+
+@pytest.mark.cuda
+def test_soteria_mask_on_card_matches_the_cpu(cuda_device):
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.models import model_hub
+    from fedml_tpu_torch.trust.defense import soteria_mask
+
+    cfg = fedml_tpu_torch.init(Config(model="lr", dataset="synthetic", compute_dtype="float32"))
+    model = model_hub.create(cfg, 100, input_shape=(60,))
+    variables = model.init(rng.generator(rng.root_key(3)), "cpu")
+    x = torch.from_numpy(np.random.RandomState(0).randn(60).astype(np.float32))
+    want_mask, want = soteria_mask(model, variables, x, 10.0)
+    card = {k: {n: t.to(cuda_device) for n, t in v.items()}
+            for k, v in variables["params"].items()}
+    mask, sens = soteria_mask(model, {"params": card}, x.to(cuda_device), 10.0)
+    np.testing.assert_allclose(sens.cpu().numpy(), want.numpy(), rtol=1e-5)
+    assert torch.equal(mask.cpu(), want_mask) and int((mask == 0).sum()) == 10
