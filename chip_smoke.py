@@ -217,8 +217,9 @@ Phases (any failure exits non-zero; no phase is caught):
    test evaluation (round time, trained sequences/s, peak memory), a
    profiled batched step (device busy share, ``cudaLaunchKernel``), one
    f32 batched step of the 10 lanes against each lane alone (rtol 2e-4 /
-   atol 2e-5), and one MESH round against one sp round of 5 clients (10
-   before slice 15) from the same weights at that tolerance. (b)
+   atol 2e-5), and one MESH round against one sp round of 3 clients (10
+   before slice 15, 5 before slice 18) from the same weights at that
+   tolerance. (b)
    StackOverflow next-word prediction with the word LSTM (``model:
    word_lstm``, vocab 10,004, sequences of 20; 4,000 / 1,024 synthetic
    sequences, cut from 20,000 / 4,000: the stand-in's Markov generator is
@@ -256,8 +257,8 @@ Phases (any failure exits non-zero; no phase is caught):
    memory; rows 1-4 in their lane variants once a site a batched step;
    every mix on the card held against the same product in f64 on the CPU
    (the ring against ``ring_topology(n) @ P``) within 1e-6 relative L2;
-   PushSum's weights sum to n within 1e-5.  (b) ``Async_FedAvg``, 32
-   arrivals: the time a step and the staleness drawn; rows 1-4 single-lane,
+   PushSum's weights sum to n within 1e-5.  (b) ``Async_FedAvg``, 16
+   arrivals (32 before slice 18): the time a step and the staleness drawn; rows 1-4 single-lane,
    10 / 9 / 10 / 9 a local step.  (c) ``TA``: 64 of 128 clients a round as
    lanes, ``ta_group_num`` 4, ``ta_dropout_prob`` 0.1, 2 rounds: row 7
    once a non-empty group at ``members x 271,098`` (lengths printed), each
@@ -281,9 +282,9 @@ Phases (any failure exits non-zero; no phase is caught):
    ``FedMLRunner(cfg).run()`` in f32 (TF32 off) with ``homo`` shards and
    prints its rounds' time, trained samples/s, losses, test metrics and
    peak memory; a non-finite metric fails.  (a) ``split_nn``: the CIFAR-10
-   stand-in at 12,800 / 2,000 images, the GroupNorm ResNet-56 halves at
-   full width, 8 clients in relay, batch 128, 1 round (8 x 13 = 104
-   single-lane steps) and an evaluation; client 0's first 2 relay steps on
+   stand-in at 6,400 / 2,000 images (12,800 before slice 18), the
+   GroupNorm ResNet-56 halves at full width, 8 clients in relay, batch
+   128, 1 round (8 x 7 = 56 single-lane steps) and an evaluation; client 0's first 2 relay steps on
    the card against the CPU from the same start and draws within
    ``SPLIT_CARD_CPU_REL`` relative L2 of the CPU's movement, which the
    card's first step alone must exceed; ``norm: batch`` refused.  (b) ``FedGKT`` on the same data,
@@ -298,7 +299,7 @@ Phases (any failure exits non-zero; no phase is caught):
    lanes, batch 64, ``gan_z_dim`` 64, 2 rounds; a lane step against the
    client alone within 1e-3 relative L2 of its movement (Adam); ``sample(16)``
    shaped ``(16, 28, 28, 1)`` within [-1, 1].  (e) ``FedNAS`` on the
-   CIFAR-10 stand-in at 12,800 / 2,000, 8 of 16 clients a round as lanes,
+   CIFAR-10 stand-in at 6,400 / 2,000, 8 of 16 clients a round as lanes,
    batch 64, 2 cells of 16 features, 2 rounds: the genotype and the
    largest |alpha|; the weights and alphas moved; a lane step against the
    client alone within rtol 2e-4 / atol 2e-5.  (f) ``FedSeg`` on the full
@@ -346,6 +347,38 @@ Phases (any failure exits non-zero; no phase is caught):
    through kernels 1-4 and the attack's second order raises the port's
    refusal; Soteria's mask on the card prunes exactly its percentile (10
    of 100 features).  The phase prints its seconds by form.
+15. Silos as processes of their own and the buffered-async server (run
+   after phase 14).  (a) Four ``role: client`` silo processes, each
+   ``python -m fedml_tpu_torch.cross_silo.soak_worker`` started with
+   ``sys.executable`` (``fedml_tpu_torch.init`` and ``FedMLRunner`` on the
+   card), and the ``role: server`` async server in this process (its folds
+   tapped), over TCP on a free block of fixed ports, silo 2 addressed as
+   ``127.0.0.2``: phase 14's recipe (ResNet-20 bf16 fused, batch 128, 3,200
+   images, qsgd8 with the streaming fold, central DP, chunk frames of
+   65,536, both journals) with ``async_buffer_k`` 2, ``async_concurrency``
+   4, exponent 0.5, 6 virtual rounds.  Each virtual round's time, arrivals,
+   staleness, fold and finalize host times and the server's launches; one
+   virtual round profiled in the server process (its device busy share)
+   and the card's ``utilization.gpu`` (all processes) sampled by
+   ``nvidia-smi`` over the run; the virtual rounds beside phase 14's
+   threaded sync rounds (a measurement).  Each silo process reports the
+   card's name, that it never imported ``jax`` or ``fedml_tpu``, its
+   uploads trained and its launch counts: kernels 1-4 launch in every
+   silo, kernel 5 18 an upload trained (summed over the silos); in the
+   server kernel 6 18 a folded upload, kernel 7 once a virtual round; the
+   staleness reaches 1; at most 2 updates buffered; finite metrics; the
+   last virtual round's global equals the plain numpy refold of the uploads
+   the server took, in its order, each weighted ``n * (1 + tau) ** -0.5``
+   (computed here), then the server step and central DP on the same draw,
+   within ``REFOLD_ATOL``, and leaving any one upload out moves it by more
+   than ten times that.  (b) ``run_multiproc_kill_soak`` on the card: the
+   flagship ResNet-20 in every worker process (3 silos of 256 images, K =
+   3, 32 versions, the journal every 2), the default chaos on every worker,
+   silos 1 and 2 SIGKILLed at versions 10 and 11 and the server at 12,
+   each restarted over its journal: completed, monotone, 1 server and 2
+   silo kills, session epoch >= 1, unaccounted 0, every silo restart a
+   journal resume or a cold rejoin, chaos injected, no worker imported
+   ``jax``.  The phase prints its seconds by form.
 
 Each phase's wall time on one line, then the script's wall time, then the
 ``{"kernels": [...]}`` JSON (each kernel's launches from its own path's
@@ -363,8 +396,9 @@ kernel's launches over phase 12, and for the noise kernel ``ta_length``:
 its times at Turbo-Aggregate's group length, 16 x 271,098, with sigma 10,
 and ``path_max``, the longest group of the run; ``slice16_launches``: each
 kernel's launches over phase 13, all 0; ``slice17_launches``: each
-kernel's launches over phase 14 (a)), then the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.
+kernel's launches over phase 14 (a); ``slice18_launches``: each kernel's
+launches over phase 15 (a), summed over its five processes), then the
+card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2 and prints neither.
 """
 
@@ -3154,7 +3188,7 @@ SHAKESPEARE = dict(dataset="shakespeare", model="rnn", client_num_in_total=100,
                    client_num_per_round=10, batch_size=10, epochs=1, learning_rate=1.0,
                    compute_dtype="float32", synthetic_test_size=4000)
 SHAKESPEARE_ROUNDS = 1  # one MESH round before the MESH-against-sp check
-SHAKESPEARE_PAIR = 5  # that check's clients, cut from the recipe's 10 (sp runs them in turn)
+SHAKESPEARE_PAIR = 3  # that check's clients, cut from the recipe's 10 (sp runs them in turn)
 STACKOVERFLOW = dict(dataset="stackoverflow_nwp", model="word_lstm", client_num_in_total=50,
                      partition_method="homo",
                      client_num_per_round=10, batch_size=16, epochs=1, learning_rate=0.3,
@@ -3498,7 +3532,7 @@ def phase_zoo(mods, qz):
 DSGD_CLIENTS = 64  # decentralized: every client a lane, every round
 DSGD_ROUNDS = 2
 GOSSIP_ROUNDS = {"dsgd": DSGD_ROUNDS, "ring": 1, "pushsum": 1}
-ASYNC_ARRIVALS = 32
+ASYNC_ARRIVALS = 16  # cut from 32 in slice 18
 TA_ROUNDS = 2
 TA_FLAGS = {"ta_group_num": 4, "ta_dropout_prob": 0.1}
 TA_SIGMA = 10.0  # the masks' scale (reference turboaggregate.py L91)
@@ -3623,7 +3657,7 @@ def phase_gossip(mods, dataset):
 
 
 def phase_async(mods, flagship):
-    """12 (b): asynchronous FedAvg on the flagship recipe, 32 arrivals: each
+    """12 (b): asynchronous FedAvg on the flagship recipe, 16 arrivals: each
     a client trained alone from a stale global (rows 1-4 single-lane)."""
     import torch
 
@@ -3937,7 +3971,8 @@ def phase_slice15(mods, nz, flagship, fedopt_data):
 # phase 13 (slice 16): the simulators that build their own networks.  None
 # of the seven kernels runs there (the split halves are unfused, the GAN,
 # DARTS, UNet and VFL nets plain); every form is f32 with TF32 off.
-OWN_CIFAR = dict(dataset="cifar10", synthetic_train_size=12800, synthetic_test_size=2000)
+# cut from 12,800 in slice 18
+OWN_CIFAR = dict(dataset="cifar10", synthetic_train_size=6400, synthetic_test_size=2000)
 SPLIT_CLIENTS = 8
 # SplitNN's and FedGKT's rate: plain SGD at which the GroupNorm ResNet-56
 # halves' losses stay finite (the reference's FedGKT at 0.1 reached 847.1;
@@ -4382,6 +4417,8 @@ SLICE17_STRAGGLER_S = 15.0
 REFOLD_ATOL = 1e-5
 # the qsgd8 upload's compressed leaves: ResNet-20's 18 conv kernels
 QSGD8_LEAVES = 18
+# phase 14 (a)'s (round time, uploads folded) by round, for phase 15
+_SLICE17_ROUNDS: list = []
 DLG_STEPS, DLG_LR = 400, 0.05  # the inversion as tests/test_obs.py runs it
 SOTERIA_PERCENTILE = 10.0
 
@@ -4446,11 +4483,11 @@ def _tap_chaos(clients, server) -> tuple:
 
 class _FoldTap:
     """Wraps the aggregator's ``fold`` and ``aggregate``: keeps each round's
-    folded senders, and the last round's uploads (undecoded messages and
-    weights) with the global, server state and flax-layout base they were
-    folded onto."""
+    folded senders, and the last round's uploads (undecoded messages,
+    weights and ``stamp(msg)``) with the global, server state and
+    flax-layout base they were folded onto."""
 
-    def __init__(self, agg):
+    def __init__(self, agg, stamp=None):
         self.agg, self.rounds, self._folds = agg, [], []
         self.last = None
         fold, aggregate = agg.fold, agg.aggregate
@@ -4464,7 +4501,8 @@ class _FoldTap:
             done = fold(client_idx, msg, sample_num, is_delta, scale)
             if done:
                 self._folds.append((client_idx, msg, float(sample_num) * float(scale),
-                                    bool(is_delta)))
+                                    bool(is_delta), float(sample_num),
+                                    stamp(msg) if stamp is not None else None))
             return done
 
         def tapped_aggregate(round_idx):
@@ -4478,11 +4516,12 @@ class _FoldTap:
 
         agg.fold, agg.aggregate = tapped_fold, tapped_aggregate
 
-    def refold(self, leave_out=None):
+    def refold(self, leave_out=None, weight=None):
         """The last round's global from its uploads by numpy's decode (the
         plain dequantize) and an f64 weighted sum, then the server step and
         central DP on the card (the round's draw again), flattened in the
-        reference's order; ``leave_out`` drops one sender's upload."""
+        reference's order; ``leave_out`` drops one sender's upload,
+        ``weight(fold record)`` replaces the weight the server folded with."""
         import numpy as np
         import torch
 
@@ -4491,11 +4530,12 @@ class _FoldTap:
         from fedml_tpu_torch.cross_silo import message_define as md
 
         last, agg = self.last, self.agg
-        folds = [f for f in last["folds"] if f[0] != leave_out]
-        total = sum(w for _, _, w, _ in folds)
-        w_delta = sum(w for _, _, w, d in folds if d)
+        folds = [(f[1], f[3], f[2] if weight is None else weight(f))
+                 for f in last["folds"] if f[0] != leave_out]
+        total = sum(w for _, _, w in folds)
+        w_delta = sum(w for _, d, w in folds if d)
         acc = [w_delta * b.astype(np.float64) for b in last["base"]]
-        for _, msg, w, _ in folds:
+        for msg, _, w in folds:
             for i, _, arr in msg.tensor_frame()[1]:
                 acc[i] += w * np.asarray(arr, np.float64)
         dev = _card()
@@ -4549,6 +4589,7 @@ def phase_slice17_main(mods, nz, root):
     for (metrics, cum, mem), folded in zip(probe.rows, tap.rounds):
         delta = {k: cum[k] - prev[k] for k in cum if cum[k] - prev[k]}
         prev = cum
+        _SLICE17_ROUNDS.append((metrics["round_time_s"], len(folded)))
         print(f"phase 14 (a) round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
               f"{samples / metrics['round_time_s']:.0f} trained samples/s, silos folded "
               f"{folded}, fold {1e3 * metrics['fold_time_s']:.1f} ms, finalize (divide + clip "
@@ -4856,6 +4897,269 @@ def phase_slice17(mods, nz):
     return counts
 
 
+# -- phase 15: silos as processes of their own, the buffered-async server (slice 18) --
+
+SLICE18_SILOS = 4
+SLICE18_VERSIONS = 6
+SLICE18_BUFFER_K = 2
+SLICE18_EXPONENT = 0.5
+# silo 2 is addressed by another loopback address than the others (Linux
+# routes all of 127/8 to the loopback; every listener binds 0.0.0.0)
+SLICE18_REMOTE = {"2": "127.0.0.2"}
+SLICE18_TIMEOUT_S = 300.0  # each process's wall-clock bound
+# where the silo processes run (None: the card); a rehearsal on the CPU
+# sets "cpu"
+SLICE18_CHILD_DEVICE = None
+# (b): the flagship ResNet-20 on 3 silos of 256 images (2 local steps of
+# 128 an upload), K = 3 of 3 in flight, the default chaos on every worker;
+# silos 1 and 2 are killed at versions 10 and 11 and the server at 12, so
+# the three restarts (an interpreter, torch and CUDA each) overlap and all
+# land with 20 versions still to run; the journal every 2 versions
+SLICE18_SOAK_TRAIN = 768
+SLICE18_SOAK = dict(n_clients=3, versions=32, buffer_k=3, concurrency=3, kill_server_at=12,
+                    client_kills=((1, 10), (2, 11)), journal_every_rounds=2,
+                    redispatch_timeout_s=5.0, timeout_s=SLICE18_TIMEOUT_S)
+
+
+class _UtilSampler:
+    """``nvidia-smi``'s ``utilization.gpu`` (the share of each sample period
+    in which a kernel of any process ran) every 100 ms, until ``stop``."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop(self) -> list:
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=10)
+        return [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+
+
+def _child_cfg_json(cfg) -> dict:
+    import dataclasses
+
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def phase_slice18_async(mods, nz, root):
+    """(a): the async server in this process, its 4 silos processes of their
+    own (``soak_worker``, ``init`` + ``FedMLRunner``), over TCP on fixed
+    ports."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo import message_define as md
+    from fedml_tpu_torch.cross_silo.async_soak import (_free_port_block, _tail,
+                                                       spawn_soak_worker)
+    from fedml_tpu_torch.obs.metrics import MetricsLogger
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    cfg = _slice17_cfg(root, "slice18", comm_compression="qsgd8", streaming_aggregation=True,
+                       async_aggregation=True, async_buffer_k=SLICE18_BUFFER_K,
+                       async_concurrency=SLICE18_SILOS,
+                       async_staleness_exponent=SLICE18_EXPONENT)
+    cfg.comm_round = SLICE18_VERSIONS
+    cfg.run_id = "slice18_async"
+    base_port = _free_port_block(SLICE18_SILOS + 1)
+    cfg.extra.update(tcp_base_port=base_port, tcp_ip_config=dict(SLICE18_REMOTE))
+    workdir = os.path.join(root, "slice18_procs")
+    os.makedirs(workdir)
+    cfg_path = os.path.join(workdir, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(_child_cfg_json(cfg), f)
+    t0 = time.perf_counter()
+    procs = [spawn_soak_worker(cfg_path, "client", r, workdir,
+                               os.path.join(workdir, f"client_{r}.log"),
+                               device=SLICE18_CHILD_DEVICE)
+             for r in range(1, SLICE18_SILOS + 1)]
+    sampler = None
+    try:
+        runner = FedMLRunner(cfg)
+        group = runner.runner
+        group.timeout = SLICE18_TIMEOUT_S
+        group.setup()
+        server = group.server
+        print(f"phase 15 (a): set-up {time.perf_counter() - t0:.1f} s (server: data "
+              f"{runner.dataset.train_num}/{runner.dataset.test_num}; {SLICE18_SILOS} silo "
+              f"processes started, ports {base_port}..{base_port + SLICE18_SILOS}, silo 2 at "
+              f"{SLICE18_REMOTE['2']}; K {SLICE18_BUFFER_K}, concurrency {SLICE18_SILOS}, "
+              f"exponent {SLICE18_EXPONENT}, {SLICE18_VERSIONS} virtual rounds, qsgd8, central "
+              f"DP, chunks of {SLICE17_CHUNK} bytes, both journals)")
+        all_mods = mods + (nz,)
+        window = _BusyWindow(_RoundProbe(MetricsLogger(None), lambda: _all_counts(all_mods)))
+        server.logger = window
+        tap = _FoldTap(server.aggregator, stamp=lambda msg: (
+            int(msg.get_control(md.MSG_ARG_KEY_ROUND_INDEX)), int(server.server_version)))
+        _reset_counts(all_mods)
+        sampler = _UtilSampler()
+        t_run = time.perf_counter()
+        history = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        util = sampler.stop()
+        sampler = None
+        counts = _all_counts(all_mods)
+        for p in procs:
+            if p.wait(timeout=60) != 0:
+                raise AssertionError(f"phase 15 (a): a silo process exited {p.returncode}")
+    except BaseException:
+        for r in range(1, SLICE18_SILOS + 1):
+            print(f"--- silo {r} ---\n{_tail(os.path.join(workdir, f'client_{r}.log'))}")
+        raise
+    finally:
+        if sampler is not None:
+            sampler.stop()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+    reports = []
+    for name in sorted(os.listdir(workdir)):
+        if name.startswith("report_r"):
+            with open(os.path.join(workdir, name)) as f:
+                reports.append(json.load(f))
+    probe = window.inner
+    prev = {k: 0 for k in counts}
+    for metrics, cum, mem in probe.rows:
+        delta = {k: cum[k] - prev[k] for k in cum if cum[k] - prev[k]}
+        prev = cum
+        print(f"phase 15 (a) virtual round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"{metrics['arrivals']} arrivals, staleness mean {metrics['staleness_mean']} max "
+              f"{metrics['staleness_max']}, fold {1e3 * metrics['fold_time_s']:.1f} ms, "
+              f"finalize {1e3 * metrics['finalize_time_s']:.1f} ms, uploads "
+              f"{metrics['upload_bytes']} bytes, test_acc {metrics['test_acc']:.4f}, "
+              f"{_mem(mem)}, server launches {delta}")
+    times = [m["round_time_s"] for m in history]
+    sync = [t for t, _ in _SLICE17_ROUNDS]
+    sync_up = sum(n for _, n in _SLICE17_ROUNDS) / max(sum(sync), 1e-9)
+    busy_pct = 100 * window.busy / window.wall
+    summary = server.async_summary()
+    print(f"phase 15 (a): {summary['server_version']} virtual rounds in {wall:.3f} s, "
+          f"{summary['versions_per_sec']} versions/s, arrivals {summary['arrivals']} "
+          f"({server.arrivals_by_path}), staleness mean {summary['staleness_mean']} max "
+          f"{summary['staleness_max']} (histogram {server.staleness_hist.counts}); a virtual "
+          f"round median {statistics.median(times):.3f} s ({SLICE18_BUFFER_K} uploads, "
+          f"{summary['arrivals'] / wall:.2f} uploads/s) beside phase 14's threaded sync "
+          f"rounds {', '.join(f'{t:.3f}' for t in sync)} s ({sync_up:.2f} uploads/s); "
+          f"virtual round 1 profiled in the server process: {window.wall:.3f} s, its device "
+          f"busy {window.busy:.3f} s = {busy_pct:.1f}%; the card's utilization.gpu (all "
+          f"processes) over the run: mean {np.mean(util) if util else float('nan'):.1f}% of "
+          f"{len(util)} samples")
+    if (len(history) != SLICE18_VERSIONS or summary["staleness_max"] < 1
+            or server.aggregator.peak_buffered_updates > 2):
+        raise AssertionError(f"phase 15 (a): rounds {len(history)}, {summary}, peak "
+                             f"{server.aggregator.peak_buffered_updates}")
+    for metrics in history:
+        for key in ("test_loss", "test_acc"):
+            if not math.isfinite(metrics[key]):
+                raise AssertionError(f"phase 15 (a) round {metrics['round']}: {key} "
+                                     f"{metrics[key]}")
+    if not all(bool(torch.isfinite(t).all()) for t in pt.tree_leaves(server.aggregator.global_vars)):
+        raise AssertionError("phase 15 (a): non-finite global")
+    # the last virtual round against the plain refold of the uploads the
+    # server took, in its order, weighted n * (1 + tau) ** -0.5 here
+    def decayed(f):
+        n, (client_version, server_version) = f[4], f[5]
+        return n * (1.0 + float(server_version - client_version)) ** -SLICE18_EXPONENT
+
+    for f in tap.last["folds"]:
+        if not math.isclose(f[2], decayed(f), rel_tol=1e-12):
+            raise AssertionError(f"phase 15 (a): upload of silo {f[0]} folded with weight "
+                                 f"{f[2]}, want {decayed(f)}")
+    got = weights.flatten_reference(server.aggregator.global_vars)[0]
+    err = float((got - tap.refold(weight=decayed)).abs().max())
+    without = {c: float((got - tap.refold(leave_out=c, weight=decayed)).abs().max())
+               for c, *_ in tap.last["folds"]}
+    print(f"phase 15 (a): virtual round {tap.last['round']}'s global against the plain refold "
+          f"of its {len(tap.last['folds'])} uploads (silo, version, server version) "
+          f"{[(f[0], *f[5]) for f in tap.last['folds']]}: max abs {err:.3g} (limit "
+          f"{REFOLD_ATOL:g}); leaving one upload out: "
+          + ", ".join(f"silo {c} {v:.3g}" for c, v in sorted(without.items())))
+    if not (err <= REFOLD_ATOL and min(without.values()) > 10 * REFOLD_ATOL):
+        raise AssertionError(f"phase 15 (a): the global is {err:.3g} from the plain refold "
+                             f"(limit {REFOLD_ATOL:g}); without one upload {without}")
+    # launches: the silos' in their processes, the server's here
+    silos = [r for r in reports if r["role"] == "client"]
+    trained = sum(r["rounds_trained"] for r in silos)
+    kname = {k.name: k for k in mods[0].KERNELS}
+    q, dq, noise = mods[1].QUANTIZE.name, mods[1].DEQUANTIZE.name, nz.NOISE.name
+    child_sum = {k: sum(r["launches"].get(k, 0) for r in silos) for k in counts}
+    for r in sorted(silos, key=lambda r: r["rank"]):
+        print(f"phase 15 (a) silo {r['rank']} (pid {r['pid']}, {r['device_name']}, jax "
+              f"imported: {r['jax_loaded']}): {r['rounds_trained']} uploads trained, launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }")
+    folded = server.arrivals_by_path["folded"]
+    print(f"phase 15 (a): launches summed over the {len(silos)} silo processes {child_sum}; "
+          f"in the server {counts}; uploads trained {trained}, folded {folded}")
+    if len(silos) != SLICE18_SILOS or any(
+            r["jax_loaded"] or r["fedml_tpu_loaded"]
+            or r["device_name"] != torch.cuda.get_device_name(0) for r in silos):
+        raise AssertionError(f"phase 15 (a): silo reports {silos}")
+    bad = [(r["rank"], k) for r in silos for k in kname if r["launches"].get(k, 0) == 0]
+    if bad or child_sum[q] != QSGD8_LEAVES * trained or any(child_sum[k] for k in (dq, noise)):
+        raise AssertionError(f"phase 15 (a): silo launches: rows 1-4 missing {bad}, quantize "
+                             f"{child_sum[q]} for {trained} uploads, {child_sum}")
+    if (counts[dq] != QSGD8_LEAVES * folded or counts[noise] != SLICE18_VERSIONS
+            or counts[q] or folded != summary["arrivals"]):
+        raise AssertionError(f"phase 15 (a): server launches {counts} for {folded} folded "
+                             f"uploads and {SLICE18_VERSIONS} virtual rounds")
+    return {k: counts[k] + child_sum[k] for k in counts}
+
+
+def phase_slice18_soak():
+    """(b): ``run_multiproc_kill_soak`` on the card, the flagship ResNet-20
+    in every worker, real SIGKILLs of the server and two silos under chaos."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.cross_silo.async_soak import DEFAULT_CHAOS_FLAGS, run_multiproc_kill_soak
+
+    fl = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    overrides = dict(dataset=fl.dataset, model=fl.model, batch_size=fl.batch_size,
+                     learning_rate=fl.learning_rate, compute_dtype=fl.compute_dtype,
+                     synthetic_train_size=SLICE18_SOAK_TRAIN, synthetic_test_size=256,
+                     random_seed=fl.random_seed)
+    t0 = time.perf_counter()
+    res = run_multiproc_kill_soak(**SLICE18_SOAK, chaos=dict(DEFAULT_CHAOS_FLAGS),
+                                  device=SLICE18_CHILD_DEVICE, cfg_overrides=overrides,
+                                  extra_overrides={"fused_blocks": True})
+    reports = res.pop("reports")
+    print(f"phase 15 (b): {time.perf_counter() - t0:.1f} s: {res}")
+    print(f"phase 15 (b): clean exits {[(r['role'], r['rank'], r['device_name']) for r in reports]}")
+    want = dict(completed=True, monotone=True, server_kills=1, client_kills=2, unaccounted=0,
+                versions=SLICE18_SOAK["versions"])
+    if any(res[k] != v for k, v in want.items()) or res["session_epoch"] < 1 or (
+            res["resumed_from_journal"] + res["cold_rejoins"] != res["client_kills"]) or not (
+            res["chaos"] and sum(res["chaos"]["injected"].values()) > 0):
+        raise AssertionError(f"phase 15 (b): {res}")
+    if any(r["jax_loaded"] or r["fedml_tpu_loaded"] for r in reports):
+        raise AssertionError(f"phase 15 (b): a worker imported jax: {reports}")
+    return res
+
+
+def phase_slice18(mods, nz):
+    """Phase 15 (module docstring).  Returns each kernel's launches on (a),
+    summed over its processes."""
+    import tempfile
+
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="fedml_slice18_") as root:
+        t0 = time.perf_counter()
+        counts = phase_slice18_async(mods, nz, root)
+        walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_slice18_soak()
+    walls["b"] = time.perf_counter() - t0
+    print(f"slice 18: phase 15 {sum(walls.values()):.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items())
+          + f"); launches on (a) summed over its processes: {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4934,6 +5238,7 @@ def main(argv=None) -> int:
     del flagship, fedopt_data
     slice16_counts = timed("13", phase_slice16, mods + (nz,))
     slice17_counts = timed("14", phase_slice17, mods, nz)
+    slice18_counts = timed("15", phase_slice18, mods, nz)
     zoo_counts, femnist_rows = timed("11", phase_zoo, mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
@@ -4960,6 +5265,7 @@ def main(argv=None) -> int:
          "slice15_launches": slice15_counts.get(k.name, 0),
          "slice16_launches": slice16_counts.get(k.name, 0),
          "slice17_launches": slice17_counts.get(k.name, 0),
+         "slice18_launches": slice18_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],

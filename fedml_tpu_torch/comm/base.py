@@ -201,6 +201,8 @@ class ObserverLoopMixin:
             self._dispatch(msg)
 
     def _dispatch(self, msg: Message) -> None:
+        if msg.recv_monotonic is None:
+            msg.recv_monotonic = time.monotonic()
         for obs in list(self._observers):
             try:
                 obs.receive_message(msg.get_type(), msg)

@@ -45,6 +45,9 @@ class Message:
         self._tensor_stream = None
         #: wire size of the frame this message was decoded from (0 if local)
         self.wire_nbytes: int = 0
+        #: monotonic time its first byte reached the receive loop (a chunked
+        #: stream's first frame), stamped on receive; None if local
+        self.recv_monotonic = None
 
     def add_params(self, key: str, value: Any) -> None:
         self.msg_params[key] = value
@@ -196,7 +199,9 @@ class ChunkAssembler:
 
     def feed(self, data) -> tuple:
         """One chunk frame in; ``(message or None, drop reason or None,
-        sender or None)`` out."""
+        sender or None)`` out.  A completed stream's message carries
+        ``recv_monotonic`` of its first frame (the async server's fold lag
+        runs from the first byte)."""
         try:
             sub, payload = wire.parse_chunk_frame(data)
         except (ValueError, KeyError, TypeError):
@@ -207,7 +212,7 @@ class ChunkAssembler:
         st = self._streams.get(key)
         if st is None:
             st = self._streams[key] = {"dec": MessageStreamDecoder(), "next": 0, "pending": {},
-                                       "last": now}
+                                       "last": now, "first": now}
         st["last"] = now
         st["pending"][int(sub["seq"])] = bytes(payload)
         while st["next"] in st["pending"]:
@@ -218,6 +223,8 @@ class ChunkAssembler:
         # every declared frame is in: the stream ends here, whole or not
         del self._streams[key]
         msg, reason = st["dec"].message()
+        if msg is not None:
+            msg.recv_monotonic = st["first"]
         return msg, reason, sender
 
     def sweep(self) -> list:

@@ -15,16 +15,22 @@ on ``ip_config[j]`` (default loopback).
 system picks; the endpoints of one process then learn each other's ports
 from :func:`link_ports`, which the in-process group calls.  (The reference
 would bind ``0 + i``; this is how a test or a loopback run stays clear of
-ports in use.)
+ports in use.)  Endpoints in different processes meet only on the fixed
+ports ``base_port + i``.  The listener sets ``SO_REUSEADDR``, so an
+endpoint restarted after a SIGKILL rebinds its port past the predecessor's
+TIME_WAIT connections; a port still held (the predecessor not yet reaped)
+is retried for up to ``BIND_RETRY_S``.
 """
 
 from __future__ import annotations
 
+import errno
 import itertools
 import logging
 import socket
 import struct
 import threading
+import time
 from typing import Optional
 
 from . import wire
@@ -35,6 +41,7 @@ log = logging.getLogger("fedml_tpu_torch.comm.tcp")
 
 FRAME_HEADER = struct.Struct("<Q")
 MAX_FRAME_BYTES = 1 << 30  # 1 GB, the reference's cap
+BIND_RETRY_S = 5.0  # a fixed port still held is retried this long
 
 
 def read_exact(sock: socket.socket, n: int) -> bytes:
@@ -72,10 +79,7 @@ class TCPCommManager(ObserverLoopMixin, BaseCommunicationManager):
         #: rank -> listening port of the peers whose port is not base + rank
         self.port_map: dict[int, int] = {}
         self._stream_seq = itertools.count()
-        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._listener.bind((host, port))
-        self._listener.listen(64)
+        self._listener = _bind_listener(host, port)
         #: the port this endpoint listens on (the system's pick for port 0)
         self.listen_port = self._listener.getsockname()[1]
         self._accept_thread = threading.Thread(target=self._accept_loop, daemon=True)
@@ -130,6 +134,24 @@ class TCPCommManager(ObserverLoopMixin, BaseCommunicationManager):
             self._listener.close()
         except OSError:
             pass
+
+
+def _bind_listener(host: str, port: int) -> socket.socket:
+    """A listening socket on ``(host, port)`` with ``SO_REUSEADDR``; a fixed
+    port in use is retried for ``BIND_RETRY_S``."""
+    deadline = time.monotonic() + (BIND_RETRY_S if port else 0.0)
+    while True:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sock.bind((host, port))
+            sock.listen(64)
+            return sock
+        except OSError as e:
+            sock.close()
+            if e.errno != errno.EADDRINUSE or time.monotonic() >= deadline:
+                raise
+            time.sleep(0.1)
 
 
 def link_ports(managers) -> dict:

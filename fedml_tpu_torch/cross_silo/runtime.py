@@ -71,9 +71,10 @@ class ServerRuntime:
                 if entry is not None:
                     self._by_seq.pop(entry[0], None)
 
-    def close(self) -> None:
-        """Stop the loop thread and drop every pending timer.  Idempotent;
-        safe to call from a callback."""
+    def close(self, wait: bool = True) -> None:
+        """Stop the loop thread and drop every pending timer; with ``wait``
+        join the thread (5 s at most).  Idempotent; safe to call from a
+        callback."""
         with self._cond:
             self._closed = True
             self._timers.clear()
@@ -81,7 +82,7 @@ class ServerRuntime:
             self._heap.clear()
             self._cond.notify_all()
             t = self._thread
-        if t is not None and t is not threading.current_thread():
+        if wait and t is not None and t is not threading.current_thread():
             t.join(timeout=5.0)
 
     def _ensure_thread(self) -> None:  # caller holds _cond

@@ -54,8 +54,17 @@ Uploads keyed by a client journal are folded once per key (the last
 simulates a crash.  The reference's health ledger is not ported: the
 journal's ``health`` entry is empty.
 
+The buffered-async server (``extra.async_aggregation``) is the subclass in
+``cross_silo/async_server.py``; this class carries its hooks: a deferred
+journal recovery (``_journal_recover_deferred``), the journaled dedup
+table's export and restore, and a ``finish`` that does not wait for the
+timer thread (``_join_runtime_on_finish``; the async server finishes from
+under its lock, which its watchdog takes).  The reference's dispatch times
+(``_sent_at``) feed its RTT histogram and health ledger, neither ported,
+so the port keeps none.
+
 Refused with ``NotImplementedError`` when flagged: the journal on a secure
-(SecAgg) server, the hierarchy, the async server, the flight recorder,
+(SecAgg) server, the hierarchy, the flight recorder,
 SLOs, the timeline, OTLP, remote observability, model publication,
 health-aware selection, the AOT store, the sharded fold (it needs a device
 mesh), the metrics endpoint, and contribution assessment (the reference's
@@ -92,7 +101,7 @@ log = logging.getLogger("fedml_tpu_torch.cross_silo.server")
 
 _UNPORTED_SERVER_FLAGS = (
     "hier_fanout", "hier_topology", "hier_hop_codec",
-    "async_aggregation", "flight_recorder", "slo_specs", "perf_timeline", "otlp_endpoint",
+    "flight_recorder", "slo_specs", "perf_timeline", "otlp_endpoint",
     "enable_remote_obs", "model_publish_dir", "health_aware_selection", "aot_programs",
     "server_shard_fold", "metrics_port")
 # ported for the plain synchronous server alone
@@ -172,15 +181,16 @@ class FedMLAggregator:
         self._init_stream_mode(cfg)
 
     def _init_stream_mode(self, cfg) -> None:
-        """The streaming fold is on under a codec or
-        ``extra.streaming_aggregation`` when the algorithm's aggregate is a
+        """The streaming fold is on under a codec,
+        ``extra.streaming_aggregation`` or the async server
+        (``extra.async_aggregation``) when the algorithm's aggregate is a
         weight-associative fold and the trust pipeline (if any) never needs
         the stacked client models (central DP alone); otherwise the
-        buffer-all path.  (The reference also turns it on for its async
-        server, which the port refuses.)"""
+        buffer-all path."""
         trust_streams = self.trust is None or self.trust.supports_streaming()
         self.stream_mode = bool(
-            (codecs.codec_from_config(cfg) or cfg_extra(cfg, "streaming_aggregation"))
+            (codecs.codec_from_config(cfg) or cfg_extra(cfg, "streaming_aggregation")
+             or cfg_extra(cfg, "async_aggregation"))
             and trust_streams and self.algorithm.supports_associative_fold())
         self._np_global = None      # host copy of the global (flax layout), per round
         self._stream_tmpl = None    # (base leaves on the device, wire skeleton), per round
@@ -432,6 +442,13 @@ class FedMLAggregator:
 
 
 class FedMLServerManager(FedMLCommManager):
+    #: a subclass whose recovery needs its own state first recovers at the
+    #: end of its own ``__init__``
+    _journal_recover_deferred = False
+    #: whether ``finish`` waits for the timer thread to stop; False where
+    #: ``finish`` can run under ``_agg_lock``, which a timer may be waiting on
+    _join_runtime_on_finish = True
+
     def __init__(self, cfg, aggregator: FedMLAggregator, backend: Optional[str] = None,
                  logger: Optional[MetricsLogger] = None, secure: bool = False):
         refuse_unported_server(cfg, secure=secure)
@@ -475,7 +492,8 @@ class FedMLServerManager(FedMLCommManager):
         self._journal_every_folds = max(0, int(cfg_extra(cfg, "server_journal_every_folds"))) \
             if self.journal else 0
         self._last_model_step: Optional[int] = None
-        self._journal_recover()
+        if not type(self)._journal_recover_deferred:
+            self._journal_recover()
 
     # -- protocol ------------------------------------------------------------
     def register_message_receive_handlers(self) -> None:
@@ -674,6 +692,15 @@ class FedMLServerManager(FedMLCommManager):
             dq = self._folded_keys[sender] = deque(maxlen=DEDUP_KEYS_PER_CLIENT)
         dq.append(key)
 
+    def _export_folded_keys(self) -> dict:
+        return {str(c): list(dq) for c, dq in sorted(self._folded_keys.items())}
+
+    def _restore_folded_keys(self, proto: dict) -> None:
+        for c, keys in (proto.get("folded_keys") or {}).items():
+            self._folded_keys[int(c)] = deque([str(k) for k in keys],
+                                              maxlen=DEDUP_KEYS_PER_CLIENT)
+        self.deduped_uploads = int(proto.get("deduped", 0))
+
     # -- recovery journal -------------------------------------------------------
     def _journal_recover(self) -> None:
         """Install the newest intact snapshot at construction: round index,
@@ -693,10 +720,7 @@ class FedMLServerManager(FedMLCommManager):
         if snap["model"] is not None:
             self.aggregator.restore_model_state(snap["model"])
         self.aggregator.restore_stream_state(proto, snap["arrays"])
-        for c, keys in (proto.get("folded_keys") or {}).items():
-            self._folded_keys[int(c)] = deque([str(k) for k in keys],
-                                              maxlen=DEDUP_KEYS_PER_CLIENT)
-        self.deduped_uploads = int(proto.get("deduped", 0))
+        self._restore_folded_keys(proto)
         log.info("recovered from journal step %d (round %d, session epoch %d, %d folds carried)",
                  self.recovered_step, self.round_idx, self.session_epoch,
                  self.aggregator._stream_folded)
@@ -704,8 +728,7 @@ class FedMLServerManager(FedMLCommManager):
     def _journal_protocol_state(self) -> dict:
         return {"kind": "sync", "session_epoch": self.session_epoch,
                 "round_idx": self.round_idx, "rejected_stale": self.rejected_stale,
-                "deduped": self.deduped_uploads,
-                "folded_keys": {str(c): list(dq) for c, dq in sorted(self._folded_keys.items())},
+                "deduped": self.deduped_uploads, "folded_keys": self._export_folded_keys(),
                 "health": {}}
 
     def _journal_snapshot(self) -> None:
@@ -763,7 +786,7 @@ class FedMLServerManager(FedMLCommManager):
     def finish(self) -> None:
         self._runtime.cancel(self)
         super().finish()
-        self._runtime.close()
+        self._runtime.close(wait=self._join_runtime_on_finish)
 
     def run_until_done(self, timeout: float = 600.0) -> list[dict]:
         thread = self.run_in_thread()

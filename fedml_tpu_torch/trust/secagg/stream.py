@@ -68,6 +68,11 @@ class MaskedRing:
         return {"codec": self.codec, "ring_bits": int(self.bits),
                 "frac_bits": int(self.frac_bits), "length": int(length)}
 
+    def wire_nbytes(self, length: int) -> int:
+        """Bytes of a packed upload of ``length`` ring values (1-4 a value)."""
+        return length * (1 if self.bits <= 8 else 2 if self.bits <= 16 else
+                         3 if self.bits <= 24 else 4)
+
     def matches(self, meta: dict) -> bool:
         return (meta.get("codec") == self.codec
                 and int(meta.get("ring_bits", -1)) == self.bits

@@ -505,7 +505,11 @@ def test_unported_backends_refused(tmp_path, backend, exc):
 def test_tcp_over_other_hosts_and_under_secagg_refused():
     from fedml_tpu_torch.runner import FedMLRunner
 
-    _, cfg = _cfgs("tcp_remote", {"tcp_ip_config": {"1": "10.0.0.5"}}, model="lr")
+    # the in-process group (tcp_base_port 0) cannot reach silos on other
+    # hosts; with fixed ports the silos run as processes of their own
+    # (tests/test_torch_silo_process.py)
+    _, cfg = _cfgs("tcp_remote", {"tcp_ip_config": {"1": "10.0.0.5"}, "tcp_base_port": 0},
+                   model="lr")
     cfg.backend = "TCP"
     with pytest.raises(NotImplementedError, match="role 'client'"):
         FedMLRunner(cfg, device="cpu")
