@@ -122,7 +122,7 @@ Phases (any failure exits non-zero; no phase is caught):
    moving it ten times more.  Then one MESH round with ``client_optimizer:
    adam``, and the two logistic-regression recipes as shipped,
    ``sp_fedprox_synthetic_lr`` (30 rounds) and ``cross_silo_horizontal_lr``
-   (20 rounds), with their final test accuracy.
+   (10 of its 20 rounds since slice 19), with their final test accuracy.
 7. The paths of slice 10, none of which runs any of the seven kernels
    (every launch count read after each must be 0): ``sim_hierarchical_
    cifar10`` as shipped but for its depth (3 rounds instead of 20: 16
@@ -136,7 +136,8 @@ Phases (any failure exits non-zero; no phase is caught):
    ``agg_mod_list: [2]`` (CKA every even round, counted), and under FedAvg,
    held to the reference's test: FedAvg accuracy < 0.55, personalized mean
    > FedAvg + 0.2, personalized minimum > 0.55.  ``cross_silo_lightsecagg_lr``
-   as shipped (4 silos, 10 rounds, T = 2, U = 3, straggler timeout 10 s):
+   as shipped but for its depth (4 silos, 5 of its 10 rounds since slice
+   19, T = 2, U = 3, straggler timeout 10 s):
    each round's time, decode time and upload bytes, the final accuracy;
    then one round in which silo 4 sends its mask shares and drops out: the
    global must be bitwise the uniform mean of the three survivors'
@@ -226,7 +227,8 @@ Phases (any failure exits non-zero; no phase is caught):
    linear in the count and takes ~15 s at 4,000), 50 clients with 10 a
    round, batch 16: one MESH round and its evaluation. (c) The
    CIFAR-10 zoo in bf16 (12,800 / 2,000 synthetic images, cut from 50,000
-   / 10,000 in slice 15; 32 clients, 8 a round, batch 64): ``mobilenet``,
+   / 10,000 in slice 15; 32 clients, 8 a round, batch 64; a cut to 6,400
+   saved nothing in slice 19, its time being cuDNN's set-up): ``mobilenet``,
    ``mobilenet_v3``, ``efficientnet``, ``vgg11``, ``vgg16`` with
    BatchNorm, ``mobilenet`` with GroupNorm and ``resnet18_gn``, one MESH
    round each (the first: cuDNN's set-up of each
@@ -379,6 +381,38 @@ Phases (any failure exits non-zero; no phase is caught):
    silo kills, session epoch >= 1, unaccounted 0, every silo restart a
    journal resume or a cold rejoin, chaos injected, no worker imported
    ``jax``.  The phase prints its seconds by form.
+16. The hierarchical edge tree, the secure protocols over TCP and FHE (run
+   after phase 15).  (a) The flagship ResNet-20 (bf16, fused, batch 128) as
+   8 silo threads over loopback TCP (ports the system picks) under
+   ``hier_fanout`` 4: 2 edge aggregators of 4 silos each, qsgd8 uploads
+   folded at the edges as they land, each edge's partial re-encoded with
+   qsgd8 (``hier_hop_codec``) and folded at the root with direct adds, the
+   streaming fold, 2 rounds on 3,200 images.  Each round folds the 8
+   silos' sources at the root; the root's ingress a round (2 partials) is
+   at least ``SLICE19_INGRESS_RATIO`` times smaller than the 8 compressed
+   uploads the edges took (what a flat root would take); kernel 5 launches
+   once a compressed leaf an upload (18) and a partial (the leaves of 260
+   elements or more), kernel 6 as often (the edges' folds of uploads, the
+   root's of partials), kernels 1-4 in the silos; at most 2 updates
+   buffered; finite metrics; the last round's global equals the numpy
+   refold of the partials the root took within ``REFOLD_ATOL``, and leaving
+   one partial out moves it by more than ten times that; each edge's
+   partial, as the root decodes it, equals the numpy refold (f64) of that
+   edge's child uploads under their tagged weights within the hop's qsgd8
+   step plus the f32 sum's rounding, and leaving one child's upload out
+   breaks that bound more than tenfold.  (b)
+   ``run_edge_kill_soak`` on the card (ResNet-20 f32, 4 uploads a round of
+   qsgd8 through kernel 5 folded at 2 edges through kernel 6, 2 rounds):
+   an edge killed after its first child's fold and rebuilt over its
+   journal ends bitwise at the clean leg's global, nothing unaccounted.
+   (c) Shamir SecAgg with central DP on the ``cross_silo_horizontal_lr``
+   recipe (2 rounds) over loopback TCP with the server journal: kernel 7
+   once a round; the server killed at round 1's boundary, and after 2 of
+   round 1's uploads, each rebuilt over its journal, ends bitwise at the
+   uninterrupted global.  (d) FHE on the same recipe, 4 silos, 2 rounds: the
+   decrypted mean of each round within ``n * 2^-16`` of the plaintext mean
+   of the same uploads, and test accuracy within ``FHE_ACC_GAP`` of the
+   plain run.  The phase prints its seconds by form.
 
 Each phase's wall time on one line, then the script's wall time, then the
 ``{"kernels": [...]}`` JSON (each kernel's launches from its own path's
@@ -397,7 +431,8 @@ its times at Turbo-Aggregate's group length, 16 x 271,098, with sigma 10,
 and ``path_max``, the longest group of the run; ``slice16_launches``: each
 kernel's launches over phase 13, all 0; ``slice17_launches``: each
 kernel's launches over phase 14 (a); ``slice18_launches``: each kernel's
-launches over phase 15 (a), summed over its five processes), then the
+launches over phase 15 (a), summed over its five processes;
+``slice19_launches``: each kernel's launches over phase 16), then the
 card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2 and prints neither.
 """
@@ -482,6 +517,11 @@ HIERARCHICAL = "examples/sim_hierarchical_cifar10/fedml_config.yaml"
 HIER_CHECK_LANES = 8  # the f32 batched-sub-round check's clients
 MYAVG = "examples/myavg_condshift_mlp/fedml_config.yaml"
 LIGHTSECAGG = "examples/cross_silo_lightsecagg_lr/fedml_config.yaml"
+# depth cut in slice 19 for phase 16's budget: the LightSecAgg recipe's 10
+# rounds (its test runs at round 4 and the last) and the cross-silo LR
+# recipe's 20
+LSA_ROUNDS = 5
+LR_RECIPE_ROUNDS = {"examples/cross_silo_horizontal_lr/fedml_config.yaml": 10}
 FEDLLM = "examples/fedllm_shakespeare_lora/fedml_config.yaml"
 FULL_WIDTH_LAYERS = 4  # Llama-2-7B's widths, its 32 layers cut to this depth
 # an f32 FedLLM client update, card against CPU, as the update from where
@@ -2449,7 +2489,7 @@ def phase_myavg(mods):
 
 
 def phase_lightsecagg(mods):
-    """``cross_silo_lightsecagg_lr`` as shipped (4 silos, 10 rounds, T = 2,
+    """``cross_silo_lightsecagg_lr`` as shipped but for ``LSA_ROUNDS`` (4 silos, T = 2,
     U = 3, straggler timeout 10 s): each round's time, decode time and
     upload bytes, the final accuracy; then one round in which silo 4 sends
     its mask shares and drops out: the global must be bitwise the uniform
@@ -2465,6 +2505,7 @@ def phase_lightsecagg(mods):
     from fedml_tpu_torch.trust.secagg.field import dequantize_from_field
 
     cfg = fedml_tpu_torch.init(argv=["--cf", LIGHTSECAGG])
+    cfg.comm_round = LSA_ROUNDS
     runner = FedMLRunner(cfg)
     runner.runner.setup()
     clients = runner.runner.clients
@@ -2516,8 +2557,9 @@ def phase_lightsecagg(mods):
 
 
 def phase_lr_recipes():
-    """The logistic-regression recipes as shipped: FedProx on MESH (30
-    rounds) and cross-silo FedAvg over the in-process fabric (20 rounds)."""
+    """The logistic-regression recipes as shipped but for the depth of
+    ``LR_RECIPE_ROUNDS``: FedProx on MESH (30 rounds) and cross-silo FedAvg
+    over the in-process fabric (10 of its 20 rounds)."""
     import torch
 
     import fedml_tpu_torch
@@ -2526,6 +2568,7 @@ def phase_lr_recipes():
     for path in LR_RECIPES:
         t0 = time.perf_counter()
         cfg = fedml_tpu_torch.init(argv=["--cf", path])
+        cfg.comm_round = LR_RECIPE_ROUNDS.get(path, cfg.comm_round)
         runner = FedMLRunner(cfg)
         history = runner.run()
         torch.cuda.synchronize()
@@ -5160,6 +5203,466 @@ def phase_slice18(mods, nz):
     return counts
 
 
+# -- phase 16: the edge tree, the secure protocols over TCP, FHE (slice 19) -------
+
+SLICE19_SILOS = 8
+SLICE19_FANOUT = 4  # 2 edges of 4 silos
+SLICE19_ROUNDS = 2
+# the root's ingress a round against the 8 compressed uploads a flat root
+# would take: at least this ratio
+SLICE19_INGRESS_RATIO = 3.0
+# (b): the soak on ResNet-20's tree (f32, 4 uploads of a scaled global a
+# round, qsgd8 on the client hop), an edge killed after its first child
+SLICE19_SOAK = dict(n_clients=4, fanout=2, rounds=2, seed=3, codec="qsgd8", model="resnet20",
+                    cfg_overrides={"dataset": "cifar10", "synthetic_test_size": 256})
+HORIZONTAL_LR = "examples/cross_silo_horizontal_lr/fedml_config.yaml"
+SLICE19_CRASHES = {"round boundary": dict(kill_server_before_round=1),
+                   "inside round 1": dict(kill_server_after_uploads=(1, 2))}
+FHE_ACC_GAP = 0.05
+
+
+def _float_leaves(tree, floor):
+    """The float leaves of a flax-layout tree of at least ``floor`` elements:
+    the leaves ``compress_pytree`` encodes at that floor."""
+    import numpy as np
+
+    from fedml_tpu_torch.comm import wire
+
+    _, leaves = wire.flatten_with_skeleton(tree)
+    return sum(1 for a in leaves if np.asarray(a).dtype.kind == "f" and np.size(a) >= floor)
+
+
+class _PartialTap:
+    """Wraps the root aggregator's ``fold_partial`` and ``aggregate``: each
+    round's folded partials (undecoded messages, sources, ``w_delta``) and
+    the base and global they were folded onto."""
+
+    def __init__(self, agg):
+        self.agg, self.rounds, self._parts, self.last = agg, [], [], None
+        fold_partial, aggregate = agg.fold_partial, agg.aggregate
+
+        def tapped_fold_partial(msg, sources, w_delta):
+            done = fold_partial(msg, sources, w_delta)
+            if done:
+                self._parts.append((msg, {int(k): float(v) for k, v in sources.items()},
+                                    float(w_delta)))
+            return done
+
+        def tapped_aggregate(round_idx):
+            from fedml_tpu_torch.core import pytree as pt
+
+            tmpl, skel = agg._stream_template()
+            self.last = dict(round=round_idx, parts=self._parts, skel=skel,
+                             base=[t.float().cpu().numpy() for t in tmpl],
+                             old=pt.tree_map(lambda t: t.clone(), agg.global_vars),
+                             state=agg.server_state)
+            self.rounds.append(sorted(s for _, src, _ in self._parts for s in src))
+            self._parts = []
+            return aggregate(round_idx)
+
+        agg.fold_partial, agg.aggregate = tapped_fold_partial, tapped_aggregate
+
+    def refold(self, leave_out=None):
+        """The last round's global from the partials by numpy's decode (the
+        plain dequantize) and an f64 sum, the base added back for the delta
+        mass, then the server step, flattened in the reference's order;
+        ``leave_out`` drops one partial (by its index)."""
+        import numpy as np
+        import torch
+
+        from fedml_tpu_torch import weights
+        from fedml_tpu_torch.comm import wire
+        from fedml_tpu_torch.cross_silo import message_define as md
+
+        last = self.last
+        parts = [p for i, p in enumerate(last["parts"]) if i != leave_out]
+        total = sum(sum(src.values()) for _, src, _ in parts)
+        w_delta = sum(wd for _, _, wd in parts)
+        acc = [w_delta * b.astype(np.float64) for b in last["base"]]
+        for msg, _, _ in parts:
+            for i, _, arr in msg.tensor_frame()[1]:
+                acc[i] += np.asarray(arr, np.float64)
+        dev = _card()
+        out = [torch.from_numpy((a / total).astype(np.float32)).to(dev) for a in acc]
+        plain = weights.tensors_from_flax(
+            wire.restore_skeleton(last["skel"], out)[md.MSG_ARG_KEY_MODEL_PARAMS])
+        new, _ = self.agg.algorithm.server_update(last["old"], last["state"], plain,
+                                                  last["round"])
+        return weights.flatten_reference(new)[0]
+
+
+class _EdgeFoldTap:
+    """Wraps ``EdgePartialFold.fold_child`` (on the class, until
+    :meth:`close`) and each edge's ``_ship_locked``: the child uploads
+    (undecoded messages and weights) behind each partial an edge ships, by
+    (edge rank, round)."""
+
+    def __init__(self, edges):
+        from fedml_tpu_torch.cross_silo.edge import EdgePartialFold
+
+        self._cls, self._orig = EdgePartialFold, EdgePartialFold.fold_child
+        self._taken, self.shipped = {}, {}
+        orig = self._orig
+
+        def tapped_fold_child(fold, child_rank, msg, sample_num, is_delta):
+            done = orig(fold, child_rank, msg, sample_num, is_delta)
+            if done:
+                self._taken.setdefault(fold, []).append((int(child_rank), msg,
+                                                         float(sample_num)))
+            return done
+
+        EdgePartialFold.fold_child = tapped_fold_child
+        for e in edges:
+            def tapped_ship(resend=False, e=e, ship=e._ship_locked):
+                if e._fold is not None:
+                    self.shipped[(e.rank, e._round_idx)] = list(self._taken.get(e._fold, ()))
+                return ship(resend)
+
+            e._ship_locked = tapped_ship
+
+    def close(self):
+        self._cls.fold_child = self._orig
+
+    def check(self, last):
+        """Each partial the root took in ``last`` (``_PartialTap.last``)
+        against its edge's child uploads refolded by numpy (the plain decode,
+        an f64 weighted sum).  The children and their weights must be the
+        partial's tagged sources.  Per element the bound is the hop's qsgd8
+        step (the block's largest magnitude over 127: stochastic rounding
+        moves a value by less than one step; 0 on a raw leaf) plus the f32
+        sum's rounding ((children + 1) x eps x the sum of |w x|).  Returns
+        ``(worst |error| / bound, per edge the least of that ratio with one
+        child's upload left out)``."""
+        import numpy as np
+
+        from fedml_tpu_torch.ops import quantize as qz
+
+        eps = float(np.finfo(np.float32).eps)
+        worst, without = 0.0, []
+        for msg, sources, _ in last["parts"]:
+            edge = int(msg.get_sender_id())
+            kids = self.shipped[(edge, last["round"])]
+            if {r: w for r, _, w in kids} != sources:
+                raise AssertionError(f"phase 16 (a): edge {edge} folded "
+                                     f"{[(r, w) for r, _, w in kids]}, tagged {sources}")
+            terms = [[w * np.asarray(a, np.float64) for _, _, a in m.tensor_frame()[1]]
+                     for _, m, w in kids]
+            ratios = [[] for _ in kids]
+            for i, spec, arr in msg.tensor_frame()[1]:
+                leaf = [t[i].ravel() for t in terms]
+                ref, mag = sum(leaf), sum(np.abs(x) for x in leaf)
+                step = np.zeros_like(ref)
+                if spec.get("codec", "raw") == "qsgd8":
+                    pad = np.pad(np.abs(ref), (0, (-ref.size) % qz.BLOCK))
+                    amax = pad.reshape(-1, qz.BLOCK).max(axis=1) / 127.0
+                    step = np.repeat(amax, qz.BLOCK)[:ref.size]
+                bound = np.maximum(step * (1 + 1e-5) + (len(kids) + 1) * eps * mag, 1e-30)
+                got = np.asarray(arr, np.float64).ravel()
+                worst = max(worst, float((np.abs(got - ref) / bound).max()))
+                for k, x in enumerate(leaf):
+                    ratios[k].append(float((np.abs(got - (ref - x)) / bound).max()))
+            without.append(min(max(r) for r in ratios))
+        return worst, without
+
+
+class _EdgeProbe:
+    """Wraps the root's metrics logger: at each logged round the edges'
+    cumulative child-upload bytes and folds, and the launch counts."""
+
+    def __init__(self, inner, edges, counts):
+        self.inner, self.edges, self.counts, self.rows = inner, edges, counts, []
+
+    def log(self, metrics, step=None):
+        import torch
+
+        torch.cuda.synchronize()
+        self.rows.append((dict(metrics), sum(e.upload_ingress_bytes for e in self.edges),
+                          self.counts()))
+        self.inner.log(metrics, step)
+
+
+def phase_slice19_tree(mods, nz):
+    """(a): the flagship ResNet-20 as 8 silo threads over loopback TCP under
+    a tree of 2 edges, qsgd8 uploads folded at the edges, qsgd8 partials
+    re-encoded on the hop and folded at the root."""
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.comm import codecs
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    fb, qz = mods
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.training_type, cfg.role, cfg.backend = "cross_silo", "server", "TCP"
+    cfg.client_num_in_total = cfg.client_num_per_round = SLICE19_SILOS
+    cfg.synthetic_train_size = SLICE17_TRAIN
+    cfg.comm_round = SLICE19_ROUNDS
+    cfg.frequency_of_the_test = 1
+    cfg.run_id = "slice19_tree"
+    cfg.extra.update(fused_blocks=True, tcp_base_port=0, comm_compression="qsgd8",
+                     streaming_aggregation=True, hier_fanout=SLICE19_FANOUT,
+                     hier_hop_codec="qsgd8")
+    t0 = time.perf_counter()
+    runner = FedMLRunner(cfg)
+    group = runner.runner
+    group.setup()
+    server, clients, edges = group.server, group.clients, group.server.edges
+    host = server.aggregator.host_global_flax()
+    n_up = _float_leaves(host, codecs.DEFAULT_MIN_COMPRESS_ELEMS)
+    n_hop = _float_leaves(host, codecs.LOW_RANK_MIN_COMPRESS_ELEMS)
+    all_mods = mods + (nz,)
+    probe = _EdgeProbe(server.logger, edges, lambda: _all_counts(all_mods))
+    server.logger = probe
+    tap = _PartialTap(server.aggregator)
+    edge_tap = _EdgeFoldTap(edges)
+    steps = sum(c.trainer.trained_samples for c in clients) // cfg.batch_size
+    print(f"phase 16 (a): set-up {time.perf_counter() - t0:.1f} s (data "
+          f"{runner.dataset.train_num}/{runner.dataset.test_num}, {steps} local steps a round "
+          f"over {SLICE19_SILOS} silos, batch {cfg.batch_size}, {cfg.compute_dtype}; edges "
+          f"{[e.rank for e in edges]} over {[server.topology.children_of[e.rank] for e in edges]}"
+          f"; TCP ports {server.com_manager.port_map}; qsgd8 leaves {n_up} an upload, "
+          f"{n_hop} a partial)")
+    _reset_counts(all_mods)
+    try:
+        history = runner.run()
+    finally:
+        edge_tap.close()
+    torch.cuda.synchronize()
+    counts = _all_counts(all_mods)
+    prev_bytes, prev = 0, {k: 0 for k in counts}
+    ratios = []
+    for metrics, child_bytes, cum in probe.rows:
+        delta = {k: cum[k] - prev[k] for k in cum if cum[k] - prev[k]}
+        up_bytes = child_bytes - prev_bytes
+        prev, prev_bytes = cum, child_bytes
+        ratios.append(up_bytes / metrics["upload_bytes"])
+        print(f"phase 16 (a) round {metrics['round']}: {metrics['round_time_s']:.3f} s, root "
+              f"ingress {metrics['upload_bytes']} bytes (2 partials) against the {SLICE19_SILOS} "
+              f"compressed uploads a flat root would take, {up_bytes} bytes: "
+              f"{ratios[-1]:.3f}x; fold {1e3 * metrics['fold_time_s']:.1f} ms, finalize "
+              f"{1e3 * metrics['finalize_time_s']:.1f} ms, test_acc {metrics['test_acc']:.4f}, "
+              f"{_mem()}, launches {delta}")
+    folded = [len(r) for r in tap.rounds]
+    want_q = SLICE19_ROUNDS * (SLICE19_SILOS * n_up + len(edges) * n_hop)
+    q, dq = counts[qz.QUANTIZE.name], counts[qz.DEQUANTIZE.name]
+    per_edge = [(e.rank, e.folds, e.relays, e.partials_sent, e.upload_ingress_bytes)
+                for e in edges]
+    print(f"phase 16 (a): sources folded by round {tap.rounds}; edges {per_edge} "
+          f"(rank, folds, relays, partials, child bytes); quantize {q} and dequantize {dq} "
+          f"launches, predicted {want_q} each ({SLICE19_ROUNDS} rounds x ({SLICE19_SILOS} "
+          f"uploads x {n_up} + {len(edges)} partials x {n_hop}))")
+    if folded != [SLICE19_SILOS] * SLICE19_ROUNDS or len(history) != SLICE19_ROUNDS:
+        raise AssertionError(f"phase 16 (a): sources folded {tap.rounds}, rounds {len(history)}")
+    if min(ratios) < SLICE19_INGRESS_RATIO:
+        raise AssertionError(f"phase 16 (a): root ingress ratios {ratios}")
+    if q != want_q or dq != want_q:
+        raise AssertionError(f"phase 16 (a): quantize {q}, dequantize {dq}, want {want_q}")
+    bad = [k.name for k in fb.KERNELS if counts[k.name] == 0]
+    if bad or any(e.relays for e in edges) or server.aggregator.peak_buffered_updates > 2:
+        raise AssertionError(f"phase 16 (a): fused kernels not launched {bad}, relays, or peak "
+                             f"{server.aggregator.peak_buffered_updates}")
+    for metrics in history:
+        for key in ("test_loss", "test_acc"):
+            if not math.isfinite(metrics[key]):
+                raise AssertionError(f"phase 16 (a) round {metrics['round']}: {key}")
+    glob = server.aggregator.global_vars
+    if not all(bool(torch.isfinite(t).all()) for t in pt.tree_leaves(glob)):
+        raise AssertionError("phase 16 (a): non-finite global")
+    from fedml_tpu_torch import weights
+
+    got = weights.flatten_reference(server.aggregator.global_vars)[0]
+    err = float((got - tap.refold()).abs().max())
+    without = [float((got - tap.refold(leave_out=i)).abs().max())
+               for i in range(len(tap.last["parts"]))]
+    print(f"phase 16 (a): round {tap.last['round']}'s global against the numpy refold of the "
+          f"{len(tap.last['parts'])} partials the root took: max abs {err:.3g} (limit "
+          f"{REFOLD_ATOL:g}); leaving one partial out: max abs "
+          + ", ".join(f"{v:.3g}" for v in without))
+    if not (err <= REFOLD_ATOL and min(without) > 10 * REFOLD_ATOL):
+        raise AssertionError(f"phase 16 (a): refold {err:.3g}, without one {without}")
+    worst, without = edge_tap.check(tap.last)
+    print(f"phase 16 (a): each edge's partial as the root decoded it against the numpy refold "
+          f"of that edge's {SLICE19_FANOUT} child uploads (f64, the tagged weights): worst "
+          f"|error| / bound {worst:.3g} (limit 1; the bound is the hop's qsgd8 step plus the "
+          f"f32 sum's rounding); leaving one child's upload out, by edge: "
+          + ", ".join(f"{v:.3g}" for v in without) + " (must exceed 10)")
+    if not (worst <= 1.0 and len(without) == len(edges) and min(without) > 10):
+        raise AssertionError(f"phase 16 (a): edge refold {worst:.3g}, without one {without}")
+    return counts
+
+
+def phase_slice19_soak():
+    """(b): ``run_edge_kill_soak`` on the card: the kill leg bitwise the
+    clean leg, nothing unaccounted."""
+    import numpy as np
+
+    from fedml_tpu_torch.cross_silo.async_soak import run_edge_kill_soak
+
+    legs = {}
+    for leg, kill in (("clean", None), ("kill", (0, 0, 1))):
+        t0 = time.perf_counter()
+        legs[leg] = run_edge_kill_soak(kill=kill, **SLICE19_SOAK)
+        legs[leg]["wall"] = time.perf_counter() - t0
+    clean, kill = legs["clean"], legs["kill"]
+    same = all(np.array_equal(a, b) for a, b in zip(clean["global_leaves"],
+                                                    kill["global_leaves"]))
+    keys = ("edge_kills", "uploads_sent", "edge_folds", "edge_dedups", "unaccounted",
+            "partials_sent", "root_ingress_bytes", "peak_buffered_root", "peak_buffered_edge")
+    print(f"phase 16 (b): the edge kill soak on the card ({clean['wall']:.1f} s clean, "
+          f"{kill['wall']:.1f} s with the kill): " + ", ".join(f"{k} {kill[k]}" for k in keys)
+          + f"; final global bitwise the clean leg's: {same}")
+    if not (same and kill["unaccounted"] == 0 and clean["unaccounted"] == 0
+            and kill["edge_kills"] == 1 and kill["edge_dedups"] >= 1
+            and max(kill["peak_buffered_root"], kill["peak_buffered_edge"]) <= 2):
+        raise AssertionError(f"phase 16 (b): {({k: kill[k] for k in keys})}, bitwise {same}")
+
+
+def _horizontal_lr(run_id, **extra):
+    import fedml_tpu_torch
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", HORIZONTAL_LR])
+    cfg.comm_round = SLICE19_ROUNDS
+    cfg.frequency_of_the_test = 1
+    cfg.run_id = run_id
+    cfg.extra.update(extra)
+    return cfg
+
+
+def phase_slice19_shamir(nz, root):
+    """(c): Shamir SecAgg with central DP over loopback TCP with the server
+    journal, the LR recipe, 2 rounds: kernel 7 once a round; the server
+    killed at round 1's boundary and inside round 1, each rebuilt over its
+    journal, bitwise the uninterrupted run."""
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo.crash_drill import run_with_crashes
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.models import model_hub
+
+    runs = {}
+    for tag, kw in (("uninterrupted", {}), *SLICE19_CRASHES.items()):
+        cfg = _horizontal_lr(f"slice19_shamir_{tag.replace(' ', '_')}", secagg_method="shamir",
+                             secagg_stream=True, tcp_base_port=0,
+                             server_journal_dir=f"{root}/{tag.replace(' ', '_')}")
+        cfg.backend, cfg.enable_secagg = "TCP", True
+        for k, v in DP.items():
+            setattr(cfg, k, v)
+        ds = loader.load(cfg)
+        model = model_hub.create(cfg, ds.class_num, input_shape=ds.train_x.shape[1:])
+        before = nz.launch_counts()[nz.NOISE.name]
+        t0 = time.perf_counter()
+        runs[tag] = run_with_crashes(cfg, ds, model, _card(), backend="TCP", timeout=120.0, **kw)
+        torch.cuda.synchronize()
+        runs[tag]["wall"] = time.perf_counter() - t0
+        runs[tag]["noise"] = nz.launch_counts()[nz.NOISE.name] - before
+    base = pt.tree_leaves(runs["uninterrupted"]["server"].aggregator.global_vars)
+    for tag, out in runs.items():
+        same = all(torch.equal(a, b) for a, b in zip(
+            base, pt.tree_leaves(out["server"].aggregator.global_vars)))
+        rounds = [h["round"] for h in out["history"]]
+        print(f"phase 16 (c) {tag}: {out['wall']:.1f} s, rounds {rounds}, server kills "
+              f"{out['server_kills']}, recovered step {out['server'].recovered_step}, session "
+              f"epoch {out['server'].session_epoch}, noise launches {out['noise']}, finalize "
+              + ", ".join(f"{1e3 * h['finalize_time_s']:.1f}" for h in out["history"])
+              + f" ms, final global bitwise the uninterrupted run's: {same}")
+        if rounds != list(range(SLICE19_ROUNDS)) or not same:
+            raise AssertionError(f"phase 16 (c) {tag}: rounds {rounds}, bitwise {same}")
+        if tag != "uninterrupted" and (out["server_kills"], out["server"].session_epoch) != (1, 1):
+            raise AssertionError(f"phase 16 (c) {tag}: the drill did not run as set")
+    if runs["uninterrupted"]["noise"] != SLICE19_ROUNDS:
+        raise AssertionError(f"phase 16 (c): noise launches {runs['uninterrupted']['noise']}, "
+                             f"want {SLICE19_ROUNDS} (once a round)")
+
+
+def phase_slice19_fhe():
+    """(d): FHE on the LR recipe, 4 silos, 2 rounds: the decrypted mean
+    against the plaintext mean of the same uploads, and accuracy against
+    the plain run."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    cfg = _horizontal_lr("slice19_fhe")
+    cfg.enable_fhe = True
+    t0 = time.perf_counter()
+    runner = FedMLRunner(cfg)
+    group = runner.runner
+    group.setup()
+    flats, plain_means, fhe_means = {}, [], []
+    for c in group.clients:
+        def keep(*a, _c=c, _train=c.trainer.train, **k):
+            out = _train(*a, **k)
+            flats[_c.rank] = weights.flatten_reference(out[0])[0].cpu().numpy()
+            return out
+
+        c.trainer.train = keep
+    agg = group.server.aggregator
+    aggregate = agg.aggregate
+
+    def tapped(round_idx):
+        plain_means.append(np.mean([flats[r].astype(np.float64) for r in sorted(flats)], 0))
+        t1 = time.perf_counter()
+        out = aggregate(round_idx)
+        tapped.secs.append(time.perf_counter() - t1)
+        fhe_means.append(weights.flatten_reference(agg.global_vars)[0].cpu().numpy())
+        return out
+
+    tapped.secs = []
+    agg.aggregate = tapped
+    history = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = cfg.client_num_in_total
+    step = 2.0 ** -int(agg.cipher.params.frac_bits)
+    errs = [float(np.max(np.abs(f - p))) for f, p in zip(fhe_means, plain_means)]
+    blocks = -(-agg.model_dim // agg.cipher.params.n)
+    plain_cfg = _horizontal_lr("slice19_fhe_plain")
+    plain = FedMLRunner(plain_cfg).run()
+    gap = abs(history[-1]["test_acc"] - plain[-1]["test_acc"])
+    print(f"phase 16 (d): FHE {len(history)} rounds in {wall:.1f} s with its set-up ({n} silos, "
+          f"{agg.model_dim} parameters in {blocks} blocks of {agg.cipher.params.n}; "
+          f"aggregate + decrypt " + ", ".join(f"{s:.3f}" for s in tapped.secs) + " s a round, "
+          f"round times " + ", ".join(f"{h['round_time_s']:.3f}" for h in history) + " s); the "
+          f"decrypted mean against the plaintext mean of the same uploads: max abs "
+          + ", ".join(f"{e:.3g}" for e in errs) + f" (bound n x 2^-16 = {n * step:.3g}); "
+          f"test_acc {history[-1]['test_acc']:.4f} against the plain run's "
+          f"{plain[-1]['test_acc']:.4f} (gap {gap:.4f}, limit {FHE_ACC_GAP})")
+    if len(errs) != SLICE19_ROUNDS or max(errs) > n * step or gap > FHE_ACC_GAP:
+        raise AssertionError(f"phase 16 (d): errors {errs}, accuracy gap {gap}")
+
+
+def phase_slice19(mods, nz):
+    """Phase 16 (module docstring).  Returns each kernel's launches over the
+    phase."""
+    import tempfile
+
+    all_mods = mods + (nz,)
+    walls = {}
+    _reset_counts(all_mods)
+    t0 = time.perf_counter()
+    tree_counts = phase_slice19_tree(mods, nz)
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_slice19_soak()
+    walls["b"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="fedml_slice19_") as root:
+        t0 = time.perf_counter()
+        phase_slice19_shamir(nz, root)
+        walls["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_slice19_fhe()
+    walls["d"] = time.perf_counter() - t0
+    counts = _all_counts(all_mods)
+    print(f"slice 19: phase 16 {sum(walls.values()):.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items())
+          + f"); launches on (a) {tree_counts}; over the phase {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5239,6 +5742,7 @@ def main(argv=None) -> int:
     slice16_counts = timed("13", phase_slice16, mods + (nz,))
     slice17_counts = timed("14", phase_slice17, mods, nz)
     slice18_counts = timed("15", phase_slice18, mods, nz)
+    slice19_counts = timed("16", phase_slice19, mods, nz)
     zoo_counts, femnist_rows = timed("11", phase_zoo, mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
@@ -5266,6 +5770,7 @@ def main(argv=None) -> int:
          "slice16_launches": slice16_counts.get(k.name, 0),
          "slice17_launches": slice17_counts.get(k.name, 0),
          "slice18_launches": slice18_counts.get(k.name, 0),
+         "slice19_launches": slice19_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],

@@ -9,15 +9,20 @@ the reference's ``_CrossSiloRunner.run`` does:
   synchronous server, the buffered-async server (``extra.async_aggregation``,
   ``cross_silo/async_server.py``), LightSecAgg (``enable_secagg``, the
   reference's default ``extra.secagg_method: lightsecagg``,
-  ``cross_silo/lightsecagg.py``) or Shamir SecAgg (``extra.secagg_method:
-  shamir``, ``cross_silo/secagg_shamir.py``).  ``backend: TCP`` with
+  ``cross_silo/lightsecagg.py``), Shamir SecAgg (``extra.secagg_method:
+  shamir``, ``cross_silo/secagg_shamir.py``) or FHE (``enable_fhe``,
+  ``cross_silo/fhe.py``), with the aggregation tree's edge managers
+  (``extra.hier_fanout`` / ``hier_topology``, ``cross_silo/edge.py``;
+  :func:`build_edges`) on the plain server.  ``backend: TCP`` with
   ``extra.tcp_base_port: 0`` runs the same group over loopback sockets on
   ports the system picks (``comm/tcp_backend.py``, ``link_ports``): an
   in-process convenience of the port, the reference's
   ``run_in_process_group(..., backend="TCP")``.
 - ``role: server`` over TCP with a nonzero ``tcp_base_port`` builds the
-  server alone, listening on ``tcp_base_port``, and runs it until it
-  finishes; its silos are processes of their own.
+  server alone (of any protocol, :func:`group_builders`), listening on
+  ``tcp_base_port``, and runs it until it finishes; its silos are
+  processes of their own.  The tree is refused there, as in a silo: the
+  reference starts edges only in its in-process group.
 - ``role: client`` (TCP, nonzero ``tcp_base_port``) builds the silo of
   ``rank`` alone, listening on ``tcp_base_port + rank``, and runs its receive
   loop until the server's FINISH, polling the loop's thread so a loop that
@@ -27,7 +32,10 @@ the reference's ``_CrossSiloRunner.run`` does:
 
 Chunk frames (``extra.comm_chunk_bytes``), chaos (``extra.chaos_*``) and the
 server and client journals (``extra.server_journal_dir``,
-``client_journal_dir``) run on either backend and in every role.
+``client_journal_dir``) run on either backend and in every role; under the
+secure protocols the journals run as far as the reference's do (Shamir's
+server journal, LightSecAgg's client journal; ``server.py`` and
+``client.py`` name the others' failures in the reference).
 
 The plain and async servers run the trust pipeline
 (``build_trust_pipeline``): attacks, defenses, local and central DP, as the
@@ -55,12 +63,12 @@ ignored, as in the reference.
 Algorithms: FedAvg, FedOpt and FedProx (their contribution is the client's
 full variables; the server runs the algorithm's ``aggregate`` and
 ``server_update`` on the uploads, the client plain local SGD).  Refused with
-``NotImplementedError``, each naming ROADMAP Queue 1 item 7 where it waits:
+``NotImplementedError``, each naming the ROADMAP item where it waits:
 SCAFFOLD, FedNova, FedDyn and Mime; any backend but INPROC and TCP (GRPC and
-MQTT_S3 need packages the port does not depend on); the client role under
-SecAgg, LightSecAgg or FHE; TCP under SecAgg; multi-process silos
-(``extra.coordinator_address``, the reference's ``silo_dist.py``) and FHE.
-Both SecAgg protocols take FedAvg alone.
+MQTT_S3 need packages the port does not depend on; item 7); multi-process
+silos (``extra.coordinator_address``, the reference's ``silo_dist.py`` on
+``parallel/multihost``; item 8).  Both SecAgg protocols and FHE take FedAvg
+alone and every silo each round.
 """
 
 from __future__ import annotations
@@ -71,7 +79,7 @@ from typing import Optional
 from .. import constants as C
 from ..core.flags import cfg_extra
 from ..data.dataset import pad_eval_set
-from .client import ClientMasterManager, FedMLTrainer
+from .client import ClientMasterManager, FedMLTrainer, secagg_method
 from .server import FedMLAggregator, FedMLServerManager, eval_batch_size
 
 _IN_PROCESS_BACKENDS = (C.COMM_BACKEND_INPROC, "MESH", "")
@@ -79,6 +87,7 @@ _LOOPBACK = ("127.0.0.1", "localhost", "::1")
 _ROLES = ("server", "client")
 #: where the refusals below wait (ROADMAP.md)
 _ITEM_7 = "ROADMAP.md Queue 1 item 7"
+_ITEM_8 = "ROADMAP.md Queue 1 item 8"
 # the algorithms whose contribution is the client's full variables: the
 # server applies their aggregate and server step to the uploaded models, and
 # the client trains with plain local SGD (no hooks: FedProx trains without
@@ -123,10 +132,24 @@ def build_client(cfg, dataset, model, rank: int, device, backend: Optional[str] 
     return ClientMasterManager(cfg, trainer, rank=rank, backend=backend)
 
 
+def build_edges(cfg, device, backend: str = C.COMM_BACKEND_INPROC) -> list:
+    """The aggregation tree's edge (and region) managers of ``cfg``, not
+    started; empty when the hier flags are unset."""
+    from .edge import EdgeAggregatorManager, build_topology
+
+    topo = build_topology(cfg)
+    if topo is None:
+        return []
+    return [EdgeAggregatorManager(cfg, topo, rank=r, device=device, backend=backend)
+            for r in topo.aggregator_ranks]
+
+
 def build_process_group(cfg, dataset, model, device, backend: str = C.COMM_BACKEND_INPROC,
                         global_vars=None, perms=None, logger=None, trust_sampler=None):
     """``(server, clients)`` of the plain synchronous protocol, not started
-    (over TCP, every endpoint knows the others' ports)."""
+    (over TCP, every endpoint knows the others' ports).  Under the
+    aggregation tree the edge managers ride on the server as
+    ``server.edges``; :func:`run_group` starts and stops them."""
     from ..comm.inproc import InProcRouter
     from ..comm.tcp_backend import link_ports
 
@@ -135,23 +158,26 @@ def build_process_group(cfg, dataset, model, device, backend: str = C.COMM_BACKE
                           logger=logger, trust_sampler=trust_sampler)
     clients = [build_client(cfg, dataset, model, r, device, backend=backend, perms=perms)
                for r in range(1, cfg.client_num_in_total + 1)]
-    link_ports([server, *clients])
+    server.edges = build_edges(cfg, device, backend)
+    link_ports([server, *clients, *server.edges])
     return server, clients
 
 
 def run_group(server: FedMLServerManager, clients: list, timeout: float = 600.0) -> list:
-    """Start the clients' receive loops, run the server until it finishes,
-    stop the clients; returns the server's history.  A client handler that
-    raises fails the run (the server's ``abort``)."""
-    for c in clients:
+    """Start the clients' (and the tree's edges') receive loops, run the
+    server until it finishes, stop them; returns the server's history.  A
+    client or edge handler that raises fails the run (the server's
+    ``abort``)."""
+    parties = [*clients, *server.edges]
+    for c in parties:
         c.on_error = server.abort
         c.run_in_thread()
     try:
         history = server.run_until_done(timeout=timeout)
-        for c in clients:
+        for c in parties:
             c.done.wait(5.0)
     finally:
-        for c in clients:
+        for c in parties:
             c.finish()
     return history
 
@@ -164,33 +190,34 @@ def in_process_group(cfg) -> bool:
                                      or not int(cfg_extra(cfg, "tcp_base_port")))
 
 
+def protocol(cfg) -> str:
+    """The configuration's cross-silo protocol: ``"plain"``, ``"shamir"``,
+    ``"lightsecagg"`` or ``"fhe"``."""
+    if getattr(cfg, "enable_secagg", False):
+        return secagg_method(cfg)
+    return "fhe" if getattr(cfg, "enable_fhe", False) else "plain"
+
+
 def refuse_unported_cross_silo(cfg) -> None:
     """Raise for a cross-silo configuration this slice does not serve."""
     if cfg.role not in _ROLES:
         raise ValueError(f"cross-silo role {cfg.role!r}; known: {list(_ROLES)}")
-    secure = bool(getattr(cfg, "enable_secagg", False))
+    proto = protocol(cfg)
+    secure = proto != "plain"
     if cfg_extra(cfg, "coordinator_address") or int(cfg_extra(cfg, "num_processes") or 0) > 1:
         raise NotImplementedError(
             "multi-process silos (extra.coordinator_address / num_processes, the reference's "
-            f"silo_dist.py) are not ported yet ({_ITEM_7}); run each silo as one process")
-    if cfg.role == "client":
-        if secure or getattr(cfg, "enable_fhe", False):
-            raise NotImplementedError(
-                "the client role under SecAgg, LightSecAgg or FHE is not ported yet "
-                f"({_ITEM_7}); those protocols run as one process (role 'server', INPROC)")
-        if cfg.backend in _IN_PROCESS_BACKENDS:
-            raise NotImplementedError(
-                f"role 'client' over backend {cfg.backend!r}: a silo of its own needs a "
-                "transport between processes, and of those the port has TCP alone (gRPC "
-                f"and MQTT_S3 wait, {_ITEM_7}); set backend TCP")
+            f"silo_dist.py on parallel/multihost) are not ported yet ({_ITEM_8}); run each "
+            "silo as one process")
+    if cfg.role == "client" and cfg.backend in _IN_PROCESS_BACKENDS:
+        raise NotImplementedError(
+            f"role 'client' over backend {cfg.backend!r}: a silo of its own needs a "
+            "transport between processes, and of those the port has TCP alone (gRPC "
+            f"and MQTT_S3 wait, {_ITEM_7}); set backend TCP")
     if cfg.backend not in _IN_PROCESS_BACKENDS:
         from ..comm.comm_manager import refuse_unported_transport
 
         refuse_unported_transport(cfg.backend)
-        if secure:
-            raise NotImplementedError(f"cross-silo backend {cfg.backend!r} is ported for the "
-                                      f"plain server only (synchronous or async), not yet "
-                                      f"under SecAgg ({_ITEM_7})")
         if cfg.role == "client" and not int(cfg_extra(cfg, "tcp_base_port")):
             raise ValueError(
                 "extra.tcp_base_port 0 binds ports the system picks, which only endpoints of "
@@ -210,8 +237,19 @@ def refuse_unported_cross_silo(cfg) -> None:
         if not 1 <= int(cfg.rank) <= n:
             raise ValueError(f"role 'client' needs a rank in 1..{n}, got {cfg.rank}")
     if cfg_extra(cfg, "async_aggregation") and secure:
-        raise ValueError("extra.async_aggregation is not used by the SecAgg servers (the "
+        raise ValueError("extra.async_aggregation is not used by the secure servers (the "
                          "reference ignores it there); remove it")
+    from .edge import EDGES_IN_PROCESS_ONLY, build_topology, hop_codec_from_config
+
+    topo = build_topology(cfg)  # the reference's validation; secure modes raise
+    hop_codec_from_config(cfg)
+    if topo is not None:
+        if not in_process_group(cfg):
+            raise ValueError(EDGES_IN_PROCESS_ONLY)
+        if cfg_extra(cfg, "async_aggregation"):
+            from .async_server import refuse_hierarchical_async
+
+            refuse_hierarchical_async(cfg)
     if cfg.federated_optimizer not in _CROSS_SILO_OPTIMIZERS:
         from ..algorithms import names
 
@@ -220,38 +258,62 @@ def refuse_unported_cross_silo(cfg) -> None:
             f"cross-silo federated_optimizer {cfg.federated_optimizer!r}: a silo uploads its "
             f"full variables, which is the contribution of {_CROSS_SILO_OPTIMIZERS} alone; "
             f"{simulated} contribute something else and run in the simulator")
-    if getattr(cfg, "enable_fhe", False):
-        raise NotImplementedError("enable_fhe (the FHE cross-silo protocol) is not ported yet")
     from .client import refuse_unported_client
     from .server import refuse_unported_server
 
-    refuse_unported_server(cfg, secure=secure)
+    refuse_unported_server(cfg, secure=None if proto == "plain" else proto)
     refuse_unported_client(cfg)
-    if secure:
-        method = _secagg_method(cfg)
-        if method == "lightsecagg":
-            from .lightsecagg import secagg_params
+    if getattr(cfg, "enable_fhe", False):
+        # also beside enable_secagg, which the reference's builders would
+        # take while dropping FHE unseen
+        from .fhe import check_fhe_compatible
 
-            secagg_params(cfg)
-        else:
-            from .secagg_shamir import shamir_secagg_params
+        check_fhe_compatible(cfg)
+    if proto == "lightsecagg":
+        from .lightsecagg import secagg_params
 
-            shamir_secagg_params(cfg)
-        if cfg.client_num_per_round < cfg.client_num_in_total:
-            name = "LightSecAgg" if method == "lightsecagg" else "Shamir SecAgg"
-            raise ValueError(
-                f"{name} requires full participation per round (client_num_per_round="
-                f"{cfg.client_num_per_round} != N={cfg.client_num_in_total})")
+        secagg_params(cfg)
+    elif proto == "shamir":
+        from .secagg_shamir import shamir_secagg_params
+
+        shamir_secagg_params(cfg)
+    if secure and cfg.client_num_per_round < cfg.client_num_in_total:
+        name = {"lightsecagg": "LightSecAgg", "shamir": "Shamir SecAgg",
+                "fhe": "FHE aggregation"}[proto]
+        raise ValueError(
+            f"{name} requires full participation per round (client_num_per_round="
+            f"{cfg.client_num_per_round} != N={cfg.client_num_in_total})")
 
 
-def _secagg_method(cfg) -> str:
-    """``"lightsecagg"`` or ``"shamir"``, from ``extra.secagg_method``."""
-    method = str(cfg_extra(cfg, "secagg_method")).lower()
-    if method in ("lightsecagg", "lsa"):
-        return "lightsecagg"
-    if method in ("shamir", "secagg", "pairwise"):
-        return "shamir"
-    raise ValueError(f"unknown secagg_method {method!r}; use 'lightsecagg' or 'shamir'")
+#: the parity hooks each protocol's server takes, and every client
+_SERVER_HOOKS = {"plain": ("global_vars", "logger", "trust_sampler"),
+                 "shamir": ("global_vars", "logger", "noise_sampler"),
+                 "lightsecagg": ("global_vars", "logger"),
+                 "fhe": ("global_vars", "logger")}
+_CLIENT_HOOKS = ("perms",)
+_ALL_HOOKS = ("global_vars", "perms", "noise_sampler", "trust_sampler", "mask_seeds",
+              "upload_noise", "logger")
+
+
+def group_builders(cfg) -> tuple:
+    """``(build_group, build_server, build_client)`` of ``cfg``'s protocol:
+    the in-process group's builder and the lone server's and silo's, each
+    ``(cfg, dataset, model, [rank,] device, backend, **hooks)``."""
+    proto = protocol(cfg)
+    if proto == "shamir":
+        from .secagg_shamir import (build_sa_client, build_sa_server,
+                                    build_shamir_secagg_process_group)
+
+        return build_shamir_secagg_process_group, build_sa_server, build_sa_client
+    if proto == "lightsecagg":
+        from .lightsecagg import build_lightsecagg_process_group, build_lsa_client, build_lsa_server
+
+        return build_lightsecagg_process_group, build_lsa_server, build_lsa_client
+    if proto == "fhe":
+        from .fhe import build_fhe_client, build_fhe_process_group, build_fhe_server
+
+        return build_fhe_process_group, build_fhe_server, build_fhe_client
+    return build_process_group, build_server, build_client
 
 
 class _CrossSiloRunner:
@@ -269,61 +331,43 @@ class _CrossSiloRunner:
         self.server: Optional[FedMLServerManager] = None
         self.clients: list = []
 
+    def _hooks(self, names) -> dict:
+        return {k: getattr(self, k) for k in names if getattr(self, k) is not None}
+
     def setup(self) -> None:
         """Build what this process runs (module docstring): the in-process
         group, the server alone, or the silo of ``cfg.rank`` alone (their
         shards go to the device)."""
-        if not in_process_group(self.cfg):
-            self._setup_role()
-            return
-        hooks = {k: v for k, v in (("global_vars", self.global_vars), ("perms", self.perms),
-                                   ("logger", self.logger)) if v is not None}
-        secure = bool(getattr(self.cfg, "enable_secagg", False))
-        lsa = secure and _secagg_method(self.cfg) == "lightsecagg"
-        if self.noise_sampler is not None and (not secure or lsa):
-            raise ValueError("noise_sampler serves Shamir SecAgg's central DP only")
-        if self.mask_seeds is not None and not lsa:
-            raise ValueError("mask_seeds serves LightSecAgg only")
-        if self.trust_sampler is not None and secure:
-            raise ValueError("trust_sampler serves the plain server's trust pipeline only")
-        if lsa:
-            from .lightsecagg import build_lightsecagg_process_group
-
-            if self.mask_seeds is not None:
-                hooks["mask_seeds"] = self.mask_seeds
-            group = build_lightsecagg_process_group
-        elif secure:
-            from .secagg_shamir import build_shamir_secagg_process_group
-
-            if self.noise_sampler is not None:
-                hooks["noise_sampler"] = self.noise_sampler
-            group = build_shamir_secagg_process_group
-        else:
-            if self.trust_sampler is not None:
-                hooks["trust_sampler"] = self.trust_sampler
-            group = build_process_group
+        proto = protocol(self.cfg)
+        allowed = set(_SERVER_HOOKS[proto]) | set(_CLIENT_HOOKS) | {"upload_noise"}
+        if proto == "lightsecagg":
+            allowed.add("mask_seeds")
+        stray = sorted(k for k in _ALL_HOOKS if getattr(self, k) is not None and k not in allowed)
+        if stray:
+            raise ValueError(f"hooks {stray} are not used by the {proto} protocol "
+                             "(noise_sampler: Shamir SecAgg's central DP; trust_sampler: the "
+                             "plain server's trust pipeline; mask_seeds: LightSecAgg)")
+        build_group, build_srv, build_cli = group_builders(self.cfg)
         backend = (C.COMM_BACKEND_TCP if self.cfg.backend == C.COMM_BACKEND_TCP
                    else C.COMM_BACKEND_INPROC)
-        self.server, self.clients = group(self.cfg, self.dataset, self.model, self.device,
-                                          backend, **hooks)
+        if in_process_group(self.cfg):
+            hooks = self._hooks(set(_SERVER_HOOKS[proto]) | set(_CLIENT_HOOKS))
+            if proto == "lightsecagg" and self.mask_seeds is not None:
+                hooks["mask_seeds"] = self.mask_seeds
+            self.server, self.clients = build_group(self.cfg, self.dataset, self.model,
+                                                    self.device, backend, **hooks)
+        elif self.cfg.role == "server":
+            self.server = build_srv(self.cfg, self.dataset, self.model, self.device,
+                                    backend=backend, **self._hooks(_SERVER_HOOKS[proto]))
+        else:
+            rank = int(self.cfg.rank)
+            hooks = self._hooks(_CLIENT_HOOKS)
+            if proto == "lightsecagg" and self.mask_seeds is not None:
+                hooks["mask_seed"] = self.mask_seeds.get(rank)
+            self.clients = [build_cli(self.cfg, self.dataset, self.model, rank, self.device,
+                                      backend=backend, **hooks)]
         for c in self.clients:
             c.upload_noise = self.upload_noise
-
-    def _setup_role(self) -> None:
-        """One endpoint of a run over TCP between processes."""
-        if self.noise_sampler is not None or self.mask_seeds is not None:
-            raise ValueError("noise_sampler and mask_seeds serve the SecAgg groups only")
-        cfg = self.cfg
-        if cfg.role == "server":
-            hooks = {k: v for k, v in (("global_vars", self.global_vars), ("logger", self.logger),
-                                       ("trust_sampler", self.trust_sampler)) if v is not None}
-            self.server = build_server(cfg, self.dataset, self.model, self.device,
-                                       backend=C.COMM_BACKEND_TCP, **hooks)
-            return
-        client = build_client(cfg, self.dataset, self.model, int(cfg.rank), self.device,
-                              backend=C.COMM_BACKEND_TCP, perms=self.perms)
-        client.upload_noise = self.upload_noise
-        self.clients = [client]
 
     def run(self):
         """The server's history, or None for a silo (as the reference)."""

@@ -102,6 +102,16 @@ def staleness_scale(staleness: int, exponent: float) -> float:
     return float((1.0 + float(staleness)) ** (-float(exponent)))
 
 
+def refuse_hierarchical_async(cfg) -> None:
+    """The reference's gate: the async protocol dispatches per client on
+    each fold, with no round barrier for an edge to fold against."""
+    from .edge import build_topology
+
+    if build_topology(cfg) is not None:
+        raise NotImplementedError("hierarchical aggregation (hier_fanout/hier_topology) is "
+                                  "synchronous-only for now; unset it or async_aggregation")
+
+
 class AsyncFedMLServerManager(FedMLServerManager):
     """Buffered-async server manager (module docstring)."""
 
@@ -110,6 +120,7 @@ class AsyncFedMLServerManager(FedMLServerManager):
 
     def __init__(self, cfg, aggregator: FedMLAggregator, backend: Optional[str] = None,
                  logger: Optional[MetricsLogger] = None):
+        refuse_hierarchical_async(cfg)
         super().__init__(cfg, aggregator, backend=backend, logger=logger)
         self._agg_lock = threading.Lock()
         self.server_version = 0

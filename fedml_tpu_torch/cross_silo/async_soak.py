@@ -17,9 +17,12 @@
   (``cross_silo/soak_worker.py``), real SIGKILLs of the server and of
   silos, each restarted over its journal.
 
+- :func:`run_edge_kill_soak`: the synchronous aggregation tree with a
+  sequenced simulated fleet; an edge is hard-killed mid-round and rebuilt
+  over its journal, bitwise the clean leg.
+
 The reference's client crash-parity harness (``run_client_crash_parity``)
-is the port's ``cross_silo/crash_drill.py``; ``run_edge_kill_soak`` waits
-for the edge tree (ROADMAP.md Queue 1 item 7).  The reference reads its
+is the port's ``cross_silo/crash_drill.py``.  The reference reads its
 fold-lag and staleness quantiles off its metrics registry (not ported);
 here they come from the server's plain bucket counts, by the same rule (the
 upper edge of the bucket where the cumulative count reaches the quantile).
@@ -530,6 +533,247 @@ def run_kill_recover_soak(n_clients: int = 256, concurrency: int = 64, buffer_k:
         }
     finally:
         shutil.rmtree(journal_dir, ignore_errors=True)
+
+
+def run_edge_kill_soak(n_clients: int = 4, fanout: int = 2, rounds: int = 2,
+                       kill: Optional[tuple] = (0, 0, 1), seed: int = 0,
+                       hop_codec: Optional[str] = None, codec: Optional[str] = None,
+                       topology: Optional[dict] = None, timeout_s: float = 120.0,
+                       device=None, global_vars=None, model: str = "lr",
+                       cfg_overrides: Optional[dict] = None) -> dict:
+    """Edge kill soak over the synchronous aggregation tree: the real root
+    and :class:`~.edge.EdgeAggregatorManager` nodes on the in-process
+    fabric, the clients simulated by this harness so every arrival is
+    sequenced: uploads go in sorted order, one edge's subtree at a time,
+    each waited for before the next.  The clean and kill legs so run the
+    same fold op sequence and their final globals match bitwise (raw hop;
+    ``hop_codec`` trades that pin for the bytes).
+
+    ``kill = (round, edge_ordinal, after_children)`` hard-kills that edge
+    once ``after_children`` of its children folded (each fold journaled
+    under ``<journal>/edge_<rank>``), rebuilds it over the same journal and
+    router queue (uploads sent while it was dead stay queued), re-sends the
+    folded uploads under their keys and drives the run out; every upload
+    sent is a fold, a dedup or a relay at one edge over both lifetimes
+    (``unaccounted`` 0).  ``kill=None`` is the clean leg; ``fanout=0`` with
+    no ``topology`` (an ``extra.hier_topology`` dict) runs the flat
+    protocol under the same sequencing.  ``codec`` compresses the simulated
+    uploads (keyed ``fold_in(root_key(seed), rank * 1009 + round)``, the
+    reference's fold with the port's draws), on ``device``.
+
+    Beyond the reference: ``device`` (the card unless ``"cpu"``),
+    ``global_vars`` (the initial global, the port's tree), ``model`` and
+    ``cfg_overrides`` (fields of the configuration, e.g. a dataset).  (The
+    reference's ``extra_flags`` serve its observability flags, not
+    ported.)"""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import fedml_tpu_torch
+
+    from .. import weights
+    from ..arguments import Config
+    from ..comm import codecs as codecs_mod
+    from ..comm.inproc import InProcRouter
+    from ..comm.message import Message
+    from ..core import pytree as pt
+    from ..core import rng
+    from ..data import loader
+    from ..models import model_hub
+    from . import build_server
+    from . import message_define as md
+    from .edge import EdgeAggregatorManager, build_topology
+
+    device = resolve_device(device)
+    workdir = tempfile.mkdtemp(prefix="soak_edgekill_")
+    shape = "flat" if (fanout <= 0 and not topology) else ("topo" if topology else f"f{fanout}")
+    run_id = (f"soak_edgekill_{seed}_{n_clients}_{rounds}_{shape}_"
+              f"{'clean' if kill is None else 'kill'}")
+    hier_extra = ({"hier_topology": topology} if topology
+                  else {"hier_fanout": fanout} if fanout > 0 else {})
+    cfg = Config(
+        training_type="cross_silo", dataset="synthetic", model=model,
+        client_num_in_total=n_clients, client_num_per_round=n_clients, comm_round=rounds,
+        epochs=1, batch_size=16, learning_rate=0.1, partition_method="homo",
+        synthetic_train_size=64 * n_clients, synthetic_test_size=64, frequency_of_the_test=0,
+        compute_dtype="float32", metrics_jsonl_path="", run_id=run_id, random_seed=seed,
+        extra={"streaming_aggregation": True, "server_journal_dir": f"{workdir}/journal",
+               **hier_extra, **({"hier_hop_codec": hop_codec} if hop_codec else {})})
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    fedml_tpu_torch.init(cfg)
+    ds = loader.load(cfg)
+    net = model_hub.create(cfg, ds.class_num, input_shape=ds.train_x.shape[1:])
+    topo = build_topology(cfg)
+    try:
+        InProcRouter.reset(run_id)
+        router = InProcRouter.get(run_id)
+        agg_ranks = [] if topo is None else topo.aggregator_ranks
+        edges = {r: EdgeAggregatorManager(cfg, topo, rank=r, device=device, backend="INPROC")
+                 for r in agg_ranks}
+        for e in edges.values():
+            e.run_in_thread()
+        server = build_server(cfg, ds, net, device, backend="INPROC", global_vars=global_vars)
+        template = server.aggregator.host_global_flax()
+        # client ranks fan into the harness's queue; the root's and the
+        # edges' inboxes stay real
+        shared: queue.Queue = queue.Queue()
+        fan = _FanInQueues(shared, router.queues[0])
+        for r in agg_ranks:
+            fan[r] = router.queues[r]
+        router.queues = fan
+        dispatches: dict[tuple, object] = {}
+        cond = threading.Condition()
+        stop = threading.Event()
+
+        def worker():
+            while not stop.is_set():
+                try:
+                    item = shared.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                if item is None:
+                    return
+                rid, data = item
+                try:
+                    msg = Message.decode(data)
+                except Exception:
+                    continue
+                mtype = msg.get_type()
+                if mtype == md.MSG_TYPE_S2C_CHECK_CLIENT_STATUS:
+                    reply = Message(md.MSG_TYPE_C2S_CLIENT_STATUS, rid, 0)
+                    reply.add_params(md.MSG_ARG_KEY_CLIENT_STATUS, md.CLIENT_STATUS_ONLINE)
+                    reply.add_params(md.MSG_ARG_KEY_CLIENT_OS, md.CLIENT_OS_PYTHON)
+                    router.route(reply)
+                elif mtype in (md.MSG_TYPE_S2C_INIT_CONFIG, md.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT):
+                    r = int(msg.get_control(md.MSG_ARG_KEY_ROUND_INDEX, -1))
+                    with cond:
+                        dispatches[(rid, r)] = msg.get_control(md.MSG_ARG_KEY_SESSION_EPOCH)
+                        cond.notify_all()
+
+        wt = threading.Thread(target=worker, name="edge-soak-clients", daemon=True)
+        wt.start()
+        deadline = time.monotonic() + timeout_s
+
+        def wait_for(pred, what: str):
+            while not pred():
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"edge kill soak stalled waiting for {what} "
+                                       f"(run_id={run_id})")
+                time.sleep(0.002)
+
+        def upload_for(rid: int, round_idx: int, epoch) -> Message:
+            f = 1.0 + 1e-3 * ((rid * 31 + round_idx * 7) % 97) / 97.0
+            params = pt.tree_map(lambda a: (a * f).astype(a.dtype)
+                                 if np.asarray(a).dtype.kind == "f" else a, template)
+            if codec is not None:
+                on_dev = weights.to_torch(params, device)
+                params, _, _ = codecs_mod.compress_pytree(
+                    on_dev, codec, key=rng.fold_in(rng.root_key(seed), rid * 1009 + round_idx),
+                    min_elems=codecs_mod.LOW_RANK_MIN_COMPRESS_ELEMS)
+            up = Message(md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, rid,
+                         0 if topo is None else topo.parent(rid))
+            up.add_params(md.MSG_ARG_KEY_MODEL_PARAMS, params)
+            up.add_params(md.MSG_ARG_KEY_NUM_SAMPLES, float(16 + (rid % 7) * 8))
+            up.add_params(md.MSG_ARG_KEY_ROUND_INDEX, round_idx)
+            if epoch is not None:
+                up.add_params(md.MSG_ARG_KEY_SESSION_EPOCH, int(epoch))
+            # a stable key per (client, round): a re-send after the kill
+            # must reconcile as a dedup
+            up.add_params(md.MSG_ARG_KEY_UPLOAD_KEY, f"{rid}:{round_idx}:h:0")
+            return up
+
+        uploads_sent = edge_kills = 0
+        t0 = time.monotonic()
+        server.run_in_thread()
+        server.start()
+        if topo is None:
+            if kill is not None:
+                raise ValueError("kill injection needs a tree (fanout >= 1)")
+            groups = [(None, list(range(1, n_clients + 1)))]
+        else:
+            groups = [(r, sorted(topo.children_of[r])) for r in topo.edge_ranks]
+        for round_idx in range(rounds):
+            for ordinal, (erank, children) in enumerate(groups):
+                kill_here = (erank is not None and kill is not None and kill[0] == round_idx
+                             and kill[1] == ordinal)
+                sent_this_edge: list = []
+                for k, rid in enumerate(children):
+                    if kill_here and k == kill[2]:
+                        edges[erank].hard_kill()
+                        edge_kills += 1
+                        time.sleep(0.15)  # the dead loop's poll runs out
+                        replacement = EdgeAggregatorManager(cfg, topo, rank=erank,
+                                                            device=device, backend="INPROC")
+                        edges[erank] = replacement
+                        replacement.run_in_thread()
+                        replacement.recovery_resume()
+                        for prev in sent_this_edge:  # the journaled dedup swallows them
+                            router.route(prev)
+                            uploads_sent += 1
+                        base_d = replacement.deduped_uploads
+                        wait_for(lambda: edges[erank].deduped_uploads
+                                 >= base_d + len(sent_this_edge),
+                                 f"dedup of re-sent uploads at edge {erank}")
+                    with cond:
+                        while (rid, round_idx) not in dispatches:
+                            if not cond.wait(timeout=0.1) and time.monotonic() > deadline:
+                                raise RuntimeError(f"no dispatch for client {rid} round "
+                                                   f"{round_idx} (run_id={run_id})")
+                        epoch = dispatches[(rid, round_idx)]
+                    up = upload_for(rid, round_idx, epoch)
+                    # the baseline before the route: the fold may land first
+                    base_f = 0 if erank is None else edges[erank].folds + edges[erank].relays
+                    router.route(up)
+                    uploads_sent += 1
+                    sent_this_edge.append(up)
+                    if erank is None:
+                        wait_for(lambda: rid in server.aggregator.flag_client_model_uploaded
+                                 or server.round_idx > round_idx or server.done.is_set(),
+                                 f"root fold of client {rid}")
+                    else:
+                        wait_for(lambda: edges[erank].folds + edges[erank].relays >= base_f + 1,
+                                 f"fold of client {rid} at edge {erank}")
+                # the root folds the partials in edge order in both legs
+                wait_for(lambda: all(c in server.aggregator.flag_client_model_uploaded
+                                     for c in children)
+                         or server.round_idx > round_idx or server.done.is_set(),
+                         f"root accounting of edge {erank} round {round_idx}")
+        completed = server.done.wait(max(0.1, deadline - time.monotonic()))
+        wall = time.monotonic() - t0
+        stop.set()
+        shared.put(None)
+        wt.join(timeout=5.0)
+        folds = sum(e.folds for e in edges.values())
+        relays = sum(e.relays for e in edges.values())
+        dedups = sum(e.deduped_uploads for e in edges.values())
+        out = {
+            "clients": n_clients, "fanout": fanout, "rounds": rounds,
+            "edges": 0 if topo is None else len(topo.edge_ranks),
+            "edge_kills": edge_kills, "uploads_sent": uploads_sent, "edge_folds": folds,
+            "edge_relays": relays, "edge_dedups": dedups,
+            # every upload sent is a fold, a dedup or a relay at one edge
+            "unaccounted": 0 if topo is None else uploads_sent - folds - relays - dedups,
+            "partials_sent": sum(e.partials_sent for e in edges.values()),
+            "root_ingress_bytes": int(server.upload_ingress_bytes),
+            "root_deduped": int(server.deduped_uploads),
+            "peak_buffered_root": int(server.aggregator.peak_buffered_updates),
+            "peak_buffered_edge": max((e._fold.peak_buffered for e in edges.values()
+                                       if e._fold is not None), default=0),
+            "wall_s": round(wall, 4),
+            "global_leaves": pt.tree_leaves(server.aggregator.host_global_flax()),
+        }
+        server.finish()
+        for e in edges.values():
+            e.finish()
+        InProcRouter.reset(run_id)
+        if not completed:
+            raise RuntimeError(f"edge kill soak did not finish {rounds} rounds in {timeout_s}s "
+                               f"(folds={folds}, dedups={dedups})")
+        return out
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def run_client_kill_soak(n_clients: int = 6, versions: int = 6, buffer_k: int = 3,

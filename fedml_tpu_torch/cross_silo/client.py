@@ -34,8 +34,16 @@ jitter (``RECONNECT_TRIES``) before it is abandoned to the server's
 straggler handling.  :meth:`ClientMasterManager.hard_kill` simulates a
 crash.
 
+Under the aggregation tree (``extra.hier_fanout`` / ``hier_topology``) a
+model reply goes to the client's edge aggregator (``cross_silo/edge.py``);
+status, FINISH and the rest stay with the root.
+
 Refused with ``NotImplementedError`` when flagged: remote observability,
-the flight recorder, the AOT store, and the client journal under SecAgg.
+the flight recorder, the AOT store, and the client journal under Shamir
+SecAgg (the reference's loses the keys) and FHE.  Under LightSecAgg the
+client journal is taken and, as in the reference, holds nothing: its
+client overrides the upload path that journals, and a restarted silo
+joins the next round's fresh mask exchange.
 """
 
 from __future__ import annotations
@@ -83,9 +91,32 @@ def refuse_unported_client(cfg) -> None:
     for flag in _UNPORTED_CLIENT_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo client yet")
-    if cfg_extra(cfg, "client_journal_dir") and getattr(cfg, "enable_secagg", False):
-        raise NotImplementedError("extra.client_journal_dir is ported for the plain "
-                                  "synchronous protocol only, not yet under SecAgg")
+    if cfg_extra(cfg, "client_journal_dir"):
+        if getattr(cfg, "enable_secagg", False) and secagg_method(cfg) == "shamir":
+            raise NotImplementedError(SHAMIR_CLIENT_JOURNAL_REFUSAL)
+        if getattr(cfg, "enable_fhe", False):
+            raise NotImplementedError("extra.client_journal_dir is not ported to the FHE "
+                                      "client yet (ROADMAP.md Queue 1 item 7)")
+
+
+#: the reference's Shamir SecAgg client journals none of its key material (a
+#: decided difference, ROADMAP Queue 3)
+SHAMIR_CLIENT_JOURNAL_REFUSAL = (
+    "extra.client_journal_dir under Shamir SecAgg: the reference's SecAgg client journals "
+    "none of its key material (DH secrets, b_u, the peers' shares), so a silo restarted "
+    "over its journal draws new keys and re-shares, and the survivors' pairwise masks no "
+    "longer cancel: the reference's run completes with a wrong global; refused until the "
+    "client journal carries the keys")
+
+
+def secagg_method(cfg) -> str:
+    """``"lightsecagg"`` or ``"shamir"``, from ``extra.secagg_method``."""
+    method = str(cfg_extra(cfg, "secagg_method")).lower()
+    if method in ("lightsecagg", "lsa"):
+        return "lightsecagg"
+    if method in ("shamir", "secagg", "pairwise"):
+        return "shamir"
+    raise ValueError(f"unknown secagg_method {method!r}; use 'lightsecagg' or 'shamir'")
 
 
 def _leaf_delta(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -142,6 +173,13 @@ class ClientMasterManager(FedMLCommManager):
         self.on_error: Optional[Callable] = None
         self.comm_codec = codecs.codec_from_config(cfg)
         self._comm_residuals = None
+        # the aggregation tree (cross_silo/edge.py): model replies go to this
+        # client's edge aggregator; status, FINISH and the rest stay with the
+        # root.  Flat: 0, the bytes unchanged.
+        from .edge import build_topology
+
+        topo = build_topology(cfg)
+        self._upload_dest = 0 if topo is None else topo.parent(rank)
         self._comm_ratio = float(cfg_extra(
             cfg, "comm_topk_ratio", getattr(cfg, "compression_ratio", 0.01) or 0.01))
         # an explicit comm_compress_min_size wins, then the trainer's own
@@ -228,7 +266,7 @@ class ClientMasterManager(FedMLCommManager):
         new_vars, n_samples = self.trainer.train(global_vars, round_idx, self.seed_key,
                                                  client_idx)
         self.rounds_trained += 1
-        reply = Message(md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.rank, 0)
+        reply = Message(md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.rank, self._upload_dest)
         payload, is_delta = self.upload_payload(new_vars, global_vars, round_idx)
         reply.add_params(md.MSG_ARG_KEY_MODEL_PARAMS, payload)
         if is_delta:

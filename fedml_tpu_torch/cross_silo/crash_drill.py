@@ -1,6 +1,8 @@
-"""Crash drills of the plain synchronous protocol in one process (the port's
+"""Crash drills of the synchronous protocols in one process (the port's
 counterpart of the reference's ``cross_silo/async_soak.py`` crash-parity
-harnesses, for the sync server).
+harnesses, for the sync servers): the plain protocol, and Shamir SecAgg and
+LightSecAgg as far as their journals run (``cross_silo/server.py``'s
+refusals).
 
 :func:`run_with_crashes` runs a server and its clients (in-process or TCP)
 and injects, at the server's sends, up to two crashes:
@@ -10,6 +12,8 @@ and injects, at the server's sends, up to two crashes:
   hard-killed and what it would still send is lost; a new server is built
   over the same journal, recovers, and runs the rest under the next session
   epoch;
+- ``kill_server_after_uploads=(R, k)``: the same kill once the server has
+  handled ``k`` model uploads of round ``R`` (a crash inside the round);
 - ``kill_client=(rank, R)``: just before round ``R``'s dispatch reaches
   ``rank``, that client is hard-killed, a replacement is built over the same
   client journal (it resumes from it), and the dispatch goes to the
@@ -31,7 +35,7 @@ from typing import Optional
 
 from .. import constants as C
 from ..comm.tcp_backend import link_ports
-from . import build_client, build_process_group, build_server
+from . import group_builders
 from . import message_define as md
 
 log = logging.getLogger("fedml_tpu_torch.cross_silo.crash_drill")
@@ -41,15 +45,23 @@ _DISPATCH = (md.MSG_TYPE_S2C_INIT_CONFIG, md.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT)
 
 def run_with_crashes(cfg, dataset, model, device, *, backend: str = C.COMM_BACKEND_INPROC,
                      kill_server_before_round: Optional[int] = None,
+                     kill_server_after_uploads: Optional[tuple] = None,
                      kill_client: Optional[tuple] = None, timeout: float = 600.0,
-                     global_vars=None, perms=None, logger=None, trust_sampler=None) -> dict:
-    """Run ``cfg``'s plain cross-silo group with the crashes asked for;
-    returns ``{"server", "clients", "history", "server_kills", "client_kills",
-    "first_server"}`` (``history``: the rounds of every server life)."""
-    hooks = dict(global_vars=global_vars, logger=logger, trust_sampler=trust_sampler)
-    server, clients = build_process_group(cfg, dataset, model, device, backend=backend,
-                                          perms=perms, **hooks)
-    state = {"server_kills": 0, "client_kills": 0, "first_server": server}
+                     global_vars=None, perms=None, logger=None, **server_hooks) -> dict:
+    """Run ``cfg``'s cross-silo group (its protocol's builders) with the
+    crashes asked for; returns ``{"server", "clients", "history",
+    "server_kills", "client_kills", "first_server"}`` (``history``: the
+    rounds of every server life).  ``server_hooks``: the protocol's server
+    hooks (``trust_sampler``, ``noise_sampler``)."""
+    from .edge import build_topology
+
+    if build_topology(cfg) is not None:
+        raise ValueError("the crash drills run the flat protocol; the aggregation tree's "
+                         "edge kills are async_soak.run_edge_kill_soak's")
+    build_group, build_server, build_client = group_builders(cfg)
+    hooks = dict(global_vars=global_vars, logger=logger, **server_hooks)
+    server, clients = build_group(cfg, dataset, model, device, backend, perms=perms, **hooks)
+    state = {"server_kills": 0, "client_kills": 0, "first_server": server, "uploads": 0}
     threads = {}
     killed = threading.Event()
 
@@ -78,6 +90,21 @@ def run_with_crashes(cfg, dataset, model, device, *, backend: str = C.COMM_BACKE
             send(msg)
 
         srv.send_message = send_tapped
+        if kill_server_after_uploads is not None and srv is state["first_server"]:
+            handle = srv.handle_message_receive_model
+
+            def handle_tapped(msg):
+                handle(msg)
+                rnd, k = kill_server_after_uploads
+                if int(msg.get_control(md.MSG_ARG_KEY_ROUND_INDEX, -1)) == rnd \
+                        and not killed.is_set():
+                    state["uploads"] += 1
+                    if state["uploads"] == k:
+                        state["server_kills"] += 1
+                        killed.set()
+                        srv.hard_kill()
+
+            srv.handle_message_receive_model = handle_tapped
 
     def _swap_client(rank):
         old = clients[rank - 1]
@@ -101,7 +128,7 @@ def run_with_crashes(cfg, dataset, model, device, *, backend: str = C.COMM_BACKE
         start_client(c)
     history = []
     try:
-        if kill_server_before_round is not None:
+        if kill_server_before_round is not None or kill_server_after_uploads is not None:
             thread = server.run_in_thread()
             server.start()
             deadline = time.monotonic() + timeout

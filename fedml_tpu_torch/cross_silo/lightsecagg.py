@@ -36,6 +36,14 @@ copy of the mean per round.  A client's mask seed is an argument
 reference: masks cancel exactly in the field, so the final global does not
 depend on them.
 
+The group runs over the in-process fabric or TCP, and the server and each
+silo run alone as ``role: server`` / ``role: client`` processes.  The
+client journal (``extra.client_journal_dir``) is taken and holds nothing,
+as in the reference (its upload path does not journal): a restarted silo
+joins the next round's fresh mask exchange.  The server journal is refused
+(``server.LSA_SERVER_JOURNAL_REFUSAL``: the reference's recovered server
+stalls on a crash inside a round).
+
 Refused as the reference refuses them (``secagg_params``): T and U out of
 range (``ValueError``), attacks, defenses, DP, contribution and FHE, any
 optimizer but FedAvg (``NotImplementedError``), partial participation
@@ -221,7 +229,7 @@ class LSAServerManager(FedMLServerManager):
 
     def __init__(self, cfg, aggregator: LSAAggregator, backend: Optional[str] = None,
                  logger=None):
-        super().__init__(cfg, aggregator, backend=backend, logger=logger, secure=True)
+        super().__init__(cfg, aggregator, backend=backend, logger=logger, secure="lightsecagg")
         if self.per_round != len(self.client_ids):
             raise ValueError(
                 "LightSecAgg requires full participation per round "
@@ -430,11 +438,12 @@ def build_lightsecagg_process_group(cfg, dataset, model, device, backend: str = 
                                     drop_ranks: frozenset = frozenset(), global_vars=None,
                                     perms=None, logger=None, mask_seeds=None):
     """``(server, clients)``: 1 server + N LightSecAgg clients on the
-    in-process fabric, not started.  ``drop_ranks`` clients complete the
-    mask exchange (their masks are in the survivors' share tables) but
-    never upload a model: the hard dropout case.  ``mask_seeds`` maps a
+    in-process fabric (or loopback TCP), not started.  ``drop_ranks``
+    clients complete the mask exchange (their masks are in the survivors'
+    share tables) but never upload a model: the hard dropout case.  ``mask_seeds`` maps a
     rank to its mask seed (default: OS entropy)."""
     from ..comm.inproc import InProcRouter
+    from ..comm.tcp_backend import link_ports
 
     InProcRouter.reset(str(getattr(cfg, "run_id", "0")))
     server = build_lsa_server(cfg, dataset, model, device, backend=backend,
@@ -446,6 +455,7 @@ def build_lightsecagg_process_group(cfg, dataset, model, device, backend: str = 
         if r in drop_ranks:
             c._train_masked = lambda: None  # drops out before its model upload
         clients.append(c)
+    link_ports([server, *clients])
     return server, clients
 
 

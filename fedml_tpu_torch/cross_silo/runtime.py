@@ -10,7 +10,7 @@ Callbacks run outside the runtime's lock (a callback that takes a server's
 lock never nests it inside this one); a callback that raises is logged and
 contained.  Not ported yet: the reference's ``post`` dispatch queue (no
 caller on this slice's path) and its ``GangScheduler`` (the multi-tenant
-round gate).
+round gate, set only by ``sched/multi_tenant.py``: ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations

@@ -45,6 +45,16 @@ clients); the server adds the unmasked mean delta back onto the old global
 at finalize, before central DP.  Without ``secagg_stream`` the codec is
 ignored (the buffer-all dense wire), as in the reference.
 
+The group runs over the in-process fabric or TCP, and the server and each
+silo run alone as ``role: server`` / ``role: client`` processes.  The
+server journal (``extra.server_journal_dir``) recovers a crash at a round
+boundary or inside a round, the round redone (the secure handlers take no
+mid-round snapshot, as the reference's take none); a recovered server drops
+an upload that reaches it before its first dispatch (its predecessor's,
+drained from the queue) or a second one a round, where the reference counts
+them (ROADMAP Queue 3).  The client journal is refused: the reference's
+journals none of the keys, so a restarted silo re-keys.
+
 Refused as the reference refuses them: LDP and every other trust feature,
 CDP without ``secagg_stream``, partial participation and non-FedAvg
 optimizers.
@@ -335,7 +345,7 @@ class SAServerManager(FedMLServerManager):
     announcement, reveal collection."""
 
     def __init__(self, cfg, aggregator: SAAggregator, backend: Optional[str] = None, logger=None):
-        super().__init__(cfg, aggregator, backend=backend, logger=logger, secure=True)
+        super().__init__(cfg, aggregator, backend=backend, logger=logger, secure="shamir")
         if self.per_round != len(self.client_ids):
             raise ValueError(
                 "Shamir SecAgg requires full participation per round "
@@ -392,6 +402,15 @@ class SAServerManager(FedMLServerManager):
     def handle_message_receive_model(self, msg: Message) -> None:
         with self._agg_lock:
             if msg.get(md.MSG_ARG_KEY_ROUND_INDEX) != self.round_idx or self._phase != "model":
+                return
+            sender = int(msg.get_sender_id())
+            if self.recovered_step is not None and (
+                    not self._init_sent or self.aggregator.has_received(sender)):
+                # a server rebuilt from its journal: an upload this life did
+                # not ask for (its predecessor's, drained from the queue
+                # before the first dispatch), or a second one a round, would
+                # close the round early or fold its masks twice.  A server
+                # never recovered counts them, as the reference's does
                 return
             self._round_payload_bytes += int(msg.wire_nbytes)
             meta = msg.get_control(MSG_ARG_KEY_SECAGG_META)
@@ -625,10 +644,12 @@ def build_shamir_secagg_process_group(cfg, dataset, model, device, backend: str 
                                       drop_ranks: frozenset = frozenset(), global_vars=None,
                                       perms=None, noise_sampler=None, logger=None):
     """``(server, clients)``: 1 server + N Shamir-SecAgg clients on the
-    in-process fabric, not started.  ``drop_ranks`` clients complete the
-    setup (their pair masks are in the survivors' uploads) but never upload
-    a model: the dropout case that reconstructs s_sk."""
+    in-process fabric (or loopback TCP), not started.  ``drop_ranks``
+    clients complete the setup (their pair masks are in the survivors'
+    uploads) but never upload a model: the dropout case that reconstructs
+    s_sk."""
     from ..comm.inproc import InProcRouter
+    from ..comm.tcp_backend import link_ports
 
     InProcRouter.reset(str(getattr(cfg, "run_id", "0")))
     server = build_sa_server(cfg, dataset, model, device, backend=backend,
@@ -639,6 +660,7 @@ def build_shamir_secagg_process_group(cfg, dataset, model, device, backend: str 
         if r in drop_ranks:
             c._train_masked = lambda: None  # drops out before its model upload
         clients.append(c)
+    link_ports([server, *clients])
     return server, clients
 
 

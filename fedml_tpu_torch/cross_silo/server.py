@@ -63,8 +63,15 @@ under its lock, which its watchdog takes).  The reference's dispatch times
 (``_sent_at``) feed its RTT histogram and health ledger, neither ported,
 so the port keeps none.
 
-Refused with ``NotImplementedError`` when flagged: the journal on a secure
-(SecAgg) server, the hierarchy, the flight recorder,
+The aggregation tree (``extra.hier_fanout`` / ``hier_topology``,
+``cross_silo/edge.py``): the server dispatches to the root's child
+aggregators, one message each with its subtree's plan, and folds each
+tagged partial with direct adds (:meth:`FedMLAggregator.fold_partial`);
+its sources count as received clients, so quorum and the all-receive
+check are the flat protocol's.  ``upload_ingress_bytes`` counts the wire
+bytes of the uploads that reached the server.
+
+Refused with ``NotImplementedError`` when flagged: the flight recorder,
 SLOs, the timeline, OTLP, remote observability, model publication,
 health-aware selection, the AOT store, the sharded fold (it needs a device
 mesh), the metrics endpoint, and contribution assessment (the reference's
@@ -100,30 +107,39 @@ from . import message_define as md
 log = logging.getLogger("fedml_tpu_torch.cross_silo.server")
 
 _UNPORTED_SERVER_FLAGS = (
-    "hier_fanout", "hier_topology", "hier_hop_codec",
     "flight_recorder", "slo_specs", "perf_timeline", "otlp_endpoint",
     "enable_remote_obs", "model_publish_dir", "health_aware_selection", "aot_programs",
     "server_shard_fold", "metrics_port")
-# ported for the plain synchronous server alone
-_JOURNAL_FLAGS = ("server_journal_dir", "server_journal_every_folds")
+#: the reference's LightSecAgg server recovers a crash at a round boundary,
+#: but not one inside a round (a decided difference, ROADMAP Queue 3)
+LSA_SERVER_JOURNAL_REFUSAL = (
+    "extra.server_journal_dir under LightSecAgg: the reference's LightSecAgg server recovers "
+    "a crash at a round boundary, but a crash inside a round stalls the recovered run: the "
+    "dead server's masked uploads of that round, still queued for rank 0, are taken against "
+    "the round's new mask exchange and the aggregate masks never decode (the reference's run "
+    "times out); refused until that recovery works")
 
 #: idempotence keys remembered per client for the exactly-once dedup (the
 #: reference's bound)
 DEDUP_KEYS_PER_CLIENT = 16
 
 
-def refuse_unported_server(cfg, secure: bool = False) -> None:
-    """Raise for a server feature this slice does not serve; ``secure``
-    servers (SecAgg) check their trust composition themselves."""
+def refuse_unported_server(cfg, secure: Optional[str] = None) -> None:
+    """Raise for a server feature this slice does not serve.  ``secure``
+    names a secure server's protocol (``"shamir"``, ``"lightsecagg"`` or
+    ``"fhe"``), which checks its trust composition itself; of the journals
+    Shamir SecAgg takes the server's (its round-boundary and mid-round
+    crashes recover as the reference's do), LightSecAgg none (the
+    reference's fails inside a round) and FHE none (not ported)."""
     for flag in _UNPORTED_SERVER_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo server yet")
-    if secure:
-        for flag in _JOURNAL_FLAGS:
-            if cfg_extra(cfg, flag):
-                raise NotImplementedError(f"extra.{flag} is ported for the plain synchronous "
-                                          "server only, not yet for the SecAgg servers")
-    elif getattr(cfg, "enable_contribution", False):
+    if secure == "lightsecagg" and cfg_extra(cfg, "server_journal_dir"):
+        raise NotImplementedError(LSA_SERVER_JOURNAL_REFUSAL)
+    if secure == "fhe" and cfg_extra(cfg, "server_journal_dir"):
+        raise NotImplementedError("extra.server_journal_dir is not ported to the FHE server "
+                                  "yet (ROADMAP.md Queue 1 item 7)")
+    if secure is None and getattr(cfg, "enable_contribution", False):
         raise NotImplementedError("enable_contribution on the cross-silo server: the "
                                   "reference's server computes no contribution, so the flag "
                                   "would be a silent no-op; run contribution in the simulator")
@@ -297,6 +313,52 @@ class FedMLAggregator:
         self.flag_client_model_uploaded[client_idx] = True
         return True
 
+    def fold_partial(self, msg, sources: dict, w_delta: float) -> bool:
+        """Fold an edge aggregator's pre-folded partial (``cross_silo/
+        edge.py``): its tensors carry ``sum_c w_c * x_c`` over the edge's
+        children, so each leaf merges with a direct add, and the sources'
+        masses land in the ledgers the flat path keeps (the all-receive
+        count counts clients as flat).  A redelivery of folded sources is
+        swallowed (True); False when stream mode is off, the frame does not
+        match the model, or the sources overlap folded ones only in part
+        (merged sums cannot be split): a partial has no dense fallback."""
+        if not self.stream_mode:
+            return False
+        frame = msg.tensor_segments() if hasattr(msg, "tensor_segments") else None
+        if frame is None:
+            return False
+        header, segments = frame
+        tmpl, skel = self._stream_template()
+        specs = header["leaves"]
+        if header["treedef"] != skel or len(specs) != len(tmpl) or any(
+                tuple(spec["shape"]) != tuple(t.shape) for spec, t in zip(specs, tmpl)):
+            log.warning("edge partial frame does not match the model; dropping")
+            return False
+        fresh = {int(k): float(v) for k, v in sources.items()
+                 if int(k) not in self.flag_client_model_uploaded}
+        if not fresh:
+            return True
+        if len(fresh) != len(sources):
+            log.warning("edge partial overlaps %d folded sources; dropping",
+                        len(sources) - len(fresh))
+            return False
+        t0 = time.perf_counter()
+        from ..parallel.stream_fold import DeviceStreamAccumulator, decode_leaf
+
+        if self._stream_acc is None:
+            self._stream_acc = DeviceStreamAccumulator(tmpl, self.device)
+        self._note_buffered(inflight=1)
+        for i, spec, segs in segments:
+            self._stream_acc.fold_partial_leaf(i, decode_leaf(spec, segs, self.device))
+        self._stream_w += sum(fresh.values())
+        self._stream_w_delta += float(w_delta)
+        self._stream_folded += 1
+        for cid, w in fresh.items():
+            self.sample_num_dict[cid] = w
+            self.flag_client_model_uploaded[cid] = True
+        self.fold_time_s += time.perf_counter() - t0
+        return True
+
     def received_count(self) -> int:
         return len(self.flag_client_model_uploaded)
 
@@ -450,7 +512,7 @@ class FedMLServerManager(FedMLCommManager):
     _join_runtime_on_finish = True
 
     def __init__(self, cfg, aggregator: FedMLAggregator, backend: Optional[str] = None,
-                 logger: Optional[MetricsLogger] = None, secure: bool = False):
+                 logger: Optional[MetricsLogger] = None, secure: Optional[str] = None):
         refuse_unported_server(cfg, secure=secure)
         super().__init__(cfg, rank=0, size=cfg.client_num_in_total + 1, backend=backend)
         from .journal import journal_from_config
@@ -463,6 +525,18 @@ class FedMLServerManager(FedMLCommManager):
         self.per_round = min(cfg.client_num_per_round, len(self.client_ids))
         self.active_clients: set[int] = set()
         self.selected: list[int] = []
+        # the aggregation tree (cross_silo/edge.py): dispatch goes to the
+        # root's child aggregators and their tagged partials fold here; None
+        # (the hier flags unset) is the flat protocol, its bytes unchanged
+        from .edge import build_topology
+
+        self.topology = build_topology(cfg)
+        #: the tree's edge managers of the in-process group (``cross_silo.
+        #: build_process_group`` sets them; started and stopped with the group)
+        self.edges: list = []
+        #: wire bytes of the model uploads that reached this server (partials
+        #: under the tree), cumulative
+        self.upload_ingress_bytes = 0
         self.done = threading.Event()
         self.history: list[dict] = []
         self.logger = logger or MetricsLogger(cfg.metrics_jsonl_path or None)
@@ -601,19 +675,33 @@ class FedMLServerManager(FedMLCommManager):
             if msg.get(md.MSG_ARG_KEY_ROUND_INDEX) != self.round_idx:
                 return  # stale round (post-timeout arrival)
             self._round_payload_bytes += int(msg.wire_nbytes)
-            n_samples = float(msg.get(md.MSG_ARG_KEY_NUM_SAMPLES))
-            # control-only read: a plain get() of the absent key would restore
-            # the tensors and demote the streaming fold to the dense buffer
-            is_delta = bool(msg.get_control(md.MSG_ARG_KEY_MODEL_IS_DELTA, False))
-            if not self.aggregator.ingest_streaming(sender, msg, n_samples, is_delta):
-                self.aggregator.add_local_trained_result(
-                    sender, msg.get(md.MSG_ARG_KEY_MODEL_PARAMS), n_samples, is_delta=is_delta)
+            self.upload_ingress_bytes += int(msg.wire_nbytes)
+            hier_tag = msg.get_control(md.MSG_ARG_KEY_HIER_PARTIAL)
+            if hier_tag is not None:
+                # one pre-folded partial stands in for an edge's subtree
+                if not self.aggregator.fold_partial(msg, hier_tag.get("sources") or {},
+                                                    float(hier_tag.get("w_delta", 0.0))):
+                    log.warning("dropping an unfoldable edge partial from %d (round %d)",
+                                sender, self.round_idx)
+                    return
+            else:
+                self._ingest_upload(msg, sender)
             self._note_upload_key(sender, upload_key)
             folded = self.aggregator._stream_folded
             if self._journal_every_folds and folded and folded % self._journal_every_folds == 0:
                 self._journal_midround_snapshot()
             if self.aggregator.check_whether_all_receive(len(self.selected)):
                 self._finish_round()
+
+    def _ingest_upload(self, msg: Message, sender: int) -> None:
+        """One client's reply: the streaming fold, else the dense buffer."""
+        n_samples = float(msg.get(md.MSG_ARG_KEY_NUM_SAMPLES))
+        # control-only read: a plain get() of the absent key would restore
+        # the tensors and demote the streaming fold to the dense buffer
+        is_delta = bool(msg.get_control(md.MSG_ARG_KEY_MODEL_IS_DELTA, False))
+        if not self.aggregator.ingest_streaming(sender, msg, n_samples, is_delta):
+            self.aggregator.add_local_trained_result(
+                sender, msg.get(md.MSG_ARG_KEY_MODEL_PARAMS), n_samples, is_delta=is_delta)
 
     def _arm_straggler_timer(self) -> None:
         if self.straggler_timeout <= 0:
@@ -665,6 +753,9 @@ class FedMLServerManager(FedMLCommManager):
         self._round_t0 = time.perf_counter()
         self._round_payload_bytes = 0
         params = self.aggregator.host_global_flax()
+        if self.topology is not None:
+            self._broadcast_model_hier(msg_type, params)
+            return
         for cid in self.selected:
             if self.aggregator.has_received(cid):
                 continue
@@ -677,6 +768,23 @@ class FedMLServerManager(FedMLCommManager):
                 # pre-crash work from current work
                 msg.add_params(md.MSG_ARG_KEY_SESSION_EPOCH, self.session_epoch)
             self._send_best_effort(msg, "broadcast")
+        self._arm_straggler_timer()
+
+    def _broadcast_model_hier(self, msg_type: int, params) -> None:
+        """The tree's dispatch: one message per child aggregator of the root,
+        the global and that subtree's plan (``MSG_ARG_KEY_HIER_CHILDREN``);
+        clients whose fold a journal kept are left out of the plan.  Caller
+        holds _agg_lock."""
+        skip = [cid for cid in self.selected if self.aggregator.has_received(cid)]
+        for agg_rank, spec in sorted(self.topology.dispatch_plan(self.selected,
+                                                                 skip=skip).items()):
+            msg = Message(msg_type, 0, agg_rank)
+            msg.add_params(md.MSG_ARG_KEY_MODEL_PARAMS, params)
+            msg.add_params(md.MSG_ARG_KEY_ROUND_INDEX, self.round_idx)
+            msg.add_params(md.MSG_ARG_KEY_HIER_CHILDREN, spec)
+            if self.journal is not None:
+                msg.add_params(md.MSG_ARG_KEY_SESSION_EPOCH, self.session_epoch)
+            self._send_best_effort(msg, "hier dispatch")
         self._arm_straggler_timer()
 
     # -- exactly-once upload dedup ---------------------------------------------
@@ -760,7 +868,9 @@ class FedMLServerManager(FedMLCommManager):
         self.com_manager.stop_receive_message()
 
     def send_finish(self) -> None:
-        for cid in self.client_ids:
+        # the tree's aggregators stop on the same broadcast
+        ranks = self.client_ids + (self.topology.aggregator_ranks if self.topology else [])
+        for cid in ranks:
             self._send_best_effort(Message(md.MSG_TYPE_S2C_FINISH, 0, cid), "FINISH")
         self.done.set()
         self._prune_retired_client_journals()

@@ -5,7 +5,9 @@
 The server folds each arriving model reply, leaf by leaf, into a running
 weighted sum: one f32 sum per wire leaf, in flax layout (the wire's), held
 on the device.  ``fold_leaf(i, w, x)`` computes ``sums[i] += f32(w) * x``
-and ``finalize`` ``((sum + f32(w_delta) * base) / f32(total)).to(dtype)``.
+and ``finalize`` ``((sum + f32(w_delta) * base) / f32(total)).to(dtype)``;
+``fold_partial_leaf(i, x)`` adds an edge aggregator's pre-folded partial
+as it is (the reference's ``HostStreamAccumulator.fold_partial_leaf``).
 
 Bitwise discipline: every step is its own IEEE f32 elementwise launch (a
 multiply, then an add; an add of the base's product; a true division), the
@@ -96,6 +98,12 @@ class DeviceStreamAccumulator:
         number or :meth:`scalar`)."""
         w = w if isinstance(w, torch.Tensor) else self.scalar(w)
         self._sums[i].add_(torch.mul(w, x.to(self.device, torch.float32)))
+
+    def fold_partial_leaf(self, i: int, x: torch.Tensor) -> None:
+        """``sums[i] += x``: a pre-folded weighted partial (an edge
+        aggregator's, ``cross_silo/edge.py``) merges with a direct add, no
+        unit-weight multiply, the bitwise continuation of the child's fold."""
+        self._sums[i].add_(x.to(self.device, torch.float32))
 
     def sums(self) -> list:
         return list(self._sums)

@@ -410,7 +410,7 @@ def test_refusals_match_the_reference(tmp_path, case):
         "cdp_without_stream": dict(DP_KW, extra={"secagg_stream": False}),
         "partial_participation": dict(client_num_per_round=3),
         "fedprox": dict(federated_optimizer="FedProx"),
-        "unported_flag": dict(extra={"server_journal_dir": str(tmp_path / "j")}),
+        "unported_flag": dict(extra={"client_journal_dir": str(tmp_path / "j")}),
         "grpc_backend": dict(backend="GRPC"),
         "lightsecagg": dict(DP_KW, extra={"secagg_method": "lightsecagg"}),
         "client_role": dict(role="client"),

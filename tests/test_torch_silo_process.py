@@ -23,8 +23,8 @@ order, so:
 
 Every child asserts it never imported ``jax`` or ``fedml_tpu``, has a
 wall-clock bound, and all are killed at the end.  The refusals that stay
-(the client role under SecAgg, multi-process silos, ``tcp_base_port: 0``
-across processes, a silo over the in-process fabric) raise.
+(a silo over the in-process fabric, under SecAgg too; the FHE silo's
+journal; multi-process silos; ``tcp_base_port: 0`` across processes) raise.
 """
 
 import json
@@ -228,10 +228,13 @@ def test_refusals_that_stay(case):
         cfg.role, cfg.rank, cfg.enable_secagg = "client", 1, True
         cfg.backend = "INPROC"
     elif case == "client_fhe":
+        # the FHE silo runs as a process of its own; its journal waits
         cfg.role, cfg.rank, cfg.enable_fhe = "client", 1, True
+        cfg.extra["client_journal_dir"] = "/nonexistent/journal"
     elif case == "multiprocess_silo":
         cfg.role, cfg.rank = "client", 1
         cfg.extra["coordinator_address"] = "localhost:1234"
+        match = "Queue 1 item 8"
     elif case == "port_zero_client":
         cfg.role, cfg.rank = "client", 1
         cfg.extra["tcp_base_port"] = 0

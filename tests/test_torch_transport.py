@@ -513,9 +513,13 @@ def test_tcp_over_other_hosts_and_under_secagg_refused():
     cfg.backend = "TCP"
     with pytest.raises(NotImplementedError, match="role 'client'"):
         FedMLRunner(cfg, device="cpu")
-    _, cfg = _cfgs("tcp_secagg", {"secagg_method": "shamir"}, model="lr", enable_secagg=True)
+    # under SecAgg too (TCP itself runs under both secure protocols:
+    # tests/test_torch_secure_roles.py)
+    _, cfg = _cfgs("tcp_secagg", {"secagg_method": "shamir", "tcp_base_port": 0,
+                                  "tcp_ip_config": {"1": "10.0.0.5"}},
+                   model="lr", enable_secagg=True)
     cfg.backend = "TCP"
-    with pytest.raises(NotImplementedError, match="plain server only"):
+    with pytest.raises(NotImplementedError, match="role 'client'"):
         FedMLRunner(cfg, device="cpu")
 
 
