@@ -413,6 +413,25 @@ Phases (any failure exits non-zero; no phase is caught):
    decrypted mean of each round within ``n * 2^-16`` of the plaintext mean
    of the same uploads, and test accuracy within ``FHE_ACC_GAP`` of the
    plain run.  The phase prints its seconds by form.
+17. (slice 20) The transports between processes.  (a) Phase 14's recipe
+   and cut (the flagship ResNet-20, bf16, fused, batch 128, 4 silo threads,
+   3,200 images, qsgd8 uploads folded as they land, central DP, 3 rounds)
+   over MQTT_S3: the port's ``MiniMqttBroker`` and ``MiniObjectStoreServer``
+   on loopback (``extra.mqtt_host``), the long payloads through the store;
+   silo 2's session is kicked (no DISCONNECT) as round 1 closes, reconnects
+   and re-subscribes before round 2's dispatch.  Every round folds all 4
+   silos; kernels 5 / 6 18 launches an upload sent / folded, kernel 7 once a
+   round; the bytes through the topics and the store; the last global
+   against the numpy refold of its uploads within ``REFOLD_ATOL``, one
+   upload left out moving it tenfold.  (b) The server alone in this process
+   and 2 silo processes (``soak_worker``: ``init`` + ``FedMLRunner`` with
+   ``role: client``, no jax) over the same broker and store, 2 rounds: the
+   launches summed over the processes, the global against the refold.  (c)
+   The ``cross_silo_horizontal_lr`` group over WEB3 (the in-memory ledger),
+   2 rounds: history and global bitwise the INPROC group's (buffer-all).
+   gRPC is not driven here: the card's machine has no ``grpcio``; the CPU
+   tests hold it (``tests/test_torch_grpc.py``), and its device work is
+   phase 14's over TCP.
 
 Each phase's wall time on one line, then the script's wall time, then the
 ``{"kernels": [...]}`` JSON (each kernel's launches from its own path's
@@ -432,7 +451,9 @@ and ``path_max``, the longest group of the run; ``slice16_launches``: each
 kernel's launches over phase 13, all 0; ``slice17_launches``: each
 kernel's launches over phase 14 (a); ``slice18_launches``: each kernel's
 launches over phase 15 (a), summed over its five processes;
-``slice19_launches``: each kernel's launches over phase 16), then the
+``slice19_launches``: each kernel's launches over phase 16;
+``slice20_launches``: each kernel's launches over phase 17, summed over
+its processes), then the
 card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2 and prints neither.
 """
@@ -5663,6 +5684,328 @@ def phase_slice19(mods, nz):
     return counts
 
 
+# -- phase 17 (slice 20): the transports between processes -------------------------
+# gRPC is not driven on the card: its machine has no grpcio.  The CPU tests
+# hold it against the reference (tests/test_torch_grpc.py); its device work
+# is TCP's, phase 14's.
+SLICE20_KICKED = 2  # (a): the silo whose broker session is kicked
+SLICE20_KICK_ROUND = 1  # as this round closes
+SLICE20_STRAGGLER_S = 60.0  # only a lost message would wait this long (a failure)
+SLICE20_PROC_SILOS = 2  # (b)
+SLICE20_PROC_ROUNDS = 2
+SLICE20_TIMEOUT_S = 300.0  # (b): each process's wall-clock bound
+
+
+def _mqtt_fabric():
+    """The port's MQTT broker and HTTP object store on loopback, started:
+    ``(broker, store, the extra flags that point a run at them)``."""
+    from fedml_tpu_torch.comm.mqtt_wire import MiniMqttBroker
+    from fedml_tpu_torch.comm.object_store_http import MiniObjectStoreServer
+
+    broker, store = MiniMqttBroker(), MiniObjectStoreServer()
+    broker.start()
+    store.start()
+    return broker, store, {"mqtt_host": "127.0.0.1", "mqtt_port": broker.port,
+                           "object_store_url": store.url}
+
+
+def _slice20_cfg(tag, fabric):
+    """Phase 14's recipe over MQTT_S3 (no chunk frames: the MQTT backend
+    takes none, as the reference's), qsgd8 folded as it lands, no journal."""
+    cfg = _slice17_cfg(None, tag, comm_compression="qsgd8", streaming_aggregation=True,
+                       straggler_timeout_s=SLICE20_STRAGGLER_S, **fabric)
+    cfg.backend = "MQTT_S3"
+    for k in ("tcp_base_port", "comm_chunk_bytes"):
+        cfg.extra.pop(k)
+    return cfg
+
+
+def _refold_check(what, agg, tap):
+    """The last round's global against the numpy refold of its uploads,
+    and one upload left out."""
+    from fedml_tpu_torch import weights
+
+    got = weights.flatten_reference(agg.global_vars)[0]
+    err = float((got - tap.refold()).abs().max())
+    without = {c: float((got - tap.refold(leave_out=c)).abs().max())
+               for c, *_ in tap.last["folds"]}
+    print(f"{what}: round {tap.last['round']}'s global against the plain refold of its "
+          f"{len(tap.last['folds'])} uploads: max abs {err:.3g} (limit {REFOLD_ATOL:g}); one "
+          "upload left out: " + ", ".join(f"silo {c} {v:.3g}" for c, v in sorted(without.items())))
+    if not (err <= REFOLD_ATOL and min(without.values()) > 10 * REFOLD_ATOL):
+        raise AssertionError(f"{what}: the global is {err:.3g} from the plain refold (limit "
+                             f"{REFOLD_ATOL:g}); without one upload {without}")
+
+
+def _check_history(what, history, rounds, global_vars):
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+
+    if len(history) != rounds:
+        raise AssertionError(f"{what}: {len(history)} rounds, want {rounds}")
+    for metrics in history:
+        for key in ("test_loss", "test_acc"):
+            if not math.isfinite(metrics[key]):
+                raise AssertionError(f"{what} round {metrics['round']}: {key} {metrics[key]}")
+    if not all(bool(torch.isfinite(t).all()) for t in pt.tree_leaves(global_vars)):
+        raise AssertionError(f"{what}: non-finite global")
+
+
+def phase_slice20_threads(mods, nz):
+    """(a): phase 14's recipe as 4 silo threads over MQTT_S3, silo 2's
+    session kicked as round 1 closes."""
+    import torch
+
+    from fedml_tpu_torch.comm.mqtt_s3 import MqttS3CommManager
+    from fedml_tpu_torch.cross_silo import build_process_group
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    broker, store, fabric = _mqtt_fabric()
+    try:
+        cfg = _slice20_cfg("slice20_mqtt", fabric)
+        t0 = time.perf_counter()
+        runner = FedMLRunner(cfg)
+        group = runner.runner
+        group.server, group.clients = build_process_group(cfg, runner.dataset, runner.model,
+                                                          runner.device, cfg.backend)
+        server, clients = group.server, group.clients
+        if not isinstance(server.com_manager, MqttS3CommManager):
+            raise AssertionError(f"phase 17 (a): server transport {type(server.com_manager)}")
+        print(f"phase 17 (a): set-up {time.perf_counter() - t0:.1f} s (data "
+              f"{runner.dataset.train_num}/{runner.dataset.test_num}, {SILOS} silo threads, batch "
+              f"{cfg.batch_size}, {cfg.compute_dtype}; MQTT broker 127.0.0.1:{broker.port}, HTTP "
+              f"store {store.url}; payloads over 8 KiB through the store)")
+        all_mods = mods + (nz,)
+        probe = _RoundProbe(server.logger, lambda: _all_counts(all_mods))
+        server.logger = probe
+        agg = server.aggregator
+        tap = _FoldTap(agg)
+        kicked = clients[SLICE20_KICKED - 1]
+        wire = kicked.com_manager.broker._client
+        kick = {}
+        aggregate = agg.aggregate
+
+        def kick_at_close(round_idx):
+            # every upload of the round is in and no dispatch is in flight:
+            # the kicked silo's dead window loses nothing, and the next
+            # dispatch waits for its re-SUBSCRIBE
+            if round_idx == SLICE20_KICK_ROUND and not kick:
+                t_kick = time.perf_counter()
+                broker.kick(kicked.com_manager.client_id)
+                deadline = time.monotonic() + 30.0
+                while wire.reconnects < 1:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("phase 17 (a): the kicked silo did not reconnect")
+                    time.sleep(0.01)
+                topic = kicked.com_manager._my_topic()
+                while not any(sess.client_id == kicked.com_manager.client_id and sess.alive
+                              and topic in {f for f, _ in sess.subs}
+                              for sess in list(broker._sessions)):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("phase 17 (a): the kicked silo did not re-subscribe")
+                    time.sleep(0.01)
+                kick["reconnect_s"] = time.perf_counter() - t_kick
+            return aggregate(round_idx)
+
+        agg.aggregate = kick_at_close
+        _reset_counts(all_mods)
+        history = runner.run()
+        torch.cuda.synchronize()
+        counts = _all_counts(all_mods)
+    finally:
+        broker.stop()
+        store.stop()
+    parties = [server, *clients]
+    topic_bytes = sum(p.com_manager.payload_bytes for p in parties)
+    store_put = sum(p.com_manager.store_bytes for p in parties)
+    held = sum(len(b) for b in store._blobs.values())
+    prev = {k: 0 for k in counts}
+    samples = sum(c.trainer.trained_samples for c in clients)
+    for (metrics, cum, mem), folded in zip(probe.rows, tap.rounds):
+        delta = {k: cum[k] - prev[k] for k in cum if cum[k] - prev[k]}
+        prev = cum
+        print(f"phase 17 (a) round {metrics['round']}: {metrics['round_time_s']:.3f} s, "
+              f"{samples / metrics['round_time_s']:.0f} trained samples/s, silos folded "
+              f"{folded}, fold {1e3 * metrics['fold_time_s']:.1f} ms, finalize "
+              f"{1e3 * metrics['finalize_time_s']:.1f} ms, uploads {metrics['upload_bytes']} "
+              f"bytes, test_acc {metrics['test_acc']:.4f}, {_mem(mem)}, launches {delta}")
+    sync = ", ".join(f"{t:.3f}" for t, _ in _SLICE17_ROUNDS)
+    print(f"phase 17 (a): {len(store._blobs)} payloads through the store, {store_put} bytes put "
+          f"({held} held), {topic_bytes} bytes through the topics; silo {SLICE20_KICKED} kicked "
+          f"as round {SLICE20_KICK_ROUND} closed, back in {kick.get('reconnect_s', 0):.3f} s "
+          f"({wire.reconnects} reconnect); phase 14's TCP rounds {sync} s")
+    uploads = SLICE17_ROUNDS * SILOS
+    q, dq = counts[mods[1].QUANTIZE.name], counts[mods[1].DEQUANTIZE.name]
+    bad = [k.name for k in mods[0].KERNELS if counts[k.name] == 0]
+    if tap.rounds != [list(range(1, SILOS + 1))] * SLICE17_ROUNDS or wire.reconnects < 1:
+        raise AssertionError(f"phase 17 (a): silos folded {tap.rounds}, reconnects "
+                             f"{wire.reconnects}")
+    if kicked.rounds_trained != SLICE17_ROUNDS or store_put != held or not held:
+        raise AssertionError(f"phase 17 (a): the kicked silo trained {kicked.rounds_trained}; "
+                             f"store {store_put} put, {held} held")
+    if (bad or q != QSGD8_LEAVES * uploads or dq != QSGD8_LEAVES * uploads
+            or counts[nz.NOISE.name] != SLICE17_ROUNDS):
+        raise AssertionError(f"phase 17 (a): fused kernels not launched {bad}, quantize {q}, "
+                             f"dequantize {dq} (want {QSGD8_LEAVES * uploads} each), noise "
+                             f"{counts[nz.NOISE.name]} (want {SLICE17_ROUNDS})")
+    if not agg.stream_mode or agg.peak_buffered_updates > 2:
+        raise AssertionError(f"phase 17 (a): stream {agg.stream_mode}, peak buffered "
+                             f"{agg.peak_buffered_updates}")
+    _check_history("phase 17 (a)", history, SLICE17_ROUNDS, agg.global_vars)
+    _refold_check("phase 17 (a)", agg, tap)
+    return counts
+
+
+def phase_slice20_procs(mods, nz, root):
+    """(b): the server alone in this process, its silos processes of their
+    own, over MQTT_S3."""
+    import json
+    import os
+
+    import torch
+
+    from fedml_tpu_torch.cross_silo.async_soak import _tail, spawn_soak_worker
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    broker, store, fabric = _mqtt_fabric()
+    workdir = os.path.join(root, "slice20_procs")
+    os.makedirs(workdir)
+    procs = []
+    try:
+        cfg = _slice20_cfg("slice20_procs", fabric)
+        cfg.client_num_in_total = cfg.client_num_per_round = SLICE20_PROC_SILOS
+        cfg.comm_round = SLICE20_PROC_ROUNDS
+        cfg_path = os.path.join(workdir, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(_child_cfg_json(cfg), f)
+        t0 = time.perf_counter()
+        procs = [spawn_soak_worker(cfg_path, "client", r, workdir,
+                                   os.path.join(workdir, f"client_{r}.log"),
+                                   device=SLICE18_CHILD_DEVICE)
+                 for r in range(1, SLICE20_PROC_SILOS + 1)]
+        runner = FedMLRunner(cfg)
+        group = runner.runner
+        group.timeout = SLICE20_TIMEOUT_S
+        group.setup()
+        server = group.server
+        if group.clients:
+            raise AssertionError("phase 17 (b): the server's process built silos")
+        all_mods = mods + (nz,)
+        tap = _FoldTap(server.aggregator)
+        _reset_counts(all_mods)
+        t_run = time.perf_counter()
+        history = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        counts = _all_counts(all_mods)
+        for p in procs:
+            if p.wait(timeout=60) != 0:
+                raise AssertionError(f"phase 17 (b): a silo process exited {p.returncode}")
+    except BaseException:
+        for r in range(1, SLICE20_PROC_SILOS + 1):
+            print(f"--- silo {r} ---\n{_tail(os.path.join(workdir, f'client_{r}.log'))}")
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+        broker.stop()
+        store.stop()
+    reports = []
+    for name in sorted(os.listdir(workdir)):
+        if name.startswith("report_r"):
+            with open(os.path.join(workdir, name)) as f:
+                reports.append(json.load(f))
+    silos = [r for r in reports if r["role"] == "client"]
+    child_sum = {k: sum(r["launches"].get(k, 0) for r in silos) for k in counts}
+    trained = sum(r["rounds_trained"] for r in silos)
+    times = ", ".join(f"{m['round_time_s']:.3f}" for m in history)
+    print(f"phase 17 (b): {len(history)} rounds in {wall:.3f} s after {t_run - t0:.1f} s of "
+          f"set-up (round times {times} s); silos folded {tap.rounds}; "
+          f"{len(store._blobs)} payloads through the store; server launches {counts}; summed "
+          f"over the {len(silos)} silo processes {child_sum}")
+    for r in sorted(silos, key=lambda r: r["rank"]):
+        print(f"phase 17 (b) silo {r['rank']} (pid {r['pid']}, {r['device_name']}, jax imported: "
+              f"{r['jax_loaded']}): {r['rounds_trained']} uploads trained")
+    if len(silos) != SLICE20_PROC_SILOS or any(
+            r["jax_loaded"] or r["fedml_tpu_loaded"]
+            or r["device_name"] != torch.cuda.get_device_name(0) for r in silos):
+        raise AssertionError(f"phase 17 (b): silo reports {silos}")
+    q, dq, noise = mods[1].QUANTIZE.name, mods[1].DEQUANTIZE.name, nz.NOISE.name
+    bad = [(r["rank"], k.name) for r in silos for k in mods[0].KERNELS
+           if r["launches"].get(k.name, 0) == 0]
+    folded = sum(len(r) for r in tap.rounds)
+    if (tap.rounds != [list(range(1, SLICE20_PROC_SILOS + 1))] * SLICE20_PROC_ROUNDS
+            or trained != folded or bad or child_sum[q] != QSGD8_LEAVES * trained
+            or counts[dq] != QSGD8_LEAVES * folded or counts[noise] != SLICE20_PROC_ROUNDS
+            or counts[q] or child_sum[dq] or child_sum[noise]):
+        raise AssertionError(f"phase 17 (b): folded {tap.rounds}, trained {trained}, rows 1-4 "
+                             f"missing {bad}, server {counts}, silos {child_sum}")
+    _check_history("phase 17 (b)", history, SLICE20_PROC_ROUNDS, server.aggregator.global_vars)
+    _refold_check("phase 17 (b)", server.aggregator, tap)
+    return {k: counts[k] + child_sum[k] for k in counts}
+
+
+def phase_slice20_web3():
+    """(c): the LR recipe's group over WEB3 against the INPROC group."""
+    import torch
+
+    from fedml_tpu_torch.comm.blockchain import BlockchainCommManager, InMemoryLedger
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo import build_process_group, run_group
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.models import model_hub
+
+    runs = {}
+    for backend in ("WEB3", "INPROC"):
+        cfg = _horizontal_lr(f"slice20_{backend.lower()}")
+        ds = loader.load(cfg)
+        model = model_hub.create(cfg, ds.class_num, input_shape=ds.train_x.shape[1:])
+        t0 = time.perf_counter()
+        server, clients = build_process_group(cfg, ds, model, _card(), backend)
+        history = run_group(server, clients, timeout=120.0)
+        torch.cuda.synchronize()
+        blocks = len(InMemoryLedger.get(cfg.run_id).read_since(0))
+        runs[backend] = (history, pt.tree_leaves(server.aggregator.global_vars),
+                         time.perf_counter() - t0, blocks, server)
+    (h_w, g_w, s_w, blocks, server), (h_i, g_i, s_i, _, _) = runs["WEB3"], runs["INPROC"]
+    drop = ("round_time_s", "aggregate_time_s")
+    same_hist = [{k: v for k, v in h.items() if k not in drop} for h in h_w] == \
+        [{k: v for k, v in h.items() if k not in drop} for h in h_i]
+    same = all(torch.equal(a, b) for a, b in zip(g_w, g_i))
+    print(f"phase 17 (c): WEB3 {len(h_w)} rounds in {s_w:.2f} s ({blocks} blocks on the ledger; "
+          f"round times {', '.join(f'{h['round_time_s']:.3f}' for h in h_w)} s) against INPROC "
+          f"{s_i:.2f} s; history bitwise {same_hist}, global bitwise {same}")
+    if not (isinstance(server.com_manager, BlockchainCommManager) and same and same_hist
+            and blocks and len(h_w) == SLICE19_ROUNDS):
+        raise AssertionError(f"phase 17 (c): history {same_hist}, global {same}, blocks {blocks}")
+
+
+def phase_slice20(mods, nz):
+    """Phase 17 (module docstring).  Returns each kernel's launches over the
+    phase, summed over its processes."""
+    import tempfile
+
+    walls = {}
+    t0 = time.perf_counter()
+    threads = phase_slice20_threads(mods, nz)
+    walls["a"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="fedml_slice20_") as root:
+        t0 = time.perf_counter()
+        procs = phase_slice20_procs(mods, nz, root)
+        walls["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_slice20_web3()
+    walls["c"] = time.perf_counter() - t0
+    counts = {k: threads[k] + procs[k] for k in threads}
+    print(f"slice 20: phase 17 {sum(walls.values()):.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items())
+          + f"); launches on (a) {threads}, (b) {procs}; over the phase {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5743,6 +6086,7 @@ def main(argv=None) -> int:
     slice17_counts = timed("14", phase_slice17, mods, nz)
     slice18_counts = timed("15", phase_slice18, mods, nz)
     slice19_counts = timed("16", phase_slice19, mods, nz)
+    slice20_counts = timed("17", phase_slice20, mods, nz)
     zoo_counts, femnist_rows = timed("11", phase_zoo, mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
@@ -5771,6 +6115,7 @@ def main(argv=None) -> int:
          "slice17_launches": slice17_counts.get(k.name, 0),
          "slice18_launches": slice18_counts.get(k.name, 0),
          "slice19_launches": slice19_counts.get(k.name, 0),
+         "slice20_launches": slice20_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],

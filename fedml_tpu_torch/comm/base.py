@@ -8,8 +8,10 @@ backend shares, the reference's one for one:
 - a transport chunk frame feeds the per-peer :class:`ChunkAssembler`; only
   a stream's final frame yields a message, and a stream idle past
   ``extra.comm_chunk_idle_sweep_s`` is evicted and charged to its sender;
-- a payload that does not decode (``KeyError`` / ``ValueError``: corrupt
-  framing) is dropped loudly;
+- a payload goes through the backend's :meth:`ObserverLoopMixin._decode_bytes`
+  (``Message.decode``, or the MQTT backend's marker and store lookup); one
+  that does not decode (``KeyError``: a store blob really gone;
+  ``ValueError``: corrupt framing) is dropped loudly;
 - any other decode failure is transient: the payload waits with a
   not-before time (:func:`backoff_delay` under its own purpose) and is
   retried up to ``DECODE_RETRY_LIMIT`` times while healthy messages keep
@@ -104,7 +106,9 @@ class Observer(ABC):
 
 class ObserverLoopMixin:
     """Observer registry + the poll/decode/dispatch receive loop.  Backends
-    set ``self._inbox`` (a queue of raw payloads)."""
+    set ``self._inbox`` (a queue of raw payloads) and may override
+    :meth:`_decode_bytes` (the MQTT backend resolves its payload marker and
+    store references there)."""
 
     _observers: list
     _inbox: "queue.Queue"
@@ -132,6 +136,9 @@ class ObserverLoopMixin:
 
     def add_observer(self, observer: Observer) -> None:
         self._observers.append(observer)
+
+    def _decode_bytes(self, data: bytes) -> Message:
+        return Message.decode(data)
 
     def _drop(self, reason: str, client=None) -> None:
         self.dropped[reason] = self.dropped.get(reason, 0) + 1
@@ -177,10 +184,11 @@ class ObserverLoopMixin:
                 self._dispatch(msg)
                 continue
             try:
-                msg = Message.decode(data)
+                msg = self._decode_bytes(data)
             except (KeyError, ValueError):
-                # poisoned payload (corrupt framing): dropped loudly, the
-                # loop lives on
+                # poisoned payload (a store blob really gone: KeyError;
+                # corrupt framing: ValueError): dropped loudly, the loop
+                # lives on
                 self._drop("undecodable")
                 log.exception("dropping undecodable message (%d bytes)", len(data))
                 continue

@@ -2,13 +2,27 @@
 ``fedml_tpu/comm/comm_manager.py``).
 
 Server and client managers subclass this, register one handler per message
-type and run a blocking receive loop.  Ported backends: ``INPROC`` and
-``TCP`` (both honour ``extra.comm_chunk_bytes``); any ``extra.chaos_*``
-fault wraps the backend in the seeded fault scheduler (``comm/chaos.py``),
-and ``extra.comm_chunk_idle_sweep_s`` reaches the receive loop before it
-starts.  ``GRPC`` and ``MQTT_S3`` need packages (``grpcio``, a broker) this
-port does not depend on, and ``WEB3`` / ``THETASTORE`` are not ported:
-they raise ``NotImplementedError``.
+type and run a blocking receive loop.  The backends, the reference's six:
+
+- ``INPROC``: the in-process fabric (``comm/inproc.py``);
+- ``TCP``: one socket per endpoint on ``extra.tcp_base_port + rank``
+  (``comm/tcp_backend.py``);
+- ``GRPC``: one gRPC server per endpoint on ``extra.grpc_base_port + rank``
+  (``comm/grpc_backend.py``; needs ``grpcio``, imported for this backend
+  alone);
+- ``MQTT_S3``: broker topics and an object store (``comm/mqtt_s3.py``): the
+  in-memory pair of one process, or with ``extra.mqtt_host`` a real MQTT
+  3.1.1 session (``comm/mqtt_real.TcpMqttBroker``, to ``MiniMqttBroker`` or
+  any broker) and the HTTP store at ``extra.object_store_url``, which is
+  then required;
+- ``WEB3`` / ``THETASTORE``: transactions on the in-memory ledger of one
+  process (``comm/blockchain.py``).
+
+``INPROC``, ``TCP`` and ``GRPC`` honour ``extra.comm_chunk_bytes``; the
+MQTT and ledger backends do not take chunk frames, as in the reference.
+Any ``extra.chaos_*`` fault wraps the backend in the seeded fault scheduler
+(``comm/chaos.py``), and ``extra.comm_chunk_idle_sweep_s`` reaches the
+receive loop before it starts.
 """
 
 from __future__ import annotations
@@ -21,19 +35,32 @@ from ..core.flags import cfg_extra
 from .base import BaseCommunicationManager, Observer
 from .message import Message
 
-PORTED_BACKENDS = (C.COMM_BACKEND_INPROC, C.COMM_BACKEND_TCP)
-_KNOWN_BACKENDS = (C.COMM_BACKEND_INPROC, C.COMM_BACKEND_GRPC, C.COMM_BACKEND_MQTT_S3,
+PORTED_BACKENDS = (C.COMM_BACKEND_INPROC, C.COMM_BACKEND_GRPC, C.COMM_BACKEND_MQTT_S3,
                    C.COMM_BACKEND_TCP, C.COMM_BACKEND_WEB3, C.COMM_BACKEND_THETA)
+#: the ledger backends (their in-memory ledger serves the endpoints of one
+#: process)
+LEDGER_BACKENDS = (C.COMM_BACKEND_WEB3, C.COMM_BACKEND_THETA)
 
 
-def refuse_unported_transport(backend: str) -> None:
-    """Raise for a backend this port does not serve."""
-    if backend in PORTED_BACKENDS:
-        return
-    if backend in _KNOWN_BACKENDS:
-        raise NotImplementedError(f"comm backend {backend!r} is not ported yet "
-                                  f"(ported: {PORTED_BACKENDS})")
-    raise ValueError(f"unknown comm backend {backend!r}; known: {list(_KNOWN_BACKENDS)}")
+def reset_in_memory_fabric(run_id) -> None:
+    """Forget run ``run_id``'s in-process router, in-memory MQTT broker and
+    store, and in-memory ledger, so a group built next starts on empty
+    queues, topics and blocks."""
+    from .blockchain import InMemoryLedger
+    from .inproc import InProcRouter
+    from .mqtt_s3 import InMemoryBroker, InMemoryObjectStore
+
+    run_id = str(run_id)
+    InProcRouter.reset(run_id)
+    InMemoryBroker.reset(run_id)
+    InMemoryObjectStore.reset(run_id)
+    InMemoryLedger.reset(run_id)
+
+
+def check_backend(backend: str) -> None:
+    """Raise ``ValueError`` for a backend name the reference does not know."""
+    if backend not in PORTED_BACKENDS:
+        raise ValueError(f"unknown comm backend {backend!r}; known: {list(PORTED_BACKENDS)}")
 
 
 class FedMLCommManager(Observer):
@@ -42,7 +69,7 @@ class FedMLCommManager(Observer):
         self.rank = rank
         self.size = size
         self.backend = backend or getattr(cfg, "backend", C.COMM_BACKEND_INPROC)
-        refuse_unported_transport(self.backend)
+        check_backend(self.backend)
         self.message_handler_dict: dict[int, Callable[[Message], None]] = {}
         self.com_manager: BaseCommunicationManager = self._init_manager()
         from .chaos import wrap_with_chaos
@@ -83,14 +110,49 @@ class FedMLCommManager(Observer):
         raise NotImplementedError
 
     def _init_manager(self) -> BaseCommunicationManager:
+        """The backend factory (the reference's ``_init_manager``)."""
         chunk = int(cfg_extra(self.cfg, "comm_chunk_bytes") or 0)
-        if self.backend == C.COMM_BACKEND_TCP:
+        run_id = getattr(self.cfg, "run_id", "0")
+        b = self.backend
+        if b == C.COMM_BACKEND_TCP:
             from .tcp_backend import TCPCommManager
 
             base_port = int(cfg_extra(self.cfg, "tcp_base_port"))
             return TCPCommManager("0.0.0.0", base_port + self.rank if base_port else 0, self.rank,
                                   ip_config=cfg_extra(self.cfg, "tcp_ip_config", {}),
                                   base_port=base_port, chunk_bytes=chunk)
+        if b == C.COMM_BACKEND_GRPC:
+            from .grpc_backend import GRPCCommManager
+
+            base_port = int(cfg_extra(self.cfg, "grpc_base_port"))
+            return GRPCCommManager("0.0.0.0", base_port + self.rank if base_port else 0,
+                                   self.rank, ip_config=cfg_extra(self.cfg, "grpc_ip_config", {}),
+                                   base_port=base_port, chunk_bytes=chunk)
+        if b == C.COMM_BACKEND_MQTT_S3:
+            from .mqtt_s3 import MqttS3CommManager
+
+            broker = store = None
+            mqtt_host = cfg_extra(self.cfg, "mqtt_host")
+            if mqtt_host:
+                store_url = cfg_extra(self.cfg, "object_store_url")
+                if not store_url:
+                    # with a broker between processes, the in-memory store
+                    # of each process would strand every long payload
+                    raise ValueError(
+                        "extra.mqtt_host is set but extra.object_store_url is not; a real "
+                        "broker needs a shared payload store "
+                        "(comm.object_store_http.MiniObjectStoreServer or S3)")
+                from .mqtt_real import TcpMqttBroker
+                from .object_store_http import HttpObjectStore
+
+                broker = TcpMqttBroker(mqtt_host, int(cfg_extra(self.cfg, "mqtt_port")),
+                                       client_id=f"{run_id}_{self.rank}")
+                store = HttpObjectStore(store_url)
+            return MqttS3CommManager(run_id, self.rank, broker=broker, store=store)
+        if b in LEDGER_BACKENDS:
+            from .blockchain import BlockchainCommManager
+
+            return BlockchainCommManager(run_id, self.rank)
         from .inproc import InProcCommManager
 
-        return InProcCommManager(getattr(self.cfg, "run_id", "0"), self.rank, chunk_bytes=chunk)
+        return InProcCommManager(run_id, self.rank, chunk_bytes=chunk)

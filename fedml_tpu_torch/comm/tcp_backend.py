@@ -155,15 +155,16 @@ def _bind_listener(host: str, port: int) -> socket.socket:
 
 
 def link_ports(managers) -> dict:
-    """Tell every TCP endpoint among ``managers`` (comm managers, or their
-    ``com_manager``, chaos-wrapped or not) the listening ports of all the
-    others; returns the shared ``{rank: port}`` map.  Call it again after an
-    endpoint restarts on a new port."""
+    """Tell every socket endpoint among ``managers`` (comm managers, or
+    their ``com_manager``, chaos-wrapped or not: TCP and gRPC endpoints,
+    which have a ``port_map`` and a ``listen_port``) the listening ports of
+    all the others; returns the shared ``{rank: port}`` map.  Call it again
+    after an endpoint restarts on a new port."""
     eps = []
     for m in managers:
         cm = getattr(m, "com_manager", m)
         cm = getattr(cm, "inner", cm)
-        if isinstance(cm, TCPCommManager):
+        if hasattr(cm, "port_map") and hasattr(cm, "listen_port"):
             eps.append(cm)
     ports = {cm.rank: cm.listen_port for cm in eps}
     for cm in eps:

@@ -16,26 +16,37 @@ the reference's ``_CrossSiloRunner.run`` does:
   :func:`build_edges`) on the plain server.  ``backend: TCP`` with
   ``extra.tcp_base_port: 0`` runs the same group over loopback sockets on
   ports the system picks (``comm/tcp_backend.py``, ``link_ports``): an
-  in-process convenience of the port, the reference's
-  ``run_in_process_group(..., backend="TCP")``.
-- ``role: server`` over TCP with a nonzero ``tcp_base_port`` builds the
-  server alone (of any protocol, :func:`group_builders`), listening on
-  ``tcp_base_port``, and runs it until it finishes; its silos are
-  processes of their own.  The tree is refused there, as in a silo: the
-  reference starts edges only in its in-process group.
-- ``role: client`` (TCP, nonzero ``tcp_base_port``) builds the silo of
-  ``rank`` alone, listening on ``tcp_base_port + rank``, and runs its receive
-  loop until the server's FINISH, polling the loop's thread so a loop that
-  died ends the process (it raises, where the reference returns).  A peer's
-  host comes from ``extra.tcp_ip_config`` (rank -> host; loopback by
-  default), so silos may run on other hosts.
+  in-process convenience of the port, for TCP alone.
+- ``role: server`` over any other backend (TCP with a nonzero
+  ``tcp_base_port``, GRPC, MQTT_S3) builds the server alone (of any
+  protocol, :func:`group_builders`) over ``cfg.backend`` and runs it until
+  it finishes; its silos are processes of their own.  The tree is refused
+  there, as in a silo: the reference starts edges only in its in-process
+  group.
+- ``role: client`` (TCP or GRPC on fixed ports, or MQTT_S3 with
+  ``extra.mqtt_host``) builds the silo of ``rank`` alone and runs its
+  receive loop until the server's FINISH, polling the loop's thread so a
+  loop that died ends the process (it raises, where the reference returns).
+  Over TCP it listens on ``tcp_base_port + rank`` and over GRPC on
+  ``grpc_base_port + rank``, a peer's host from ``extra.tcp_ip_config`` /
+  ``grpc_ip_config`` (loopback by default); over MQTT_S3 every party dials
+  the broker at ``mqtt_host:mqtt_port`` and shares the HTTP store at
+  ``extra.object_store_url``.
+- A lone role over a backend whose fabric lives in one process (WEB3 and
+  THETASTORE on the in-memory ledger, MQTT_S3 without ``mqtt_host`` on the
+  in-memory broker) raises ``ValueError`` (:data:`ONE_PROCESS_FABRIC`): the
+  reference's lone server would wait for silos that cannot reach it until
+  its timeout.  Those backends run as the in-process group,
+  :func:`run_in_process_group` (``backend=...``), as the reference's tests
+  run them.
 
-Chunk frames (``extra.comm_chunk_bytes``), chaos (``extra.chaos_*``) and the
-server and client journals (``extra.server_journal_dir``,
-``client_journal_dir``) run on either backend and in every role; under the
-secure protocols the journals run as far as the reference's do (Shamir's
-server journal, LightSecAgg's client journal; ``server.py`` and
-``client.py`` name the others' failures in the reference).
+Chunk frames (``extra.comm_chunk_bytes``: INPROC, TCP and GRPC), chaos
+(``extra.chaos_*``) and the server and client journals
+(``extra.server_journal_dir``, ``client_journal_dir``) run on every backend
+and in every role; under the secure protocols and FHE the journals run as
+far as the reference's do (Shamir's server journal, the LightSecAgg and FHE
+clients' journals, which hold nothing; ``server.py`` and ``client.py`` name
+the others' failures in the reference).
 
 The plain and async servers run the trust pipeline
 (``build_trust_pipeline``): attacks, defenses, local and central DP, as the
@@ -63,12 +74,10 @@ ignored, as in the reference.
 Algorithms: FedAvg, FedOpt and FedProx (their contribution is the client's
 full variables; the server runs the algorithm's ``aggregate`` and
 ``server_update`` on the uploads, the client plain local SGD).  Refused with
-``NotImplementedError``, each naming the ROADMAP item where it waits:
-SCAFFOLD, FedNova, FedDyn and Mime; any backend but INPROC and TCP (GRPC and
-MQTT_S3 need packages the port does not depend on; item 7); multi-process
+``NotImplementedError``: SCAFFOLD, FedNova, FedDyn and Mime; multi-process
 silos (``extra.coordinator_address``, the reference's ``silo_dist.py`` on
-``parallel/multihost``; item 8).  Both SecAgg protocols and FHE take FedAvg
-alone and every silo each round.
+``parallel/multihost``; ROADMAP.md Queue 1 item 8).  Both SecAgg protocols
+and FHE take FedAvg alone and every silo each round.
 """
 
 from __future__ import annotations
@@ -85,9 +94,17 @@ from .server import FedMLAggregator, FedMLServerManager, eval_batch_size
 _IN_PROCESS_BACKENDS = (C.COMM_BACKEND_INPROC, "MESH", "")
 _LOOPBACK = ("127.0.0.1", "localhost", "::1")
 _ROLES = ("server", "client")
-#: where the refusals below wait (ROADMAP.md)
-_ITEM_7 = "ROADMAP.md Queue 1 item 7"
+#: where the refusal of multi-process silos waits (ROADMAP.md)
 _ITEM_8 = "ROADMAP.md Queue 1 item 8"
+#: a lone role over a fabric of one process (a decided difference, ROADMAP
+#: Queue 3): the reference's lone server waits for its silos until its
+#: timeout (600 s), and its lone silo waits for the server's FINISH for ever
+ONE_PROCESS_FABRIC = (
+    "role {role!r} alone over backend {backend!r}: {fabric} serves the endpoints of one "
+    "process, so silos in other processes cannot reach the server (the reference's lone "
+    "server waits for them until its 600 s timeout, its lone silo for ever); run the "
+    "in-process group (role 'server' over INPROC, or cross_silo.run_in_process_group(..., "
+    "backend={backend!r})){hint}")
 # the algorithms whose contribution is the client's full variables: the
 # server applies their aggregate and server step to the uploaded models, and
 # the client trains with plain local SGD (no hooks: FedProx trains without
@@ -147,13 +164,13 @@ def build_edges(cfg, device, backend: str = C.COMM_BACKEND_INPROC) -> list:
 def build_process_group(cfg, dataset, model, device, backend: str = C.COMM_BACKEND_INPROC,
                         global_vars=None, perms=None, logger=None, trust_sampler=None):
     """``(server, clients)`` of the plain synchronous protocol, not started
-    (over TCP, every endpoint knows the others' ports).  Under the
+    (over TCP or gRPC, every endpoint knows the others' ports).  Under the
     aggregation tree the edge managers ride on the server as
     ``server.edges``; :func:`run_group` starts and stops them."""
-    from ..comm.inproc import InProcRouter
+    from ..comm.comm_manager import reset_in_memory_fabric
     from ..comm.tcp_backend import link_ports
 
-    InProcRouter.reset(str(getattr(cfg, "run_id", "0")))
+    reset_in_memory_fabric(getattr(cfg, "run_id", "0"))
     server = build_server(cfg, dataset, model, device, backend=backend, global_vars=global_vars,
                           logger=logger, trust_sampler=trust_sampler)
     clients = [build_client(cfg, dataset, model, r, device, backend=backend, perms=perms)
@@ -182,12 +199,40 @@ def run_group(server: FedMLServerManager, clients: list, timeout: float = 600.0)
     return history
 
 
+def run_in_process_group(cfg, dataset, model, device, backend: str = C.COMM_BACKEND_INPROC,
+                         timeout: float = 600.0, **hooks) -> list:
+    """1 server + ``client_num_in_total`` clients (and the tree's edges) of
+    ``cfg``'s protocol as threads of this process over ``backend``; returns
+    the server's history (the reference's ``run_in_process_group``, which
+    its tests call with every backend).  ``hooks``: the protocol's builder
+    hooks (``global_vars``, ``perms``, ...)."""
+    build_group = group_builders(cfg)[0]
+    server, clients = build_group(cfg, dataset, model, device, backend, **hooks)
+    return run_group(server, clients, timeout)
+
+
 def in_process_group(cfg) -> bool:
     """Whether ``cfg`` runs the server and its silos as threads of this
     process: ``role: server`` over an in-process backend, or over TCP with
     ``tcp_base_port: 0``."""
-    return cfg.role == "server" and (cfg.backend in _IN_PROCESS_BACKENDS
-                                     or not int(cfg_extra(cfg, "tcp_base_port")))
+    if cfg.role != "server":
+        return False
+    if cfg.backend == C.COMM_BACKEND_TCP:
+        return not int(cfg_extra(cfg, "tcp_base_port"))
+    return cfg.backend in _IN_PROCESS_BACKENDS
+
+
+def one_process_fabric(cfg) -> Optional[str]:
+    """What keeps ``cfg.backend``'s endpoints in one process (the in-memory
+    ledger, or the in-memory broker of MQTT_S3 without ``extra.mqtt_host``),
+    or None."""
+    from ..comm.comm_manager import LEDGER_BACKENDS
+
+    if cfg.backend in LEDGER_BACKENDS:
+        return "the in-memory ledger"
+    if cfg.backend == C.COMM_BACKEND_MQTT_S3 and not cfg_extra(cfg, "mqtt_host"):
+        return "the in-memory MQTT broker and store"
+    return None
 
 
 def protocol(cfg) -> str:
@@ -212,17 +257,26 @@ def refuse_unported_cross_silo(cfg) -> None:
     if cfg.role == "client" and cfg.backend in _IN_PROCESS_BACKENDS:
         raise NotImplementedError(
             f"role 'client' over backend {cfg.backend!r}: a silo of its own needs a "
-            "transport between processes, and of those the port has TCP alone (gRPC "
-            f"and MQTT_S3 wait, {_ITEM_7}); set backend TCP")
+            "transport between processes: TCP or GRPC on fixed ports, or MQTT_S3 with "
+            "extra.mqtt_host and extra.object_store_url")
     if cfg.backend not in _IN_PROCESS_BACKENDS:
-        from ..comm.comm_manager import refuse_unported_transport
+        from ..comm.comm_manager import check_backend
 
-        refuse_unported_transport(cfg.backend)
-        if cfg.role == "client" and not int(cfg_extra(cfg, "tcp_base_port")):
+        check_backend(cfg.backend)
+        fabric = one_process_fabric(cfg)
+        if fabric is not None:
+            hint = ("; or set extra.mqtt_host and extra.object_store_url"
+                    if cfg.backend == C.COMM_BACKEND_MQTT_S3 else "")
+            raise ValueError(ONE_PROCESS_FABRIC.format(role=cfg.role, backend=cfg.backend,
+                                                       fabric=fabric, hint=hint))
+        port_flag = {C.COMM_BACKEND_TCP: "tcp_base_port",
+                     C.COMM_BACKEND_GRPC: "grpc_base_port"}.get(cfg.backend)
+        if port_flag and not in_process_group(cfg) and not int(cfg_extra(cfg, port_flag)):
             raise ValueError(
-                "extra.tcp_base_port 0 binds ports the system picks, which only endpoints of "
-                "one process can share (the in-process group of role 'server'); a silo "
-                "process of its own needs the fixed ports tcp_base_port + rank")
+                f"extra.{port_flag} 0 binds ports the system picks, which only endpoints of "
+                "one process can share (the in-process group: role 'server' over TCP, or "
+                "cross_silo.run_in_process_group); a lone server or silo needs the fixed "
+                f"ports {port_flag} + rank")
         if in_process_group(cfg):
             remote = {str(h) for h in (cfg_extra(cfg, "tcp_ip_config") or {}).values()} - set(
                 _LOOPBACK)
@@ -348,8 +402,8 @@ class _CrossSiloRunner:
                              "(noise_sampler: Shamir SecAgg's central DP; trust_sampler: the "
                              "plain server's trust pipeline; mask_seeds: LightSecAgg)")
         build_group, build_srv, build_cli = group_builders(self.cfg)
-        backend = (C.COMM_BACKEND_TCP if self.cfg.backend == C.COMM_BACKEND_TCP
-                   else C.COMM_BACKEND_INPROC)
+        backend = (C.COMM_BACKEND_INPROC if self.cfg.backend in _IN_PROCESS_BACKENDS
+                   else self.cfg.backend)
         if in_process_group(self.cfg):
             hooks = self._hooks(set(_SERVER_HOOKS[proto]) | set(_CLIENT_HOOKS))
             if proto == "lightsecagg" and self.mask_seeds is not None:

@@ -94,9 +94,6 @@ def refuse_unported_client(cfg) -> None:
     if cfg_extra(cfg, "client_journal_dir"):
         if getattr(cfg, "enable_secagg", False) and secagg_method(cfg) == "shamir":
             raise NotImplementedError(SHAMIR_CLIENT_JOURNAL_REFUSAL)
-        if getattr(cfg, "enable_fhe", False):
-            raise NotImplementedError("extra.client_journal_dir is not ported to the FHE "
-                                      "client yet (ROADMAP.md Queue 1 item 7)")
 
 
 #: the reference's Shamir SecAgg client journals none of its key material (a

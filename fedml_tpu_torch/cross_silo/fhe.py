@@ -32,8 +32,10 @@ import numpy as np
 import torch
 
 from .. import weights
+from ..comm.message import Message
 from ..core.flags import cfg_extra
 from ..trust.fhe.rlwe import RLWECipher, RLWEParams, add_ciphertexts
+from . import message_define as md
 from .client import ClientMasterManager, FedMLTrainer
 from .server import FedMLAggregator, FedMLServerManager
 
@@ -113,13 +115,36 @@ class FHEServerManager(FedMLServerManager):
 
 
 class FHEClientManager(ClientMasterManager):
-    """Trains, then uploads ``enc(flat / n)`` (float64 on the host)."""
+    """Trains, then uploads ``enc(flat / n)`` (float64 on the host).
+
+    Its upload is the reference's FHE client's: the ciphertexts, the sample
+    count and the round, with no session epoch, no upload key and no client
+    journal write (``extra.client_journal_dir`` is taken and holds nothing,
+    so a restarted silo joins the next dispatch); a failed send is retried
+    as the base client's upload is."""
 
     def __init__(self, cfg, trainer: FedMLTrainer, rank: int, backend: Optional[str] = None):
         check_fhe_compatible(cfg)
         super().__init__(cfg, trainer, rank=rank, backend=backend)
         self.cipher = fhe_cipher(cfg)
         self.n = cfg.client_num_in_total
+
+    def _train_and_send(self, msg: Message) -> None:
+        if self._killed:
+            return
+        round_idx = int(msg.get(md.MSG_ARG_KEY_ROUND_INDEX))
+        params = msg.get(md.MSG_ARG_KEY_MODEL_PARAMS)
+        client_idx = int(msg.get(md.MSG_ARG_KEY_CLIENT_INDEX, self.rank - 1))
+        global_vars = self.to_device(params)
+        new_vars, n_samples = self.trainer.train(global_vars, round_idx, self.seed_key,
+                                                 client_idx)
+        self.rounds_trained += 1
+        reply = Message(md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.rank, 0)
+        reply.add_params(md.MSG_ARG_KEY_MODEL_PARAMS,
+                         self.upload_payload(new_vars, global_vars, round_idx)[0])
+        reply.add_params(md.MSG_ARG_KEY_NUM_SAMPLES, n_samples)
+        reply.add_params(md.MSG_ARG_KEY_ROUND_INDEX, round_idx)
+        self._send_with_reconnect(reply, seed_extra=round_idx)
 
     def upload_payload(self, new_vars: dict, global_vars: dict, round_idx: int) -> tuple:
         """``enc(flat / n)`` as int64 ``(B, 2, N)`` blocks, never a delta."""
@@ -151,10 +176,10 @@ def build_fhe_client(cfg, dataset, model, rank: int, device, backend: Optional[s
 def build_fhe_process_group(cfg, dataset, model, device, backend: str = "INPROC",
                             global_vars=None, perms=None, logger=None):
     """``(server, clients)``: 1 server + N FHE clients, not started."""
-    from ..comm.inproc import InProcRouter
+    from ..comm.comm_manager import reset_in_memory_fabric
     from ..comm.tcp_backend import link_ports
 
-    InProcRouter.reset(str(getattr(cfg, "run_id", "0")))
+    reset_in_memory_fabric(getattr(cfg, "run_id", "0"))
     server = build_fhe_server(cfg, dataset, model, device, backend=backend,
                               global_vars=global_vars, logger=logger)
     clients = [build_fhe_client(cfg, dataset, model, r, device, backend=backend, perms=perms)

@@ -442,10 +442,10 @@ def build_lightsecagg_process_group(cfg, dataset, model, device, backend: str = 
     clients complete the mask exchange (their masks are in the survivors'
     share tables) but never upload a model: the hard dropout case.  ``mask_seeds`` maps a
     rank to its mask seed (default: OS entropy)."""
-    from ..comm.inproc import InProcRouter
+    from ..comm.comm_manager import reset_in_memory_fabric
     from ..comm.tcp_backend import link_ports
 
-    InProcRouter.reset(str(getattr(cfg, "run_id", "0")))
+    reset_in_memory_fabric(getattr(cfg, "run_id", "0"))
     server = build_lsa_server(cfg, dataset, model, device, backend=backend,
                               global_vars=global_vars, logger=logger)
     clients = []

@@ -648,10 +648,10 @@ def build_shamir_secagg_process_group(cfg, dataset, model, device, backend: str 
     clients complete the setup (their pair masks are in the survivors'
     uploads) but never upload a model: the dropout case that reconstructs
     s_sk."""
-    from ..comm.inproc import InProcRouter
+    from ..comm.comm_manager import reset_in_memory_fabric
     from ..comm.tcp_backend import link_ports
 
-    InProcRouter.reset(str(getattr(cfg, "run_id", "0")))
+    reset_in_memory_fabric(getattr(cfg, "run_id", "0"))
     server = build_sa_server(cfg, dataset, model, device, backend=backend,
                              global_vars=global_vars, noise_sampler=noise_sampler, logger=logger)
     clients = []

@@ -119,6 +119,15 @@ LSA_SERVER_JOURNAL_REFUSAL = (
     "the round's new mask exchange and the aggregate masks never decode (the reference's run "
     "times out); refused until that recovery works")
 
+#: the reference's FHE server recovers a crash at a round boundary, but not
+#: one inside a round (a decided difference, ROADMAP Queue 3)
+FHE_SERVER_JOURNAL_REFUSAL = (
+    "extra.server_journal_dir under FHE: the reference's FHE server recovers a crash at a "
+    "round boundary, but a crash inside a round ends at a wrong global: the FHE upload "
+    "carries no session epoch, so the recovered server takes a dead server's upload still "
+    "queued for rank 0 before its first dispatch and closes the round on it alone (one "
+    "ciphertext rescaled by n/k); refused until that recovery works")
+
 #: idempotence keys remembered per client for the exactly-once dedup (the
 #: reference's bound)
 DEDUP_KEYS_PER_CLIENT = 16
@@ -130,15 +139,15 @@ def refuse_unported_server(cfg, secure: Optional[str] = None) -> None:
     ``"fhe"``), which checks its trust composition itself; of the journals
     Shamir SecAgg takes the server's (its round-boundary and mid-round
     crashes recover as the reference's do), LightSecAgg none (the
-    reference's fails inside a round) and FHE none (not ported)."""
+    reference's fails inside a round) and FHE none (the reference's fails
+    inside a round)."""
     for flag in _UNPORTED_SERVER_FLAGS:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo server yet")
     if secure == "lightsecagg" and cfg_extra(cfg, "server_journal_dir"):
         raise NotImplementedError(LSA_SERVER_JOURNAL_REFUSAL)
     if secure == "fhe" and cfg_extra(cfg, "server_journal_dir"):
-        raise NotImplementedError("extra.server_journal_dir is not ported to the FHE server "
-                                  "yet (ROADMAP.md Queue 1 item 7)")
+        raise NotImplementedError(FHE_SERVER_JOURNAL_REFUSAL)
     if secure is None and getattr(cfg, "enable_contribution", False):
         raise NotImplementedError("enable_contribution on the cross-silo server: the "
                                   "reference's server computes no contribution, so the flag "

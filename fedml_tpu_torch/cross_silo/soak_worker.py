@@ -1,10 +1,12 @@
-"""One party of a cross-silo run over TCP as a process of its own (the port
+"""One party of a cross-silo run as a process of its own (the port
 of ``fedml_tpu/cross_silo/soak_worker.py``)::
 
     python -m fedml_tpu_torch.cross_silo.soak_worker <cfg.json> <role> <rank> <workdir> [device]
 
-``cfg.json`` holds ``Config`` fields (backend TCP, a nonzero
-``extra.tcp_base_port``); ``role`` is ``server`` (rank 0) or ``client``.
+``cfg.json`` holds ``Config`` fields (backend TCP or GRPC with a nonzero
+``extra.tcp_base_port`` / ``grpc_base_port``, or MQTT_S3 with
+``extra.mqtt_host`` and ``object_store_url``); ``role`` is ``server``
+(rank 0) or ``client``.
 The party is built and run the way a user starts one:
 ``fedml_tpu_torch.init`` and ``FedMLRunner(cfg, device=device)``, whose
 cross-silo runner builds the server alone or the silo of ``rank`` alone.

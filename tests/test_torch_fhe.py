@@ -227,21 +227,25 @@ FLAG_CASES = {
     "partial": (dict(client_num_per_round=2), ValueError, "full participation"),
     "server_journal": (dict(extra={"server_journal_dir": "/nonexistent/j"}),
                        NotImplementedError, "FHE server"),
-    "client_journal": (dict(extra={"client_journal_dir": "/nonexistent/j"}),
-                       NotImplementedError, "FHE client"),
+    # taken, as the reference takes it (tests/test_torch_fhe_journal.py)
+    "client_journal": (dict(extra={"client_journal_dir": "/nonexistent/j"}), None, None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FLAG_CASES))
 def test_fhe_flag_guards(case):
     """The reference's refusals (``test_fhe_flag_guards``, its
-    ``check_fhe_compatible`` and full participation), and the journals the
-    port does not serve under FHE, all before any data loads."""
+    ``check_fhe_compatible`` and full participation), and the server journal
+    the port does not serve under FHE, all before any data loads; the
+    client journal is taken."""
     from fedml_tpu.cross_silo.fhe import check_fhe_compatible as ref_check
     from fedml_tpu_torch.runner import FedMLRunner
 
     kw, exc, match = FLAG_CASES[case]
     ref_cfg, cfg = _pair(f"fhe_guard_{case}", **kw)
+    if exc is None:
+        assert FedMLRunner(cfg, device="cpu").runner.server is None  # built, not set up
+        return
     with pytest.raises(exc, match=match):
         FedMLRunner(cfg, device="cpu")
     if case in ("secagg", "dp", "fedopt"):

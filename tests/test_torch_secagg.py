@@ -401,7 +401,11 @@ def test_refusals_match_the_reference(tmp_path, case):
     under LightSecAgg), and what this slice has not ported raises
     ``NotImplementedError``.  ``qsgd8_wire`` runs as the reference runs it:
     the quantize-then-mask ring under ``secagg_stream``, the codec ignored
-    (the dense buffer-all wire) without it; neither takes the f32 fold."""
+    (the dense buffer-all wire) without it; neither takes the f32 fold.
+    ``grpc_backend`` runs as the reference runs Shamir over GRPC (on the
+    LR): the reference's group over gRPC ends at its INPROC group's history,
+    and the port's lone server and four lone silos over gRPC at the port's
+    INPROC group's, bitwise."""
     from fedml_tpu.cross_silo.secagg_shamir import shamir_secagg_params as ref_params
     from fedml_tpu_torch.runner import FedMLRunner
 
@@ -443,6 +447,37 @@ def test_refusals_match_the_reference(tmp_path, case):
             assert not agg.stream_mode and not ref_agg.stream_mode
             assert all(c.stream == stream and c.ring.codec == "qsgd8"
                        for c in runner.runner.clients)
+    elif case == "grpc_backend":
+        import fedml_tpu
+        from fedml_tpu.cross_silo.secagg_shamir import run_shamir_secagg_process_group
+        from fedml_tpu.data import loader
+        from fedml_tpu.models import model_hub
+        from fedml_tpu_torch.cross_silo.async_soak import _free_port_block
+        from fedml_tpu_torch.runner import FedMLRunner as Runner
+
+        from .test_torch_transport import _lone_roles
+
+        lr = dict(model="lr", dataset="synthetic", synthetic_train_size=256,
+                  synthetic_test_size=64, partition_method="homo")
+        ref_cfg, _ = _cfgs(tmp_path, "grpc_shamir_ref", backend="GRPC", **lr,
+                           extra={"grpc_base_port": _free_port_block(5)})
+        fedml_tpu.init(ref_cfg)
+        ds = loader.load(ref_cfg)
+        ref_model = model_hub.create(ref_cfg, ds.class_num)
+        ref_hist, _ = run_shamir_secagg_process_group(ref_cfg, ds, ref_model, backend="GRPC",
+                                                      timeout=60.0)
+        ref_plain, _ = run_shamir_secagg_process_group(ref_cfg, ds, ref_model, timeout=60.0)
+        _, plain_cfg = _cfgs(tmp_path, "grpc_shamir_inproc", **lr)
+        want = Runner(plain_cfg, device="cpu").run()
+        _, cfg = _cfgs(tmp_path, "grpc_shamir_port", backend="GRPC", **lr,
+                       extra={"grpc_base_port": _free_port_block(5)})
+        hist, group = _lone_roles(cfg)
+        assert type(group.server).__name__ == "SAServerManager" and group.clients == []
+        drop = ("round_time_s", "aggregate_time_s", "finalize_time_s", "fold_time_s")
+        assert [{k: v for k, v in h.items() if k not in drop} for h in hist] == \
+            [{k: v for k, v in h.items() if k not in drop} for h in want]
+        assert [h["round"] for h in ref_hist] == [h["round"] for h in hist] == [0, 1]
+        assert [h["test_acc"] for h in ref_hist] == [h["test_acc"] for h in ref_plain]
     elif case == "partial_participation":
         with pytest.raises(ValueError, match="full participation"):
             FedMLRunner(cfg, device="cpu")

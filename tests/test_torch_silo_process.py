@@ -227,10 +227,13 @@ def test_refusals_that_stay(case):
     if case == "client_secagg":
         cfg.role, cfg.rank, cfg.enable_secagg = "client", 1, True
         cfg.backend = "INPROC"
+        match = "transport between processes"
     elif case == "client_fhe":
-        # the FHE silo runs as a process of its own; its journal waits
+        # the FHE silo runs as a process of its own with its (empty) client
+        # journal; the server journal stays refused under FHE, in any role
         cfg.role, cfg.rank, cfg.enable_fhe = "client", 1, True
-        cfg.extra["client_journal_dir"] = "/nonexistent/journal"
+        cfg.extra["server_journal_dir"] = "/nonexistent/journal"
+        match = "under FHE"
     elif case == "multiprocess_silo":
         cfg.role, cfg.rank = "client", 1
         cfg.extra["coordinator_address"] = "localhost:1234"
@@ -241,6 +244,7 @@ def test_refusals_that_stay(case):
         exc, match = ValueError, "tcp_base_port"
     elif case == "client_inproc":
         cfg.role, cfg.rank, cfg.backend = "client", 1, "INPROC"
+        match = "transport between processes"
     elif case == "remote_in_process":
         cfg.extra.update(tcp_base_port=0, tcp_ip_config={"3": "10.1.2.3"})
         match = "role 'client'"

@@ -24,6 +24,7 @@ Every TCP endpoint binds port 0; every join and receive has its own
 timeout.
 """
 
+import dataclasses
 import socket
 import threading
 import time
@@ -485,21 +486,90 @@ def test_tcp_frames_bitwise_and_chunked_delivery():
     assert _params_equal(by_type[3].get("model_params"), _sent_params())
 
 
-@pytest.mark.parametrize("backend,exc", [("GRPC", NotImplementedError),
-                                         ("MQTT_S3", NotImplementedError),
-                                         ("WEB3", NotImplementedError),
-                                         ("THETASTORE", NotImplementedError),
-                                         ("PIGEON", ValueError)])
-def test_unported_backends_refused(tmp_path, backend, exc):
+def _lone_roles(cfg):
+    """``role: server`` alone and its 4 silos as ``role: client`` (threads
+    of this process), each through ``FedMLRunner``: the server's history
+    and runner."""
+    import fedml_tpu_torch
     from fedml_tpu_torch.runner import FedMLRunner
 
-    _, cfg = _cfgs(f"backend_{backend}", {}, model="lr", comm_round=1)
+    silos, errors = [], []
+
+    def silo(rank):
+        c = dataclasses.replace(cfg, role="client", rank=rank, extra=dict(cfg.extra))
+        try:
+            assert FedMLRunner(fedml_tpu_torch.init(c), device="cpu").run() is None
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    for r in range(1, cfg.client_num_in_total + 1):
+        t = threading.Thread(target=silo, args=(r,), daemon=True)
+        t.start()
+        silos.append(t)
+    runner = FedMLRunner(fedml_tpu_torch.init(cfg), device="cpu")
+    runner.runner.timeout = 60.0
+    hist = runner.run()
+    for t in silos:
+        t.join(timeout=30.0)
+    assert not errors and not any(t.is_alive() for t in silos)
+    return hist, runner.runner
+
+
+@pytest.mark.parametrize("backend", ["GRPC", "MQTT_S3", "WEB3", "THETASTORE", "PIGEON"])
+def test_unported_backends_refused(tmp_path, backend):
+    """Each of the reference's backends builds and runs its comm manager
+    from the runner's configuration, as the reference's ``run`` does: GRPC
+    and MQTT_S3 (over a ``MiniMqttBroker`` and the HTTP store) as a lone
+    server and four lone silos, WEB3 and THETASTORE as the in-process group
+    (a lone role there raises, naming the reference's wait), each run's
+    history bitwise the INPROC group's; an unknown name raises
+    ``ValueError``."""
+    from fedml_tpu_torch.comm.blockchain import BlockchainCommManager
+    from fedml_tpu_torch.cross_silo import ONE_PROCESS_FABRIC
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    _, cfg = _cfgs(f"backend_{backend}", {}, model="lr", comm_round=2)
     cfg.backend = backend
-    with pytest.raises(exc):
-        FedMLRunner(cfg, device="cpu")
-    if exc is NotImplementedError:
-        with pytest.raises(exc, match="not ported"):
+    if backend == "PIGEON":
+        with pytest.raises(ValueError, match="unknown comm backend"):
             FedMLRunner(cfg, device="cpu")
+        return
+    _, plain_cfg = _cfgs(f"backend_{backend}_inproc", {}, model="lr", comm_round=2)
+    want, _ = _port_run(plain_cfg)
+    stop = None
+    if backend == "GRPC":
+        from fedml_tpu_torch.comm.grpc_backend import GRPCCommManager as kind
+        from fedml_tpu_torch.cross_silo.async_soak import _free_port_block
+
+        cfg.extra["grpc_base_port"] = _free_port_block(5)
+    elif backend == "MQTT_S3":
+        from fedml_tpu_torch.comm.mqtt_s3 import MqttS3CommManager as kind
+        from fedml_tpu_torch.comm.mqtt_wire import MiniMqttBroker
+        from fedml_tpu_torch.comm.object_store_http import MiniObjectStoreServer
+
+        broker, store = MiniMqttBroker(), MiniObjectStoreServer()
+        broker.start()
+        store.start()
+        stop = (broker.stop, store.stop)
+        cfg.extra.update(mqtt_host="127.0.0.1", mqtt_port=broker.port,
+                         object_store_url=store.url)
+    try:
+        if backend in ("GRPC", "MQTT_S3"):
+            hist, group = _lone_roles(cfg)
+            assert group.clients == [] and isinstance(group.server.com_manager, kind)
+        else:
+            with pytest.raises(ValueError) as e:
+                FedMLRunner(cfg, device="cpu")
+            assert ONE_PROCESS_FABRIC.split("{role!r}")[0] in str(e.value)
+            cfg.backend = "INPROC"  # the runner's group, over the backend asked for
+            hist, group = _port_run(cfg, tap=lambda g: None, backend=backend)
+            assert isinstance(group.server.com_manager, BlockchainCommManager)
+    finally:
+        for f in stop or ():
+            f()
+    drop = ("round_time_s", "aggregate_time_s")
+    assert [{k: v for k, v in h.items() if k not in drop} for h in hist] == \
+        [{k: v for k, v in h.items() if k not in drop} for h in want]
 
 
 def test_tcp_over_other_hosts_and_under_secagg_refused():
@@ -525,11 +595,13 @@ def test_tcp_over_other_hosts_and_under_secagg_refused():
 
 # -- whole runs -------------------------------------------------------------------
 
-def _port_run(cfg, trust_sampler=None, init=None, perms=None, tap=None):
+def _port_run(cfg, trust_sampler=None, init=None, perms=None, tap=None, backend=None):
     """The port's run; ``tap(group)`` sees the built server and clients
-    before it starts."""
+    before it starts; ``backend`` builds the in-process group over that
+    backend (``cross_silo.build_process_group``)."""
     import fedml_tpu_torch
     from fedml_tpu_torch import weights
+    from fedml_tpu_torch.cross_silo import build_process_group
     from fedml_tpu_torch.runner import FedMLRunner
 
     runner = FedMLRunner(fedml_tpu_torch.init(cfg), device="cpu")
@@ -538,8 +610,12 @@ def _port_run(cfg, trust_sampler=None, init=None, perms=None, tap=None):
         group.global_vars = weights.to_torch(weights.flax_to_torch(init))
     group.perms = perms
     group.trust_sampler = trust_sampler
+    if backend is not None:
+        group.server, group.clients = build_process_group(
+            cfg, runner.dataset, runner.model, "cpu", backend)
     if tap is not None:
-        group.setup()
+        if backend is None:
+            group.setup()
         tap(group)
     hist = runner.run()
     return hist, group
