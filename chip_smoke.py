@@ -84,9 +84,9 @@ Phases (any failure exits non-zero; no phase is caught):
 5. The cross-silo path: the flagship recipe through ``fedml_tpu_torch.init``
    and ``FedMLRunner(cfg).run()`` with ``training_type: cross_silo``,
    ``role: server``, ``backend: INPROC``, 4 silos all in every round, 2
-   rounds (cut from 3 for the script's budget) on a quarter of the
-   stand-in's training images (12,500, ~100 local steps a silo round; cut
-   from 50,000 in slice 15), Shamir SecAgg with the streaming field fold
+   rounds (cut from 3 for the script's budget) on an eighth of the
+   stand-in's training images (6,250, ~50 local steps a silo round; cut
+   from 50,000 in slice 15 and from 12,500 in slice 21), Shamir SecAgg with the streaming field fold
    (``extra.secagg_method: shamir``, ``extra.secagg_stream: true``),
    central DP (Gaussian, epsilon 50, delta 1e-5, sensitivity 0.01, clip 1.0)
    and ``extra.fused_blocks``: the server and 4 clients are threads of this
@@ -121,14 +121,15 @@ Phases (any failure exits non-zero; no phase is caught):
    that tolerance or to twice its one-ulp spread, a neighbour's ``c_i``
    moving it ten times more.  Then one MESH round with ``client_optimizer:
    adam``, and the two logistic-regression recipes as shipped,
-   ``sp_fedprox_synthetic_lr`` (30 rounds) and ``cross_silo_horizontal_lr``
-   (10 of its 20 rounds since slice 19), with their final test accuracy.
+   ``sp_fedprox_synthetic_lr`` (10 of its 30 rounds since slice 21) and
+   ``cross_silo_horizontal_lr`` (10 of its 20 rounds since slice 19), with
+   their final test accuracy.
 7. The paths of slice 10, none of which runs any of the seven kernels
    (every launch count read after each must be 0): ``sim_hierarchical_
    cifar10`` as shipped but for its depth (3 rounds instead of 20: 16
    clients in 4 balanced groups, 2 sub-rounds, batch 32, the FedAvg CNN
-   with dropout on the bf16 input, 50,000 / 10,000 synthetic CIFAR-10
-   images): each round's time, trained samples/s, peak memory and finite
+   with dropout on the bf16 input, 25,000 / 10,000 synthetic CIFAR-10
+   images, cut from 50,000 in slice 21): each round's time, trained samples/s, peak memory and finite
    losses, a profiled round's device busy share, then one f32 batched
    sub-round step of 8 lanes (the sampler's dropout draws) against each
    lane alone within rtol 2e-4 / atol 2e-5.  ``myavg_condshift_mlp`` as
@@ -198,7 +199,8 @@ Phases (any failure exits non-zero; no phase is caught):
    reweighting within 1e-4 relative), ``weak_dp`` and ``crfl`` one launch
    of the noise kernel each, the others none.  (e) ``label_flipping`` and
    ``backdoor``, one round each: the attackers' shards on the card bitwise
-   the host's poisoned stack.  (f) contribution with 3 clients a round
+   the host's poisoned stack.  (f) contribution with 2 clients a round
+   (3 before slice 21)
    (leave-one-out, GTG-Shapley): the replayed round's global bitwise the
    run's (cuDNN deterministic), the scores finite.  (g)
    ``myavg_condshift_mlp`` with ``norm_diff_clipping`` and local DP, 3
@@ -218,13 +220,15 @@ Phases (any failure exits non-zero; no phase is caught):
    test evaluation (round time, trained sequences/s, peak memory), a
    profiled batched step (device busy share, ``cudaLaunchKernel``), one
    f32 batched step of the 10 lanes against each lane alone (rtol 2e-4 /
-   atol 2e-5), and one MESH round against one sp round of 3 clients (10
-   before slice 15, 5 before slice 18) from the same weights at that
+   atol 2e-5), and one MESH round against one sp round of 2 clients (10
+   before slice 15, 5 before slice 18, 3 before slice 21) from the same
+   weights at that
    tolerance. (b)
    StackOverflow next-word prediction with the word LSTM (``model:
-   word_lstm``, vocab 10,004, sequences of 20; 4,000 / 1,024 synthetic
-   sequences, cut from 20,000 / 4,000: the stand-in's Markov generator is
-   linear in the count and takes ~15 s at 4,000), 50 clients with 10 a
+   word_lstm``, vocab 10,004, sequences of 20; 2,000 / 512 synthetic
+   sequences, cut from 20,000 / 4,000 and then 4,000 / 1,024 (slice 21):
+   the stand-in's Markov generator is linear in the count and takes ~15 s
+   at 4,000), 50 clients with 10 a
    round, batch 16: one MESH round and its evaluation. (c) The
    CIFAR-10 zoo in bf16 (12,800 / 2,000 synthetic images, cut from 50,000
    / 10,000 in slice 15; 32 clients, 8 a round, batch 64; a cut to 6,400
@@ -314,7 +318,7 @@ Phases (any failure exits non-zero; no phase is caught):
 14. Cross-silo trust and fault tolerance (run after phase 13): the
    flagship recipe through ``FedMLRunner(cfg).run()`` with
    ``training_type: cross_silo``, ``backend: TCP`` (the server and 4 silos
-   as threads over loopback, ports the system picks), 3 rounds on 3,200 of
+   as threads over loopback, ports the system picks), 3 rounds on 1,600 of
    the stand-in's images (the data count cut, not the widths), fused
    blocks, ``comm_chunk_bytes`` 65,536, ``comm_compression: qsgd8`` with
    ``streaming_aggregation``, central DP, both journals and a fixed chaos
@@ -355,7 +359,7 @@ Phases (any failure exits non-zero; no phase is caught):
    ``sys.executable`` (``fedml_tpu_torch.init`` and ``FedMLRunner`` on the
    card), and the ``role: server`` async server in this process (its folds
    tapped), over TCP on a free block of fixed ports, silo 2 addressed as
-   ``127.0.0.2``: phase 14's recipe (ResNet-20 bf16 fused, batch 128, 3,200
+   ``127.0.0.2``: phase 14's recipe (ResNet-20 bf16 fused, batch 128, 1,600
    images, qsgd8 with the streaming fold, central DP, chunk frames of
    65,536, both journals) with ``async_buffer_k`` 2, ``async_concurrency``
    4, exponent 0.5, 6 virtual rounds.  Each virtual round's time, arrivals,
@@ -387,7 +391,7 @@ Phases (any failure exits non-zero; no phase is caught):
    ``hier_fanout`` 4: 2 edge aggregators of 4 silos each, qsgd8 uploads
    folded at the edges as they land, each edge's partial re-encoded with
    qsgd8 (``hier_hop_codec``) and folded at the root with direct adds, the
-   streaming fold, 2 rounds on 3,200 images.  Each round folds the 8
+   streaming fold, 2 rounds on 1,600 images.  Each round folds the 8
    silos' sources at the root; the root's ingress a round (2 partials) is
    at least ``SLICE19_INGRESS_RATIO`` times smaller than the 8 compressed
    uploads the edges took (what a flat root would take); kernel 5 launches
@@ -415,7 +419,7 @@ Phases (any failure exits non-zero; no phase is caught):
    plain run.  The phase prints its seconds by form.
 17. (slice 20) The transports between processes.  (a) Phase 14's recipe
    and cut (the flagship ResNet-20, bf16, fused, batch 128, 4 silo threads,
-   3,200 images, qsgd8 uploads folded as they land, central DP, 3 rounds)
+   1,600 images, qsgd8 uploads folded as they land, central DP, 3 rounds)
    over MQTT_S3: the port's ``MiniMqttBroker`` and ``MiniObjectStoreServer``
    on loopback (``extra.mqtt_host``), the long payloads through the store;
    silo 2's session is kicked (no DISCONNECT) as round 1 closes, reconnects
@@ -432,6 +436,37 @@ Phases (any failure exits non-zero; no phase is caught):
    gRPC is not driven here: the card's machine has no ``grpcio``; the CPU
    tests hold it (``tests/test_torch_grpc.py``), and its device work is
    phase 14's over TCP.
+18. (slice 21) Multi-process ports over ``torch.distributed`` on gloo, every
+   collective over host copies, every rank on the card.  One pair of rank
+   processes (this script with ``--slice21-rank``: a fresh interpreter each,
+   no jax) serves the whole phase, after (b)'s flat runs here.  (a) The
+   flagship recipe under ``backend_sim: MULTIPROCESS``, f32, fused, 64 lanes
+   (32 a rank), 2 rounds: both ranks' globals bitwise equal, and within
+   phase 3's MESH-against-sp tolerance (rtol 2e-4 / atol 2e-5, or twice the
+   one-process run's own one-ulp spread) of the same rounds in one process
+   on MESH from the same initial global; each rank's round
+   times, trained samples/s, all-gather bytes and seconds, and launches
+   (rows 1-4 in their lanes variants in each rank).  (b) A ResNet-20 silo
+   spanning the pair (rank 0 the master over TCP, rank 1 its follower, each
+   on half of every minibatch with BatchNorm over the global batch) beside
+   one plain silo, this process serving; the flagship as 2 silos, f32,
+   fused, 240 images (one local step of 128 a silo and round), 2 rounds:
+   the final global within phase 3's tolerance of the flat run (rtol 2e-4
+   / atol 2e-5, or twice the flat run's own move when one weight of its
+   init moves by one ulp); rows 1-4 single-lane in both ranks.  The same
+   spanning run with a planted fault, each rank's BatchNorm moments over
+   its own half of the batch, must break that tolerance.  (c)
+   ``LLMTrainer`` at Llama-2-7B's widths, 4 of 32 layers, f32: ``data:2``
+   (ZeRO-3 storage) 3 steps against the one-process trainer's losses on the
+   same batches (``SLICE21_LOSS_REL``), with each step's time, tokens/s and
+   each rank's peak memory against the unsharded trainer's; ring attention
+   over the pair at the step's shapes against dense attention, forward and
+   backward (2e-5); one ``seq:2`` f32 step's logits and gradient against the
+   dense step (``SLICE21_STEP_REL`` of the largest magnitude).  (d)
+   UnitedLLM under ``training_type: cross_cloud``: the server and 2 LLM
+   silos over loopback TCP, 2 rounds: every model payload under half the
+   base model's bytes, a test loss that does not rise.  A rank that dies or
+   a collective that times out fails the phase.
 
 Each phase's wall time on one line, then the script's wall time, then the
 ``{"kernels": [...]}`` JSON (each kernel's launches from its own path's
@@ -453,9 +488,12 @@ kernel's launches over phase 14 (a); ``slice18_launches``: each kernel's
 launches over phase 15 (a), summed over its five processes;
 ``slice19_launches``: each kernel's launches over phase 16;
 ``slice20_launches``: each kernel's launches over phase 17, summed over
-its processes), then the
+its processes; ``slice21_launches``: each kernel's launches over phase 18
+(a)-(b), summed over its processes), then the
 card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
-``--kernels-only`` stops after phase 2 and prints neither.
+``--kernels-only`` stops after phase 2 and prints neither;
+``--slice21-only`` builds the kernels, runs phase 18 alone and prints
+neither.
 """
 
 from __future__ import annotations
@@ -505,7 +543,7 @@ ROUNDS = 3
 SILO_ROUNDS = 2  # phase 5's rounds, cut from ROUNDS for the script's budget
 # phases 5 and 9: a quarter of the stand-in's 50,000 training images over the
 # 4 silos (~100 local steps a silo round instead of 393), for the budget
-SILO_TRAIN_SIZE = 12500
+SILO_TRAIN_SIZE = 6250  # phases 5 and 9: cut from 50,000 (slice 15), then 12,500 (slice 21)
 NOISE_RUNS = 7  # alternating timings of the noise kernel and torch.add
 FEDSGD_LANES = 16  # the FedSGD recipe's clients a round
 # ResNet-20's fused sites a local step: the stem and each block's first
@@ -536,13 +574,15 @@ FEDOPT_LANES = (16, 7)
 SCAFFOLD_SPREAD_CAP = 1e-4
 HIERARCHICAL = "examples/sim_hierarchical_cifar10/fedml_config.yaml"
 HIER_CHECK_LANES = 8  # the f32 batched-sub-round check's clients
+HIER_TRAIN = 25000  # the recipe's images, cut from 50,000 (slice 21)
 MYAVG = "examples/myavg_condshift_mlp/fedml_config.yaml"
 LIGHTSECAGG = "examples/cross_silo_lightsecagg_lr/fedml_config.yaml"
 # depth cut in slice 19 for phase 16's budget: the LightSecAgg recipe's 10
 # rounds (its test runs at round 4 and the last) and the cross-silo LR
 # recipe's 20
 LSA_ROUNDS = 5
-LR_RECIPE_ROUNDS = {"examples/cross_silo_horizontal_lr/fedml_config.yaml": 10}
+LR_RECIPE_ROUNDS = {"examples/cross_silo_horizontal_lr/fedml_config.yaml": 10,
+                    "examples/sp_fedprox_synthetic_lr/fedml_config.yaml": 10}  # of 20 and 30
 FEDLLM = "examples/fedllm_shakespeare_lora/fedml_config.yaml"
 FULL_WIDTH_LAYERS = 4  # Llama-2-7B's widths, its 32 layers cut to this depth
 # an f32 FedLLM client update, card against CPU, as the update from where
@@ -2371,7 +2411,8 @@ def phase_hierarchical(mods):
     from fedml_tpu_torch.obs.profile_round import busy_us
 
     t0 = time.perf_counter()
-    runner = _recipe(HIERARCHICAL, comm_round=ROUNDS, fused_blocks=False)
+    runner = _recipe(HIERARCHICAL, comm_round=ROUNDS, fused_blocks=False,
+                     synthetic_train_size=HIER_TRAIN)
     sim, cfg = runner.runner, runner.cfg
     lane_steps = _trained_lane_steps(sim)
     print(f"hierarchical path: set-up {time.perf_counter() - t0:.1f} s (data "
@@ -3153,7 +3194,7 @@ def phase_trust(mods, nz, flagship):
                                  "poisoned")
         del r, sim, host
 
-    # (f) contribution, 3 clients a round: the replay bitwise under cuDNN
+    # (f) contribution, 2 clients a round: the replay bitwise under cuDNN
     # deterministic, then leave-one-out and GTG-Shapley
     torch.backends.cudnn.deterministic = True
     try:
@@ -3256,8 +3297,8 @@ SHAKESPEARE_PAIR = 3  # that check's clients, cut from the recipe's 10 (sp runs 
 STACKOVERFLOW = dict(dataset="stackoverflow_nwp", model="word_lstm", client_num_in_total=50,
                      partition_method="homo",
                      client_num_per_round=10, batch_size=16, epochs=1, learning_rate=0.3,
-                     compute_dtype="float32", synthetic_train_size=4000,
-                     synthetic_test_size=1024)
+                     compute_dtype="float32", synthetic_train_size=2000,
+                     synthetic_test_size=512)
 # FedSGD's flat gradient of FEMNIST's FedAvg CNN (62 classes): its parameters
 FEMNIST_GRAD_LENGTH = 1690046
 
@@ -4459,7 +4500,7 @@ def phase_slice16(mods):
 
 # -- phase 14: cross-silo trust and fault tolerance (slice 17) -------------------
 
-SLICE17_TRAIN = 3200  # the stand-in's training images, cut from 50,000 (800 a silo)
+SLICE17_TRAIN = 1600  # the stand-in's training images, cut from 50,000, then 3,200 (slice 21)
 SLICE17_ROUNDS = 3
 SLICE17_CRASH_ROUNDS = 2  # (d): the kills land on round 1
 SLICE17_CHUNK = 65536  # transport chunk frames: a ~1.08 MB f32 upload in ~17
@@ -4495,7 +4536,7 @@ def _card():
 
 def _slice17_cfg(root, tag, **extra):
     """The flagship recipe as a cross-silo run over loopback TCP: 4 silos,
-    all in every round, fused blocks, central DP, 3,200 images, ports the
+    all in every round, fused blocks, central DP, 1,600 images, ports the
     system picks, chunk frames of 64 KiB, both journals under ``root``
     (none without it)."""
     import fedml_tpu_torch
@@ -6006,11 +6047,651 @@ def phase_slice20(mods, nz):
     return counts
 
 
+SLICE21_RANKS = 2  # one pair of rank processes for the whole phase
+SLICE21_ROUNDS = 2  # (a) and (b)
+SLICE21_TIMEOUT_S = 420.0  # each rank's wall-clock bound
+# (b): 240 images over 2 silos (116 and 124), so each silo takes one local
+# step of 128 a round and the trajectory stays where one ulp moves little
+SLICE21_SILO_TRAIN = 240
+SLICE21_SILOS = 2
+# (a) and (b) hold the 2-process run to phase 3's f32 MESH-against-sp
+# tolerance: rtol MESH_SP_RTOL / atol MESH_SP_ATOL, or ROUND_SPREADS times
+# the one-process run's own move when one weight of its init moves by one
+# ulp.  (a)'s first calls read 7.18e-05-7.59e-05 max abs, the rtol / atol
+# form exceeded by up to 4.27e-05 on a small weight (the lane blocks of 32
+# sum in another order; deterministic cuDNN changed nothing)
+SLICE21_LLM_STEPS = 3  # (c) data:2 and the one-process trainer
+SLICE21_LLM_BATCH, SLICE21_LLM_SEQ = 8, 80  # the FedLLM recipe's batch and sequence
+SLICE21_LOSS_REL = 1e-4  # (c) data:2's f32 losses against the one-process trainer's
+SLICE21_RING_TOL = 2e-5  # (c) ring attention against dense (the reference's tolerance)
+SLICE21_STEP_REL = 1e-4  # (c) seq:2's logits and gradient against the dense step, of max |.|
+
+
+def _slice21_flagship_cfg(rank, port):
+    """(a): the flagship recipe under MULTIPROCESS, f32, fused, 2 rounds, the
+    test at the last; ``rank`` None: the same in one process on MESH."""
+    import fedml_tpu_torch
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.compute_dtype, cfg.comm_round = "float32", SLICE21_ROUNDS
+    cfg.frequency_of_the_test = SLICE21_ROUNDS
+    cfg.extra["fused_blocks"] = True
+    if rank is not None:
+        cfg.backend_sim = "MULTIPROCESS"
+        cfg.extra.update(coordinator_address=f"localhost:{port}",
+                         num_processes=SLICE21_RANKS, process_id=rank)
+    return fedml_tpu_torch.init(cfg)
+
+
+def _slice21_silo_cfg(role, rank, tcp_base=0, run_id="slice21_silo", **extra):
+    """(b): the flagship recipe as 2 silos over TCP, f32, fused, 240
+    images, 2 rounds."""
+    import fedml_tpu_torch
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.training_type, cfg.role, cfg.rank = "cross_silo", role, rank
+    cfg.backend = "TCP" if tcp_base else "INPROC"
+    cfg.client_num_in_total = cfg.client_num_per_round = SLICE21_SILOS
+    cfg.synthetic_train_size, cfg.comm_round = SLICE21_SILO_TRAIN, SLICE21_ROUNDS
+    cfg.compute_dtype, cfg.frequency_of_the_test, cfg.run_id = "float32", 1, run_id
+    cfg.extra.update(fused_blocks=True, tcp_base_port=tcp_base, **extra)
+    return cfg
+
+
+class _GatherTap:
+    """Counts the bytes and host seconds of ``multihost.all_gather``."""
+
+    def __init__(self):
+        from fedml_tpu_torch.parallel import multihost
+
+        self.module, self.inner = multihost, multihost.all_gather
+        self.bytes, self.seconds = 0, 0.0
+
+        def tapped(t, group=None):
+            t0 = time.perf_counter()
+            out = self.inner(t, group)
+            self.seconds += time.perf_counter() - t0
+            self.bytes += sum(o.numel() * o.element_size() for o in out)
+            return out
+
+        multihost.all_gather = tapped
+
+    def close(self):
+        self.module.all_gather = self.inner
+
+
+def _slice21_rank_flagship(rank, port, mods):
+    """A rank's (a): the 2-process flagship; rank 0 then runs the same from
+    the same initial global in one process on MESH."""
+    import copy
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.parallel import multihost
+    from fedml_tpu_torch.runner import FedMLRunner
+    from fedml_tpu_torch.sim.engine import MeshSimulator
+
+    t0 = time.perf_counter()
+    cfg = _slice21_flagship_cfg(rank, port)
+    runner = FedMLRunner(cfg)
+    sim = runner.runner
+    init = pt.tree_map(torch.clone, sim.global_vars)
+    setup = time.perf_counter() - t0
+    tap = _GatherTap()
+    multihost.sync_global_devices("slice21 a")
+    _reset_counts(mods)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    history = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts = _all_counts(mods)
+    tap.close()
+    flat = weights.flatten_reference(sim.global_vars)[0].cpu().numpy()
+    rounds = []
+    for m in history:
+        own = _own_steps(sim, m["round"])
+        rounds.append({"round_time_s": m["round_time_s"], "lane_steps": int(own.sum()),
+                       "samples_per_s": int(own.sum()) * cfg.batch_size / m["round_time_s"],
+                       "train_loss": m["train_loss"]})
+    out = {"setup_s": setup, "wall_s": wall, "rounds": rounds,
+           "test_acc": history[-1].get("test_acc"), "counts": counts,
+           "gather_bytes": tap.bytes, "gather_s": tap.seconds,
+           "lanes": int(len(sim.sampler.sample(0))), "batch": cfg.batch_size,
+           "digest": hashlib.sha256(flat.tobytes()).hexdigest(),
+           "finite": bool(np.isfinite(flat).all()), "peak_bytes": torch.cuda.max_memory_allocated()}
+    if rank == 0:
+        one_cfg = copy.copy(cfg)
+        one_cfg.backend_sim = "MESH"
+
+        def one_process(start):
+            one = MeshSimulator(one_cfg, sim.dataset, sim.model)
+            one.global_vars = start
+            one.server_state = one.algorithm.init_server_state(start)
+            one.run()
+            torch.cuda.synchronize()
+            return one.global_vars
+
+        t1 = time.perf_counter()
+        one = one_process(pt.tree_map(torch.clone, init))
+        out["one_process_s"] = time.perf_counter() - t1
+        worst, excess = _largest_difference(sim.global_vars, one)
+        out["one_process_max_abs"], out["one_process_excess"] = worst, excess
+        # the one-process run's own move when one weight of its init moves
+        # by one ulp: the scale f32 ResNet-20 carries an ulp to
+        k = init["params"]["Conv_0"]["kernel"].view(-1)
+        k[0] = torch.nextafter(k[0], k[0] + 1)
+        out["one_process_spread"] = _largest_difference(one_process(init), one)[0]
+    multihost.sync_global_devices("slice21 a end")
+    return out
+
+
+def _slice21_rank_silo(rank, workdir, tcp_base, mods, planted=False):
+    """A rank's (b): silo 1 spanning the pair (rank 0 the master over TCP,
+    rank 1 its follower).  ``planted``: the control run, each rank's
+    BatchNorm moments over its own half of the batch (the fault that the
+    check must catch), on the next block of ports."""
+    import contextlib
+    import os
+
+    import torch
+
+    from fedml_tpu_torch.models import resnet
+    from fedml_tpu_torch.parallel import multihost
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    tag = "planted" if planted else "silo"
+    cfg = _slice21_silo_cfg("client", 1, tcp_base, run_id=f"slice21_{tag}")
+    runner = FedMLRunner(cfg)
+    group = runner.runner
+    group.timeout = SLICE21_TIMEOUT_S
+    global_stats = resnet.global_batch_stats
+    if planted:  # each trainer (the follower's is built in run()) takes it
+        resnet.global_batch_stats = lambda reduce_sum, world: contextlib.nullcontext()
+    try:
+        group.setup()
+        multihost.sync_global_devices(f"slice21 b {tag}")
+        if rank == 0:  # its listener is bound: the server may start
+            with open(os.path.join(workdir, f"{tag}_ready"), "w") as f:
+                f.write("1")
+        _reset_counts(mods)
+        t0 = time.perf_counter()
+        runner.run()
+        torch.cuda.synchronize()
+    finally:
+        resnet.global_batch_stats = global_stats
+    return {"wall_s": time.perf_counter() - t0, "counts": _all_counts(mods),
+            "follower": group.follower,
+            "rounds": None if group.follower else group.clients[0].rounds_trained}
+
+
+def _slice21_llm_cfg():
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.models.transformer import TransformerConfig
+
+    return dataclasses.replace(TransformerConfig.llama_7b(), n_layers=FULL_WIDTH_LAYERS,
+                               dtype=torch.float32, logits_dtype=torch.float32)
+
+
+def _slice21_batches(vocab, n):
+    import numpy as np
+
+    rs = np.random.RandomState(21)
+    out = []
+    for _ in range(n):
+        seq = rs.randint(0, vocab, (SLICE21_LLM_BATCH, SLICE21_LLM_SEQ + 1))
+        out.append((seq[:, :-1], seq[:, 1:]))
+    return out
+
+
+def _rel_gap(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _slice21_rank_llm(rank):
+    """A rank's (c): ``LLMTrainer`` at Llama-2-7B's widths (4 of 32 layers,
+    f32) on ``data:2`` (3 steps; rank 0 then the one-process trainer on the
+    same batches) and on ``seq:2`` (ring attention at the step's shapes
+    against dense, then one step against the dense step)."""
+    import gc
+
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.llm.train import LLMTrainArgs, LLMTrainer, _lm_loss_sum
+    from fedml_tpu_torch.models.transformer import Transformer
+    from fedml_tpu_torch.ops.attention import dense_attention
+    from fedml_tpu_torch.ops.ring_attention import Ring, ring_attention
+    from fedml_tpu_torch.parallel import mesh as meshlib
+    from fedml_tpu_torch.parallel import multihost
+
+    tcfg = _slice21_llm_cfg()
+    args = LLMTrainArgs(learning_rate=1e-4, warmup_steps=1, total_steps=4,
+                        batch_size=SLICE21_LLM_BATCH, seq_len=SLICE21_LLM_SEQ, seed=0)
+    batches = _slice21_batches(tcfg.vocab_size, SLICE21_LLM_STEPS)
+    tokens = SLICE21_LLM_BATCH * SLICE21_LLM_SEQ
+    out = {}
+
+    def steps(trainer):
+        times, losses = [], []
+        for t, y in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.step(t, y)["loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return {"losses": losses, "step_s": times, "tokens_per_s": [tokens / s for s in times],
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    fresh()
+    trainer = LLMTrainer(tcfg, args, mesh=meshlib.make_mesh(("data",), (SLICE21_RANKS,)))
+    out["data2"] = steps(trainer)
+    out["data2"]["stored"] = sum(t.numel() for t in pt.tree_leaves(trainer.params))
+    out["params"] = trainer.n_params()
+    del trainer
+    multihost.sync_global_devices("slice21 c data2")
+    if rank == 0:
+        fresh()
+        single = LLMTrainer(tcfg, args, mesh=meshlib.make_mesh(("data",), (1,), devices=[0]))
+        out["single"] = steps(single)
+        del single
+    multihost.sync_global_devices("slice21 c single")
+
+    # ring attention at the step's attention shapes, forward and backward
+    fresh()
+    b, s, h, d = SLICE21_LLM_BATCH, SLICE21_LLM_SEQ, tcfg.n_heads, tcfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, go = (torch.randn((b, s, h, d), generator=g, device="cuda") for _ in range(4))
+    half = slice(rank * s // 2, (rank + 1) * s // 2)
+    ql, kl, vl = (x[:, half].clone().requires_grad_(True) for x in (q, k, v))
+    ring = Ring(range(SLICE21_RANKS), rank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = ring_attention(ql, kl, vl, ring)
+    o.backward(go[:, half])
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    got = [multihost.all_gather(x.contiguous()) for x in (o.detach(), ql.grad, kl.grad, vl.grad)]
+    if rank == 0:
+        qd, kd, vd = (x.clone().requires_grad_(True) for x in (q, k, v))
+        od = dense_attention(qd, kd, vd)
+        od.backward(go)
+        want = (od.detach(), qd.grad, kd.grad, vd.grad)
+        out["ring_attention"] = {
+            "s": ring_s,
+            "max_abs": max(float((torch.cat(gs, 1) - w).abs().max()) for gs, w in zip(got, want)),
+            "excess": max(float(((torch.cat(gs, 1) - w).abs()
+                                 - SLICE21_RING_TOL * (1 + w.abs())).max())
+                          for gs, w in zip(got, want))}
+    del q, k, v, go, ql, kl, vl, o, got
+
+    # one f32 step on seq:2, its logits and gradient against the dense step
+    fresh()
+    trainer = LLMTrainer(tcfg, args, mesh=meshlib.make_mesh(("seq",), (SLICE21_RANKS,)),
+                         seq_axis="seq")
+    t, y = batches[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, logits = trainer.forward_backward(t, y)
+    torch.cuda.synchronize()
+    fb_s = time.perf_counter() - t0
+    parts = multihost.all_gather(logits)
+    seq2 = {"loss": float(loss)}
+    if rank == 0:
+        whole = trainer.whole_params()
+        leaves = [p.detach().requires_grad_(True) for p in pt.tree_leaves(whole)]
+        dense_logits = Transformer(tcfg, device="meta")(
+            torch.as_tensor(t).cuda(), pt.tree_unflatten_like(whole, leaves))
+        dense_loss = _lm_loss_sum(dense_logits, torch.as_tensor(y).cuda()) / tokens
+        dense_grads = torch.autograd.grad(dense_loss, leaves)
+        seq2.update(dense_loss=float(dense_loss.detach()),
+                    logits_rel=_rel_gap(torch.cat(parts, 1), dense_logits.detach()),
+                    grad_rel=max(_rel_gap(a, b) for a, b in zip(grads, dense_grads)))
+        del whole, leaves, dense_logits, dense_grads
+    del parts, logits
+    multihost.sync_global_devices("slice21 c dense")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer._apply(grads)
+    torch.cuda.synchronize()
+    seq2["step_s"] = fb_s + time.perf_counter() - t1
+    seq2["tokens_per_s"] = tokens / seq2["step_s"]
+    seq2["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seq2"] = seq2
+    del trainer, grads
+    multihost.sync_global_devices("slice21 c end")
+    return out
+
+
+def slice21_rank_main(rank, port, workdir, tcp_base) -> int:
+    """One rank of phase 18 (started by ``phase_slice21`` as ``chip_smoke.py
+    --slice21-rank``): (a), then its part of (b) and of (b)'s planted
+    control, then (c); its results to
+    ``rank_<rank>.json`` in ``workdir``."""
+    import os
+
+    import torch
+
+    from fedml_tpu_torch.ops import fused_block as fb
+    from fedml_tpu_torch.ops import quantize as qz
+    from fedml_tpu_torch.parallel import multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = (fb, qz)
+    out = {"rank": rank, "pid": os.getpid(), "device_name": torch.cuda.get_device_name(0)}
+    parts = (("a", lambda: _slice21_rank_flagship(rank, port, mods)),
+             ("b", lambda: _slice21_rank_silo(rank, workdir, tcp_base, mods)),
+             ("b_planted", lambda: _slice21_rank_silo(rank, workdir, tcp_base + SLICE21_SILOS
+                                                      + 1, mods, planted=True)),
+             ("c", lambda: _slice21_rank_llm(rank)))
+    try:
+        for name, run in parts:
+            out[name] = run()
+            print(f"slice21 rank {rank} ({name}): {json.dumps(out[name])}", flush=True)
+    finally:
+        multihost.shutdown()
+    out["jax_loaded"] = "jax" in sys.modules
+    out["fedml_tpu_loaded"] = any(m == "fedml_tpu" or m.startswith("fedml_tpu.")
+                                  for m in sys.modules)
+    path = os.path.join(workdir, f"rank_{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def _slice21_flat(cfg, dataset, model, init):
+    """(b)'s flat run: the server and both silos as plain threads of this
+    process over INPROC, from ``init``; the final global, flat."""
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo import build_process_group, run_group
+
+    server, clients = build_process_group(cfg, dataset, model, "cuda", "INPROC",
+                                          global_vars=pt.tree_map(torch.clone, init))
+    history = run_group(server, clients, SLICE21_TIMEOUT_S)
+    return weights.flatten_reference(server.aggregator.global_vars)[0], history
+
+
+def _slice21_spanning(workdir, tcp_base, procs, dataset, model, init, all_mods, tag="silo"):
+    """(b)'s spanning run, this process's side: once the ranks' silo is up,
+    the server and the plain silo 2 over TCP; the final global, flat."""
+    import os
+
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo import build_client, build_server, run_group
+
+    deadline = time.perf_counter() + SLICE21_TIMEOUT_S
+    while not os.path.exists(os.path.join(workdir, f"{tag}_ready")):
+        if time.perf_counter() > deadline or any(p.poll() is not None for p in procs):
+            raise AssertionError(f"phase 18 (b): the spanning silo ({tag}) never came up")
+        time.sleep(0.2)
+    run_id = f"slice21_{tag}"
+    server = build_server(_slice21_silo_cfg("server", 0, tcp_base, run_id), dataset, model,
+                          "cuda", backend="TCP", global_vars=pt.tree_map(torch.clone, init))
+    silo2 = build_client(_slice21_silo_cfg("client", 2, tcp_base, run_id), dataset, model, 2,
+                         "cuda", backend="TCP")
+    _reset_counts(all_mods)
+    t0 = time.perf_counter()
+    history = run_group(server, [silo2], SLICE21_TIMEOUT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (weights.flatten_reference(server.aggregator.global_vars)[0], history, wall,
+            _all_counts(all_mods))
+
+
+def _slice21_unitedllm(all_mods):
+    """(d): UnitedLLM under ``training_type: cross_cloud``, the server and 2
+    LLM silos over loopback TCP, 2 rounds (the reference test's
+    configuration)."""
+    import math
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import Config
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.cross_silo import message_define as md
+    from fedml_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    cfg = fedml_tpu_torch.init(Config(
+        training_type="cross_cloud", role="server", backend="TCP", dataset="shakespeare",
+        model="transformer", client_num_in_total=2, client_num_per_round=2, comm_round=2,
+        epochs=1, batch_size=4, learning_rate=0.01, synthetic_train_size=128,
+        synthetic_test_size=32, frequency_of_the_test=1, run_id="slice21_united",
+        extra={"unitedllm": True, "lora_r": 2, "tcp_base_port": 0}))
+    sizes, encode = [], Message.encode
+
+    def spy(msg):
+        blob = encode(msg)
+        if msg.get(md.MSG_ARG_KEY_MODEL_PARAMS) is not None:
+            sizes.append(len(blob))
+        return blob
+
+    Message.encode = spy
+    try:
+        t0 = time.perf_counter()
+        runner = FedMLRunner(cfg)
+        _reset_counts(all_mods)
+        history = runner.run()
+        wall = time.perf_counter() - t0
+    finally:
+        Message.encode = encode
+    base = Transformer(TransformerConfig.tiny(vocab_size=runner.dataset.class_num),
+                       device="meta")
+    base_bytes = sum(t.numel() * 4 for t in pt.tree_leaves(base.variables()))
+    losses = [h["test_loss"] for h in history]
+    print(f"phase 18 (d): UnitedLLM, training_type {cfg.training_type!r} over loopback TCP, "
+          f"{len(history)} rounds in {wall:.1f} s (set-up included); test losses {losses}; "
+          f"{len(sizes)} model payloads of {min(sizes)}-{max(sizes)} bytes against the base's "
+          f"{base_bytes} bytes (limit: half); launches {_all_counts(all_mods)}")
+    if (len(history) != 2 or not all(math.isfinite(v) for v in losses)
+            or losses[-1] > losses[0] + 1e-6 or len(sizes) < 8
+            or max(sizes) >= base_bytes / 2):
+        raise AssertionError(f"phase 18 (d): losses {losses}, payloads {sizes}, base "
+                             f"{base_bytes}")
+    return wall
+
+
+def phase_slice21(mods, nz):
+    """Phase 18: (b)'s flat runs here, then one pair of rank processes for
+    (a)-(c) (this process serving (b)'s server and plain silo), then (d)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from fedml_tpu_torch.core import pytree as pt
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.cross_silo.async_soak import _free_port_block, _tail, soak_worker_env
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.models import model_hub
+
+    all_mods = mods + (nz,)
+    fb = mods[0]
+    t_phase = time.perf_counter()
+    # (b)'s flat runs first, with the card to themselves
+    cfg = _slice21_silo_cfg("server", 0)
+    dataset = loader.load(cfg)
+    model = model_hub.create(cfg, dataset.class_num, input_shape=dataset.train_x.shape[1:])
+    init = model.init(rng.generator(rng.init_key(rng.root_key(cfg.random_seed))), "cuda")
+    t0 = time.perf_counter()
+    flat, flat_hist = _slice21_flat(cfg, dataset, model, init)
+    flat_s = time.perf_counter() - t0
+    bumped = pt.tree_map(torch.clone, init)
+    k = bumped["params"]["Conv_0"]["kernel"].view(-1)
+    k[0] = torch.nextafter(k[0], k[0] + 1)
+    spread = float((flat - _slice21_flat(cfg, dataset, model, bumped)[0]).abs().max())
+
+    with tempfile.TemporaryDirectory(prefix="fedml_slice21_") as workdir:
+        # (b) and its planted control, a block of ports each
+        port, tcp_base = _free_port_block(1), _free_port_block(2 * (SLICE21_SILOS + 1))
+        logs = [os.path.join(workdir, f"rank_{r}.log") for r in range(SLICE21_RANKS)]
+        procs = []
+        try:
+            t_spawn = time.perf_counter()
+            for r in range(SLICE21_RANKS):
+                with open(logs[r], "wb") as lf:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), "--slice21-rank", str(r),
+                         "--slice21-port", str(port), "--slice21-dir", workdir,
+                         "--slice21-tcp-base", str(tcp_base)],
+                        stdout=lf, stderr=subprocess.STDOUT, env=soak_worker_env(),
+                        cwd=os.path.dirname(os.path.abspath(__file__))))
+            span, span_hist, span_wall, server_counts = _slice21_spanning(
+                workdir, tcp_base, procs, dataset, model, init, all_mods)
+            planted = _slice21_spanning(workdir, tcp_base + SLICE21_SILOS + 1, procs, dataset,
+                                        model, init, all_mods, tag="planted")[0]
+            for p in procs:
+                if p.wait(timeout=max(1.0, SLICE21_TIMEOUT_S - (time.perf_counter() - t_spawn))):
+                    raise AssertionError(f"phase 18: a rank exited {p.returncode}")
+            ranks_s = time.perf_counter() - t_spawn
+            ranks = []
+            for r in range(SLICE21_RANKS):
+                with open(os.path.join(workdir, f"rank_{r}.json")) as f:
+                    ranks.append(json.load(f))
+        except BaseException:
+            for r, log in enumerate(logs):
+                print(f"--- rank {r} ---\n{_tail(log, 6000)}")
+            raise
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=10)
+    del init, bumped
+
+    # (a)
+    a = [r["a"] for r in ranks]
+    lane_names = [k.name for k in fb.LANE_KERNELS]
+    for r in ranks:
+        ra = r["a"]
+        times = ", ".join(f"{x['round_time_s']:.3f} s ({x['samples_per_s']:.0f} trained "
+                          f"samples/s)" for x in ra["rounds"])
+        print(f"phase 18 (a) rank {r['rank']} (pid {r['pid']}, {r['device_name']}, jax imported: "
+              f"{r['jax_loaded']}): {ra['lanes'] // SLICE21_RANKS} of {ra['lanes']} lanes, "
+              f"set-up {ra['setup_s']:.1f} s, rounds {times}; all-gather {ra['gather_bytes']} "
+              f"bytes in {ra['gather_s']:.3f} s; test_acc {ra['test_acc']:.4f}; peak "
+              f"{ra['peak_bytes'] / 2**30:.3f} GiB; launches {ra['counts']}")
+    one = a[0]
+    same = "bitwise equal" if a[0]["digest"] == a[1]["digest"] else "DIFFERENT"
+    print(f"phase 18 (a): both ranks' globals {same}; against the one-process MESH run of "
+          f"the same {one['lanes']} lanes ({one['one_process_s']:.3f} s for {SLICE21_ROUNDS} "
+          f"rounds): max abs {one['one_process_max_abs']:.3g} (rtol {MESH_SP_RTOL:g} / atol "
+          f"{MESH_SP_ATOL:g}: excess {one['one_process_excess']:.3g}; the one-process run's "
+          f"own one-ulp spread {one['one_process_spread']:.3g}, limit {ROUND_SPREADS} x)")
+    bad = [(r["rank"], n) for r in ranks for n in lane_names if r["a"]["counts"].get(n, 0) == 0]
+    if (a[0]["digest"] != a[1]["digest"] or not all(x["finite"] for x in a)
+            or (one["one_process_excess"] > 0
+                and not one["one_process_max_abs"] <= ROUND_SPREADS * one["one_process_spread"])
+            or bad or any(r["jax_loaded"] or r["fedml_tpu_loaded"] for r in ranks)):
+        raise AssertionError(f"phase 18 (a): digests {[x['digest'] for x in a]}, max abs "
+                             f"{one['one_process_max_abs']} beyond phase 3's tolerance, lane "
+                             f"kernels missing {bad}")
+
+    # (b): phase 3's rule, which the planted per-rank moments must break
+    def beyond(got):
+        gap = float((got - flat).abs().max())
+        excess = float(((got - flat).abs() - MESH_SP_ATOL - MESH_SP_RTOL * flat.abs()).max())
+        return gap, excess, excess > 0 and gap > ROUND_SPREADS * spread
+
+    gap, gap_excess, failed = beyond(span)
+    planted_gap, planted_excess, caught = beyond(planted)
+    b = [r["b"] for r in ranks]
+    round_times = ", ".join(f"{h['round_time_s']:.3f}" for h in span_hist)
+    print(f"phase 18 (b): silo 1 spanning 2 ranks (rank 0 trained {b[0]['rounds']} rounds, "
+          f"rank 1 a follower: {b[1]['follower']}) beside plain silo 2, {SLICE21_ROUNDS} rounds "
+          f"of one local step in {span_wall:.3f} s (round times {round_times} s); flat run "
+          f"{flat_s:.1f} s; final global against the flat run: max abs {gap:.3g} (rtol "
+          f"{MESH_SP_RTOL:g} / atol {MESH_SP_ATOL:g}: excess {gap_excess:.3g}; the flat run's "
+          f"own one-ulp spread {spread:.3g}, limit {ROUND_SPREADS} x); planted per-rank "
+          f"BatchNorm moments: max abs {planted_gap:.3g} (excess {planted_excess:.3g}), "
+          f"caught: {caught}; test_acc {span_hist[-1]['test_acc']:.4f} against "
+          f"{flat_hist[-1]['test_acc']:.4f}; launches: server and silo 2 {server_counts}, "
+          f"ranks {[x['counts'] for x in b]}")
+    bad = [(r["rank"], k.name) for r in ranks for k in fb.KERNELS
+           if r["b"]["counts"].get(k.name, 0) == 0]
+    if (b[0]["rounds"] != SLICE21_ROUNDS or not b[1]["follower"] or bad
+            or not math.isfinite(gap) or failed or not caught):
+        raise AssertionError(f"phase 18 (b): rounds {b[0]['rounds']}, kernels missing {bad}, "
+                             f"gap {gap} against spread {spread}, planted fault caught: "
+                             f"{caught} (gap {planted_gap})")
+
+    # (c)
+    c0, c1 = ranks[0]["c"], ranks[1]["c"]
+    single = c0["single"]
+    for name, res in (("data:2 rank 0", c0["data2"]), ("data:2 rank 1", c1["data2"]),
+                      ("one process", single)):
+        print(f"phase 18 (c) {name}: steps "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in res['step_s'])} ms, "
+              f"{', '.join(f'{x:.0f}' for x in res['tokens_per_s'])} tokens/s, losses "
+              f"{res['losses']}, peak {res['peak_bytes'] / 2**30:.3f} GiB"
+              + (f", {res['stored']} of {c0['params']} f32 parameters stored" if "stored" in res
+                 else ""))
+    ra = c0["ring_attention"]
+    print(f"phase 18 (c) ring attention over 2 ranks at ({SLICE21_LLM_BATCH}, {SLICE21_LLM_SEQ}, "
+          f"32, 128) f32, forward and backward in {ra['s'] * 1e3:.1f} ms: max abs against dense "
+          f"{ra['max_abs']:.3g} (tolerance {SLICE21_RING_TOL:g}); seq:2 one f32 step "
+          f"{c0['seq2']['step_s'] * 1e3:.1f} ms ({c0['seq2']['tokens_per_s']:.0f} tokens/s), "
+          f"loss {c0['seq2']['loss']:.6f} against dense {c0['seq2']['dense_loss']:.6f}, logits "
+          f"{c0['seq2']['logits_rel']:.3g} and gradient {c0['seq2']['grad_rel']:.3g} of max "
+          f"|.| from the dense step (limit {SLICE21_STEP_REL:g}), peak "
+          f"{c0['seq2']['peak_bytes'] / 2**30:.3f} GiB")
+    loss_gap = max(abs(x - y) / abs(y) for r in (c0, c1)
+                   for x, y in zip(r["data2"]["losses"], single["losses"]))
+    if (loss_gap > SLICE21_LOSS_REL or ra["excess"] > 0
+            or c0["seq2"]["logits_rel"] > SLICE21_STEP_REL
+            or c0["seq2"]["grad_rel"] > SLICE21_STEP_REL
+            or abs(c0["seq2"]["loss"] - c0["seq2"]["dense_loss"]) > SLICE21_LOSS_REL * abs(
+                c0["seq2"]["dense_loss"])
+            or not all(math.isfinite(x) for x in single["losses"])):
+        raise AssertionError(f"phase 18 (c): loss gap {loss_gap}, ring {ra}, seq2 {c0['seq2']}")
+
+    # (d)
+    united_s = _slice21_unitedllm(all_mods)
+    counts = {k: server_counts[k] + sum(r["a"]["counts"].get(k, 0) + r["b"]["counts"].get(k, 0)
+                                         for r in ranks)
+              for k in server_counts}
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s (the ranks {ranks_s:.1f} s, (d) "
+          f"{united_s:.1f} s); launches summed over the processes of (a)-(b) {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building and checking the kernels (phases 1-2)")
+    ap.add_argument("--slice21-only", action="store_true",
+                    help="build the kernels, run phase 18 alone and stop (prints neither "
+                         "the kernels line nor the last line)")
+    # phase 18's rank processes (started by the script itself)
+    ap.add_argument("--slice21-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--slice21-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--slice21-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--slice21-tcp-base", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.slice21_rank is not None:
+        return slice21_rank_main(args.slice21_rank, args.slice21_port, args.slice21_dir,
+                                 args.slice21_tcp_base)
     t_start = time.perf_counter()
 
     import torch
@@ -6041,6 +6722,9 @@ def main(argv=None) -> int:
 
     mods = (fb, qz)
     walls = {}
+    if args.slice21_only:
+        phase_slice21(mods, nz)
+        return 0
 
     def timed(name, fn, *a):
         """Run a phase from a freed allocator; keep its wall time."""
@@ -6087,6 +6771,7 @@ def main(argv=None) -> int:
     slice18_counts = timed("15", phase_slice18, mods, nz)
     slice19_counts = timed("16", phase_slice19, mods, nz)
     slice20_counts = timed("17", phase_slice20, mods, nz)
+    slice21_counts = timed("18", phase_slice21, mods, nz)
     zoo_counts, femnist_rows = timed("11", phase_zoo, mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
@@ -6116,6 +6801,7 @@ def main(argv=None) -> int:
          "slice18_launches": slice18_counts.get(k.name, 0),
          "slice19_launches": slice19_counts.get(k.name, 0),
          "slice20_launches": slice20_counts.get(k.name, 0),
+         "slice21_launches": slice21_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],

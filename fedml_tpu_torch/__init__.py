@@ -23,12 +23,22 @@ def init(args: Optional[Config] = None, argv=None) -> Config:
     from .core import rng
 
     cfg = args if args is not None else add_args(argv)
-    if getattr(cfg, "backend_sim", "") in ("MULTIPROCESS", constants.SIMULATION_BACKEND_MPI):
-        raise NotImplementedError("multi-process simulation is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
     rng.seed_everything(cfg.random_seed)
     logging.basicConfig(level=logging.INFO,
                         format="[fedml_tpu_torch] %(asctime)s %(levelname)s %(message)s")
+    # MULTIPROCESS / MPI, or a silo spanning processes: the gloo process
+    # group comes up here (the only place), as the reference's
+    # jax.distributed does
+    from .core.flags import cfg_extra
+    from .parallel import multihost
+
+    requested = getattr(cfg, "backend_sim", "") in ("MULTIPROCESS",
+                                                     constants.SIMULATION_BACKEND_MPI)
+    if requested or cfg_extra(cfg, "coordinator_address"):
+        multihost.ensure_initialized(cfg)
+        if requested and not multihost.is_initialized():
+            # an explicit multi-process backend never degrades to one process
+            raise ValueError(multihost.MULTIPROCESS_REFUSAL)
     return cfg
 
 

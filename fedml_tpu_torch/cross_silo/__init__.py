@@ -74,10 +74,16 @@ ignored, as in the reference.
 Algorithms: FedAvg, FedOpt and FedProx (their contribution is the client's
 full variables; the server runs the algorithm's ``aggregate`` and
 ``server_update`` on the uploads, the client plain local SGD).  Refused with
-``NotImplementedError``: SCAFFOLD, FedNova, FedDyn and Mime; multi-process
-silos (``extra.coordinator_address``, the reference's ``silo_dist.py`` on
-``parallel/multihost``; ROADMAP.md Queue 1 item 8).  Both SecAgg protocols
-and FHE take FedAvg alone and every silo each round.
+``NotImplementedError``: SCAFFOLD, FedNova, FedDyn and Mime (the reference
+fails on them in its server's receive thread; ROADMAP Queue 3).  Both SecAgg
+protocols and FHE take FedAvg alone and every silo each round.
+
+A silo spanning processes (``role: client`` with ``extra.
+coordinator_address`` / ``num_processes`` / ``process_id``, the reference's
+L64-86 and L130-150): the gloo process group comes up at ``init``; rank 0
+is the silo master, the only rank that speaks the protocol; the others run
+``silo_dist.run_silo_follower`` (``cross_silo/silo_dist.py``).  Under
+SecAgg or FHE it raises the reference's ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -94,8 +100,6 @@ from .server import FedMLAggregator, FedMLServerManager, eval_batch_size
 _IN_PROCESS_BACKENDS = (C.COMM_BACKEND_INPROC, "MESH", "")
 _LOOPBACK = ("127.0.0.1", "localhost", "::1")
 _ROLES = ("server", "client")
-#: where the refusal of multi-process silos waits (ROADMAP.md)
-_ITEM_8 = "ROADMAP.md Queue 1 item 8"
 #: a lone role over a fabric of one process (a decided difference, ROADMAP
 #: Queue 3): the reference's lone server waits for its silos until its
 #: timeout (600 s), and its lone silo waits for the server's FINISH for ever
@@ -243,17 +247,26 @@ def protocol(cfg) -> str:
     return "fhe" if getattr(cfg, "enable_fhe", False) else "plain"
 
 
+def spanning_silo(cfg) -> bool:
+    """Whether this silo spans processes (``extra.coordinator_address`` or
+    the environment's coordinator, the reference's routing: its L130-150);
+    ``cross_silo/silo_dist.py``."""
+    from ..parallel import multihost
+
+    return cfg.role == "client" and (multihost.coordinator(cfg) is not None
+                                     or multihost.is_multiprocess())
+
+
 def refuse_unported_cross_silo(cfg) -> None:
     """Raise for a cross-silo configuration this slice does not serve."""
     if cfg.role not in _ROLES:
         raise ValueError(f"cross-silo role {cfg.role!r}; known: {list(_ROLES)}")
     proto = protocol(cfg)
     secure = proto != "plain"
-    if cfg_extra(cfg, "coordinator_address") or int(cfg_extra(cfg, "num_processes") or 0) > 1:
-        raise NotImplementedError(
-            "multi-process silos (extra.coordinator_address / num_processes, the reference's "
-            f"silo_dist.py on parallel/multihost) are not ported yet ({_ITEM_8}); run each "
-            "silo as one process")
+    if spanning_silo(cfg):
+        from .silo_dist import check_spanning_silo
+
+        check_spanning_silo(cfg, secure)
     if cfg.role == "client" and cfg.backend in _IN_PROCESS_BACKENDS:
         raise NotImplementedError(
             f"role 'client' over backend {cfg.backend!r}: a silo of its own needs a "
@@ -384,6 +397,8 @@ class _CrossSiloRunner:
         self.logger = None
         self.server: Optional[FedMLServerManager] = None
         self.clients: list = []
+        #: a follower rank of a silo spanning processes (``silo_dist.py``)
+        self.follower = False
 
     def _hooks(self, names) -> dict:
         return {k: getattr(self, k) for k in names if getattr(self, k) is not None}
@@ -413,6 +428,8 @@ class _CrossSiloRunner:
         elif self.cfg.role == "server":
             self.server = build_srv(self.cfg, self.dataset, self.model, self.device,
                                     backend=backend, **self._hooks(_SERVER_HOOKS[proto]))
+        elif spanning_silo(self.cfg):
+            self._setup_spanning_silo(backend)
         else:
             rank = int(self.cfg.rank)
             hooks = self._hooks(_CLIENT_HOOKS)
@@ -423,12 +440,42 @@ class _CrossSiloRunner:
         for c in self.clients:
             c.upload_noise = self.upload_noise
 
+    def _setup_spanning_silo(self, backend: str) -> None:
+        """A silo spanning the process group (the reference's L64-86): the
+        master (rank 0) builds the client over :class:`DistributedSiloTrainer`;
+        a follower builds nothing and runs ``run_silo_follower``."""
+        from ..parallel import multihost
+        from .silo_dist import DistributedSiloTrainer
+
+        # the process group is up since ``fedml_tpu_torch.init``
+        if multihost.process_index() != 0:
+            self.follower = True
+            return
+        rank = int(self.cfg.rank)
+        ix = self.dataset.client_idx[rank - 1]
+        trainer = DistributedSiloTrainer(self.cfg, self.model, self.dataset.train_x[ix],
+                                         self.dataset.train_y[ix], self.device,
+                                         **self._hooks(_CLIENT_HOOKS))
+        self.clients = [ClientMasterManager(self.cfg, trainer, rank=rank, backend=backend)]
+
     def run(self):
         """The server's history, or None for a silo (as the reference)."""
-        if self.server is None and not self.clients:
+        if self.server is None and not self.clients and not self.follower:
             self.setup()
+        if self.follower:
+            from .silo_dist import run_silo_follower
+
+            ix = self.dataset.client_idx[int(self.cfg.rank) - 1]
+            run_silo_follower(self.cfg, self.model, self.dataset.train_x[ix],
+                              self.dataset.train_y[ix], self.device)
+            return None
         if self.server is None:
-            run_silo(self.clients[0], self.timeout)
+            try:
+                run_silo(self.clients[0], self.timeout)
+            finally:  # release a spanning silo's followers, even on a failure
+                finish = getattr(self.clients[0].trainer, "finish", None)
+                if callable(finish):
+                    finish()
             return None
         if not self.clients:
             return self.server.run_until_done(self.timeout)

@@ -106,10 +106,14 @@ from . import message_define as md
 
 log = logging.getLogger("fedml_tpu_torch.cross_silo.server")
 
+# extra.server_shard_fold (the reference's ShardedStreamAccumulator over its
+# mesh) is served as it stands: the fold's one shard owner in this process is
+# the server's device, so the sharded fold is the device fold, bitwise the
+# reference's on the CPU (tests/test_torch_multiprocess.py)
 _UNPORTED_SERVER_FLAGS = (
     "flight_recorder", "slo_specs", "perf_timeline", "otlp_endpoint",
     "enable_remote_obs", "model_publish_dir", "health_aware_selection", "aot_programs",
-    "server_shard_fold", "metrics_port")
+    "metrics_port")
 #: the reference's LightSecAgg server recovers a crash at a round boundary,
 #: but not one inside a round (a decided difference, ROADMAP Queue 3)
 LSA_SERVER_JOURNAL_REFUSAL = (

@@ -127,12 +127,21 @@ def epoch_permutations(key: rng.Key, epochs: int, cap: int) -> torch.Tensor:
 
 
 def make_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = None,
-                        grad_hook: Optional[Callable] = None):
+                        grad_hook: Optional[Callable] = None,
+                        data_parallel: Optional[tuple] = None):
     """Build ``local_train(variables, x, y, count, key, perms=None, ctx=None,
     dropout=None) -> (new_variables, metrics)``.  ``x``/``y`` are one
     client's padded shard on the device, ``count`` its true sample count
     (int), ``ctx`` what the hooks read, ``dropout`` the client's keep-masks
-    (module docstring)."""
+    (module docstring).
+
+    ``data_parallel=(rank, world)``: a silo spanning ``world`` processes
+    (``cross_silo/silo_dist.py``).  Every rank draws the same minibatch and
+    trains on its contiguous ``batch / world`` rows of it (the rows GSPMD's
+    ``data`` sharding gives the reference); its loss is its rows' share of
+    the global batch's mean, the gradients and that loss are summed over
+    the ranks (one all-reduce a step), and BatchNorm takes its moments over
+    the global batch (``models/resnet.global_batch_stats``)."""
     if hp.steps_per_epoch <= 0:
         raise ValueError(
             "HParams.steps_per_epoch must be positive (got "
@@ -144,6 +153,19 @@ def make_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = Non
     bsz, spe = hp.batch_size, hp.steps_per_epoch
     total_steps = hp.epochs * spe
     drop_shape = dropout_spec(model, bsz)
+    span = None
+    if data_parallel is not None:
+        from ..models.resnet import global_batch_stats
+        from ..parallel.multihost import AllReduceSum, all_reduce_sum
+
+        rank, world = data_parallel
+        if bsz % world:
+            raise ValueError(f"batch_size {bsz} does not split over {world} processes")
+        if loss_extra is not None or grad_hook is not None or drop_shape is not None:
+            raise NotImplementedError("a silo spanning processes trains plain local SGD "
+                                      "without dropout (the cross-silo client's)")
+        local = bsz // world
+        span = (rank * local, (rank + 1) * local, local / bsz)
 
     def local_train(variables: dict, x: torch.Tensor, y: torch.Tensor, count: int,
                     key: rng.Key, perms: Optional[torch.Tensor] = None, ctx=None,
@@ -166,17 +188,32 @@ def make_local_train_fn(model, hp: HParams, loss_extra: Optional[Callable] = Non
             epoch, step_in_epoch = divmod(s, spe)
             start = min(step_in_epoch * bsz, cap - bsz)
             idx = perms[epoch, start:start + bsz]
+            if span is not None:  # this rank's rows of the global minibatch
+                idx = idx[span[0]:span[1]]
             bx, by = x.index_select(0, idx), y.index_select(0, idx)
             if bx.is_floating_point():
                 bx = bx.to(compute_dtype)
             leaves = [p.detach().requires_grad_(True) for p in pt.tree_leaves(params)]
             p = pt.tree_unflatten_like(params, leaves)
             drop = {} if drop_shape is None else {"dropout": dropout[s]}
-            logits, new_stats = model.apply({"params": p, **rest}, bx, train=True, **drop)
-            loss = base_loss(logits.to(torch.float32), by)
+            if span is None:
+                logits, new_stats = model.apply({"params": p, **rest}, bx, train=True, **drop)
+                loss = base_loss(logits.to(torch.float32), by)
+            else:
+                with global_batch_stats(AllReduceSum.apply, world):
+                    logits, new_stats = model.apply({"params": p, **rest}, bx, train=True)
+                loss = base_loss(logits.to(torch.float32), by) * span[2]
             if loss_extra is not None:
                 loss = loss + loss_extra(p, ctx)
-            grads = pt.tree_unflatten_like(params, torch.autograd.grad(loss, leaves))
+            grad_leaves = torch.autograd.grad(loss, leaves)
+            if span is not None:  # the global batch's gradient and loss
+                flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grad_leaves]
+                                                + [loss.detach().reshape(1)]))
+                grad_leaves = [v.view_as(g) for v, g in
+                               zip(flat[:-1].split([g.numel() for g in grad_leaves]),
+                                   grad_leaves)]
+                loss = flat[-1]
+            grads = pt.tree_unflatten_like(params, grad_leaves)
             if grad_hook is not None:
                 grads = grad_hook(grads, ctx)
             params, opt_state = opt.update(grads, opt_state, params)

@@ -50,9 +50,12 @@ alone, up to the order of the sums.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -131,15 +134,44 @@ def _stats_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
+#: the batch-statistics sum of a silo spanning processes (thread-local, set
+#: by :func:`global_batch_stats`)
+_GLOBAL_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch_stats(reduce_sum: Callable, world: int):
+    """Within the block, training BatchNorm takes its moments over the
+    global batch of ``world`` ranks with equal local batches, as GSPMD gives
+    the reference's silo: ``reduce_sum`` (an autograd-aware all-reduce, so
+    the backward, the fused kernels' included, sees the global statistics)
+    sums each rank's per-channel ``sum x`` and ``sum x^2``."""
+    prev = getattr(_GLOBAL_STATS, "value", None)
+    _GLOBAL_STATS.value = (reduce_sum, int(world))
+    try:
+        yield
+    finally:
+        _GLOBAL_STATS.value = prev
+
+
 def _batch_stats(x: torch.Tensor, stats: dict, train: bool):
     """(mean, var, new_stats) of flax BatchNorm with fast variance; per lane
-    (``(L, C)``) for lane-major ``x``."""
+    (``(L, C)``) for lane-major ``x``; over the global batch inside
+    :func:`global_batch_stats`."""
     if not train:
         return stats["mean"], stats["var"], stats
     xf = x.to(_stats_dtype(x))
     axes = tuple(range(1 if x.ndim == 5 else 0, x.ndim - 1))
-    mean = xf.mean(axes)
-    var = torch.clamp_min(xf.square().mean(axes) - mean.square(), 0.0)
+    spanning = getattr(_GLOBAL_STATS, "value", None)
+    if spanning is None:
+        mean = xf.mean(axes)
+        var = torch.clamp_min(xf.square().mean(axes) - mean.square(), 0.0)
+    else:
+        reduce_sum, world = spanning
+        n = math.prod(x.shape[a] for a in axes) * world
+        sums = reduce_sum(torch.stack([xf.sum(axes), xf.square().sum(axes)]))
+        mean = sums[0] / n
+        var = torch.clamp_min(sums[1] / n - mean.square(), 0.0)
     new = {
         "mean": _MOMENTUM * stats["mean"] + (1.0 - _MOMENTUM) * mean.detach(),
         "var": _MOMENTUM * stats["var"] + (1.0 - _MOMENTUM) * var.detach(),

@@ -46,6 +46,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..ops.attention import dense_attention
+from ..ops.ring_attention import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +134,8 @@ class Attention(nn.Module):
         self.wv = _Kernel((cfg.d_model, cfg.n_kv_heads, hd), device)
         self.wo = _Kernel((cfg.n_heads, hd, cfg.d_model), device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, p: dict) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, p: dict,
+                ring=None) -> torch.Tensor:
         cfg = self.cfg
         q = _dense(x, p["wq"]["kernel"], cfg.dtype)
         k = _dense(x, p["wk"]["kernel"], cfg.dtype)
@@ -144,8 +146,11 @@ class Attention(nn.Module):
             rep = cfg.n_heads // cfg.n_kv_heads
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
-        return _dense(dense_attention(q, k, v, causal=True), p["wo"]["kernel"], cfg.dtype,
-                      in_dims=2)
+        if ring is not None:  # the sequence split over the seq ranks
+            out = ring_attention(q, k, v, ring, causal=True)
+        else:
+            out = dense_attention(q, k, v, causal=True)
+        return _dense(out, p["wo"]["kernel"], cfg.dtype, in_dims=2)
 
 
 class MLP(nn.Module):
@@ -174,8 +179,9 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, p: dict) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x, p["attn_norm"]), positions, p["attn"])
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, p: dict,
+                ring=None) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x, p["attn_norm"]), positions, p["attn"], ring)
         return x + self.mlp(self.mlp_norm(x, p["mlp_norm"]), p["mlp"])
 
 
@@ -186,11 +192,17 @@ class _Embed(nn.Module):
 
 
 class Transformer(nn.Module):
-    """``tokens (b, s)`` -> logits ``(b, s, vocab)`` in ``cfg.logits_dtype``."""
+    """``tokens (b, s)`` -> logits ``(b, s, vocab)`` in ``cfg.logits_dtype``.
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    ``ring`` (``ops/ring_attention.Ring``, the reference's ``mesh`` /
+    ``seq_axis``): the tokens are this rank's contiguous block of the
+    sequence; RoPE takes the global positions and attention runs over the
+    ring."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, ring=None):
         super().__init__()
         self.cfg = cfg
+        self.ring = ring
         self.embed = _Embed(cfg.vocab_size, cfg.d_model, device)
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", Block(cfg, device))
@@ -231,10 +243,12 @@ class Transformer(nn.Module):
         cfg = self.cfg
         p = self.variables() if params is None else params
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        ring = self.ring if self.ring is not None and self.ring.size > 1 else None
+        offset = 0 if ring is None else ring.index * s
+        positions = torch.arange(offset, offset + s, device=tokens.device).expand(b, s)
         x = p["embed"]["embedding"][tokens].to(cfg.dtype)
         for i in range(cfg.n_layers):
-            block = partial(getattr(self, f"layer_{i}"), p=p[f"layer_{i}"])
+            block = partial(getattr(self, f"layer_{i}"), p=p[f"layer_{i}"], ring=ring)
             if cfg.remat and torch.is_grad_enabled():
                 x = ckpt.checkpoint(block, x, positions, use_reentrant=False)
             else:

@@ -4,8 +4,8 @@
 The reference computes it in plain jnp, outside any Pallas kernel, and so
 does this: the logits and the softmax in f32 from q and k upcast, a causal
 ``tril`` mask with ``NEG_INF``, the product with v upcast, then a cast back
-to q's dtype.  Ring attention (a ``seq`` mesh axis) is not ported: one card
-has no such axis.
+to q's dtype.  Ring attention over a ``seq`` axis of ranks is
+``ops/ring_attention.py``; this is its plain version.
 """
 
 from __future__ import annotations

@@ -11,10 +11,12 @@ their own networks, ``split_nn``, ``FedGKT``, ``vertical_fl``, ``FedGan``,
 ``FedNAS`` and ``FedSeg`` (``sim/split_learning.py``, ``sim/vertical.py``,
 ``sim/fedgan.py``, ``sim/fednas.py``, ``sim/fedseg.py``); FedLLM and these
 six build no ``model_hub`` model (reference L101-110, L150), the rest do;
-the cross-silo platform (``cross_silo/``: the plain synchronous server,
-Shamir SecAgg and LightSecAgg, in one process); and the centralized
-baseline (``training_type: centralized``, ``sim/centralized.py``,
-reference L307-311).  Every other platform and optimizer raises
+the cross-silo platform (``cross_silo/``: every protocol, in one process
+or as processes of their own, a silo spanning processes too); the
+cross-cloud platform (``training_type: cross_cloud``, ``cross_cloud/``:
+the cross-silo protocol with WAN defaults, UnitedLLM under
+``extra.unitedllm``); and the centralized baseline (``training_type:
+centralized``, ``sim/centralized.py``, reference L307-311).  Every other platform and optimizer raises
 ``NotImplementedError``.
 
 Trust flags as the reference routes them (L17-41, L113-150): attack,
@@ -58,7 +60,7 @@ def _check_unimplemented_flags(cfg: Config) -> None:
                                   "yet implemented; refusing to run without them")
 
 _PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO,
-                     C.TRAINING_PLATFORM_CENTRALIZED)
+                     C.TRAINING_PLATFORM_CENTRALIZED, C.TRAINING_PLATFORM_CROSS_CLOUD)
 # simulators of their own (reference runner.py L87-194), beside the
 # registry's algorithms on the engine
 # the simulators that build their own networks (reference L101-110, but
@@ -108,18 +110,40 @@ class FedMLRunner:
         if cfg.federated_optimizer not in _PORTED_OPTIMIZERS:
             raise NotImplementedError(f"federated_optimizer {cfg.federated_optimizer!r} is "
                                       f"not ported yet (ported: {_PORTED_OPTIMIZERS})")
-        if cfg.training_type == C.TRAINING_PLATFORM_CROSS_SILO:
+        if cfg.training_type in (C.TRAINING_PLATFORM_CROSS_SILO, C.TRAINING_PLATFORM_CROSS_CLOUD):
             for what, obj in (("client_trainer", client_trainer),
                               ("server_aggregator", server_aggregator)):
                 if obj is not None:
-                    raise _not_used(what, "the cross-silo platform")
-            from .cross_silo import create_cross_silo_runner, refuse_unported_cross_silo
-
-            refuse_unported_cross_silo(cfg)  # before the data is loaded
-            self._load_dataset_and_model()
-            self.runner = create_cross_silo_runner(cfg, self.dataset, self.model, self.device)
+                    raise _not_used(what, f"the {cfg.training_type.replace('_', '-')} platform")
+            self.runner = self._init_wire_runner()
         else:
             self.runner = self._init_simulation_runner(client_trainer, server_aggregator)
+
+    def _init_wire_runner(self):
+        """The cross-silo runner, or the cross-cloud one (reference L226-239:
+        under ``extra.unitedllm`` no ``model_hub`` model, the adapter
+        exchange builds its own), each checked before the data is loaded."""
+        from .cross_silo import create_cross_silo_runner, refuse_unported_cross_silo
+
+        cfg = self.cfg
+        if cfg.training_type == C.TRAINING_PLATFORM_CROSS_SILO:
+            refuse_unported_cross_silo(cfg)
+            self._load_dataset_and_model()
+            return create_cross_silo_runner(cfg, self.dataset, self.model, self.device)
+        from . import cross_cloud
+        from .core.flags import cfg_extra
+
+        if cfg_extra(cfg, "unitedllm"):
+            cross_cloud.refuse_llm_trust(cfg)
+            if self.dataset is None:
+                from .data import loader
+
+                self.dataset = loader.load(cfg)
+        else:
+            cross_cloud.apply_defaults(cfg)
+            refuse_unported_cross_silo(cfg)
+            self._load_dataset_and_model()
+        return cross_cloud.create_cross_cloud_runner(cfg, self.dataset, self.model, self.device)
 
     def _load_dataset_and_model(self) -> None:
         if self.dataset is None:

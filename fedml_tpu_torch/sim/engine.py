@@ -14,8 +14,16 @@ MESH when unset, as in the reference (its L151):
 - ``sp`` (``_run_round_sp``, reference L821): the sequential twin, one
   client after another; ``tests/test_torch_mesh.py`` holds the two equal,
   as the reference's ``tests/test_m0_fedavg.py`` does.
-- Multi-process backends (``MPI``, ``MULTIPROCESS``) raise
-  ``NotImplementedError``.
+- ``MULTIPROCESS`` / ``MPI`` (the reference's global mesh over
+  ``jax.distributed``): every rank of the gloo process group
+  (``parallel/multihost.py``) loads the same data, samples the same
+  clients and runs its contiguous block of the round's lanes
+  (``_run_round_mesh``); the lanes' contributions, client states and
+  metrics are all-gathered to every rank over host copies, and every rank
+  runs the identical ``_server_path``, so the trust pipeline and the
+  server optimizer see the single-process inputs and every rank holds the
+  same global bitwise, as the reference's replicated state.  Population
+  mode, contribution and checkpoints are refused there (ROADMAP Queue 3).
 
     sampled  = sampler.sample(r)                                 (host)
     MESH: algorithm.client_update_lanes(all sampled, batched)    (the card)
@@ -117,6 +125,7 @@ from ..data.dataset import FederatedDataset, pad_eval_set, stack_clients
 from ..fl.local_sgd import (dropout_masks, dropout_spec, epoch_permutations, lane_dropout_table,
                             make_eval_fn, step_budgets, to_device)
 from ..obs.metrics import MetricsLogger
+from ..parallel import multihost
 from ..trust.contribution import ContributionAssessorManager
 from ..trust.dp.dp import NoiseSampler
 from ..trust.pipeline import build_trust_pipeline
@@ -142,10 +151,36 @@ def refuse_protocol_flags(cfg: Config) -> None:
                 "— set training_type='cross_silo'")
 
 
+def _refuse_multi_process(cfg: Config) -> None:
+    """A multi-process backend needs the process group that
+    ``fedml_tpu_torch.init`` brings up (the reference's ``ValueError``
+    without it); refuse what its round does not serve (a decided
+    difference, ROADMAP Queue 3)."""
+    if not multihost.is_initialized():
+        raise ValueError(multihost.MULTIPROCESS_REFUSAL)
+    for flag, is_set, why in (
+            ("extra.population_store", cfg_extra(cfg, "population_store"),
+             "population mode streams one process's cohorts"),
+            ("checkpoint_dir", cfg.checkpoint_dir, "every rank would write the same checkpoint"),
+            ("enable_contribution", getattr(cfg, "enable_contribution", False),
+             "the replay reads one process's lanes")):
+        if is_set:
+            raise NotImplementedError(f"backend_sim {cfg.backend_sim!r} with {flag}: {why} "
+                                      "(ROADMAP.md Queue 3)")
+
+
+def refuse_multi_process(cfg: Config, what: str) -> None:
+    """A simulator of its own runs in one process: it refuses a
+    multi-process backend by name (ROADMAP.md Queue 3)."""
+    if getattr(cfg, "backend_sim", "") in _MULTI_PROCESS:
+        raise NotImplementedError(
+            f"backend_sim {cfg.backend_sim!r}: the {what!r} simulator runs in one process; "
+            "the multi-process round serves the engine's algorithms (ROADMAP.md Queue 3)")
+
+
 def _refuse_unported(cfg: Config) -> None:
     if cfg.backend_sim in _MULTI_PROCESS:
-        raise NotImplementedError(f"backend_sim {cfg.backend_sim!r}: multi-process simulation "
-                                  "is not ported yet")
+        _refuse_multi_process(cfg)
     for flag, item in _UNPORTED_FLAGS.items():
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported yet (ROADMAP.md Queue 1 "
@@ -175,6 +210,7 @@ def refuse_special_simulator(cfg: Config, what: str) -> None:
             raise NotImplementedError(f"extra.{flag} is not ported yet (ROADMAP.md Queue 1 "
                                       f"item {item})")
     refuse_population(cfg, what)
+    refuse_multi_process(cfg, what)
 
 
 def _lanes_relayout(tree, axes_map: dict, name=None):
@@ -342,6 +378,11 @@ class MeshSimulator(RoundCheckpointMixin):
         _refuse_unported(cfg)
         self.cfg = cfg
         self.backend = cfg.backend_sim or C.SIMULATION_BACKEND_MESH
+        #: (processes, this one's index) sharing each round: the process
+        #: group under MULTIPROCESS / MPI, else this process alone (also
+        #: where a group is up for another purpose)
+        self._span = ((multihost.process_count(), multihost.process_index())
+                      if self.backend in _MULTI_PROCESS else (1, 0))
         self.device = resolve_device(device)
         self.trust = trust if trust is not None else build_trust_pipeline(cfg)
         if self.trust is not None and self.trust.attacker is not None \
@@ -440,19 +481,31 @@ class MeshSimulator(RoundCheckpointMixin):
         ``_make_round_fn`` L356 with ``_gather_round_inputs`` L326): each
         lane's permutations and draws from the sampler, the lanes' client
         state gathered and scattered, the server path shared with sp.
-        Metrics stay on the device."""
+        Under MULTIPROCESS / MPI this rank trains its contiguous block of the
+        lanes, and every lane's contribution, client state and metrics are
+        all-gathered (in the sampled order) before the server path, which
+        every rank runs; in one process the block is every lane.  Metrics
+        stay on the device."""
         sampled = np.asarray(self.sampler.sample(r))
-        lanes = to_device(sampled, self.device, torch.long)
+        m, (world, index) = len(sampled), self._span
+        if m < world:
+            raise ValueError(f"{m} clients a round cannot give each of {world} processes a lane")
+        a, b = multihost.contiguous_block(m, world, index)
+        all_lanes = to_device(sampled, self.device, torch.long)
+        lanes = all_lanes[a:b]
         states = (pt.tree_take(self.client_states, lanes)
                   if self.client_states is not None else None)
-        out = self._client_outputs_mesh(r, sampled, lanes, self.global_vars, self.server_state,
-                                        states)
+        out = self._client_outputs_mesh(r, sampled[a:b], lanes, self.global_vars,
+                                        self.server_state, states)
+        contribs, new_states, metrics = out.contribution, out.client_state, out.metrics
+        if world > 1:
+            contribs, new_states, metrics = (multihost.tree_gather_rows(t, m)
+                                             for t in (contribs, new_states, metrics))
         weights = to_device(self.counts[sampled], self.device, torch.float32)
-        self.global_vars, self.server_state = self._server_path(out.contribution, weights,
-                                                                sampled, r)
-        if self.client_states is not None and out.client_state is not None:
-            pt.tree_scatter_(self.client_states, lanes, out.client_state)
-        return {k: v.to(torch.float32).mean() for k, v in out.metrics.items()}
+        self.global_vars, self.server_state = self._server_path(contribs, weights, sampled, r)
+        if self.client_states is not None and new_states is not None:
+            pt.tree_scatter_(self.client_states, all_lanes, new_states)
+        return {k: v.to(torch.float32).mean() for k, v in metrics.items()}
 
     def _client_outputs_mesh(self, r: int, sampled, lanes, global_vars, server_state, states,
                              data=None, counts=None):

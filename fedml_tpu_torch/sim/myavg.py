@@ -59,7 +59,7 @@ from ..fl.local_sgd import lane_dropout_table, make_batched_local_train_fn, to_d
 from ..trust.defense import create as create_defense
 from ..trust.defense.base import Defense
 from ..weights import flatten_reference
-from .engine import MeshSimulator, client_dropout, refuse_population
+from .engine import MeshSimulator, client_dropout, refuse_multi_process, refuse_population
 
 _MYAVG_REFUSED_TRUST = ("enable_secagg", "enable_fhe", "enable_contribution")
 
@@ -72,6 +72,7 @@ def refuse_unported_myavg(cfg) -> None:
         raise NotImplementedError("MyAvg runs as the batched round; the sequential sp twin is "
                                   "not provided for it (set backend_sim='MESH')")
     refuse_population(cfg, "MyAvg")
+    refuse_multi_process(cfg, "MyAvg")
     active = [f for f in _MYAVG_REFUSED_TRUST if getattr(cfg, f, False)]
     if active:
         # masked or encrypted sums hide the individual deltas that the CKA

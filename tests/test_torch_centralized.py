@@ -179,7 +179,14 @@ def test_refusals(tmp_path):
         cfg = fedml_tpu_torch.init(_port_cfg(tmp_path, **kw))
         with pytest.raises(ValueError, match="client_trainer"):
             FedMLRunner(cfg, device="cpu", client_trainer=object())
-    for platform in ("cross_device", "cross_cloud", "serving"):
+    for platform in ("cross_device", "serving"):
         cfg = _port_cfg(tmp_path, training_type=platform)
         with pytest.raises(NotImplementedError, match="not ported"):
             FedMLRunner(cfg, device="cpu")
+    # cross_cloud is ported (cross_cloud/): the cross-silo platform with the
+    # WAN defaults (tests/test_torch_unitedllm.py holds it to the reference)
+    from fedml_tpu_torch.cross_cloud import _CrossCloudRunner
+
+    cfg = _port_cfg(tmp_path, training_type="cross_cloud")
+    assert isinstance(FedMLRunner(cfg, device="cpu").runner, _CrossCloudRunner)
+    assert cfg.extra["straggler_timeout_s"] == 60.0

@@ -502,14 +502,21 @@ def test_backends_take_their_own_paths(tmp_path, monkeypatch):
 
 
 def test_multi_process_backends_raise(tmp_path):
+    """Without a coordinator, MPI and MULTIPROCESS raise the reference's
+    ``ValueError`` (``fedml_tpu/__init__.py:52-58``) from ``init`` and from
+    the simulator; with one they run (``tests/test_torch_multiprocess.py``)."""
+    import fedml_tpu
     import fedml_tpu_torch
     from fedml_tpu_torch.data import loader
     from fedml_tpu_torch.models import resnet
     from fedml_tpu_torch.sim.engine import MeshSimulator
 
     for backend in ("MPI", "MULTIPROCESS"):
-        _, cfg = _cfgs(tmp_path, backend_sim=backend)
-        with pytest.raises(NotImplementedError, match="multi-process"):
+        ref_cfg, cfg = _cfgs(tmp_path, backend_sim=backend)
+        with pytest.raises(ValueError) as want:
+            fedml_tpu.init(ref_cfg)
+        with pytest.raises(ValueError) as got:
             fedml_tpu_torch.init(cfg)
-        with pytest.raises(NotImplementedError, match="multi-process"):
+        assert str(got.value) == str(want.value)
+        with pytest.raises(ValueError, match="requires coordinator config"):
             MeshSimulator(cfg, loader.load(cfg), resnet.CifarResNet(1), device="cpu")

@@ -562,7 +562,7 @@ def test_lightsecagg_client_restart_joins_the_next_round_as_the_reference():
 REFUSALS = {
     "multiprocess_silo": (dict(role="client", rank=1, backend="TCP",
                                extra={"coordinator_address": "localhost:1", "tcp_base_port": 1}),
-                          NotImplementedError, "Queue 1 item 8"),
+                          NotImplementedError, "not wired into the secure-aggregation clients"),
     "tree": (dict(extra={"hier_fanout": 2}), NotImplementedError, "secure-"),
     "fhe_and_secagg": (dict(enable_fhe=True), NotImplementedError, "enable_secagg"),
     "partial": (dict(client_num_per_round=3), ValueError, "full participation"),

@@ -235,9 +235,11 @@ def test_refusals_that_stay(case):
         cfg.extra["server_journal_dir"] = "/nonexistent/journal"
         match = "under FHE"
     elif case == "multiprocess_silo":
+        # a silo spanning processes runs (tests/test_torch_multiprocess.py);
+        # without its process count and id it is refused before any data
         cfg.role, cfg.rank = "client", 1
         cfg.extra["coordinator_address"] = "localhost:1234"
-        match = "Queue 1 item 8"
+        exc, match = ValueError, "needs num_processes and process_id"
     elif case == "port_zero_client":
         cfg.role, cfg.rank = "client", 1
         cfg.extra["tcp_base_port"] = 0

@@ -621,7 +621,9 @@ def _port_run(cfg, trust_sampler=None, init=None, perms=None, tap=None, backend=
     return hist, group
 
 
-def _ref_run(ref_cfg):
+def _ref_run(ref_cfg, tap=None):
+    """The reference's in-process group; ``tap(server)`` sees its server
+    before it starts."""
     import fedml_tpu
     from fedml_tpu.comm.inproc import InProcRouter
     from fedml_tpu.cross_silo import build_client, build_server
@@ -637,6 +639,8 @@ def _ref_run(ref_cfg):
         c.run_in_thread()
     srv = build_server(ref_cfg, ds, model, backend="INPROC")
     init = jax.tree_util.tree_map(np.asarray, jax.device_get(srv.aggregator.global_vars))
+    if tap is not None:
+        tap(srv)
     try:
         hist = srv.run_until_done(timeout=120.0)
     finally:
@@ -837,33 +841,75 @@ def _tap_dedup(group):
     return dup_keys, deduped, rounds
 
 
+#: the straggler round's quorum under chaos seed 9620: round 1 can take only
+#: clients 1 and 3 (the dispatch to 4 is dropped, 2's upload held back)
+CHAOS_STRAGGLER_ROUND, CHAOS_QUORUM = 1, 2
+#: the straggler timer of the chaos parity test: only a lost run waits this
+#: long; the straggler round closes on the test's event
+CHAOS_BACKSTOP_S = 60.0
+
+
+def _close_on_quorum(server, round_idx=CHAOS_STRAGGLER_ROUND, quorum=CHAOS_QUORUM):
+    """Fire ``server``'s straggler handler once ``round_idx`` holds
+    ``quorum`` uploads (either package's server): the round closes on an
+    event of the run, not on a wall-clock timer that a loaded worker can
+    miss in another round.  The handler runs on a thread of its own, after
+    the upload handler has released the aggregation lock."""
+    agg = server.aggregator
+    check = agg.check_whether_all_receive
+    fired = []
+
+    def checked(expected):
+        done = check(expected)
+        if (not done and not fired and server.round_idx == round_idx
+                and agg.received_count() >= quorum):
+            fired.append(threading.Thread(target=server._on_straggler_timeout, daemon=True))
+            fired[0].start()
+        return done
+
+    agg.check_whether_all_receive = checked
+    return fired
+
+
 def test_chaos_faults_inside_a_round_match_the_reference(tmp_path):
     """Chaos that reaches into a round (seed 9620: round 1's dispatch to
     client 4 dropped, client 2's round-1 upload held back behind its
     round-2 upload, uploads duplicated in rounds 0 and 2, delays; the
     schedule is a pure function of the seed and the message ordinals): in
-    both packages round 1 closes on its 2 s straggler timer with clients 1
+    both packages round 1 closes on its straggler handler with clients 1
     and 3, and the port's buffer-all CDP global is the reference's
-    (``RUN_TOL``).  Every duplicated upload the server read before it shut
-    down is deduped by its key, and nothing else: a duplicate of the last
-    round's upload may arrive after the server finished."""
+    (``RUN_TOL``).  The handler fires once round 1 holds its quorum of 2
+    (``_close_on_quorum``); the timer is a backstop no round meets, so no
+    round closes on a timer that load can make a worker miss.  Every
+    duplicated upload the server read before it shut down is deduped by its
+    key, and nothing else: a duplicate of the last round's upload may arrive
+    after the server finished."""
     from fedml_tpu.core import rng as ref_rng
     from fedml_tpu_torch.cross_silo import message_define as md
 
     chaos = dict(chaos_seed=9620, chaos_drop_prob=0.05, chaos_duplicate_prob=0.1,
                  chaos_reorder_prob=0.05, chaos_delay_prob=0.3, chaos_delay_max_s=0.001,
-                 straggler_timeout_s=2.0)
+                 straggler_timeout_s=CHAOS_BACKSTOP_S)
     ref_cfg, cfg = _cfgs("chaos_round", {"mlp_hidden": 64, "silo_dp": False, **chaos},
                          model="mlp", comm_round=3, learning_rate=0.3,
                          dp_solution_type="cdp", **DP)
     ref_cfg.extra["client_journal_dir"] = str(tmp_path / "ref")
     cfg.extra["client_journal_dir"] = str(tmp_path / "port")
-    ref_hist, ref_global, init, _ = _ref_run(ref_cfg)
+    ref_fired, fired = [], []
+    ref_hist, ref_global, init, _ = _ref_run(
+        ref_cfg, tap=lambda srv: ref_fired.append(_close_on_quorum(srv)))
     taps = []
+
+    def tap(g):
+        taps.extend(_tap_dedup(g))
+        fired.append(_close_on_quorum(g.server))
+
     hist, group = _port_run(cfg, JaxTrustSampler(ref_rng.root_key(cfg.random_seed)), init,
-                            JaxPerms(cfg.random_seed), tap=lambda g: taps.extend(_tap_dedup(g)))
+                            JaxPerms(cfg.random_seed), tap=tap)
     dup_keys, deduped, rounds = taps
     server = group.server
+    # the handler fired once in each run, in round 1
+    assert [len(f) for f in ref_fired + fired] == [1, 1]
     assert [h["round"] for h in hist] == [h["round"] for h in ref_hist] == [0, 1, 2]
     assert rounds == [[1, 2, 3, 4], [1, 3], [1, 2, 3, 4]]
     assert server.com_manager.injected_of_type("drop", md.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT) == 1
@@ -873,3 +919,44 @@ def test_chaos_faults_inside_a_round_match_the_reference(tmp_path):
     got = jax.tree_util.tree_leaves(_flax_global(server.aggregator))
     for a, b in zip(got, jax.tree_util.tree_leaves(ref_global)):
         np.testing.assert_allclose(a, b, rtol=RUN_TOL, atol=RUN_TOL)
+
+
+def test_upload_frame_length_follows_the_count_text():
+    """The field behind phase 17's 1 byte a round (16,682,232 bytes through
+    the store on the card against 16,682,229 from the CPU rehearsal): an
+    upload frame carries its silo's ``num_samples`` as JSON text in the
+    control section.  The rehearsal ran phase 14's cut at 512 images, where
+    the flagship's Dirichlet partition gives silo 2 a two-digit count; the
+    card ran it at 3,200, where all four counts have three digits.  A
+    round's four upload frames of the same compressed tree are therefore 1
+    byte longer at 3,200 images, their tensor sections bitwise equal."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.comm import codecs
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.cross_silo import message_define as md
+    from fedml_tpu_torch.data import loader
+
+    rs = np.random.RandomState(0)
+    delta = {"params": {"Conv_0": {"kernel": torch.from_numpy(
+        rs.randn(3, 3, 16, 16).astype(np.float32))}}}
+    tree, _, _ = codecs.compress_pytree(delta, "qsgd8", key=(0, 1), min_elems=1)
+
+    def round_frames(images):
+        cfg = fedml_tpu_torch.init(argv=["--cf", "examples/sp_fedavg_cifar10_resnet20/"
+                                                 "fedml_config.yaml"])
+        cfg.client_num_in_total = cfg.client_num_per_round = 4
+        cfg.synthetic_train_size, cfg.synthetic_test_size = images, 16
+        frames = []
+        for rank, ix in enumerate(loader.load(cfg).client_idx, start=1):
+            m = Message(md.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, rank, 0)
+            m.add_params(md.MSG_ARG_KEY_MODEL_PARAMS, tree)
+            m.add_params(md.MSG_ARG_KEY_MODEL_IS_DELTA, True)
+            m.add_params(md.MSG_ARG_KEY_NUM_SAMPLES, float(len(ix)))
+            m.add_params(md.MSG_ARG_KEY_ROUND_INDEX, 1)
+            frames.append(m.encode())
+        return frames
+
+    rehearsal, card = round_frames(512), round_frames(3200)
+    assert sum(map(len, card)) - sum(map(len, rehearsal)) == 1
+    tails = {f[4 + int.from_bytes(f[:4], "little"):] for f in rehearsal + card}
+    assert len(tails) == 1
