@@ -100,9 +100,11 @@ Phases (any failure exits non-zero; no phase is caught):
    the BN running statistics' share of its squared norm, and its norm after
    the clip.
 6. The rest of the FedAvg family: the FedOpt recipe
-   ``examples/sp_fedopt_cifar10_resnet20`` as shipped (64 clients, 16 a
+   ``examples/sp_fedopt_cifar10_resnet20`` as shipped, on 25,000 of its
+   images (cut from 50,000 in slice 22) (64 clients, 16 a
    round, batch 64, bf16, server Adam) with only ``comm_round``,
-   ``frequency_of_the_test`` and ``extra.fused_blocks`` overridden, 3 rounds
+   ``frequency_of_the_test``, ``synthetic_train_size`` and
+   ``extra.fused_blocks`` overridden, 3 rounds
    on MESH: each round's time, trained samples/s, losses and peak memory,
    each fused site once a batched step in its lanes variant and the
    single-lane kernels only in the test evaluation's forward (asserted);
@@ -122,7 +124,7 @@ Phases (any failure exits non-zero; no phase is caught):
    moving it ten times more.  Then one MESH round with ``client_optimizer:
    adam``, and the two logistic-regression recipes as shipped,
    ``sp_fedprox_synthetic_lr`` (10 of its 30 rounds since slice 21) and
-   ``cross_silo_horizontal_lr`` (10 of its 20 rounds since slice 19), with
+   ``cross_silo_horizontal_lr`` (5 of its 20 rounds since slice 22), with
    their final test accuracy.
 7. The paths of slice 10, none of which runs any of the seven kernels
    (every launch count read after each must be 0): ``sim_hierarchical_
@@ -467,6 +469,43 @@ Phases (any failure exits non-zero; no phase is caught):
    silos over loopback TCP, 2 rounds: every model payload under half the
    base model's bytes, a test loss that does not rise.  A rank that dies or
    a collective that times out fails the phase.
+19. (slice 22) Serving on the card and the counters.  (a) The flagship as a
+   ``training_type: model_serving`` job through ``FedMLRunner(cfg).run()``
+   (4 INPROC silos, bf16, fused, qsgd8 uploads, phase 14's 1,600 images,
+   2,000 test images, 3 rounds, ``extra.model_publish_dir``), on a thread; once version 2 is
+   published, a card (``ModelCard``) is registered and one replica process
+   (``python -m fedml_tpu_torch.serving.worker``, ResNet-20 at full width,
+   32x32x3, ``max_batch`` 32, canary 1 in 2 micro-batches) deployed on the
+   card by ``ModelDeployScheduler``; the replica takes version 2 from the
+   manifest through its canary; its logits for a batch of 32 rows bitwise
+   this process's forward of the same artifact; 200 requests of 1-32 rows
+   from 8 threads (requests/s, client p50 / p99); the job's launches as
+   predicted (rows 1-4 single-lane 10 / 9 / 10 / 9 a local step, the
+   forwards also a test batch; rows 5-6 18 an upload).  (b) The third
+   round's publication is held until 4 threads load the replica; version 3
+   is promoted through the canary, then an injected version 4 (a NaN
+   classifier) is rolled back: no request dropped, every answer's version
+   a published one, version 3's artifact bitwise the server's final
+   global.  (c) Two tenants behind one ``ServingGateway`` (the replica by
+   its card, an in-process worker on the card serving version 0 by its
+   address): every answer its own tenant's, a 404 for an unknown tenant,
+   p50 / p99 and requests/s from the in-process batcher's histogram.  (d)
+   Two flagship MESH rounds (12,500 images on the recipe's own Dirichlet
+   partition, so the rounds run different batches, asserted) under
+   ``cost_model_gauges``,
+   the second inside ``profile_rounds: "1:1"``: the attribution JSON
+   written, its four buckets within the window's wall time, device compute
+   above 0, the fused kernels among its rows, the window's program FLOPs
+   round 1's own (one batch's FLOPs times its batches plus the server
+   path's), ``0 < fedml_sim_mfu <= mfu_cost_model <= 1``.  Then the
+   observation's cost a launch (rows 1 and 7 eager, observed against not).
+
+Check (e), after the last phase: for each of the seven kernels' labels,
+the observations in ``fedml_pallas_kernel_seconds`` equal the kernel's
+launches that took an event pair (outside CUDA-graph capture, while
+observing) over the whole run, none left pending (``ops/timing.py``),
+and ``kernel_time_summary()`` is printed; before it, each kernel's eager
+call with every launch observed beside slice 7's unobserved figures.
 
 Each phase's wall time on one line, then the script's wall time, then the
 ``{"kernels": [...]}`` JSON (each kernel's launches from its own path's
@@ -489,11 +528,13 @@ launches over phase 15 (a), summed over its five processes;
 ``slice19_launches``: each kernel's launches over phase 16;
 ``slice20_launches``: each kernel's launches over phase 17, summed over
 its processes; ``slice21_launches``: each kernel's launches over phase 18
-(a)-(b), summed over its processes), then the
+(a)-(b), summed over its processes; ``slice22_launches``: each kernel's
+launches over phase 19 (a)-(b), the serving job in this process), then the
 card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2 and prints neither;
 ``--slice21-only`` builds the kernels, runs phase 18 alone and prints
-neither.
+neither; ``--slice22-only`` builds the kernels, runs phase 19 and check (e)
+alone and prints neither.
 """
 
 from __future__ import annotations
@@ -557,6 +598,7 @@ MESH_SP_RTOL, MESH_SP_ATOL = 2e-4, 2e-5  # the reference's own (tests/test_m0_fe
 # that spread, with room for the draw of the perturbation
 ROUND_SPREADS = 2
 FEDOPT = "examples/sp_fedopt_cifar10_resnet20/fedml_config.yaml"
+FEDOPT_TRAIN = 25000  # the FedOpt recipe's images, cut from 50,000 (slice 22)
 LR_RECIPES = ("examples/sp_fedprox_synthetic_lr/fedml_config.yaml",
               "examples/cross_silo_horizontal_lr/fedml_config.yaml")
 # the rest of the FedAvg family, each on the FedOpt recipe with the optimizer
@@ -581,8 +623,9 @@ LIGHTSECAGG = "examples/cross_silo_lightsecagg_lr/fedml_config.yaml"
 # rounds (its test runs at round 4 and the last) and the cross-silo LR
 # recipe's 20
 LSA_ROUNDS = 5
-LR_RECIPE_ROUNDS = {"examples/cross_silo_horizontal_lr/fedml_config.yaml": 10,
-                    "examples/sp_fedprox_synthetic_lr/fedml_config.yaml": 10}  # of 20 and 30
+# of 20 and 30 (cut to 10 in slices 19 and 21; the cross-silo recipe to 5 in slice 22)
+LR_RECIPE_ROUNDS = {"examples/cross_silo_horizontal_lr/fedml_config.yaml": 5,
+                    "examples/sp_fedprox_synthetic_lr/fedml_config.yaml": 10}
 FEDLLM = "examples/fedllm_shakespeare_lora/fedml_config.yaml"
 FULL_WIDTH_LAYERS = 4  # Llama-2-7B's widths, its 32 layers cut to this depth
 # an f32 FedLLM client update, card against CPU, as the update from where
@@ -764,6 +807,8 @@ def phase_kernels(fb):
                       f"{eager_ms * 1e3:.2f} us, max_abs_err {err:.3g}"
                       + (f", {variant[0]} variant" if variant else ""))
                 rows.setdefault((name, row["dtype"]), []).append((ms, bound_ms, stream_ms))
+                if dtype == torch.bfloat16:
+                    results[name].setdefault("eager_ms", []).append(eager_ms)
                 if shape == SHAPES[0] and dtype == torch.bfloat16:
                     results[name].update({k: row[k] for k in
                                           ("ms", "plain_ms", "bound_ms", "bound_by")})
@@ -1050,6 +1095,7 @@ def phase_quantize(qz):
                   + f"), eager call {eager_ms * 1e3:.2f} us, {ran[kern.name]} variant")
             if n == GRAD_LENGTH:
                 results[kern.name].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                           "eager_ms": [eager_ms],
                                            "stream_ms": stream_ms, "library_ms": library_ms,
                                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
     for n, misaligned in ((1025, False), (GRAD_LENGTH, True)):
@@ -1221,7 +1267,7 @@ def phase_noise(nz):
         row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": library_ms,
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         if n == SECAGG_LENGTH:
-            results[nz.NOISE.name].update(row)
+            results[nz.NOISE.name].update(row, eager_ms=[eager_ms])
         if n == LDP_LENGTH:
             results[nz.NOISE.name]["ldp_length"] = {"n": n, **row}
         if n == TA_LENGTH:
@@ -2082,7 +2128,8 @@ def _eval_batches(sim):
 
 
 def phase_fedopt(mods):
-    """The FedOpt recipe as shipped (64 clients, 16 a round, batch 64, bf16,
+    """The FedOpt recipe as shipped, on ``FEDOPT_TRAIN`` images (64
+    clients, 16 a round, batch 64, bf16,
     server Adam) with fused blocks on MESH: each fused site once a batched
     step in its lanes variant, the single-lane kernels only in the test
     evaluation's forward; then one profiled round (device busy share), then
@@ -2094,7 +2141,8 @@ def phase_fedopt(mods):
 
     fb = mods[0]
     t0 = time.perf_counter()
-    runner = _recipe(FEDOPT, comm_round=ROUNDS, frequency_of_the_test=1)
+    runner = _recipe(FEDOPT, comm_round=ROUNDS, frequency_of_the_test=1,
+                     synthetic_train_size=FEDOPT_TRAIN)
     sim, cfg = runner.runner, runner.cfg
     print(f"fedopt path: set-up {time.perf_counter() - t0:.1f} s (data {sim.dataset.train_num}/"
           f"{sim.dataset.test_num}, {sim.dataset.n_clients} clients, capacity {sim.capacity}, "
@@ -2621,7 +2669,7 @@ def phase_lightsecagg(mods):
 def phase_lr_recipes():
     """The logistic-regression recipes as shipped but for the depth of
     ``LR_RECIPE_ROUNDS``: FedProx on MESH (30 rounds) and cross-silo FedAvg
-    over the in-process fabric (10 of its 20 rounds)."""
+    over the in-process fabric (5 of its 20 rounds)."""
     import torch
 
     import fedml_tpu_torch
@@ -6676,6 +6724,534 @@ def phase_slice21(mods, nz):
     return counts
 
 
+# -- phase 19 (slice 22): serving on the card and the counters --------------
+
+SLICE22_ROUNDS = 3  # (a) trains 2; the third round publishes under (b)'s load
+SLICE22_MAX_BATCH = 32  # the replica's padded batch
+SLICE22_REQUESTS = 200  # (a)'s requests of 1-32 rows
+SLICE22_THREADS = 8  # concurrent request threads
+SLICE22_REPLICA_ARGS = ("--canary-fraction", "0.5", "--canary-min-batches", "4")
+SLICE22_GATEWAY_REQUESTS = 48  # (c)'s requests a tenant
+# (d)'s images, cut from the flagship's 50,000: at 6,250 every client of
+# the Dirichlet shards holds at most one batch, so every round ran 64
+# batches; at 12,500 rounds 0 and 1 run 71 and 72
+SLICE22_PROFILE_TRAIN = 12500
+SLICE22_PROFILE_TEST = 2000
+SLICE22_TIMEOUT_S = 180.0
+SLICE22_TEST = 2000  # the job's test images, cut from 10,000
+#: slice 7's eager times of rows 1-7 (us; rows 1-4 bf16 at the three stage
+#: shapes, row 5 at 269,722, row 6 at 269,722, row 7 at 271,098), taken
+#: before any launch was observed (PERF.md's kernel table)
+SLICE7_EAGER_US = {"fused_bn_relu_fwd": (11.5, 10.7, 16.7),
+                "fused_bn_residual_relu_fwd": (17.8, 12.0, 16.7),
+                "fused_bn_relu_bwd": (21.9, 22.3, 22.1),
+                "fused_bn_residual_relu_bwd": (24.8, 34.4, 24.3),
+                "quantize_int8": (15.4,), "dequantize_int8": (9.7,), "gaussian_noise": (10.7,)}
+
+
+def _slice22_job_cfg(pub_dir):
+    """(a)'s job: the flagship as a ``model_serving`` run of 4 INPROC silos,
+    bf16, fused, qsgd8 uploads, phase 14's 1,600 images, publishing every
+    version under ``pub_dir``."""
+    import fedml_tpu_torch
+
+    cfg = fedml_tpu_torch.init(argv=["--cf", FLAGSHIP])
+    cfg.training_type, cfg.role, cfg.backend = "model_serving", "server", "INPROC"
+    cfg.client_num_in_total = cfg.client_num_per_round = SILOS
+    cfg.synthetic_train_size, cfg.synthetic_test_size = SLICE17_TRAIN, SLICE22_TEST
+    cfg.comm_round = SLICE22_ROUNDS
+    cfg.frequency_of_the_test = 1
+    cfg.run_id = "slice22"
+    cfg.extra.update(fused_blocks=True, comm_compression="qsgd8", model_publish_dir=pub_dir,
+                     end_point_name="flagship", serving_model_name="resnet20-flagship")
+    return cfg
+
+
+def _json_rows(x):
+    """Request rows as JSON-ready lists, rounded to 2 decimals (short
+    bodies); the float32 rows the replica sees."""
+    import numpy as np
+
+    x = np.round(np.asarray(x, np.float32), 2).astype(np.float32)
+    return x, x.tolist()
+
+
+def _http(port, body: bytes, path="/predict", timeout=60.0):
+    """``(status, JSON body, seconds)`` of one POST on loopback."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), time.perf_counter() - t0
+
+
+def _get_json(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _until(cond, what, timeout=SLICE22_TIMEOUT_S):
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"phase 19: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def _percentiles(seconds):
+    import numpy as np
+
+    a = np.asarray(seconds)
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def _slice22_serve(mods, root):
+    """(a)-(c): the train-then-serve job, the replica process, the hot swap
+    under load and the gateway.  Returns the job's launches."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import weights
+    from fedml_tpu_torch.runner import FedMLRunner
+    from fedml_tpu_torch.serving import batcher as sbatch
+    from fedml_tpu_torch.serving import publisher as spub
+    from fedml_tpu_torch.serving.deploy import (ModelCard, ModelDeployScheduler,
+                                                ProcessReplicaRuntime)
+    from fedml_tpu_torch.serving.gateway import gateway_from_config
+    from fedml_tpu_torch.serving.inference import TorchPredictor
+    from fedml_tpu_torch.serving.worker import (ServingWorker, build_model, load_params,
+                                                port_variables)
+
+    fb, qz = mods[0], mods[1]
+    pub_dir = f"{root}/publish"
+    cfg = _slice22_job_cfg(pub_dir)
+    # the third version's publication waits for (b)'s load
+    release = threading.Event()
+    publish = spub.ModelPublisher.publish
+
+    def gated(self, version, variables, meta=None):
+        if int(version) == SLICE22_ROUNDS and not release.wait(SLICE22_TIMEOUT_S):
+            raise AssertionError("phase 19: (b)'s load never started")
+        return publish(self, version, variables, meta)
+
+    t0 = time.perf_counter()
+    runner = FedMLRunner(cfg)
+    setup_s = time.perf_counter() - t0
+    out, job_error = {}, []
+
+    def job():
+        try:
+            out["history"] = runner.run()
+        except BaseException as e:  # re-raised on the main thread
+            job_error.append(e)
+            release.set()
+
+    _reset_counts(mods)
+    spub.ModelPublisher.publish = gated
+    sched = None
+    worker2 = gw = None
+    try:
+        t_job = time.perf_counter()
+        thread = threading.Thread(target=job, name="slice22-job", daemon=True)
+        thread.start()
+        watcher = spub.ManifestWatcher(pub_dir)
+        got = watcher.wait_for_version(SLICE22_ROUNDS - 1, timeout_s=SLICE22_TIMEOUT_S)
+        if job_error:
+            raise job_error[0]
+        if got is None:
+            raise AssertionError("phase 19 (a): version 2 was never published")
+        version, v2_path, _ = got
+        trained_s = time.perf_counter() - t_job
+        # (a) the replica process on the card, from version 2's artifact
+        card = ModelCard(name="resnet20-flagship", version="v2", model="resnet20", classes=10,
+                         params_path=v2_path, publish_dir=pub_dir, feature_dim="32,32,3")
+        runtime = ProcessReplicaRuntime("cuda", log_dir=f"{root}/replica_logs",
+                                        worker_args=SLICE22_REPLICA_ARGS)
+        sched = ModelDeployScheduler(f"{root}/endpoints.db", runtime=runtime)
+        sched.cards.register(card)
+        t0 = time.perf_counter()
+        ep = sched.deploy("flagship", card.name, card.version)
+        if not sched.wait_ready("flagship", timeout=SLICE22_TIMEOUT_S):
+            raise AssertionError("phase 19 (a): the replica never became ready")
+        boot_s = time.perf_counter() - t0
+        port = ep.ready_ports()[0]
+        test_x = runner.dataset.test_x
+        # a replica started from a card's file serves it as version 0 and
+        # takes the manifest's version 2 through its canary: requests until
+        # the promotion
+        one = json.dumps({"inputs": _json_rows(test_x[:1])[1]}).encode()
+        warm = []
+        _until(lambda: warm.append(_http(port, one)[0]) or
+               _get_json(port, "/stats")["served_version"] == SLICE22_ROUNDS - 1,
+               "the replica's promotion of version 2")
+        x32, rows32 = _json_rows(test_x[:SLICE22_MAX_BATCH])
+        status, body, _ = _http(port, json.dumps({"inputs": rows32}).encode())
+        if status != 200 or body.get("version") != 2:
+            raise AssertionError(f"phase 19 (a): {status}, version {body.get('version')}")
+        served = np.asarray(body["outputs"], np.float32)
+        local = TorchPredictor(build_model("resnet20", 10, (32, 32, 3)),
+                               port_variables(load_params(v2_path)),
+                               max_batch=SLICE22_MAX_BATCH, feature_shape=(32, 32, 3))
+        here = local.predict_rows(x32)
+        gap = float(np.abs(served - here).max())
+        print(f"phase 19 (a): the job's set-up {setup_s:.1f} s, versions 0-2 published in "
+              f"{trained_s:.1f} s; replica {runtime.replica_id(ep.procs[0])} on the card ready in "
+              f"{boot_s:.1f} s, version 2 promoted through its canary after {len(warm)} "
+              f"requests (responses {sorted(set(warm))}); a batch of {SLICE22_MAX_BATCH} rows: "
+              f"the replica's logits "
+              f"against this process's forward of the same artifact: max abs {gap:.3g} "
+              f"({'bitwise' if np.array_equal(served, here) else 'NOT bitwise'})")
+        if not np.array_equal(served, here):
+            raise AssertionError(f"phase 19 (a): the replica's logits are {gap} from the "
+                                 "in-process forward of the same artifact")
+
+        # (a) ~200 requests of 1-32 rows from 8 threads
+        rs = np.random.RandomState(22)
+        sizes = [int(n) for n in rs.randint(1, SLICE22_MAX_BATCH + 1, size=SLICE22_REQUESTS)]
+        bodies = {n: json.dumps({"inputs": _json_rows(test_x[n:2 * n])[1]}).encode()
+                  for n in sorted(set(sizes))}
+        results = []
+        lock = threading.Lock()
+
+        def send(batch):
+            for n in batch:
+                r = _http(port, bodies[n])
+                with lock:
+                    results.append((n, *r))
+
+        chunks = [sizes[i::SLICE22_THREADS] for i in range(SLICE22_THREADS)]
+        threads = [threading.Thread(target=send, args=(c,)) for c in chunks]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SLICE22_TIMEOUT_S)
+        load_s = time.perf_counter() - t0
+        bad = [(n, s) for n, s, b, _ in results if s != 200 or len(b["outputs"]) != n
+               or b.get("version") != 2 or not np.isfinite(b["outputs"]).all()]
+        p50, p99 = _percentiles([dt for *_, dt in results])
+        stats = _get_json(port, "/stats")
+        print(f"phase 19 (a): {len(results)} requests of 1-{SLICE22_MAX_BATCH} rows "
+              f"({sum(sizes)} rows) from {SLICE22_THREADS} threads in {load_s:.3f} s: "
+              f"{len(results) / load_s:.1f} requests/s, {sum(sizes) / load_s:.0f} rows/s; "
+              f"latency at the client p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms; the "
+              f"replica's batcher: {stats['batches']} micro-batches, fill EWMA "
+              f"{stats['batch_fill_ewma']}, {stats['qps_ewma']} requests/s EWMA")
+        if bad or len(results) != SLICE22_REQUESTS:
+            raise AssertionError(f"phase 19 (a): failed or wrong responses {bad[:5]}")
+
+        # (b) the third version publishes under load; then an injected regression
+        stop, swap_results = threading.Event(), []
+        loads = [n for n in sizes[:16]]
+
+        def load(k):
+            i = k
+            while not stop.is_set():
+                n = loads[i % len(loads)]
+                r = _http(port, bodies[n])
+                i += 1
+                with lock:
+                    swap_results.append((n, *r))
+
+        threads = [threading.Thread(target=load, args=(k,)) for k in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        _until(lambda: len(swap_results) >= 8, "(b)'s first responses")
+        release.set()
+        thread.join(timeout=SLICE22_TIMEOUT_S)
+        if job_error:
+            raise job_error[0]
+        job_s = time.perf_counter() - t_job
+        _until(lambda: _get_json(port, "/stats")["swaps"] >= 2, "the promotion of version 3")
+        promoted_s = time.perf_counter() - t0
+        final = weights.torch_to_flax(weights.to_numpy(
+            runner.runner.server.server.aggregator.global_vars))
+        v3 = load_params(f"{pub_dir}/params-v{SLICE22_ROUNDS:08d}.wire")
+        poisoned = {k: v for k, v in v3.items()}
+        poisoned["params"] = dict(v3["params"])
+        poisoned["params"]["Dense_0"] = {"kernel": np.full_like(v3["params"]["Dense_0"]["kernel"],
+                                                                np.nan),
+                                         "bias": v3["params"]["Dense_0"]["bias"]}
+        t1 = time.perf_counter()
+        spub.ModelPublisher(pub_dir).publish(SLICE22_ROUNDS + 1, poisoned,
+                                             meta={"model": cfg.model, "injected": True})
+        _until(lambda: _get_json(port, "/stats")["rollbacks"] >= 1, "the rollback of version 4")
+        rolled_s = time.perf_counter() - t1
+        n_then = len(swap_results)
+        _until(lambda: len(swap_results) >= n_then + 8, "requests after the rollback")
+        stop.set()
+        for t in threads:
+            t.join(timeout=SLICE22_TIMEOUT_S)
+        swap_s = time.perf_counter() - t0
+        stats = _get_json(port, "/stats")
+        published = set(range(SLICE22_ROUNDS + 2))
+        versions = sorted({b.get("version") for _, s, b, _ in swap_results if s == 200})
+        dropped = [(n, s) for n, s, b, _ in swap_results
+                   if s != 200 or len(b["outputs"]) != n or not np.isfinite(b["outputs"]).all()]
+        identical = all(np.array_equal(a, b) for a, b in zip(
+            (np.asarray(x) for x in _leaves(v3)), (np.asarray(x) for x in _leaves(final))))
+        print(f"phase 19 (b): {len(swap_results)} requests under load in {swap_s:.2f} s "
+              f"({len(swap_results) / swap_s:.1f} requests/s), dropped {len(dropped)}; versions "
+              f"served {versions} (published {sorted(published)}); version 3 promoted "
+              f"{promoted_s:.2f} s after its round was released (canary 1 in 2 micro-batches, 4 "
+              f"batches), the injected version 4 (NaN classifier) rolled back in "
+              f"{rolled_s:.2f} s; the replica: swaps {stats['swaps']} (version 2 in (a), 3), "
+              f"rollbacks "
+              f"{stats['rollbacks']}, rejected {stats['rejected_versions']}, served version "
+              f"{stats['served_version']}; the job {job_s:.1f} s for {SLICE22_ROUNDS} rounds; "
+              f"version 3's artifact against the server's final global: "
+              f"{'bitwise' if identical else 'DIFFERENT'}")
+        if (dropped or not set(versions) <= published or 3 not in versions
+                or stats["swaps"] != 2 or stats["rollbacks"] != 1
+                or stats["rejected_versions"] != [SLICE22_ROUNDS + 1]
+                or stats["served_version"] != SLICE22_ROUNDS or not identical):
+            raise AssertionError(f"phase 19 (b): dropped {dropped[:5]}, versions {versions}, "
+                                 f"stats {stats}, artifact bitwise {identical}")
+        history = out["history"]
+        if len(history) != SLICE22_ROUNDS or not all(
+                math.isfinite(h["test_loss"]) for h in history):
+            raise AssertionError(f"phase 19: the job's history {history}")
+        counts = _all_counts(mods)
+        _slice22_job_launches(fb, qz, runner.runner, counts)
+
+        # (c) two tenants behind one gateway
+        worker2 = ServingWorker("resnet20", 10, params_path=f"{pub_dir}/params-v00000000.wire",
+                                feature_shape=(32, 32, 3), max_batch=SLICE22_MAX_BATCH)
+        worker2.start()
+        gw = gateway_from_config(cfg)
+        gw_port = gw.start()
+        gw.add_tenant("flagship", port=port, card=card)
+        gw.add_tenant("second", port=worker2.runner.port)
+        local3 = local.clone_with(port_variables(v3))
+        expect = {"flagship": (local3, SLICE22_ROUNDS), "second": (worker2.predictor, 0)}
+        sbatch.REQUEST_TIME.clear()
+        gw_results = []
+        gw_bodies = []
+        for i in range(SLICE22_GATEWAY_REQUESTS):
+            n = 1 + i % 4
+            x, rows = _json_rows(test_x[4 * i:4 * i + n])
+            for tenant in expect:
+                gw_bodies.append((tenant, x, json.dumps({"tenant": tenant,
+                                                         "inputs": rows}).encode()))
+
+        def ask(items):
+            for tenant, x, body in items:
+                r = _http(gw_port, body)
+                with lock:
+                    gw_results.append((tenant, x, *r))
+
+        threads = [threading.Thread(target=ask, args=(gw_bodies[i::SLICE22_THREADS],))
+                   for i in range(SLICE22_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SLICE22_TIMEOUT_S)
+        gw_s = time.perf_counter() - t0
+        bleed, worst = [], 0.0
+        for tenant, x, status, body, _ in gw_results:
+            own = expect[tenant][0].predict_rows(x)
+            other = expect["second" if tenant == "flagship" else "flagship"][0].predict_rows(x)
+            got = np.asarray(body.get("outputs", []), np.float32)
+            near = float(np.abs(got - own).max()) if got.shape == own.shape else math.inf
+            worst = max(worst, near / max(1.0, float(np.abs(own).max())))
+            if (status != 200 or body.get("tenant") != tenant
+                    or body.get("version") != expect[tenant][1]
+                    or not near < float(np.abs(got - other).max())):
+                bleed.append((tenant, status, body.get("tenant"), body.get("version")))
+        unknown = _http(gw_port, json.dumps({"tenant": "nobody", "inputs": rows32[:1]}).encode())
+        p50 = sbatch.percentile_from_histogram(sbatch.REQUEST_TIME, 0.5)
+        p99 = sbatch.percentile_from_histogram(sbatch.REQUEST_TIME, 0.99)
+        served_second = sbatch.REQUEST_TIME.count()
+        print(f"phase 19 (c): {len(gw_results)} requests through one gateway to 2 tenants in "
+              f"{gw_s:.3f} s ({len(gw_results) / gw_s:.1f} requests/s): bleed {len(bleed)}; each "
+              f"answer against its own tenant's model: max {worst:.3g} of max |logit| (the "
+              f"gateway coalesces rows into other batches); unknown tenant: {unknown[0]}; the "
+              f"second tenant's batcher (this process, on the card): {served_second} requests, "
+              f"p50 {p50 * 1e3 if p50 else float('nan'):.2f} ms, p99 "
+              f"{p99 * 1e3 if p99 else float('nan'):.2f} ms (bucket bounds of "
+              f"fedml_serving_request_seconds), {sbatch.QPS_GAUGE.value():.1f} requests/s EWMA")
+        if bleed or unknown[0] != 404 or len(gw_results) != 2 * SLICE22_GATEWAY_REQUESTS:
+            raise AssertionError(f"phase 19 (c): bleed {bleed[:5]}, unknown tenant {unknown[0]}")
+        return counts
+    finally:
+        spub.ModelPublisher.publish = publish
+        release.set()
+        if gw is not None:
+            gw.stop()
+        if worker2 is not None:
+            worker2.stop()
+        if sched is not None:
+            sched.stop()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def _slice22_job_launches(fb, qz, job, counts):
+    """(a)'s launches as predicted: rows 1-4 single-lane, 10 / 9 / 10 / 9 a
+    local step, the forwards also once a site a test batch; rows 5-6
+    ``QSGD8_LEAVES`` an upload sent and folded; no lane variant."""
+    bs = job.cfg.batch_size
+    steps = SLICE22_ROUNDS * sum(c.client.trainer.trained_samples for c in job.clients) // bs
+    agg = job.server.server.aggregator
+    evals = SLICE22_ROUNDS * (agg._test[0].shape[0] // min(256, max(32, job.cfg.test_batch_size)))
+    uploads = SLICE22_ROUNDS * SILOS
+    print(f"phase 19 (a): the job's launches {counts} ({steps} local steps, {evals} test "
+          f"batches, {uploads} qsgd8 uploads)")
+    _single_lane_sites(fb, counts, steps, evals, "phase 19 (a)")
+    want = {qz.QUANTIZE.name: QSGD8_LEAVES * uploads, qz.DEQUANTIZE.name: QSGD8_LEAVES * uploads,
+            **{k.name: 0 for k in qz.LANE_KERNELS}}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"phase 19 (a): {name} launched {counts[name]} times, "
+                                 f"expected {n}")
+
+
+def _slice22_profile(root):
+    """(d): two flagship MESH rounds under ``cost_model_gauges``, the
+    second inside the window ``profile_rounds: "1:1"``."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.obs.registry import REGISTRY
+
+    t0 = time.perf_counter()
+    # the recipe's Dirichlet shards: a round's batches follow its clients'
+    runner = _flagship(comm_round=2, frequency_of_the_test=0,
+                       synthetic_train_size=SLICE22_PROFILE_TRAIN,
+                       synthetic_test_size=SLICE22_PROFILE_TEST, cost_model_gauges=True,
+                       profile_rounds="1:1", profile_dir=f"{root}/profile")
+    setup_s = time.perf_counter() - t0
+    sim = runner.runner
+    history = runner.run()
+    torch.cuda.synchronize()
+    att = sim.profiler.attribution if sim.profiler is not None else None
+    if att is None or sim.profiler.attribution_path is None:
+        raise AssertionError("phase 19 (d): no attribution was written")
+    buckets, wall = att["buckets"], att["window"]["wall_s"]
+    kernels = [r for r in att["by_source"] if "fwd_kernel" in r["key"] or "bwd_kernel" in r["key"]]
+    sim_mfu = REGISTRY.get("fedml_sim_mfu").value()
+    achieved = REGISTRY.get("fedml_sim_achieved_flops_per_sec").value()
+    rounds = ", ".join(f"{h['round_time_s']:.3f}" for h in history)
+    batches = [sim.algorithm.round_batches(sim.counts[np.asarray(sim.sampler.sample(r))],
+                                           sim.capacity) for r in range(2)]
+    flops = [sim.batch_flops * b + sim.server_flops for b in batches]
+    print(f"phase 19 (d): set-up {setup_s:.1f} s; rounds {rounds} s; a batch's FLOPs "
+          f"{sim.batch_flops:.6g} and the server path's {sim.server_flops:.6g} "
+          f"(FlopCounterMode, round 0); rounds 0 / 1: {batches[0]} / {batches[1]} batches, "
+          f"{flops[0]:.6g} / {flops[1]:.6g} FLOPs; window of round 1: wall "
+          f"{wall:.3f} s = compile {buckets['compile_s']:.3f} + h2d {buckets['h2d_s']:.3f} + "
+          f"device compute {buckets['device_compute_s']:.3f} + host gap "
+          f"{buckets['host_gap_s']:.3f} s; categories {att['by_category']}; mfu_cost_model "
+          f"{att['mfu_cost_model']} (device compute, peak {att['chip_peak_flops']}), "
+          f"fedml_sim_mfu {sim_mfu:.6g} (host wall of both rounds), achieved "
+          f"{achieved:.4g} FLOP/s; the fused kernels' rows: "
+          + "; ".join(f"{r['key'][:60]} {r['ms']} ms x {r['n']}" for r in kernels))
+    print(f"phase 19 (d): attribution {sim.profiler.attribution_path}, top device rows "
+          + "; ".join(f"{r['key'][:50]} {r['ms']} ms" for r in att["by_source"][:6]))
+    mfu = att["mfu_cost_model"]
+    if (sum(buckets.values()) > wall + 4e-6 or not buckets["device_compute_s"] > 0 or not kernels
+            or mfu is None or not 0 < sim_mfu <= mfu <= 1
+            or batches[0] == batches[1]
+            or [(p["program"], p["flops"], p["rounds"]) for p in att["programs"]]
+            != [("sim.multi_round.1", flops[1], 1)]):
+        raise AssertionError(f"phase 19 (d): buckets {buckets} over {wall} s, fused rows "
+                             f"{len(kernels)}, fedml_sim_mfu {sim_mfu}, mfu_cost_model {mfu}, "
+                             f"programs {att['programs']} (round 1's FLOPs {flops[1]})")
+    return att
+
+
+def _observation_cost(fb, nz):
+    """The eager call of rows 1 and 7 with each launch observed, and with
+    the observation switched off (``timing.set_observing``), alternating:
+    the observation's cost a launch."""
+    import torch
+
+    from fedml_tpu_torch.ops import timing
+
+    dev = torch.device("cuda")
+    y = _gen(SHAPES[0], torch.bfloat16, dev, 5)
+    s, b = _gen((SHAPES[0][-1],), torch.float32, dev, 6), _gen((SHAPES[0][-1],), torch.float32,
+                                                                dev, 7)
+    x, noise = _gen((SECAGG_LENGTH,), torch.float32, dev, 8), _gen(
+        nz.noise_shape(SECAGG_LENGTH), torch.float32, dev, 9)
+    cases = {fb.FWD: (fb.fused_block_forward, [(y, s, b)]),
+             nz.NOISE: (nz.apply_gaussian_noise, [(x, noise, 0.5)])}
+    out = {}
+    for kernel, (fn, args) in cases.items():
+        on, off = [], []
+        for _ in range(3):
+            on.append(_eager_ms(fn, args, iters=200, repeats=5))
+            timing.set_observing(False)
+            try:
+                off.append(_eager_ms(fn, args, iters=200, repeats=5))
+            finally:
+                timing.set_observing(True)
+        out[kernel.name] = (min(on), min(off))
+    print("phase 19: the observation's cost a launch (eager call, observed against not, the "
+          "least of 3 alternating runs of 5 x 200 calls): "
+          + "; ".join(f"{k} {a * 1e3:.2f} us against {b * 1e3:.2f} us: +{(a - b) * 1e3:.2f} us"
+                      for k, (a, b) in out.items()))
+    return out
+
+
+def phase_slice22(mods, nz):
+    """Phase 19: (a)-(c) the serving job, replica, hot swap and gateway,
+    (d) the profile window, and the observation's cost a launch."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fedml_slice22_") as root:
+        counts = _slice22_serve(mods, root)
+        _slice22_profile(root)
+    _observation_cost(mods[0], nz)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def check_kernel_timing(kernels, require_all: bool):
+    """(e): for each of the seven labels, the observations in
+    ``fedml_pallas_kernel_seconds`` timed on the card (less those of the
+    plain versions run on the CPU, phase 2's step and gradient checks) equal
+    the launches that took an event pair (outside capture, while observing),
+    over the whole run, none left pending; prints
+    ``kernel_time_summary()``."""
+    from fedml_tpu_torch.ops import timing
+
+    summary = timing.kernel_time_summary()
+    host = timing.host_observation_counts()
+    labels = sorted({k.label for k in kernels})  # the reference's, one a TPU kernel
+    rows = []
+    for label in labels:
+        launched = sum(k.observed_launches for k in kernels if k.label == label)
+        observed = timing.PALLAS_KERNEL_TIME.count(kernel=label) - host.get(label, 0)
+        rows.append((label, observed, launched))
+    print("check (e): fedml_pallas_kernel_seconds timed on the card against the launches "
+          f"observed (host-timed CPU calls left out: {host}): "
+          + ", ".join(f"{l} {o} / {w}" for l, o, w in rows))
+    print(f"check (e): kernel_time_summary() {json.dumps(summary)}")
+    bad = [r for r in rows if r[1] != r[2] or (require_all and r[2] == 0)]
+    if bad or len(labels) != 7 or timing.pending_count():
+        raise AssertionError(f"check (e): {bad}, pending {timing.pending_count()}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -6683,6 +7259,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slice21-only", action="store_true",
                     help="build the kernels, run phase 18 alone and stop (prints neither "
                          "the kernels line nor the last line)")
+    ap.add_argument("--slice22-only", action="store_true",
+                    help="build the kernels, run phase 19 and check (e) alone and stop "
+                         "(prints neither the kernels line nor the last line)")
     # phase 18's rank processes (started by the script itself)
     ap.add_argument("--slice21-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--slice21-port", type=int, help=argparse.SUPPRESS)
@@ -6721,9 +7300,14 @@ def main(argv=None) -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     mods = (fb, qz)
+    all_kernels = fb.KERNELS + fb.LANE_KERNELS + qz.KERNELS + qz.LANE_KERNELS + nz.KERNELS
     walls = {}
     if args.slice21_only:
         phase_slice21(mods, nz)
+        return 0
+    if args.slice22_only:
+        phase_slice22(mods, nz)
+        check_kernel_timing(all_kernels, require_all=False)
         return 0
 
     def timed(name, fn, *a):
@@ -6772,6 +7356,7 @@ def main(argv=None) -> int:
     slice19_counts = timed("16", phase_slice19, mods, nz)
     slice20_counts = timed("17", phase_slice20, mods, nz)
     slice21_counts = timed("18", phase_slice21, mods, nz)
+    slice22_counts = timed("19", phase_slice22, mods, nz)
     zoo_counts, femnist_rows = timed("11", phase_zoo, mods + (nz,), qz)
     print(f"launches on the FedLLM paths (none of the seven kernels runs there): recipe "
           f"{fedllm_counts}, full width {full_counts}, resume {resume_counts}")
@@ -6788,6 +7373,14 @@ def main(argv=None) -> int:
     # (rows 5-6 and the fused silo kernels), (c) SecAgg qsgd8 (row 7)
     wire = {k: wire_counts["a"][k] + (wire_counts["c"][k] if k == nz.NOISE.name else 0)
             for k in wire_counts["a"]}
+    # each kernel's eager call with every launch observed (ops/timing.py)
+    # beside slice 7's, taken before launches were observed
+    print("eager calls with every launch observed (phase 2), against slice 7's unobserved "
+          "figures: " + "; ".join(
+              f"{name} {'/'.join(f'{t * 1e3:.1f}' for t in kernel_rows[name]['eager_ms'])} us "
+              f"(slice 7: {'/'.join(f'{t:.1f}' for t in pr7)} us)"
+              for name, pr7 in SLICE7_EAGER_US.items()))
+    check_kernel_timing(all_kernels, require_all=True)
     print("chip_smoke phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, kernels' build included")
     print(json.dumps({"kernels": [
@@ -6802,6 +7395,7 @@ def main(argv=None) -> int:
          "slice19_launches": slice19_counts.get(k.name, 0),
          "slice20_launches": slice20_counts.get(k.name, 0),
          "slice21_launches": slice21_counts.get(k.name, 0),
+         "slice22_launches": slice22_counts.get(k.name, 0),
          "max_abs_err": kernel_rows[k.name]["max_abs_err"],
          "ms": kernel_rows[k.name]["ms"], "plain_ms": kernel_rows[k.name]["plain_ms"],
          "bound_ms": kernel_rows[k.name]["bound_ms"], "bound_by": kernel_rows[k.name]["bound_by"],

@@ -50,6 +50,10 @@ class FedSGD(FedAlgorithm):
         self._batched_full_grad = make_batched_full_grad_fn(model, self.hp)
         return self
 
+    def round_batches(self, counts, capacity):
+        """A full gradient a client: ``capacity // batch_size`` batches."""
+        return len(counts) * (capacity // self.hp.batch_size)
+
     def init_server_state(self, variables):
         return self._server_opt.init(variables["params"])
 

@@ -29,6 +29,11 @@ class Mime(FedAlgorithm):
         self._batched_full_grad = make_batched_full_grad_fn(model, self.hp)
         return self
 
+    def round_batches(self, counts, capacity):
+        """The local steps and a full gradient a client."""
+        return super().round_batches(counts, capacity) + len(counts) * (
+            capacity // self.hp.batch_size)
+
     def grad_hook(self):
         beta = self.hp.mime_momentum
 

@@ -171,6 +171,9 @@ class AsyncFedMLServerManager(FedMLServerManager):
                 self.finished_monotonic = time.monotonic()
                 self.send_finish()
                 return
+            # bootstrap publication: serving workers come up on the initial
+            # (or journal-recovered) global before the first virtual round
+            self._publish_model()
             self.first_dispatch_monotonic = time.monotonic()
             self._round_t0 = time.perf_counter()
             if self._recovered_outstanding:
@@ -268,8 +271,10 @@ class AsyncFedMLServerManager(FedMLServerManager):
         self._arrivals_in_round = 0
         self._round_staleness = []
         # the accumulator is fresh and the dispatch ledger consistent: the
-        # journal's commit point
+        # journal's commit point, and (extra.model_publish_dir) the serving
+        # fleet's version bump
         self._journal_snapshot()
+        self._publish_model()
         if self.server_version >= self.comm_round:
             self._finished = True
             self.finished_monotonic = time.monotonic()

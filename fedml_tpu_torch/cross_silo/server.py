@@ -71,11 +71,18 @@ its sources count as received clients, so quorum and the all-receive
 check are the flat protocol's.  ``upload_ingress_bytes`` counts the wire
 bytes of the uploads that reached the server.
 
+Model publication (``extra.model_publish_dir``, ``serving/publisher.py``,
+reference L732-738 and L1185-1198): at the first dispatch and at every
+version bump (each round's end; the async server's every virtual round)
+the server writes its host global (numpy, flax layout: the wire's bytes,
+bitwise the reference's for the same global) as ``params-v<round>.wire``
+and commits the manifest, so serving workers hot-swap the live model.
+
 Refused with ``NotImplementedError`` when flagged: the flight recorder,
-SLOs, the timeline, OTLP, remote observability, model publication,
-health-aware selection, the AOT store, the sharded fold (it needs a device
-mesh), the metrics endpoint, and contribution assessment (the reference's
-cross-silo server computes none, so the flag would be a silent no-op).
+SLOs, the timeline, OTLP, remote observability, health-aware selection,
+the AOT store, the metrics endpoint (``ROADMAP.md`` Queue 1 item 10b), and
+contribution assessment (the reference's cross-silo server computes none,
+so the flag would be a silent no-op).
 """
 
 from __future__ import annotations
@@ -112,8 +119,7 @@ log = logging.getLogger("fedml_tpu_torch.cross_silo.server")
 # reference's on the CPU (tests/test_torch_multiprocess.py)
 _UNPORTED_SERVER_FLAGS = (
     "flight_recorder", "slo_specs", "perf_timeline", "otlp_endpoint",
-    "enable_remote_obs", "model_publish_dir", "health_aware_selection", "aot_programs",
-    "metrics_port")
+    "enable_remote_obs", "health_aware_selection", "aot_programs", "metrics_port")
 #: the reference's LightSecAgg server recovers a crash at a round boundary,
 #: but not one inside a round (a decided difference, ROADMAP Queue 3)
 LSA_SERVER_JOURNAL_REFUSAL = (
@@ -146,8 +152,11 @@ def refuse_unported_server(cfg, secure: Optional[str] = None) -> None:
     reference's fails inside a round) and FHE none (the reference's fails
     inside a round)."""
     for flag in _UNPORTED_SERVER_FLAGS:
-        if cfg_extra(cfg, flag):
-            raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo server yet")
+        value = cfg_extra(cfg, flag)
+        # metrics_port 0 is set (an ephemeral port in the reference)
+        if value or (flag == "metrics_port" and value is not None):
+            raise NotImplementedError(f"extra.{flag} is not ported to the cross-silo server yet "
+                                      "(ROADMAP.md Queue 1 item 10b)")
     if secure == "lightsecagg" and cfg_extra(cfg, "server_journal_dir"):
         raise NotImplementedError(LSA_SERVER_JOURNAL_REFUSAL)
     if secure == "fhe" and cfg_extra(cfg, "server_journal_dir"):
@@ -566,6 +575,11 @@ class FedMLServerManager(FedMLCommManager):
         # recovery journal (extra.server_journal_dir): None = the journal-free
         # protocol, no epoch stamped
         self.journal = journal_from_config(cfg)
+        # model publication for the serving fleet (extra.model_publish_dir):
+        # None = no publish writes
+        from ..serving.publisher import publisher_from_config
+
+        self.publisher = publisher_from_config(cfg)
         self.session_epoch = 0
         #: the journal step this server resumed from (None: a fresh start)
         self.recovered_step: Optional[int] = None
@@ -663,6 +677,9 @@ class FedMLServerManager(FedMLCommManager):
             if self.round_idx >= self.comm_round:
                 self.send_finish()
                 return
+            # bootstrap publication: serving workers can come up on the
+            # initial (or journal-recovered) global before round 1 closes
+            self._publish_model()
             self._broadcast_model(md.MSG_TYPE_S2C_INIT_CONFIG)
 
     def handle_message_receive_model(self, msg: Message) -> None:
@@ -752,10 +769,25 @@ class FedMLServerManager(FedMLCommManager):
         self.history.append(metrics)
         self.round_idx += 1
         self._journal_snapshot()
+        self._publish_model()
         if self.round_idx >= self.comm_round:
             self.send_finish()
             return
         self._broadcast_model(md.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT)
+
+    def _publish_model(self) -> None:
+        """Publish the current global as version ``round_idx`` (the async
+        server mirrors its version into ``round_idx`` at every bump, so one
+        site serves both servers).  Best effort, as the reference's:
+        ``ModelPublisher.publish`` logs and skips a failed write.  Caller
+        holds _agg_lock."""
+        if self.publisher is None:
+            return
+        self.publisher.publish(
+            self.round_idx, self.aggregator._host_global(),
+            meta={"model": self.cfg.model,
+                  "run_id": str(getattr(self.cfg, "run_id", "0")),
+                  "session_epoch": self.session_epoch})
 
     def _broadcast_model(self, msg_type: int) -> None:
         """Select clients, send them the global model, arm the straggler

@@ -110,7 +110,10 @@
 // Interface: plain C, loaded with ctypes.  Every entry point takes device
 // pointers and the CUDA stream as void*, launches on that stream without
 // synchronising, and returns cudaGetLastError() (or cudaErrorInvalidValue
-// for arguments it does not take, without launching).
+// for arguments it does not take, without launching).  A launch entry point
+// also takes two CUDA events, start and stop (ops/timing.py's pair, or
+// both null): it records start on the stream just before the launch and
+// stop just after, so one call from Python launches and times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -477,12 +480,19 @@ bool geo_ok(const Geo& g) {
          (long long)g.row_blocks * g.rows_per_block >= g.rows;
 }
 
+// Launches fn on stream between the records of start and stop (where
+// given).
 cudaError_t launch(const void* fn, const Geo& g, int lanes, dim3 block, void** args,
-                   void* stream) {
-  const cudaError_t err = cudaLaunchKernel(fn, dim3(g.row_blocks, g.channel_blocks, lanes), block,
-                                           args, 0, (cudaStream_t)stream);
+                   void* stream, void* start, void* stop) {
+  cudaError_t err = start ? cudaEventRecord((cudaEvent_t)start, (cudaStream_t)stream)
+                          : cudaSuccess;
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  err = cudaLaunchKernel(fn, dim3(g.row_blocks, g.channel_blocks, lanes), block, args, 0,
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !stop) return err;
+  return cudaEventRecord((cudaEvent_t)stop, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -503,7 +513,8 @@ int fused_blocks_per_sm(int backward, int dtype, int vec, int residual, int* blo
 // vectors each.  res may be null (no residual).  With vec > 1 every pointer
 // must be 16-byte aligned.
 int fused_fwd_lanes(const int* geo, int lanes, const void* y, const void* scale,
-                    const void* shift, const void* res, void* out, void* stream) {
+                    const void* shift, const void* res, void* out, void* stream, void* start,
+                    void* stop) {
   Geo g;
   memcpy(&g, geo, sizeof(g));
   const void* fn = instance(false, g.dtype, g.vec, res != nullptr);
@@ -512,13 +523,13 @@ int fused_fwd_lanes(const int* geo, int lanes, const void* y, const void* scale,
     return (int)cudaErrorInvalidValue;
   RowArgs a{(unsigned)g.rows, (unsigned)g.C, (unsigned)g.cg, (unsigned)g.rows_per_block, 0u};
   void* args[] = {(void*)&y, (void*)&scale, (void*)&shift, (void*)&res, (void*)&out, (void*)&a};
-  return (int)launch(fn, g, lanes, dim3(g.cg, g.rb), args, stream);
+  return (int)launch(fn, g, lanes, dim3(g.cg, g.rb), args, stream, start, stop);
 }
 
 // One lane (fused_fwd_lanes with lanes = 1).
 int fused_fwd(const int* geo, const void* y, const void* scale, const void* shift,
-              const void* res, void* out, void* stream) {
-  return fused_fwd_lanes(geo, 1, y, scale, shift, res, out, stream);
+              const void* res, void* out, void* stream, void* start, void* stop) {
+  return fused_fwd_lanes(geo, 1, y, scale, shift, res, out, stream, start, stop);
 }
 
 // geo: the geometry array (ops/fused_block.bwd_geometry) of one lane.  lanes
@@ -529,7 +540,7 @@ int fused_fwd(const int* geo, const void* y, const void* scale, const void* shif
 // slot: the first of the `lanes` ticket slots, slot + lanes <= kTicketSlots.
 int fused_bwd_lanes(const int* geo, int lanes, const void* g, const void* y, const void* scale,
                     const void* out, void* dy, void* dr, void* dss, void* work, int slot,
-                    void* stream) {
+                    void* stream, void* start, void* stop) {
   Geo o;
   memcpy(&o, geo, sizeof(o));
   const void* fn = instance(true, o.dtype, o.vec, dr != nullptr);
@@ -541,14 +552,15 @@ int fused_bwd_lanes(const int* geo, int lanes, const void* g, const void* y, con
             (unsigned)slot};
   void* args[] = {(void*)&g, (void*)&y, (void*)&scale, (void*)&out, (void*)&dy,
                   (void*)&dr, (void*)&dss, (void*)&work, (void*)&a};
-  return (int)launch(fn, o, lanes, dim3(o.cg * o.rb), args, stream);
+  return (int)launch(fn, o, lanes, dim3(o.cg * o.rb), args, stream, start, stop);
 }
 
 // One lane (fused_bwd_lanes with lanes = 1).
 int fused_bwd(const int* geo, const void* g, const void* y, const void* scale,
               const void* out, void* dy, void* dr, void* dss, void* work, int slot,
-              void* stream) {
-  return fused_bwd_lanes(geo, 1, g, y, scale, out, dy, dr, dss, work, slot, stream);
+              void* stream, void* start, void* stop) {
+  return fused_bwd_lanes(geo, 1, g, y, scale, out, dy, dr, dss, work, slot, stream, start,
+                         stop);
 }
 
 // The id of the capture that `stream` is capturing into a CUDA graph,

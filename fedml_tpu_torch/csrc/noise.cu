@@ -48,7 +48,9 @@
 // Interface: plain C, loaded with ctypes.  The entry point takes device
 // pointers and the CUDA stream as void*, sizes its launch from the length,
 // launches on that stream without synchronising or allocating (so a CUDA
-// graph can capture it), and returns cudaGetLastError().
+// graph can capture it), and returns cudaGetLastError().  It also takes two
+// CUDA events, start and stop (ops/timing.py's pair, or both null), and
+// records them on the stream just before and just after the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,10 +155,16 @@ unsigned noise_grid(unsigned length) { return (length + kTile - 1) / kTile; }
 
 template <bool VEC>
 int launch(const void* x, const void* noise, float sigma, void* out, unsigned length,
-           cudaStream_t stream) {
+           cudaStream_t stream, cudaEvent_t start, cudaEvent_t stop) {
+  if (start) {
+    const cudaError_t err = cudaEventRecord(start, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   gaussian_noise_kernel<VEC><<<noise_grid(length), kThreads, 0, stream>>>(
       (const float*)x, (const float*)noise, sigma, (float*)out, length);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !stop) return (int)err;
+  return (int)cudaEventRecord(stop, stream);
 }
 
 }  // namespace
@@ -167,11 +175,13 @@ extern "C" {
 // draw).  vec != 0 takes the vector variant (x, noise and out 16-byte
 // aligned).
 int gaussian_noise(const void* x, const void* noise, float sigma, void* out, int length, int vec,
-                   void* stream) {
+                   void* stream, void* start, void* stop) {
   if (length <= 0 || (vec && !aligned16(x, noise, out))) return (int)cudaErrorInvalidValue;
   const unsigned n = (unsigned)length;
   const cudaStream_t s = (cudaStream_t)stream;
-  return vec ? launch<true>(x, noise, sigma, out, n, s) : launch<false>(x, noise, sigma, out, n, s);
+  const cudaEvent_t e0 = (cudaEvent_t)start, e1 = (cudaEvent_t)stop;
+  return vec ? launch<true>(x, noise, sigma, out, n, s, e0, e1)
+             : launch<false>(x, noise, sigma, out, n, s, e0, e1);
 }
 
 }  // extern "C"

@@ -66,7 +66,9 @@
 // pointers and the CUDA stream as void*, sizes as int, sizes its launch
 // from the length, launches on that stream without synchronising or
 // allocating (so a CUDA graph can capture it), and returns
-// cudaGetLastError().
+// cudaGetLastError().  Each also takes two CUDA events, start and stop
+// (ops/timing.py's pair, or both null), and records them on the stream just
+// before and just after the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -226,6 +228,17 @@ unsigned dequantize_grid(unsigned length) {
   return ((length + kDqSpan - 1) / kDqSpan * 32 + kDqThreads - 1) / kDqThreads;
 }
 
+// Records event (where given) on stream.
+cudaError_t record(void* event, void* stream) {
+  return event ? cudaEventRecord((cudaEvent_t)event, (cudaStream_t)stream) : cudaSuccess;
+}
+
+// The launch's error, then stop recorded after it.
+int launched(void* stream, void* stop) {
+  const cudaError_t err = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : record(stop, stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -234,32 +247,36 @@ extern "C" {
 // int8; scales: ceil(length / 1024) floats.  vec != 0 takes the vector
 // variant (x, u and values 16-byte aligned).
 int quantize_int8(const void* x, const void* u, void* values, void* scales, int length, int vec,
-                  void* stream) {
+                  void* stream, void* start, void* stop) {
   if (length <= 0 || (vec && !aligned16(x, u, values))) return (int)cudaErrorInvalidValue;
   const unsigned grid = quantize_grid((unsigned)length);
+  const cudaError_t err = record(start, stream);
+  if (err != cudaSuccess) return (int)err;
   if (vec)
     quantize_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)x, (const float*)u, (signed char*)values, (float*)scales, (unsigned)length);
   else
     quantize_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)x, (const float*)u, (signed char*)values, (float*)scales, (unsigned)length);
-  return (int)cudaGetLastError();
+  return launched(stream, stop);
 }
 
 // values: ceil(length / 1024) * 1024 int8; scales: ceil(length / 1024)
 // floats; out: `length` floats.  vec != 0 takes the vector variant (values
 // and out 16-byte aligned).
 int dequantize_int8(const void* values, const void* scales, void* out, int length, int vec,
-                    void* stream) {
+                    void* stream, void* start, void* stop) {
   if (length <= 0 || (vec && !aligned16(values, out, nullptr))) return (int)cudaErrorInvalidValue;
   const unsigned grid = dequantize_grid((unsigned)length);
+  const cudaError_t err = record(start, stream);
+  if (err != cudaSuccess) return (int)err;
   if (vec)
     dequantize_kernel<true><<<grid, kDqThreads, 0, (cudaStream_t)stream>>>(
         (const signed char*)values, (const float*)scales, (float*)out, (unsigned)length);
   else
     dequantize_kernel<false><<<grid, kDqThreads, 0, (cudaStream_t)stream>>>(
         (const signed char*)values, (const float*)scales, (float*)out, (unsigned)length);
-  return (int)cudaGetLastError();
+  return launched(stream, stop);
 }
 
 }  // extern "C"

@@ -18,10 +18,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from ..core import pytree as pt
-from .local_sgd import make_batched_local_train_fn, make_local_train_fn
+from .local_sgd import make_batched_local_train_fn, make_local_train_fn, step_budgets
 from .optim import SGD, Adagrad, Adam, Yogi
 from .types import ClientOutput, HParams
 
@@ -47,6 +48,14 @@ class FedAlgorithm:
         self._batched_train = make_batched_local_train_fn(
             model, self.hp, loss_extra=self.loss_extra(lanes=True), grad_hook=self.grad_hook())
         return self
+
+    def round_batches(self, counts, capacity: int) -> int:
+        """Forward-and-backward batches of ``batch_size`` rows that clients
+        with sample ``counts`` (host) and shards of ``capacity`` rows run in
+        a round: each client's local steps (``step_budgets``, at most
+        ``epochs * steps_per_epoch``), on MESH and sp alike."""
+        hp = self.hp
+        return int(np.minimum(step_budgets(hp, counts), hp.epochs * hp.steps_per_epoch).sum())
 
     def loss_extra(self, lanes: bool = False) -> Optional[Callable]:
         """``extra(params, ctx)`` added to the local loss: a 0-d tensor, or

@@ -136,7 +136,8 @@ def _case(libs, shape, dtype, residual, sms):
             err = lib.fused_bwd(geo_args, g.data_ptr(), y.data_ptr(), s.data_ptr(),
                                 out.data_ptr(), dy.data_ptr(),
                                 dr.data_ptr() if dr is not None else None, dss.data_ptr(),
-                                scratch.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
+                                scratch.data_ptr(), 0, torch.cuda.current_stream().cuda_stream,
+                                None, None)
             if err != 0:
                 raise RuntimeError(f"ablate_bwd: launch failed with error {err}")
         return call

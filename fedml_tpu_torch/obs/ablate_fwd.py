@@ -130,7 +130,7 @@ def _case(libs, shape, dtype, residual, sms):
             out = torch.empty_like(y)  # as the wrapper allocates it
             err = lib.fused_fwd(args, y.data_ptr(), s.data_ptr(), b.data_ptr(),
                                 r.data_ptr() if r is not None else None, out.data_ptr(),
-                                torch.cuda.current_stream().cuda_stream)
+                                torch.cuda.current_stream().cuda_stream, None, None)
             if err != 0:
                 raise RuntimeError(f"ablate_fwd: launch failed with error {err}")
             return out

@@ -155,7 +155,7 @@ def _noise_call(lib, vec=1):
     def call(x, noise, sigma):
         out = torch.empty_like(x)
         err = lib.gaussian_noise(x.data_ptr(), noise.data_ptr(), sigma, out.data_ptr(), x.numel(),
-                                 vec, torch.cuda.current_stream().cuda_stream)
+                                 vec, torch.cuda.current_stream().cuda_stream, None, None)
         if err != 0:
             raise RuntimeError(f"ablate_noise: launch failed with error {err}")
         return out

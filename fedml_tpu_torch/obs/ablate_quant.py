@@ -245,7 +245,7 @@ def _quantize_call(lib):
         values = torch.empty(shape, dtype=torch.int8, device=x.device)
         scales = torch.empty(shape[0], dtype=torch.float32, device=x.device)
         err = lib.quantize_int8(x.data_ptr(), u.data_ptr(), values.data_ptr(), scales.data_ptr(),
-                                n, 1, torch.cuda.current_stream().cuda_stream)
+                                n, 1, torch.cuda.current_stream().cuda_stream, None, None)
         if err != 0:
             raise RuntimeError(f"ablate_quant: quantize launch failed with error {err}")
         return values, scales, n
@@ -259,7 +259,7 @@ def _dequantize_call(lib):
     def call(values, scales, n):
         out = torch.empty(n, dtype=torch.float32, device=values.device)
         err = lib.dequantize_int8(values.data_ptr(), scales.data_ptr(), out.data_ptr(), n, 1,
-                                  torch.cuda.current_stream().cuda_stream)
+                                  torch.cuda.current_stream().cuda_stream, None, None)
         if err != 0:
             raise RuntimeError(f"ablate_quant: dequantize launch failed with error {err}")
         return out

@@ -36,24 +36,34 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # together run nvcc once (reentrant: load_library holds it around build)
 _LOADED: dict = {}
 _BUILD_LOCK = threading.RLock()
+# (start, end) host epoch seconds of every nvcc run of this process (the
+# profiler's "compile" bucket, obs/profiler.py); appended under _BUILD_LOCK
+_BUILD_SPANS: list = []
 
 
 class Kernel:
     """One CUDA kernel of the port: its name, the TPU kernel it replaces
-    (``file:line``) and its launches on the card, in all and by variant
-    (counted under a lock: ``launches += 1`` from several threads loses
-    counts)."""
+    (``file:line``), the label its launches are timed under
+    (``ops/timing.py``, the reference's kernel name) and its launches on the
+    card, in all and by variant (counted under a lock: ``launches += 1``
+    from several threads loses counts).  ``observed_launches`` counts the
+    launches ``ops/timing.py`` took events for (outside CUDA-graph stream
+    capture, while observing) over the life of the process (never
+    reset)."""
 
-    def __init__(self, name: str, replaces: str):
+    def __init__(self, name: str, replaces: str, label: Optional[str] = None):
         self.name = name
         self.replaces = replaces
+        self.label = label
         self.launches = 0
+        self.observed_launches = 0
         self._variants: dict = {}
         self._lock = threading.Lock()
 
-    def count_launch(self, variant: Optional[str] = None) -> None:
+    def count_launch(self, variant: Optional[str] = None, observed: bool = False) -> None:
         with self._lock:
             self.launches += 1
+            self.observed_launches += observed
             if variant is not None:
                 self._variants[variant] = self._variants.get(variant, 0) + 1
 
@@ -134,10 +144,26 @@ def build(names=None) -> dict:
                 failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
                 continue
             os.replace(tmp, out)  # readers see no library or a complete one
-            report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+            seconds = time.perf_counter() - t0
+            report[name] = {"seconds": seconds, "log": log}
+            _BUILD_SPANS.append((time.time() - seconds, time.time()))
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return report
+
+
+def build_seconds_within(t0: float, t1: float) -> float:
+    """Seconds of the host epoch window ``[t0, t1]`` during which a kernel
+    build (an ``nvcc`` run of this process) was running: the union of the
+    builds' spans, which run in parallel."""
+    with _BUILD_LOCK:
+        spans = sorted((max(s, t0), min(e, t1)) for s, e in _BUILD_SPANS)
+    total, reach = 0.0, t0
+    for s, e in spans:
+        if e > max(s, reach):
+            total += e - max(s, reach)
+            reach = e
+    return total
 
 
 def load_library(name: str, signatures: dict) -> ctypes.CDLL:

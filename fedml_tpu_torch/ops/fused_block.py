@@ -35,16 +35,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import build
+from . import build, timing
 from .build import aligned16
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "fused_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P]),
-    "fused_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
-    "fused_fwd_lanes": (_I, [_P, _I, _P, _P, _P, _P, _P, _P]),
-    "fused_bwd_lanes": (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
+    "fused_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "fused_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
+    "fused_fwd_lanes": (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "fused_bwd_lanes": (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
     "fused_blocks_per_sm": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     "fused_capture_id": (_I, [_P, ctypes.POINTER(ctypes.c_ulonglong)]),
 }
@@ -57,16 +57,24 @@ MAX_LANES = 65535  # the grid's z extent
 # at most kFoldBatch 16-byte loads a thread, issued together
 FOLD_FLOATS = 8192
 
-FWD = build.Kernel("fused_bn_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:91")
-FWD_RES = build.Kernel("fused_bn_residual_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:85")
-BWD = build.Kernel("fused_bn_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:142")
-BWD_RES = build.Kernel("fused_bn_residual_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:126")
+# each kernel's timing label (ops/timing.py) is the reference's name of the
+# observed call (fedml_tpu/ops/pallas/fused_block.py:222/245/270/282)
+FWD = build.Kernel("fused_bn_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:91",
+                   "fused_bn_relu")
+FWD_RES = build.Kernel("fused_bn_residual_relu_fwd", "fedml_tpu/ops/pallas/fused_block.py:85",
+                       "fused_bn_residual_relu")
+BWD = build.Kernel("fused_bn_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:142",
+                   "fused_bn_relu_bwd")
+BWD_RES = build.Kernel("fused_bn_residual_relu_bwd", "fedml_tpu/ops/pallas/fused_block.py:126",
+                       "fused_bn_residual_relu_bwd")
 KERNELS = (FWD, FWD_RES, BWD, BWD_RES)
 # the same kernels launched once for L lanes (fused_fwd_lanes / fused_bwd_lanes)
-FWD_LANES = build.Kernel("fused_bn_relu_fwd_lanes", FWD.replaces)
-FWD_RES_LANES = build.Kernel("fused_bn_residual_relu_fwd_lanes", FWD_RES.replaces)
-BWD_LANES = build.Kernel("fused_bn_relu_bwd_lanes", BWD.replaces)
-BWD_RES_LANES = build.Kernel("fused_bn_residual_relu_bwd_lanes", BWD_RES.replaces)
+FWD_LANES = build.Kernel("fused_bn_relu_fwd_lanes", FWD.replaces, FWD.label)
+FWD_RES_LANES = build.Kernel("fused_bn_residual_relu_fwd_lanes", FWD_RES.replaces,
+                             FWD_RES.label)
+BWD_LANES = build.Kernel("fused_bn_relu_bwd_lanes", BWD.replaces, BWD.label)
+BWD_RES_LANES = build.Kernel("fused_bn_residual_relu_bwd_lanes", BWD_RES.replaces,
+                             BWD_RES.label)
 LANE_KERNELS = (FWD_LANES, FWD_RES_LANES, BWD_LANES, BWD_RES_LANES)
 SOURCE = "fedml_tpu_torch/csrc/fused_block.cu"
 
@@ -186,13 +194,15 @@ def _fwd_cuda(y, scale, shift, residual):
     # the geometry of one lane: each lane offsets within the launch
     geo, geo_args = _launch_geometry(False, device.index, y.dtype, y.numel() // c // max(lanes, 1),
                                      c, aligned16(ptrs), residual is not None)
+    start, stop, _ = token = timing.launch_begin(kernel.label)
     if lanes:
-        err = _lib().fused_fwd_lanes(geo_args, lanes, *ptrs, stream)
+        err = _lib().fused_fwd_lanes(geo_args, lanes, *ptrs, stream, start, stop)
     else:
-        err = _lib().fused_fwd(geo_args, *ptrs, stream)
+        err = _lib().fused_fwd(geo_args, *ptrs, stream, start, stop)
+    timing.launch_end(token, err)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
-    kernel.count_launch("fwd_vector" if geo.vec > 1 else "fwd_scalar")
+    kernel.count_launch("fwd_vector" if geo.vec > 1 else "fwd_scalar", start is not None)
     return out
 
 
@@ -371,15 +381,17 @@ def _bwd_cuda(g, y, scale, out, with_residual: bool):
     dr = torch.empty_like(y) if with_residual else None
     dss = torch.empty((n_lanes, 2, c), dtype=torch.float32, device=y.device)
     slot, scratch = _workspace(y.device, stream, geo.scratch_floats * n_lanes, n_lanes)
+    start, stop, _ = token = timing.launch_begin(kernel.label)
     tail = (dy.data_ptr(), dr.data_ptr() if dr is not None else None, dss.data_ptr(),
-            scratch.data_ptr(), slot, stream)
+            scratch.data_ptr(), slot, stream, start, stop)
     if lanes:
         err = _lib().fused_bwd_lanes(geo_args, lanes, *ptrs, *tail)
     else:
         err = _lib().fused_bwd(geo_args, *ptrs, *tail)
+    timing.launch_end(token, err)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
-    kernel.count_launch("vector" if geo.vec > 1 else "scalar")
+    kernel.count_launch("vector" if geo.vec > 1 else "scalar", start is not None)
     if lanes:
         return dy, dss[:, 0], dss[:, 1], dr
     return dy, dss[0, 0], dss[0, 1], dr
@@ -391,7 +403,8 @@ def fused_block_forward(y, scale, shift, residual=None):
     if y.is_cuda:
         return _fwd_cuda(y, scale, shift, residual)
     if y.device.type == "cpu":
-        return fused_block_reference(y, scale, shift, residual)
+        label = (FWD_RES if residual is not None else FWD).label
+        return timing.observe_eager(label, fused_block_reference, y, scale, shift, residual)
     raise RuntimeError(f"fused block has no kernel for device {y.device}")
 
 
@@ -402,7 +415,8 @@ def fused_block_backward(g, y, scale, out, with_residual: bool):
         return _bwd_cuda(g if g.is_contiguous() else g.contiguous(), y, scale, out,
                          with_residual)
     if y.device.type == "cpu":
-        return fused_block_bwd_reference(g, y, scale, out, with_residual)
+        return timing.observe_eager((BWD_RES if with_residual else BWD).label,
+                                    fused_block_bwd_reference, g, y, scale, out, with_residual)
     raise RuntimeError(f"fused block has no kernel for device {y.device}")
 
 

@@ -31,15 +31,18 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, timing
 from .build import aligned16
 
 BLOCK = 1024
 _SUB, _LANE = 8, 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"gaussian_noise": (_I, [_P, _P, ctypes.c_float, _P, _I, _I, _P])}
+_SIGNATURES = {"gaussian_noise": (_I, [_P, _P, ctypes.c_float, _P, _I, _I, _P, _P, _P])}
 
-NOISE = build.Kernel("gaussian_noise", "fedml_tpu/ops/pallas/noise.py:33")
+# timing label (ops/timing.py): the reference's name of the observed call
+# (fedml_tpu/ops/pallas/noise.py:52)
+NOISE = build.Kernel("gaussian_noise", "fedml_tpu/ops/pallas/noise.py:33",
+                     "apply_gaussian_noise")
 KERNELS = (NOISE,)
 SOURCE = "fedml_tpu_torch/csrc/noise.cu"
 VARIANTS = ("vector", "scalar")
@@ -91,11 +94,14 @@ def _noise_cuda(vec: torch.Tensor, noise: torch.Tensor, sigma: float) -> torch.T
     ptrs = (x.data_ptr(), noise.data_ptr(), out.data_ptr())
     aligned = aligned16(ptrs)
     lib = build.load_library("noise", _SIGNATURES)
-    err = lib.gaussian_noise(ptrs[0], ptrs[1], sigma, ptrs[2], x.numel(), aligned,
-                             build.current_stream(x.device, "noise kernel"))
+    stream = build.current_stream(x.device, "noise kernel")
+    start, stop, _ = token = timing.launch_begin(NOISE.label)
+    err = lib.gaussian_noise(ptrs[0], ptrs[1], sigma, ptrs[2], x.numel(), aligned, stream, start,
+                             stop)
+    timing.launch_end(token, err)
     if err != 0:
         raise RuntimeError(f"{NOISE.name}: CUDA launch failed with error {err}")
-    NOISE.count_launch("vector" if aligned else "scalar")
+    NOISE.count_launch("vector" if aligned else "scalar", start is not None)
     return out
 
 
@@ -108,5 +114,6 @@ def apply_gaussian_noise(vec: torch.Tensor, noise: torch.Tensor, sigma: float) -
     if vec.is_cuda:
         return _noise_cuda(vec, noise, float(sigma))
     if vec.device.type == "cpu":
-        return apply_gaussian_noise_reference(vec, noise, float(sigma))
+        return timing.observe_eager(NOISE.label, apply_gaussian_noise_reference, vec, noise,
+                                    float(sigma))
     raise RuntimeError(f"noise has no kernel for device {vec.device}")

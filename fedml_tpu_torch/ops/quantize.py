@@ -39,23 +39,27 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, timing
 from .build import aligned16
 
 BLOCK = 1024
 _SUB, _LANE = 8, 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "quantize_int8": (_I, [_P, _P, _P, _P, _I, _I, _P]),
-    "dequantize_int8": (_I, [_P, _P, _P, _I, _I, _P]),
+    "quantize_int8": (_I, [_P, _P, _P, _P, _I, _I, _P, _P, _P]),
+    "dequantize_int8": (_I, [_P, _P, _P, _I, _I, _P, _P, _P]),
 }
 
-QUANTIZE = build.Kernel("quantize_int8", "fedml_tpu/ops/pallas/quantize.py:37")
-DEQUANTIZE = build.Kernel("dequantize_int8", "fedml_tpu/ops/pallas/quantize.py:50")
+# timing labels (ops/timing.py): the reference's names of the observed calls
+# (fedml_tpu/ops/pallas/quantize.py:66/98)
+QUANTIZE = build.Kernel("quantize_int8", "fedml_tpu/ops/pallas/quantize.py:37",
+                        "quantize_int8_stochastic")
+DEQUANTIZE = build.Kernel("dequantize_int8", "fedml_tpu/ops/pallas/quantize.py:50",
+                          "dequantize_int8")
 KERNELS = (QUANTIZE, DEQUANTIZE)
 # the same kernels launched once for the L lanes of qsgd_int8_lanes
-QUANTIZE_LANES = build.Kernel("quantize_int8_lanes", QUANTIZE.replaces)
-DEQUANTIZE_LANES = build.Kernel("dequantize_int8_lanes", DEQUANTIZE.replaces)
+QUANTIZE_LANES = build.Kernel("quantize_int8_lanes", QUANTIZE.replaces, QUANTIZE.label)
+DEQUANTIZE_LANES = build.Kernel("dequantize_int8_lanes", DEQUANTIZE.replaces, DEQUANTIZE.label)
 LANE_KERNELS = (QUANTIZE_LANES, DEQUANTIZE_LANES)
 SOURCE = "fedml_tpu_torch/csrc/quantize.cu"
 VARIANTS = ("vector", "scalar")
@@ -127,11 +131,13 @@ def _quantize_cuda(vec: torch.Tensor, noise: torch.Tensor, kernel: build.Kernel 
     scales = torch.empty(shape[0], dtype=torch.float32, device=x.device)
     ptrs = (x.data_ptr(), noise.data_ptr(), values.data_ptr())
     aligned = aligned16(ptrs)
-    err = _lib().quantize_int8(*ptrs, scales.data_ptr(), n, aligned,
-                               build.current_stream(x.device, "quantize kernel"))
+    stream = build.current_stream(x.device, "quantize kernel")
+    start, stop, _ = token = timing.launch_begin(kernel.label)
+    err = _lib().quantize_int8(*ptrs, scales.data_ptr(), n, aligned, stream, start, stop)
+    timing.launch_end(token, err)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
-    kernel.count_launch("vector" if aligned else "scalar")
+    kernel.count_launch("vector" if aligned else "scalar", start is not None)
     return values, scales, n
 
 
@@ -149,11 +155,14 @@ def _dequantize_cuda(values: torch.Tensor, scales: torch.Tensor, length: int,
     out = torch.empty(length, dtype=torch.float32, device=values.device)
     v_ptr, o_ptr = values.data_ptr(), out.data_ptr()
     aligned = aligned16((v_ptr, o_ptr))
-    err = _lib().dequantize_int8(v_ptr, scales.data_ptr(), o_ptr, length, aligned,
-                                 build.current_stream(values.device, "dequantize kernel"))
+    stream = build.current_stream(values.device, "dequantize kernel")
+    start, stop, _ = token = timing.launch_begin(kernel.label)
+    err = _lib().dequantize_int8(v_ptr, scales.data_ptr(), o_ptr, length, aligned, stream, start,
+                                 stop)
+    timing.launch_end(token, err)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
-    kernel.count_launch("vector" if aligned else "scalar")
+    kernel.count_launch("vector" if aligned else "scalar", start is not None)
     return out
 
 
@@ -165,7 +174,7 @@ def quantize_int8_stochastic(vec: torch.Tensor, noise: torch.Tensor):
     if vec.is_cuda:
         return _quantize_cuda(vec, noise)
     if vec.device.type == "cpu":
-        return quantize_int8_reference(vec, noise)
+        return timing.observe_eager(QUANTIZE.label, quantize_int8_reference, vec, noise)
     raise RuntimeError(f"quantize has no kernel for device {vec.device}")
 
 
@@ -175,7 +184,8 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, length: int) -> 
     if values.is_cuda:
         return _dequantize_cuda(values, scales, length)
     if values.device.type == "cpu":
-        return dequantize_int8_reference(values, scales, length)
+        return timing.observe_eager(DEQUANTIZE.label, dequantize_int8_reference, values, scales,
+                                    length)
     raise RuntimeError(f"dequantize has no kernel for device {values.device}")
 
 
@@ -226,7 +236,7 @@ def quantize_int8_lanes(vecs: torch.Tensor, noise: torch.Tensor):
         values, scales, _ = _quantize_cuda(x, u.contiguous(), QUANTIZE_LANES)
         return values.view(shape), scales.view(shape[:2]), vecs.shape[1]
     if vecs.device.type == "cpu":
-        return quantize_int8_lanes_reference(vecs, noise)
+        return timing.observe_eager(QUANTIZE.label, quantize_int8_lanes_reference, vecs, noise)
     raise RuntimeError(f"quantize has no kernel for device {vecs.device}")
 
 
@@ -239,7 +249,8 @@ def dequantize_int8_lanes(values: torch.Tensor, scales: torch.Tensor, length: in
                                values.numel(), DEQUANTIZE_LANES)
         return out.view(values.shape[0], -1)[:, :length]
     if values.device.type == "cpu":
-        return dequantize_int8_lanes_reference(values, scales, length)
+        return timing.observe_eager(DEQUANTIZE.label, dequantize_int8_lanes_reference, values,
+                                    scales, length)
     raise RuntimeError(f"dequantize has no kernel for device {values.device}")
 
 

@@ -15,8 +15,12 @@ the cross-silo platform (``cross_silo/``: every protocol, in one process
 or as processes of their own, a silo spanning processes too); the
 cross-cloud platform (``training_type: cross_cloud``, ``cross_cloud/``:
 the cross-silo protocol with WAN defaults, UnitedLLM under
-``extra.unitedllm``); and the centralized baseline (``training_type:
-centralized``, ``sim/centralized.py``, reference L307-311).  Every other platform and optimizer raises
+``extra.unitedllm``); the model-serving platform (``training_type:
+model_serving``, ``serving/federated.py``, reference L240-300: the plain
+cross-silo job under an endpoint identity, for the FedAvg family, SecAgg
+and FHE refused with the reference's words); and the centralized baseline
+(``training_type: centralized``, ``sim/centralized.py``, reference
+L307-311).  Every other platform and optimizer raises
 ``NotImplementedError``.
 
 Trust flags as the reference routes them (L17-41, L113-150): attack,
@@ -60,7 +64,8 @@ def _check_unimplemented_flags(cfg: Config) -> None:
                                   "yet implemented; refusing to run without them")
 
 _PORTED_PLATFORMS = (C.TRAINING_PLATFORM_SIMULATION, C.TRAINING_PLATFORM_CROSS_SILO,
-                     C.TRAINING_PLATFORM_CENTRALIZED, C.TRAINING_PLATFORM_CROSS_CLOUD)
+                     C.TRAINING_PLATFORM_CENTRALIZED, C.TRAINING_PLATFORM_CROSS_CLOUD,
+                     C.TRAINING_PLATFORM_SERVING)
 # simulators of their own (reference runner.py L87-194), beside the
 # registry's algorithms on the engine
 # the simulators that build their own networks (reference L101-110, but
@@ -110,12 +115,15 @@ class FedMLRunner:
         if cfg.federated_optimizer not in _PORTED_OPTIMIZERS:
             raise NotImplementedError(f"federated_optimizer {cfg.federated_optimizer!r} is "
                                       f"not ported yet (ported: {_PORTED_OPTIMIZERS})")
-        if cfg.training_type in (C.TRAINING_PLATFORM_CROSS_SILO, C.TRAINING_PLATFORM_CROSS_CLOUD):
+        if cfg.training_type in (C.TRAINING_PLATFORM_CROSS_SILO, C.TRAINING_PLATFORM_CROSS_CLOUD,
+                                 C.TRAINING_PLATFORM_SERVING):
             for what, obj in (("client_trainer", client_trainer),
                               ("server_aggregator", server_aggregator)):
                 if obj is not None:
                     raise _not_used(what, f"the {cfg.training_type.replace('_', '-')} platform")
-            self.runner = self._init_wire_runner()
+            self.runner = (self._init_serving_runner()
+                           if cfg.training_type == C.TRAINING_PLATFORM_SERVING
+                           else self._init_wire_runner())
         else:
             self.runner = self._init_simulation_runner(client_trainer, server_aggregator)
 
@@ -144,6 +152,20 @@ class FedMLRunner:
             refuse_unported_cross_silo(cfg)
             self._load_dataset_and_model()
         return cross_cloud.create_cross_cloud_runner(cfg, self.dataset, self.model, self.device)
+
+    def _init_serving_runner(self):
+        """``training_type: model_serving`` (reference L240-300): the privacy
+        flags and the optimizer are checked before the data is loaded."""
+        from .cross_silo import refuse_unported_cross_silo
+        from .serving.federated import (ServingJobRunner, refuse_secure_serving,
+                                        refuse_unservable_optimizer)
+
+        cfg = self.cfg
+        refuse_secure_serving(cfg)
+        refuse_unservable_optimizer(cfg)
+        refuse_unported_cross_silo(cfg)
+        self._load_dataset_and_model()
+        return ServingJobRunner(cfg, self.dataset, self.model, self.device)
 
     def _load_dataset_and_model(self) -> None:
         if self.dataset is None:

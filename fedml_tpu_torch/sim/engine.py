@@ -43,8 +43,32 @@ Server state (an optimizer's moments, SCAFFOLD's ``c``, FedDyn's ``h``,
 Mime's momentum) is whatever tree ``server_update`` returns.  ``run_rounds(n)`` on MESH keeps the
 rounds' metrics on the device and syncs once, at the end of the chunk (the
 reference's ``jit(scan(round))`` chunk has one host sync too); CUDA-graph
-capture of rounds is a later slice.  The AOT program store, the profiler
-and OTLP export raise ``NotImplementedError``.
+capture of rounds is a later slice.  The AOT program store and OTLP export
+raise ``NotImplementedError``.
+
+Counters (reference L77-95, L170-178, L715-720, L760-787): every engine
+simulator sets the ``fedml_sim_fused_blocks`` gauge.  With
+``extra.cost_model_gauges`` the FLOPs are counted under ``FlopCounterMode``
+(``ops/flops.flop_counter``: torch's formulas, the grouped conv's weight
+gradient counted once) on the first round this simulator runs, where the
+reference takes a program's FLOPs from XLA's cost model.  The reference's
+round program has one shape; a round here runs as many forward-and-backward
+batches as its clients' step budgets give (``FedAlgorithm.round_batches``,
+host ints), which follow their shards.  So the first round's count is split
+into the server path's FLOPs (counted alone) and one batch's FLOPs (the
+rest over its batches), and every round's FLOPs are one batch's times its
+own batches plus the server path's.  They are published as
+``fedml_program_flops{program="sim.multi_round.1"}``: the port runs one
+round at a time, so its program is the reference's chunk of one round.
+Each ``run_rounds`` call then sets ``fedml_sim_achieved_flops_per_sec``
+(its rounds' FLOPs over the call's host time) and ``fedml_sim_mfu`` (over
+the card's peak, ``ops/flops.py``; 0 where none is known).  The count is of
+matmuls and convolutions only, where XLA's also counts elementwise work: a
+decided difference, whose ratio on a tiny round
+``tests/test_torch_profiler.py`` holds.  With ``extra.profile_rounds`` a
+``torch.profiler`` window (``obs/profiler.py``) opens before the first
+round of the window and closes after its last, each round noted as one
+``sim.multi_round.1`` program with its FLOPs.
 
 Population mode (``extra.population_store``, reference L275-288 and
 L431-600): a sharded on-disk store (``population/``) is the authority for
@@ -124,7 +148,10 @@ from ..core.flags import cfg_extra
 from ..data.dataset import FederatedDataset, pad_eval_set, stack_clients
 from ..fl.local_sgd import (dropout_masks, dropout_spec, epoch_permutations, lane_dropout_table,
                             make_eval_fn, step_budgets, to_device)
+from ..obs import profiler as obsprofiler
+from ..obs import registry as obsreg
 from ..obs.metrics import MetricsLogger
+from ..ops.flops import device_peak_flops, flop_counter
 from ..parallel import multihost
 from ..trust.contribution import ContributionAssessorManager
 from ..trust.dp.dp import NoiseSampler
@@ -133,8 +160,37 @@ from ..weights import flatten_reference
 
 # flags whose subsystems later slices port (the ROADMAP.md Queue 1 item
 # that ports each); setting one must not be a no-op
-_UNPORTED_FLAGS = {"aot_programs": 10, "profile_rounds": 10, "otlp_endpoint": 10,
-                   "cost_model_gauges": 10}
+_UNPORTED_FLAGS = {"aot_programs": "10b", "otlp_endpoint": "10b"}
+# flags the engine's round serves and a simulator of its own does not
+_ENGINE_ONLY_FLAGS = ("profile_rounds", "cost_model_gauges")
+#: the program name of one round, the reference's ``sim.multi_round.{n}``
+#: with n = 1
+ROUND_PROGRAM = "sim.multi_round.1"
+
+# the families' names and help texts are the reference's word for word, so
+# a scrape of either package reads alike; here the FLOPs are
+# FlopCounterMode's (module docstring), not XLA's cost model
+FUSED_BLOCKS = obsreg.REGISTRY.gauge(
+    "fedml_sim_fused_blocks",
+    "1 when the simulator's model routes conv epilogues through the fused "
+    "Pallas BasicBlock kernel (extra.fused_blocks), else 0.",
+)
+ACHIEVED_FLOPS = obsreg.REGISTRY.gauge(
+    "fedml_sim_achieved_flops_per_sec",
+    "XLA cost-model FLOPs of the last executed chunk divided by its wall "
+    "time (extra.cost_model_gauges).",
+)
+SIM_MFU = obsreg.REGISTRY.gauge(
+    "fedml_sim_mfu",
+    "Model FLOP utilization of the last executed chunk: achieved FLOP/s "
+    "over the device peak (0 when the device kind has no known peak — "
+    "CPU runs report achieved FLOP/s only).  extra.cost_model_gauges.",
+)
+PROGRAM_FLOPS = obsreg.REGISTRY.gauge(
+    "fedml_program_flops",
+    "XLA cost-model FLOPs of one compiled program (extra.cost_model_gauges).",
+    labels=("program",),
+)
 _MULTI_PROCESS = ("MULTIPROCESS", C.SIMULATION_BACKEND_MPI)
 # tag of the full-gradient pass's dropout stream in a client key ("grad")
 _GRAD_DROPOUT_TAG = 0x67726164
@@ -209,6 +265,11 @@ def refuse_special_simulator(cfg: Config, what: str) -> None:
         if cfg_extra(cfg, flag):
             raise NotImplementedError(f"extra.{flag} is not ported yet (ROADMAP.md Queue 1 "
                                       f"item {item})")
+    for flag in _ENGINE_ONLY_FLAGS:
+        if cfg_extra(cfg, flag):
+            raise NotImplementedError(f"extra.{flag} is served by the engine's rounds (the "
+                                      f"FedAvg family and FedSGD), not by the {what!r} "
+                                      "simulator")
     refuse_population(cfg, what)
     refuse_multi_process(cfg, what)
 
@@ -416,6 +477,20 @@ class MeshSimulator(RoundCheckpointMixin):
             torch.zeros_like(flatten_reference(self.global_vars)[0])
             if self.trust is not None and self.trust.needs_history else None)
         self._contribution_snapshot = None
+        # the counters (module docstring): with extra.cost_model_gauges one
+        # batch's and the server path's FLOPs, counted on the first round
+        # (_counter: its FlopCounterMode while it runs), the last round's
+        # FLOPs from them and the host sample counts of its clients; the
+        # profile window behind extra.profile_rounds (None when unset)
+        FUSED_BLOCKS.set(1.0 if getattr(model, "fused", False) else 0.0)
+        self._cost_gauges = bool(cfg_extra(cfg, "cost_model_gauges"))
+        self.batch_flops: Optional[float] = None
+        self.server_flops = 0.0
+        self.round_flops: Optional[float] = None
+        self._counter = None
+        self._round_counts = None
+        self.profiler = obsprofiler.profiler_from_config(
+            cfg, name="sim", peak_flops=device_peak_flops(self.device))
         self._population = None
         pop_root = cfg_extra(cfg, "population_store")
         if pop_root:
@@ -437,6 +512,8 @@ class MeshSimulator(RoundCheckpointMixin):
         backends (reference L402).  Returns the new global variables and
         server state; updates :attr:`defense_history`."""
         old = self.global_vars
+        counter = self._counter
+        counted = counter.get_total_flops() if counter is not None else 0
         agg = None
         if self.trust is not None:
             contribs, weights = self.trust.on_client_outputs(contribs, weights, sampled, old,
@@ -451,20 +528,55 @@ class MeshSimulator(RoundCheckpointMixin):
             new_global = self.trust.on_after_aggregation(new_global, old, round_idx)
         if self.defense_history is not None:
             self.defense_history = flatten_reference(new_global)[0] - flatten_reference(old)[0]
+        if counter is not None:
+            self.server_flops = float(counter.get_total_flops() - counted)
         return new_global, new_server
 
     def _round(self) -> dict:
         """One round on the backend; its metrics as 0-d tensors (MESH, on
         the device) or floats (sp)."""
         r = self.round_idx
-        if self._population is not None:
-            metrics = self._run_round_population(r)
-        elif self.backend == C.SIMULATION_BACKEND_SP:
-            metrics = self._run_round_sp(r)
+        if self.profiler is not None:
+            self.profiler.maybe_start(r)
+        if self._cost_gauges and self.batch_flops is None:
+            with flop_counter() as counter:
+                self._counter = counter
+                try:
+                    metrics = self._backend_round(r)
+                finally:
+                    self._counter = None
+            batches = self.algorithm.round_batches(self._round_counts, self.capacity)
+            if batches:
+                self.batch_flops = (counter.get_total_flops() - self.server_flops) / batches
         else:
-            metrics = self._run_round_mesh(r)
+            metrics = self._backend_round(r)
+        if self.batch_flops is not None:
+            self.round_flops = (self.batch_flops * self.algorithm.round_batches(
+                self._round_counts, self.capacity) + self.server_flops)
+            PROGRAM_FLOPS.set(self.round_flops, program=ROUND_PROGRAM)
         self.round_idx += 1
+        if self.profiler is not None:
+            self.profiler.note_program(ROUND_PROGRAM, flops=self.round_flops, rounds=1)
+            self.profiler.maybe_stop(self.round_idx)
         return metrics
+
+    def _backend_round(self, r: int) -> dict:
+        if self._population is not None:
+            return self._run_round_population(r)
+        if self.backend == C.SIMULATION_BACKEND_SP:
+            return self._run_round_sp(r)
+        return self._run_round_mesh(r)
+
+    def _set_cost_gauges(self, flops: float, seconds: float) -> None:
+        """``fedml_sim_achieved_flops_per_sec`` and ``fedml_sim_mfu`` of
+        rounds of ``flops`` in all that took ``seconds`` on the host
+        (reference L784-787)."""
+        if not (self._cost_gauges and flops):
+            return
+        achieved = flops / max(seconds, 1e-9)
+        ACHIEVED_FLOPS.set(achieved)
+        peak = device_peak_flops(self.device)
+        SIM_MFU.set(achieved / peak if peak else 0.0)
 
     def run_round(self) -> dict:
         """One round: the sampled clients train from the global variables
@@ -516,6 +628,7 @@ class MeshSimulator(RoundCheckpointMixin):
         ``states``; each lane's draws those of its id in ``sampled``."""
         data = self._data if data is None else data
         counts = self.counts[sampled] if counts is None else counts
+        self._round_counts = counts
         perms = [self.sampler.perms(r, int(ci), self.hp.epochs, self.capacity) for ci in sampled]
         perms = None if perms[0] is None else to_device(torch.stack(perms), self.device, torch.long)
 
@@ -560,6 +673,7 @@ class MeshSimulator(RoundCheckpointMixin):
         ``i`` of ``states`` its client state.  Returns the stacked
         contributions, each client's new state and its metrics."""
         rkey = rng.round_key(self.root_key, r)
+        self._round_counts = self.counts[sampled]
         contribs, new_states, metrics_list = [], [], []
         tables = self.algorithm.dropout_tables
         drops = (client_dropout(self.sampler, self.model, self.hp, r, sampled,
@@ -654,20 +768,25 @@ class MeshSimulator(RoundCheckpointMixin):
                 t0 = time.perf_counter()
                 metrics = self.run_round()
                 metrics["round_time_s"] = time.perf_counter() - t0
+                self._set_cost_gauges(self.round_flops, metrics["round_time_s"])
                 out.append(metrics)
             return out
         if n <= 0:
             return []
         t0 = time.perf_counter()
-        rounds = [self._round() for _ in range(n)]
+        rounds, flops = [], 0.0
+        for _ in range(n):
+            rounds.append(self._round())
+            flops += self.round_flops or 0.0
         keys = list(rounds[0])
         host = torch.stack([torch.stack([m[k] for k in keys]) for m in rounds]).cpu()
         if self._population is not None:
             # the shards are this mode's client state: consistent on disk
             # before an evaluation or a checkpoint reads the boundary
             self._population.store.flush()
-        per_round = (time.perf_counter() - t0) / n
-        return [dict(zip(keys, map(float, row)), round_time_s=per_round) for row in host]
+        span = time.perf_counter() - t0
+        self._set_cost_gauges(flops, span)
+        return [dict(zip(keys, map(float, row)), round_time_s=span / n) for row in host]
 
     def evaluate(self) -> dict:
         res = self._eval_fn(self.global_vars, *self._test)
@@ -745,6 +864,10 @@ class MeshSimulator(RoundCheckpointMixin):
             scores = self.assess_contribution()
             if scores is not None:
                 self.logger.log({f"contribution_c{i}": float(s) for i, s in enumerate(scores)})
+        if self.profiler is not None:
+            # a window still open at the end (profile_rounds past comm_round)
+            # closes and attributes here (reference L963-966)
+            self.profiler.finalize()
         return history
 
     # -- contribution (reference L960-1047) ----------------------------------

@@ -68,8 +68,10 @@ inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+typedef void* cudaEvent_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return cudaSuccess; }
 inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t) {
   return cudaSuccess;
 }

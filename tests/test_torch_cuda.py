@@ -643,13 +643,13 @@ def test_quantize_vector_entry_refuses_misaligned_operands(cuda_device):
     stream = torch.cuda.current_stream().cuda_stream
     lib = qz._lib()
     assert lib.quantize_int8(x[1:].data_ptr(), u.data_ptr(), values.data_ptr(), scales.data_ptr(),
-                             2048, 1, stream) != 0
+                             2048, 1, stream, None, None) != 0
     assert lib.quantize_int8(x.data_ptr(), u.data_ptr(), values.data_ptr(), scales.data_ptr(),
-                             0, 0, stream) != 0
+                             0, 0, stream, None, None) != 0
     assert lib.dequantize_int8(values[0, 0, 1:].data_ptr(), scales.data_ptr(), x.data_ptr(), 100,
-                               1, stream) != 0
+                               1, stream, None, None) != 0
     assert lib.dequantize_int8(values.data_ptr(), scales.data_ptr(), x.data_ptr(), 0, 0,
-                               stream) != 0
+                               stream, None, None) != 0
 
 
 @pytest.mark.cuda
@@ -996,9 +996,10 @@ def test_noise_vector_entry_refuses_misaligned_operands(cuda_device):
     for ptrs in ((x[1:].data_ptr(), noise.data_ptr(), out.data_ptr()),
                  (x.data_ptr(), noise.view(-1)[1:].data_ptr(), out.data_ptr()),
                  (x.data_ptr(), noise.data_ptr(), out[1:].data_ptr())):
-        assert lib.gaussian_noise(ptrs[0], ptrs[1], 0.1, ptrs[2], 2048, 1, stream) != 0
+        assert lib.gaussian_noise(ptrs[0], ptrs[1], 0.1, ptrs[2], 2048, 1, stream, None,
+                                  None) != 0
     assert lib.gaussian_noise(x.data_ptr(), noise.data_ptr(), 0.1, out.data_ptr(), 0, 0,
-                              stream) != 0
+                              stream, None, None) != 0
 
 
 @pytest.mark.cuda
